@@ -11,7 +11,10 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              (one nvcc per source, in parallel) and print the seconds.
 3. kernels — each kernel against its plain PyTorch version on the card, at
              the flagship serve shapes (32 slots, 512 entities) and at the
-             edge cases of the CPU tests; kernel, plain and library times.
+             edge cases of the CPU tests; the two scatter kernels bit-equal to
+             the entity-order loop and to each other on uniform, padded and
+             one-cell indices; kernel, plain and library times, each the
+             device time per call read from torch.profiler.
 4. serve   — the flagship model (``default_model_config`` with the kernel
              overlay, full width, seeded random weights) behind
              ``BatchedInference(32 slots) -> BatchedInferenceEngine ->
@@ -42,6 +45,7 @@ PEAK_F32_FLOPS = 67e12
 SLOTS = 32
 ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # kernel vs plain, max abs
 SCATTER_TOL = 1e-5  # the one-hot plain version sums in matmul order
+SCATTER_CASES = ("uniform", "padded", "one_cell")
 LOGIT_TOL = 1e-3  # kernel-backed vs 'xla' forward, max abs on unmasked logits
 
 
@@ -54,21 +58,41 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
-def cuda_ms(fn, iters=20, warmup=3):
-    """Mean device milliseconds of ``fn`` over ``iters`` launches (CUDA
-    events around the whole run)."""
+TIMING = ("device time per call: the summed durations of the call's device activities "
+          "(kernels, fills, copies) over {iters} calls after {warmup} warm-up calls, read from "
+          "torch.profiler; the host's time per call and the gaps it leaves on the device are "
+          "not counted")
+
+
+def device_activities(prof):
+    """{name: (ms, count)} of the device activities (kernels, fills, copies)
+    of a finished torch.profiler run."""
+    by_name = {}
+    for e in prof.events():
+        if str(e.device_type).endswith("CUDA"):
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    return by_name
+
+
+def device_ms(fn, iters=20, warmup=3):
+    """(device ms per call of ``fn``, {activity name: ms per call}), as
+    TIMING says. A wrapper call of a scatter kernel takes about as long on the
+    host as on the card, so CUDA events around back-to-back calls would time
+    the host."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    per = {k: ms / iters for k, (ms, _) in device_activities(prof).items()}
+    check(per, "the profiler saw no device activity")
+    return sum(per.values()), per
 
 
 def bound(nbytes, flops):
@@ -94,32 +118,68 @@ def attention_case(K, rng, B, H, N, Dh, lengths, dtype, device):
     return (q, k, v, mask), err
 
 
-def scatter_case(K, rng, B, N, D, hw, device):
+def scatter_case(K, rng, case, B, N, D, hw, device):
+    """Both scatter kernels on one index case, held bit for bit (signs of
+    zeros included) against the entity-order loop ``scatter_add_plain`` and
+    each other, and the one-hot kernel within SCATTER_TOL of its matmul-order
+    plain version. Returns ((emb, idx), loop err, one-hot err).
+
+    uniform: random cells, 8 rows forced into one cell, two out-of-range
+    indices; padded: as observations arrive, ``entity_num`` per sample in
+    1..N and the rows past it at cell 0 with embeddings ``-0.0 * x``;
+    one_cell: every row of a sample at one cell."""
     import torch
 
-    emb = torch.from_numpy(rng.standard_normal((B, N, D)).astype("float32")).to(device)
+    emb = rng.standard_normal((B, N, D)).astype("float32")
     idx = rng.integers(0, hw, (B, N))
-    idx[:, :8] = idx[:, :1]  # forced collisions
-    idx[:, 8] = -3  # out of range: clipped to 0
-    idx[:, 9] = hw + 7  # out of range: clipped to hw-1
-    idx = torch.from_numpy(idx).to(device)
+    if case == "uniform":
+        idx[:, :8] = idx[:, :1]  # forced collisions
+        idx[:, 8] = -3  # out of range: clipped to 0
+        idx[:, 9] = hw + 7  # out of range: clipped to hw-1
+    elif case == "padded":
+        for b, n in enumerate(rng.integers(1, N + 1, B)):
+            idx[b, n:] = 0
+            emb[b, n:] *= -0.0
+    else:
+        idx[:] = rng.integers(0, hw, (B, 1))
+    emb, idx = torch.from_numpy(emb).to(device), torch.from_numpy(idx).to(device)
     loop = K.scatter_add_connection(emb, idx, hw)
     onehot = K.scatter_add_onehot(emb, idx, hw)
-    check(torch.equal(loop, onehot), f"scatter {B}x{N}x{D} hw={hw}: the two kernels differ")
-    err_loop = float((loop - K.scatter_add_plain(emb, idx, hw)).abs().max())
+    plain = K.scatter_add_plain(emb, idx, hw)
+    tag = f"scatter {case} {B}x{N}x{D} hw={hw}"
+    bits = lambda t: t.view(torch.int32)  # noqa: E731
+    check(torch.equal(bits(loop), bits(onehot)), f"{tag}: the two kernels differ")
+    check(torch.equal(bits(loop), bits(plain)), f"{tag}: the kernels differ from scatter_add_plain")
+    err_loop = float((loop - plain).abs().max())
     err_onehot = float((onehot - K.scatter_add_onehot_plain(emb, idx, hw)).abs().max())
+    # a cell of hundreds of rows (padded, one-cell) rounds in proportion to its sum
+    tol = SCATTER_TOL * (1.0 if case == "uniform" else max(1.0, float(plain.abs().max())))
+    check(err_onehot <= tol, f"{tag}: one-hot kernel vs its plain version max abs err {err_onehot}")
+    print(f"kernel {tag}: both kernels bit-equal to scatter_add_plain and to each other; "
+          f"one-hot vs its matmul-order plain version max_abs_err {err_onehot:.3e} (tol {tol:.1e})")
     return (emb, idx), err_loop, err_onehot
+
+
+def index_add_call(emb, idx, hw):
+    """The library yardstick: one torch.zeros + index_add_ over the map."""
+    import torch
+
+    B, _, D = emb.shape
+    flat = (idx.clamp(0, hw - 1) + torch.arange(B, device=idx.device)[:, None] * hw).reshape(-1)
+    flat_emb = emb.view(-1, D)
+    return lambda: torch.zeros(B * hw, D, device=emb.device).index_add_(0, flat, flat_emb)
 
 
 def phase_kernels(device, rng):
     """Every kernel vs its plain version at the flagship serve shapes and the
     CPU tests' edge cases; returns per-kernel records (errors and times at
-    the serve shapes)."""
+    the serve shapes; the scatter records on the uniform case)."""
     import torch
     import torch.nn.functional as Fn
 
     from distar_tpu_torch.ops import kernels as K
 
+    print("timing: " + TIMING.format(iters=20, warmup=3))
     B, H, N, Dh = SLOTS, 2, 512, 128
     lengths = rng.integers(1, N + 1, B)
     lengths[:3] = (1, N // 3, N)  # one valid key, partial, all
@@ -141,34 +201,42 @@ def phase_kernels(device, rng):
     add_mask = torch.zeros(B, 1, 1, N, device=device).masked_fill(~mask[:, None, None, :], -1e9)
     rec = {"max_abs_err": err, "replaces": "distar_tpu/ops/pallas_kernels.py:62",
            "source": "distar_tpu_torch/ops/csrc/masked_attention.cu",
-           "ms": cuda_ms(lambda: K.masked_attention(q, k, v, mask)),
-           "plain_ms": cuda_ms(lambda: K.masked_attention_plain(q, k, v, mask), iters=5),
-           "library_ms": cuda_ms(lambda: Fn.scaled_dot_product_attention(q, k, v, attn_mask=add_mask))}
+           "ms": device_ms(lambda: K.masked_attention(q, k, v, mask))[0],
+           "plain_ms": device_ms(lambda: K.masked_attention_plain(q, k, v, mask), iters=5)[0],
+           "library_ms": device_ms(
+               lambda: Fn.scaled_dot_product_attention(q, k, v, attn_mask=add_mask))[0]}
     rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
     records["masked_attention"] = rec
 
+    # the uniform cases first, drawn as in every earlier run, so that the
+    # timed record stays comparable; then padded and one-cell
     sB, sN, sD, hw = SLOTS, 512, 32, 152 * 160
-    _, e1, e2 = scatter_case(K, rng, 2, 16, 4, 63, device)  # hw=63: ragged last chunk
-    check(max(e1, e2) <= SCATTER_TOL, f"scatter edge hw=63: max abs err {e1}, {e2}")
-    print(f"kernel scatter edge hw=63: max_abs_err loop {e1:.3e} onehot {e2:.3e}; kernels bit-equal")
-    (emb, idx), e1, e2 = scatter_case(K, rng, sB, sN, sD, hw, device)
-    check(max(e1, e2) <= SCATTER_TOL, f"scatter: max abs err {e1}, {e2}")
-    print(f"kernel scatter {sB}x{sN}x{sD} hw={hw}: max_abs_err loop {e1:.3e} onehot {e2:.3e}; "
-          "kernels bit-equal")
+    names = ("scatter_add_connection", "scatter_add_onehot")
+    cases = {}
+    for case in SCATTER_CASES:
+        scatter_case(K, rng, case, 2, 16, 4, 63, device)  # hw=63: one ragged tile
+        cases[case] = scatter_case(K, rng, case, sB, sN, sD, hw, device)
+    (emb, idx), e1, e2 = cases["uniform"]
     nbytes = emb.numel() * 4 + idx.numel() * 4 + sB * hw * sD * 4
     b_ms, b_by = bound(nbytes, emb.numel())
-    flat = (idx.clamp(0, hw - 1) + torch.arange(sB, device=device)[:, None] * hw).reshape(-1)
-    for name, err, plain in (("scatter_add_connection", e1, K.scatter_add_plain),
-                             ("scatter_add_onehot", e2, K.scatter_add_onehot_plain)):
+    for name, err, plain in zip(names, (e1, e2), (K.scatter_add_plain, K.scatter_add_onehot_plain)):
         line = 156 if name == "scatter_add_connection" else 231
         fn = getattr(K, name)
+        ms, per = device_ms(lambda: fn(emb, idx, hw))
         records[name] = {
             "max_abs_err": err, "replaces": f"distar_tpu/ops/pallas_kernels.py:{line}",
             "source": f"distar_tpu_torch/ops/csrc/{name}.cu", "bound_ms": b_ms, "bound_by": b_by,
-            "ms": cuda_ms(lambda: fn(emb, idx, hw)),
-            "plain_ms": cuda_ms(lambda: plain(emb, idx, hw), iters=3, warmup=1),
-            "library_ms": cuda_ms(
-                lambda: torch.zeros(sB * hw, sD, device=device).index_add_(0, flat, emb.view(-1, sD)))}
+            "ms": ms, "plain_ms": device_ms(lambda: plain(emb, idx, hw), iters=3, warmup=1)[0],
+            "library_ms": device_ms(index_add_call(emb, idx, hw))[0]}
+        print(f"kernel {name} uniform: device ms per call by activity "
+              + json.dumps({k[:60]: round(v, 5) for k, v in per.items()}))
+    for case in SCATTER_CASES[1:]:
+        (emb, idx), _, _ = cases[case]
+        times = {name: device_ms(lambda: getattr(K, name)(emb, idx, hw))[0] for name in names}
+        lib = device_ms(index_add_call(emb, idx, hw))[0]
+        print(f"kernel scatter {case} {sB}x{sN}x{sD} hw={hw}: " + ", ".join(
+            f"{name} ms {t:.4f} ({t / records[name]['ms']:.2f}x uniform)" for name, t in times.items())
+            + f", library_ms {lib:.4f}, bound_ms {b_ms:.4f}")
     return records
 
 
@@ -320,11 +388,7 @@ def profile_flush(infer, prepared):
     torch.cuda.synchronize()
     try:
         prof.stop()
-        by_name = {}
-        for e in prof.events():
-            if str(e.device_type).endswith("CUDA"):  # device activity: kernels, copies
-                ms, n = by_name.get(e.name, (0.0, 0))
-                by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+        by_name = device_activities(prof)
     except Exception as e:  # noqa: BLE001 - the profiler's own teardown and event reading
         return {"not_measured": f"profiler events: {e!r}"}
     busy = sum(ms for ms, _ in by_name.values())

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into a shared library with a
 plain C interface, loaded with ``ctypes``. Libraries land in
 ``distar_tpu_torch/_build/`` (listed in ``.gitignore``) under a name keyed by
-a hash of the source, the shared header and the flags, so an edited source
-rebuilds and an unchanged one is reused. Nothing builds at import: a
+a hash of the source, the headers and the flags, so an edited source or
+header rebuilds and an unchanged one is reused. Nothing builds at import: a
 kernel's library is built at its first launch, or all of them at once (one
 ``nvcc`` per source, started together) by :func:`build`.
 """
@@ -40,8 +40,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library's path, keyed by the source, every header in ``csrc/``
+    (a source may include any of them) and the flags."""
     h = hashlib.sha256()
-    for f in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for f in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        h.update(f.name.encode())
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"

@@ -10,8 +10,10 @@ Counterparts of the Pallas kernels in ``distar_tpu/ops/pallas_kernels.py``:
 Each wrapper takes the plain PyTorch version for a tensor that lies on the
 CPU. For a CUDA tensor it launches the hand-written kernel
 (``csrc/<name>.cu``, built at first use by ``build.py``) or raises: there is
-no fallback. ``launch_counts[name]`` counts the wrapper's kernel launches, so
-a run can show that its main path went through the kernels.
+no fallback. ``launch_counts[name]`` rises by one per wrapper call that
+reached the kernel (``scatter_add_connection`` runs as two launches, a zero
+pass and an owner pass, and counts once), so a run can show that its main
+path went through the kernels.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from . import build
 
 NEG_INF = -1e9
 ONEHOT_CHUNK = 2048  # cells per program, as the Pallas one-hot kernel
+SCATTER_MAX_D = 128  # the scatter kernels' widest row (shared memory per block)
 
 launch_counts = {name: 0 for name in build.KERNELS}
 
@@ -129,6 +132,8 @@ def _scatter_kernel(name: str, embeddings, flat_idx, hw: int):
     if tuple(flat_idx.shape) != (B, N):
         raise ValueError(f"{name}: idx shape {tuple(flat_idx.shape)} for embeddings "
                          f"{tuple(embeddings.shape)}")
+    if D > SCATTER_MAX_D:
+        raise ValueError(f"{name}: row width {D} (the kernel takes <= {SCATTER_MAX_D})")
     idx = flat_idx.clamp(0, hw - 1).to(torch.int32).contiguous()
     _check_cuda(name, (embeddings, idx), (torch.float32,))
     out = torch.empty(B, hw, D, dtype=embeddings.dtype, device=embeddings.device)
@@ -138,8 +143,10 @@ def _scatter_kernel(name: str, embeddings, flat_idx, hw: int):
 
 
 def scatter_add_connection(embeddings, flat_idx, hw: int):
-    """embeddings: [B, N, D] float32 (invalid entities zeroed); flat_idx:
-    [B, N] int cell index, clipped here to [0, hw-1]. Returns [B, hw, D]."""
+    """embeddings: [B, N, D] float32 (invalid entities zeroed; D <=
+    SCATTER_MAX_D on the card); flat_idx: [B, N] int cell index, clipped
+    here to [0, hw-1]. Returns [B, hw, D], each cell's rows summed in entity
+    order from +0.0: ``scatter_add_plain``'s result bit for bit."""
     if _dispatch("scatter_add_connection", embeddings):
         return scatter_add_plain(embeddings, flat_idx, hw)
     return _scatter_kernel("scatter_add_connection", embeddings, flat_idx, hw)
@@ -147,7 +154,8 @@ def scatter_add_connection(embeddings, flat_idx, hw: int):
 
 def scatter_add_onehot(embeddings, flat_idx, hw: int):
     """The same function as :func:`scatter_add_connection`; the kernel gives
-    the loop kernel's f32 result bit for bit."""
+    the loop's f32 result bit for bit (its plain version, a matmul, does
+    not)."""
     if _dispatch("scatter_add_onehot", embeddings):
         return scatter_add_onehot_plain(embeddings, flat_idx, hw)
     return _scatter_kernel("scatter_add_onehot", embeddings, flat_idx, hw)

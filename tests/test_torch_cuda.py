@@ -21,12 +21,26 @@ def cuda():
     return torch.device("cuda")
 
 
-def _scatter_inputs(rng, B, N, D, hw, device):
-    emb = torch.from_numpy(rng.standard_normal((B, N, D)).astype(np.float32)).to(device)
+def _scatter_inputs(rng, B, N, D, hw, case, device):
+    """uniform: random cells, collisions, out-of-range indices; padded: rows
+    past a per-sample ``entity_num`` at cell 0 with ``-0.0 * x`` embeddings,
+    as observations arrive; one_cell: every row of a sample at one cell."""
+    emb = rng.standard_normal((B, N, D)).astype(np.float32)
     idx = rng.integers(0, hw, (B, N))
-    idx[0, :4] = idx[0, 0]  # collisions sum
-    idx[:, 4], idx[:, 5] = -2, hw + 5  # out of range: clipped
-    return emb, torch.from_numpy(idx).to(device)
+    if case == "uniform":
+        idx[0, :4] = idx[0, 0]  # collisions sum
+        idx[:, 4], idx[:, 5] = -2, hw + 5  # out of range: clipped
+    elif case == "padded":
+        for b, n in enumerate(rng.integers(1, N + 1, B)):
+            idx[b, n:] = 0
+            emb[b, n:] *= -0.0
+    else:
+        idx[:] = rng.integers(0, hw, (B, 1))
+    return torch.from_numpy(emb).to(device), torch.from_numpy(idx).to(device)
+
+
+def _bits(t):
+    return t.view(torch.int32)
 
 
 @pytest.mark.cuda
@@ -44,14 +58,30 @@ def test_masked_attention_kernel(cuda, dtype, tol):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["uniform", "padded", "one_cell"])
 @pytest.mark.parametrize("hw", [63, 2048 + 37, 152 * 160])
-def test_scatter_kernels_bit_equal(cuda, hw):
+@pytest.mark.parametrize("D", [32, 6])  # float4 path, and the scalar path
+def test_scatter_kernels_bit_equal(cuda, hw, case, D):
     rng = np.random.default_rng(1)
-    emb, idx = _scatter_inputs(rng, 2, 512, 32, hw, cuda)
+    emb, idx = _scatter_inputs(rng, 2, 512, D, hw, case, cuda)
     loop = kernels.scatter_add_connection(emb, idx, hw)
-    assert torch.equal(loop, kernels.scatter_add_onehot(emb, idx, hw))
-    assert torch.equal(loop, kernels.scatter_add_plain(emb, idx, hw))
-    torch.testing.assert_close(loop, kernels.scatter_add_onehot_plain(emb, idx, hw), atol=1e-5, rtol=0)
+    plain = kernels.scatter_add_plain(emb, idx, hw)
+    # bit for bit, signs of zeros included
+    assert torch.equal(_bits(loop), _bits(kernels.scatter_add_onehot(emb, idx, hw)))
+    assert torch.equal(_bits(loop), _bits(plain))
+    if case == "uniform":  # the matmul's sum order; a cell sums a handful of rows
+        torch.testing.assert_close(loop, kernels.scatter_add_onehot_plain(emb, idx, hw), atol=1e-5,
+                                   rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["scatter_add_connection", "scatter_add_onehot"])
+def test_scatter_launch_count_rises_by_one_per_call(cuda, name):
+    emb, idx = _scatter_inputs(np.random.default_rng(2), 2, 64, 32, 63, "padded", cuda)
+    kernels.reset_launch_counts()
+    for n in range(1, 4):
+        getattr(kernels, name)(emb, idx, 63)
+        assert kernels.launch_counts == {k: n if k == name else 0 for k in kernels.launch_counts}
 
 
 @pytest.mark.cuda
@@ -62,3 +92,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     emb = torch.zeros(1, 8, 4, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
         kernels.scatter_add_connection(emb, torch.zeros(1, 8, dtype=torch.long, device=cuda), 9)
+    wide = torch.zeros(1, 8, kernels.SCATTER_MAX_D + 4, device=cuda)  # rows wider than shared memory takes
+    for fn in (kernels.scatter_add_connection, kernels.scatter_add_onehot):
+        with pytest.raises(ValueError):
+            fn(wide, torch.zeros(1, 8, dtype=torch.long, device=cuda), 9)

@@ -6,6 +6,8 @@ On a CPU tensor each wrapper takes its plain PyTorch version; those are what
 is held against Pallas here. The CUDA kernels themselves are held against
 the plain versions on the card (tests/test_torch_cuda.py, chip_smoke.py).
 """
+import shutil
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -56,20 +58,38 @@ def test_masked_attention_row_without_keys_is_mean_v(rng):
                                atol=2e-6)
 
 
-def _scatter_inputs(rng, B, N, D, hw):
+SCATTER_CASES = ["uniform", "padded", "one_cell"]
+
+
+def _scatter_inputs(rng, B, N, D, hw, case="uniform"):
+    """uniform: random cells with forced collisions and out-of-range indices;
+    padded: as observations arrive, ``entity_num`` drawn per sample and the
+    rows past it at cell 0 with embeddings ``-0.0 * x`` (the model zeroes
+    them, and the sign of a zero product varies); one_cell: every row of a
+    sample at one cell."""
     emb = rng.standard_normal((B, N, D)).astype(np.float32)
     idx = rng.integers(0, hw, (B, N)).astype(np.int32)
-    idx[0, :4] = idx[0, 0]  # collisions sum
-    idx[:, 4] = -2  # out of range: clipped to 0
-    idx[:, 5] = hw + 5  # out of range: clipped to hw-1
+    if case == "uniform":
+        idx[0, :4] = idx[0, 0]  # collisions sum
+        idx[:, 4] = -2  # out of range: clipped to 0
+        idx[:, 5] = hw + 5  # out of range: clipped to hw-1
+    elif case == "padded":
+        for b, n in enumerate(rng.integers(1, N + 1, B)):
+            idx[b, n:] = 0
+            emb[b, n:] *= -0.0
+    elif case == "one_cell":
+        idx[:] = rng.integers(0, hw, (B, 1))
+    else:
+        raise ValueError(case)
     return emb, idx
 
 
+@pytest.mark.parametrize("case", SCATTER_CASES)
 @pytest.mark.parametrize("kernel", ["scatter_add_connection", "scatter_add_onehot"])
 @pytest.mark.parametrize("hw", [63, 2048 + 37])  # ragged last chunk, and more than one chunk
-def test_scatter_plain_matches_pallas(rng, kernel, hw):
+def test_scatter_plain_matches_pallas(rng, kernel, hw, case):
     B, N, D = 2, 24, 8
-    emb, idx = _scatter_inputs(rng, B, N, D, hw)
+    emb, idx = _scatter_inputs(rng, B, N, D, hw, case)
     pallas = pallas_onehot if kernel == "scatter_add_onehot" else pallas_scatter
     want = pallas(jnp.asarray(emb), jnp.asarray(idx), hw, interpret=True)
     got = getattr(kernels, kernel)(torch.from_numpy(emb), torch.from_numpy(idx), hw)
@@ -77,8 +97,9 @@ def test_scatter_plain_matches_pallas(rng, kernel, hw):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL["float32"])
 
 
-def test_scatter_plain_versions_agree_and_loop_is_entity_order(rng):
-    emb, idx = _scatter_inputs(rng, 3, 40, 4, 63)
+@pytest.mark.parametrize("case", SCATTER_CASES)
+def test_scatter_plain_versions_agree_and_loop_is_entity_order(rng, case):
+    emb, idx = _scatter_inputs(rng, 3, 40, 4, 63, case)
     e, i = torch.from_numpy(emb), torch.from_numpy(idx)
     loop = kernels.scatter_add_plain(e, i, 63)
     np.testing.assert_allclose(kernels.scatter_add_onehot_plain(e, i, 63).numpy(), loop.numpy(),
@@ -87,7 +108,8 @@ def test_scatter_plain_versions_agree_and_loop_is_entity_order(rng):
     for b in range(3):
         for n in range(40):
             ref[b, min(max(idx[b, n], 0), 62)] += emb[b, n]
-    assert np.array_equal(loop.numpy(), ref)  # bit for bit: same order of f32 adds
+    # bit for bit, signs of zeros included: the same order of f32 adds from +0.0
+    assert np.array_equal(loop.numpy().view(np.uint32), ref.view(np.uint32))
 
 
 def test_cpu_tensors_take_plain_versions_without_counting(rng):
@@ -115,10 +137,22 @@ def test_no_fallback_on_other_devices():
             fn(emb, torch.zeros(1, 8, dtype=torch.int32, device="meta"), 9)
 
 
-def test_library_path_is_keyed_by_source_and_flags(monkeypatch):
+def test_library_path_is_keyed_by_source_and_flags(monkeypatch, tmp_path):
     paths = {name: build.library_path(name) for name in build.KERNELS}
     assert len(set(paths.values())) == len(build.KERNELS)
     assert all(p.parent == build.BUILD_DIR for p in paths.values())
     monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-lineinfo",))
     assert build.library_path("masked_attention") != paths["masked_attention"]
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+    # an edit to any header, or a new one, rebuilds every kernel (on a copy of csrc/)
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = {name: build.library_path(name) for name in build.KERNELS}
+    with open(csrc / "common.cuh", "a") as f:
+        f.write("// edited\n")
+    edited = {name: build.library_path(name) for name in build.KERNELS}
+    assert all(edited[name] != before[name] for name in build.KERNELS)
+    (csrc / "scatter_common.cuh").write_text("#pragma once\n")
+    assert all(build.library_path(name) != edited[name] for name in build.KERNELS)
