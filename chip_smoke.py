@@ -10,11 +10,15 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
 2. build   — compile every CUDA kernel from ``distar_tpu_torch/ops/csrc``
              (one nvcc per source, in parallel) and print the seconds.
 3. kernels — each kernel against its plain PyTorch version on the card, at
-             the flagship serve shapes (32 slots, 512 entities) and at the
-             edge cases of the CPU tests; the two scatter kernels bit-equal to
-             the entity-order loop and to each other on uniform, padded and
-             one-cell indices; kernel, plain and library times, each the
-             device time per call read from torch.profiler.
+             the flagship serve shapes (32 slots, 512 entities) and at edge
+             cases: attention in f32 and bf16 over head dims 4-128, 1-512
+             keys, prefix and non-prefix masks, and masked K/V rows at
+             +-1e4; the two scatter kernels bit-equal to the entity-order
+             loop and to each other on uniform, padded and one-cell indices,
+             and the loop kernel in bf16 bit-equal to the bf16 loop; kernel,
+             plain and library times (attention in both dtypes), each the
+             device time per call read from torch.profiler, beside a bound
+             restated for the units the kernel runs on.
 4. serve   — the flagship model (``default_model_config`` with the kernel
              overlay, full width, seeded random weights) behind
              ``BatchedInference(32 slots) -> BatchedInferenceEngine ->
@@ -37,10 +41,15 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit); every timed
-# kernel input is float32, whose non-tensor-core peak applies
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
+PEAK_F32_FLOPS = 67e12  # CUDA cores: the scatter kernels' additions
+PEAK_TF32_FLOPS = 495e12  # tensor cores: the f32 attention's 3xTF32 products
+PEAK_BF16_FLOPS = 989e12  # tensor cores: the bf16 attention's products
+# tensor-core passes of the attention's products: 3xTF32 for f32 inputs; in
+# bf16 one for Q K^T and two (P split hi + lo) for P V
+ATTN_PASSES = {"float32": 3.0, "bfloat16": 1.5}
+ATTN_PEAK = {"float32": PEAK_TF32_FLOPS, "bfloat16": PEAK_BF16_FLOPS}
 
 SLOTS = 32
 ATTN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # kernel vs plain, max abs
@@ -86,36 +95,195 @@ def device_ms(fn, iters=20, warmup=3):
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    per = {k: ms / iters for k, (ms, _) in device_activities(prof).items()}
+    # now and then a profiler session reports no device activity at all (seen
+    # on the H100 after some hundreds of sessions in one process): run it again
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        per = {k: ms / iters for k, (ms, _) in device_activities(prof).items()}
+        if per:
+            break
     check(per, "the profiler saw no device activity")
     return sum(per.values()), per
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, peak=PEAK_F32_FLOPS, passes=1.0):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    float32 operations over the peak rate."""
+    the operations (``passes`` times ``flops``) over ``peak``, the rate of
+    the units the kernel runs them on."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = passes * flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 # ----------------------------------------------------------------- kernels
-def attention_case(K, rng, B, H, N, Dh, lengths, dtype, device):
+def attention_inputs(rng, B, H, N, Dh, mask, dtype, device, garbage=False):
+    """q, k, v from the seed and the [B, N] numpy mask, on the card; with
+    ``garbage`` the masked K/V rows are +-1e4, which must not reach the
+    output."""
+    import numpy as np
     import torch
 
-    q, k, v = (torch.from_numpy(rng.standard_normal((B, H, N, Dh)).astype("float32"))
-               .to(device=device, dtype=dtype) for _ in range(3))
-    mask = torch.arange(N)[None, :] < torch.as_tensor(lengths)[:, None]
-    mask = mask.to(device)
+    q, k, v = (rng.standard_normal((B, H, N, Dh)).astype("float32") for _ in range(3))
+    if garbage:
+        keep = mask[:, None, :, None]
+        k, v = (np.where(keep, t, 1e4 * np.sign(t)).astype("float32") for t in (k, v))
+    return [torch.from_numpy(t).to(device=device, dtype=dtype) for t in (q, k, v)] + [
+        torch.from_numpy(mask).to(device)]
+
+
+def attention_check(K, tag, q, k, v, mask, want=None):
+    """The kernel against the plain version (or ``want``) within ATTN_TOL;
+    returns the max abs error."""
+    import torch
+
     got = K.masked_attention(q, k, v, mask)
-    want = K.masked_attention_plain(q, k, v, mask)
+    want = K.masked_attention_plain(q, k, v, mask) if want is None else want
+    name = str(q.dtype)[6:]
+    check(got.dtype == q.dtype, f"attention {tag}: output dtype {got.dtype}")
+    check(torch.isfinite(got.float()).all(), f"attention {tag} {name}: non-finite output")
     err = float((got.float() - want.float()).abs().max())
-    check(torch.isfinite(got.float()).all(), f"attention {dtype} {B}x{H}x{N}x{Dh}: non-finite output")
-    return (q, k, v, mask), err
+    check(err <= ATTN_TOL[name], f"attention {tag} {name}: max abs err {err}")
+    return err
+
+
+def non_prefix_mask(rng, B, N, tile, pattern):
+    """Valid keys only in the last key tile, or only in every other tile
+    (from the second), at random density, at least one per sample."""
+    import numpy as np
+
+    tiles = np.arange(N) // tile
+    where = tiles == tiles[-1] if pattern == "last_tile" else tiles % 2 == 1
+    if not where.any():
+        where = tiles == 0
+    mask = (rng.random((B, N)) < 0.5) & where
+    mask[:, np.flatnonzero(where)[-1]] = True
+    return mask
+
+
+def peaked_inputs(rng, B, H, N, Dh, device):
+    """bf16 q, k, v, all keys valid, whose softmax rows put their weight on
+    keys 0 and 1 (scores about 20 and 20 - d, d = 0.05-0.15 by query; every
+    other key about 0) with V rows +c and -c (c = 500-1000 by head dim). The
+    output, about c d / 2, is the difference of two large weighted rows:
+    rounding the weights to bf16 (2^-9 of each) moves it by several of its
+    bf16 ulps, weights kept near f32 by less than one."""
+    import numpy as np
+    import torch
+
+    r = Dh ** 0.5  # undoes the 1/sqrt(Dh) scale
+    q = np.zeros((B, H, N, Dh), "float32")
+    q[..., 0], q[..., 1] = 1.0, rng.uniform(0.5, 1.5, (B, H, N))
+    k = 0.1 * rng.standard_normal((B, H, N, Dh)).astype("float32")
+    k[:, :, :2] = 0.0
+    k[:, :, :2, 0] = 20 * r
+    k[:, :, 1, 1] = -0.1 * r
+    v = rng.standard_normal((B, H, N, Dh)).astype("float32")
+    c = rng.uniform(500, 1000, (B, H, Dh))
+    v[:, :, 0], v[:, :, 1] = c, -c
+    return [torch.from_numpy(t).to(device, torch.bfloat16) for t in (q, k, v)] + [
+        torch.ones(B, N, dtype=torch.bool, device=device)]
+
+
+def bf16_ulps(got, want):
+    """max |got - want| in bf16 ulps of |want| (8 significant bits)."""
+    import torch
+
+    w = want.float()
+    _, e = torch.frexp(w)
+    return float(((got.float() - w).abs() / torch.ldexp(torch.ones_like(w), e - 8)).max())
+
+
+def attention_edges(K, rng, device):
+    """Every head dim and key count of the card tests, prefix masks with no,
+    one, part and all keys valid; non-prefix masks; 1100 keys or samples;
+    masked rows at +-1e4. Returns {dtype name: worst error}."""
+    import numpy as np
+    import torch
+
+    worst = {}
+    for dt in (torch.float32, torch.bfloat16):
+        errs = []
+        for Dh in (4, 8, 32, 128):
+            for N in (1, 63, 64, 65, 512):
+                mask = np.arange(N)[None, :] < np.array([0, 1, N // 2, N])[:, None]
+                errs.append(attention_check(K, f"{N}x{Dh} prefix", *attention_inputs(
+                    rng, 4, 2, N, Dh, mask, dt, device)))
+        for N, Dh in ((512, 128), (65, 8)):
+            for pattern in ("last_tile", "alternating"):
+                mask = non_prefix_mask(rng, 4, N, K.ATTENTION_KEY_TILE, pattern)
+                errs.append(attention_check(K, f"{N}x{Dh} {pattern}", *attention_inputs(
+                    rng, 4, 2, N, Dh, mask, dt, device)))
+        # the plan past one warp's word: > 32 key tiles a sample, 1100 samples
+        # to rank; sparse masks, a sample with none valid, one all
+        side = np.random.default_rng(7)  # apart from rng: the later draws stay as they were
+        for B, H, N, Dh in ((3, 2, 1100, 32), (1100, 1, 40, 8)):
+            mask = side.random((B, N)) < 0.05
+            mask[0], mask[1] = False, True
+            errs.append(attention_check(K, f"{B}x{H}x{N}x{Dh} sparse", *attention_inputs(
+                side, B, H, N, Dh, mask, dt, device)))
+        B, N = 4, 512
+        for pattern in ("prefix", "alternating"):
+            mask = (np.arange(N)[None, :] < rng.integers(1, N + 1, (B, 1)) if pattern == "prefix"
+                    else non_prefix_mask(rng, B, N, K.ATTENTION_KEY_TILE, pattern))
+            seed = int(rng.integers(1 << 30))
+            clean = attention_inputs(np.random.default_rng(seed), B, 2, N, 128, mask, dt, device)
+            dirty = attention_inputs(np.random.default_rng(seed), B, 2, N, 128, mask, dt, device,
+                                     garbage=True)
+            errs.append(attention_check(K, f"{pattern} masked rows at +-1e4", *dirty,
+                                        want=K.masked_attention_plain(*clean)))
+        worst[str(dt)[6:]] = max(errs)
+        print(f"kernel masked_attention edges {str(dt)[6:]}: {len(errs)} cases (Dh 4/8/32/128 x N "
+              f"1/63/64/65/512 prefix, non-prefix, 1100 keys or samples, masked rows at +-1e4), "
+              f"worst max_abs_err {max(errs):.3e} (tol {ATTN_TOL[str(dt)[6:]]:.0e})")
+    # bf16 weights kept near f32 (P split hi + lo): one output ulp at most
+    q, k, v, mask = peaked_inputs(np.random.default_rng(11), 4, 2, 64, 32, device)
+    ulps = bf16_ulps(K.masked_attention(q, k, v, mask), K.masked_attention_plain(q, k, v, mask))
+    check(ulps <= 1, f"attention bf16 peaked rows: {ulps:.2f} bf16 ulps from the plain version")
+    print(f"kernel masked_attention bf16 peaked rows 4x2x64x32: {ulps:.2f} bf16 ulps of |want| "
+          f"at most from the plain version (tol 1)")
+    return worst
+
+
+def attention_timing(K, q, k, v, mask):
+    """Device ms per call of the kernel, the plain version and SDPA (an
+    additive -1e9 mask in the inputs' dtype) on the same inputs; the bound
+    restated for the kernel's tensor-core route and the old f32 CUDA-core
+    one."""
+    import torch
+    import torch.nn.functional as Fn
+
+    B, H, N, Dh = q.shape
+    name = str(q.dtype)[6:]
+    # the keys the function needs: a sample's valid keys, or all N when it has
+    # none (its rows are then mean(V)); q read, out written, the K and V rows
+    # of those keys read, the mask read
+    valid = mask.sum(1)
+    keys = int(torch.where(valid > 0, valid, N).sum())
+    nbytes = 2 * q.numel() * q.element_size() + 2 * H * Dh * q.element_size() * keys + mask.numel()
+    flops = 4 * H * Dh * N * keys  # every query row against those keys
+    add_mask = torch.zeros(B, 1, 1, N, device=q.device, dtype=q.dtype).masked_fill(
+        ~mask[:, None, None, :], -1e9)
+    ms, per = device_ms(lambda: K.masked_attention(q, k, v, mask))  # the plan, then the attention
+    rec = {"ms": ms,
+           "plain_ms": device_ms(lambda: K.masked_attention_plain(q, k, v, mask), iters=5)[0],
+           "library_ms": device_ms(
+               lambda: Fn.scaled_dot_product_attention(q, k, v, attn_mask=add_mask))[0]}
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, ATTN_PEAK[name], ATTN_PASSES[name])
+    cuda_core_ms, _ = bound(nbytes, flops)
+    print(f"kernel masked_attention {B}x{H}x{N}x{Dh} {name}: ms {rec['ms']:.4f} plain_ms "
+          f"{rec['plain_ms']:.4f} library_ms {rec['library_ms']:.4f} (SDPA, {name}); bound_ms "
+          f"{rec['bound_ms']:.4f} ({rec['bound_by']}: {nbytes / 1e6:.1f} MB at "
+          f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s, {ATTN_PASSES[name]} passes x {flops / 1e9:.3f} GFLOP "
+          f"at {ATTN_PEAK[name] / 1e12:.0f} TFLOP/s) = {rec['bound_ms'] / rec['ms']:.1%} of the "
+          f"kernel's time; the f32 CUDA-core bound {cuda_core_ms:.4f} ms; {keys} keys read of "
+          f"{B * N}; by activity "
+          + json.dumps({act[:60]: round(t, 5) for act, t in per.items()}))
+    check(0 < rec["bound_ms"] <= rec["ms"], f"attention {name}: bound {rec['bound_ms']} ms over the "
+          f"kernel's {rec['ms']} ms: the count is wrong")
+    return rec
 
 
 def scatter_case(K, rng, case, B, N, D, hw, device):
@@ -129,6 +297,8 @@ def scatter_case(K, rng, case, B, N, D, hw, device):
     1..N and the rows past it at cell 0 with embeddings ``-0.0 * x``;
     one_cell: every row of a sample at one cell."""
     import torch
+
+    from distar_tpu_torch.ops import scatter_connection
 
     emb = rng.standard_normal((B, N, D)).astype("float32")
     idx = rng.integers(0, hw, (B, N))
@@ -150,13 +320,28 @@ def scatter_case(K, rng, case, B, N, D, hw, device):
     bits = lambda t: t.view(torch.int32)  # noqa: E731
     check(torch.equal(bits(loop), bits(onehot)), f"{tag}: the two kernels differ")
     check(torch.equal(bits(loop), bits(plain)), f"{tag}: the kernels differ from scatter_add_plain")
+    # bf16 rows: the loop kernel adds in bf16 like the Pallas loop kernel,
+    # bit-equal to the loop on the bf16 rows; the 'pallas_onehot' route sums
+    # in f32 and rounds once. Through scatter_connection on a 1 x hw map,
+    # where (x, y) = (idx, 0) is the clipped cell.
+    e16, bits16 = emb.bfloat16(), (lambda t: t.view(torch.int16))  # noqa: E731
+    loop16 = bits16(K.scatter_add_plain(e16, idx, hw))
+    check(torch.equal(bits16(K.scatter_add_connection(e16, idx, hw)), loop16),
+          f"{tag} bf16: the loop kernel differs from scatter_add_plain in bf16")
+    loc = torch.stack([idx, torch.zeros_like(idx)], -1)
+    once16 = bits16(K.scatter_add_plain(e16.float(), idx, hw).bfloat16())
+    for impl, want in (("pallas", loop16), ("pallas_onehot", once16)):
+        got = scatter_connection(e16, loc, (1, hw), impl=impl).reshape(B, hw, D)
+        check(torch.equal(bits16(got), want), f"{tag} bf16: scatter_connection impl={impl} differs")
     err_loop = float((loop - plain).abs().max())
     err_onehot = float((onehot - K.scatter_add_onehot_plain(emb, idx, hw)).abs().max())
     # a cell of hundreds of rows (padded, one-cell) rounds in proportion to its sum
     tol = SCATTER_TOL * (1.0 if case == "uniform" else max(1.0, float(plain.abs().max())))
     check(err_onehot <= tol, f"{tag}: one-hot kernel vs its plain version max abs err {err_onehot}")
     print(f"kernel {tag}: both kernels bit-equal to scatter_add_plain and to each other; "
-          f"one-hot vs its matmul-order plain version max_abs_err {err_onehot:.3e} (tol {tol:.1e})")
+          f"one-hot vs its matmul-order plain version max_abs_err {err_onehot:.3e} (tol {tol:.1e}); "
+          f"bf16: the loop kernel bit-equal to the bf16 loop, the one-hot route to the f32 sum "
+          f"rounded once")
     return (emb, idx), err_loop, err_onehot
 
 
@@ -174,8 +359,8 @@ def phase_kernels(device, rng):
     """Every kernel vs its plain version at the flagship serve shapes and the
     CPU tests' edge cases; returns per-kernel records (errors and times at
     the serve shapes; the scatter records on the uniform case)."""
+    import numpy as np
     import torch
-    import torch.nn.functional as Fn
 
     from distar_tpu_torch.ops import kernels as K
 
@@ -183,33 +368,25 @@ def phase_kernels(device, rng):
     B, H, N, Dh = SLOTS, 2, 512, 128
     lengths = rng.integers(1, N + 1, B)
     lengths[:3] = (1, N // 3, N)  # one valid key, partial, all
+    mask = np.arange(N)[None, :] < lengths[:, None]
     records = {}
-    # edge cases: ragged key tile, a row with no valid key, small heads
-    for dt in (torch.float32, torch.bfloat16):
-        _, err = attention_case(K, rng, 4, 2, 63, 8, [0, 1, 30, 63], dt, device)
-        check(err <= ATTN_TOL[str(dt)[6:]], f"attention edge {dt}: max abs err {err}")
-        print(f"kernel masked_attention edge N=63 Dh=8 {dt}: max_abs_err {err:.3e}")
-    for dt in (torch.bfloat16, torch.float32):  # f32 last: its inputs are timed
-        args, err = attention_case(K, rng, B, H, N, Dh, lengths, dt, device)
-        name = str(dt)[6:]
-        check(err <= ATTN_TOL[name], f"attention {name}: max abs err {err}")
-        print(f"kernel masked_attention {B}x{H}x{N}x{Dh} {name}: max_abs_err {err:.3e}")
-    q, k, v, mask = args
-    valid_keys = int(mask.sum())
-    nbytes = 4 * q.numel() * 4 + mask.numel()
-    flops = 4 * H * Dh * N * valid_keys  # every query row against the valid keys
-    add_mask = torch.zeros(B, 1, 1, N, device=device).masked_fill(~mask[:, None, None, :], -1e9)
-    rec = {"max_abs_err": err, "replaces": "distar_tpu/ops/pallas_kernels.py:62",
-           "source": "distar_tpu_torch/ops/csrc/masked_attention.cu",
-           "ms": device_ms(lambda: K.masked_attention(q, k, v, mask))[0],
-           "plain_ms": device_ms(lambda: K.masked_attention_plain(q, k, v, mask), iters=5)[0],
-           "library_ms": device_ms(
-               lambda: Fn.scaled_dot_product_attention(q, k, v, attn_mask=add_mask))[0]}
-    rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops)
+    edge_errs = attention_edges(K, rng, device)
+    flagship = {}
+    for dt in (torch.bfloat16, torch.float32):
+        args = attention_inputs(rng, B, H, N, Dh, mask, dt, device)
+        err = attention_check(K, f"{B}x{H}x{N}x{Dh}", *args)
+        print(f"kernel masked_attention {B}x{H}x{N}x{Dh} {str(dt)[6:]}: max_abs_err {err:.3e}")
+        flagship[str(dt)[6:]] = (args, err)
+    bf16 = attention_timing(K, *flagship["bfloat16"][0])
+    print(json.dumps({"masked_attention_bfloat16": dict(
+        bf16, max_abs_err=flagship["bfloat16"][1], edge_max_abs_err=edge_errs["bfloat16"])}))
+    rec = attention_timing(K, *flagship["float32"][0])
+    rec.update(max_abs_err=flagship["float32"][1], replaces="distar_tpu/ops/pallas_kernels.py:62",
+               source="distar_tpu_torch/ops/csrc/masked_attention.cu")
     records["masked_attention"] = rec
 
-    # the uniform cases first, drawn as in every earlier run, so that the
-    # timed record stays comparable; then padded and one-cell
+    # the uniform cases first (the timed record, the case every earlier run
+    # timed); then padded and one-cell
     sB, sN, sD, hw = SLOTS, 512, 32, 152 * 160
     names = ("scatter_add_connection", "scatter_add_onehot")
     cases = {}

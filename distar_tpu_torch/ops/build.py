@@ -96,7 +96,9 @@ def load(name: str) -> ctypes.CDLL:
             fn = getattr(lib, f"{name}_fwd")
             P, I = ctypes.c_void_p, ctypes.c_int
             if name == "masked_attention":
-                fn.argtypes = [P, P, P, P, P, I, I, I, I, ctypes.c_float, I, P]
+                fn.argtypes = [P, P, P, P, P, P, I, I, I, I, ctypes.c_float, I, P]
+            elif name == "scatter_add_connection":  # with a bfloat16 flag
+                fn.argtypes = [P, P, P, I, I, I, I, I, P]
             else:
                 fn.argtypes = [P, P, P, I, I, I, I, P]
             fn.restype = I

@@ -33,6 +33,11 @@
 // each cell's rows in entity order from +0.0f is the entity-order loop's
 // sequence of f32 adds, so the result is bit-equal to scatter_add_plain and
 // to scatter_add_onehot.cu. No float atomics.
+// bfloat16 rows (the 'bfloat16' compute dtype) are added as the Pallas loop
+// kernel adds them, in bfloat16: each add in f32, rounded to bfloat16 at
+// once (add_as), in entity order from +0.0, so the map is bit-equal to
+// scatter_add_plain on the bfloat16 rows. The zero pass writes the same
+// zero bits; the vectors are 8 bfloat16 (16 bytes) where D % 8 == 0.
 #include "common.cuh"
 
 #include <cstdint>
@@ -47,9 +52,10 @@ constexpr int WINDOW = 256;  // entities a chain's warp scans, and whose rows it
 constexpr int COPY = 8;      // vectors of a one-row cell loaded before they are stored
 constexpr unsigned FULL = 0xffffffffu;
 
-// pass 1: out4[0, n4) and out[4 * n4, n) = 0
+// pass 1: out4[0, n4) and the elements out[n4 * 16 / sizeof(T), n) = 0
+template <typename T>
 __global__ void __launch_bounds__(ZERO_THREADS)
-zero_map_kernel(float4* __restrict__ out4, size_t n4, float* __restrict__ out, size_t n) {
+zero_map_kernel(float4* __restrict__ out4, size_t n4, T* __restrict__ out, size_t n) {
   const size_t run = (size_t)ZERO_UNROLL * ZERO_THREADS;
   for (size_t base = blockIdx.x * run; base < n4; base += (size_t)gridDim.x * run) {
 #pragma unroll
@@ -58,21 +64,22 @@ zero_map_kernel(float4* __restrict__ out4, size_t n4, float* __restrict__ out, s
       if (i < n4) out4[i] = vzero<float4>();
     }
   }
-  for (size_t i = 4 * n4 + blockIdx.x * ZERO_THREADS + threadIdx.x; i < n;
+  constexpr int PER = sizeof(float4) / sizeof(T);
+  for (size_t i = PER * n4 + blockIdx.x * ZERO_THREADS + threadIdx.x; i < n;
        i += (size_t)gridDim.x * ZERO_THREADS)
-    out[i] = 0.f;
+    out[i] = from_f32<T>(0.f);
 }
 
-// pass 2: grid (ceil(N / OWNER_THREADS), B); lane = entity. V is float4
-// (D % 4 == 0, aligned) or float.
-template <typename V>
+// pass 2: grid (ceil(N / OWNER_THREADS), B); lane = entity. T is float or
+// bfloat16; V a 16-byte vector of T (D * sizeof(T) % 16 == 0, aligned) or T.
+template <typename T, typename V>
 __global__ void __launch_bounds__(OWNER_THREADS)
-scatter_owner_kernel(const float* __restrict__ emb, const int* __restrict__ idx,
-                     float* __restrict__ out, int N, int D, int hw) {
+scatter_owner_kernel(const T* __restrict__ emb, const int* __restrict__ idx,
+                     T* __restrict__ out, int N, int D, int hw) {
   extern __shared__ int4 smem[];
   const int n4 = (N + 3) / 4;
   int* sIdx = reinterpret_cast<int*>(smem);  // idx[b], padded with -2 to a multiple of 4
-  float* win = reinterpret_cast<float*>(smem + n4);  // [WINDOW][D] staged rows of a chain
+  T* win = reinterpret_cast<T*>(smem + n4);  // [WINDOW][D] staged rows of a chain
   const int b = blockIdx.y;
   const int i = blockIdx.x * OWNER_THREADS + threadIdx.x;
   const int* ix = idx + (size_t)b * N;
@@ -81,7 +88,7 @@ scatter_owner_kernel(const float* __restrict__ emb, const int* __restrict__ idx,
   // that they are in L2 when this block (or a chain's warp) reads them.
   if (i < N) {
     const char* row = reinterpret_cast<const char*>(emb + ((size_t)b * N + i) * D);
-    for (int l = 0; l < D * (int)sizeof(float); l += 128) prefetch_l2(row + l);
+    for (int l = 0; l < D * (int)sizeof(T); l += 128) prefetch_l2(row + l);
   }
   __syncthreads();
   const int lane = threadIdx.x & 31;
@@ -108,11 +115,11 @@ scatter_owner_kernel(const float* __restrict__ emb, const int* __restrict__ idx,
     later |= (a.x == c) | (a.y == c) | (a.z == c) | (a.w == c);
   }
   const bool owner = i < N && !earlier;
-  const int DV = D * (int)sizeof(float) / (int)sizeof(V);
+  const int DV = D * (int)sizeof(T) / (int)sizeof(V);
   const V* e = reinterpret_cast<const V*>(emb + (size_t)b * N * D);
-  float* o = out + (size_t)b * hw * D;
+  T* o = out + (size_t)b * hw * D;
   if (owner && !later) {
-    // the cell's one row, added to 0.0f as the loop adds it (0.0f + -0.0f is +0.0f)
+    // the cell's one row, added to 0.0 as the loop adds it (0.0 + -0.0 is +0.0)
     const V* ei = e + (size_t)i * DV;
     V* oc = reinterpret_cast<V*>(o + (size_t)c * D);
     for (int v0 = 0; v0 < DV; v0 += COPY) {
@@ -158,47 +165,56 @@ scatter_owner_kernel(const float* __restrict__ emb, const int* __restrict__ idx,
         __syncwarp();
         if (d < D) {
 #pragma unroll 8
-          for (int k = 0; k < n; ++k) acc += win[k * D + d];
+          for (int k = 0; k < n; ++k) acc = add_as(acc, win[k * D + d]);
         }
         __syncwarp();  // the rows are restaged by the next window
       }
-      if (d < D) o[(size_t)co * D + d] = acc;
+      if (d < D) o[(size_t)co * D + d] = from_f32<T>(acc);
     }
   }
 }
 
+template <typename T, typename V16>
+cudaError_t launch(const void* emb, const void* idx, void* out, int B, int N, int D, int hw,
+                   size_t smem, int sms, cudaStream_t s) {
+  const size_t n = (size_t)B * hw * D;
+  constexpr int PER = sizeof(float4) / sizeof(T);
+  const size_t n4 = reinterpret_cast<uintptr_t>(out) % 16 == 0 ? n / PER : 0;
+  zero_map_kernel<T><<<sms * ZERO_BLOCKS_PER_SM, ZERO_THREADS, 0, s>>>(static_cast<float4*>(out), n4,
+                                                                        static_cast<T*>(out), n);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const bool vec = D % PER == 0 && reinterpret_cast<uintptr_t>(emb) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const auto owner = vec ? scatter_owner_kernel<T, V16> : scatter_owner_kernel<T, T>;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(owner, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((N + OWNER_THREADS - 1) / OWNER_THREADS, B);
+  owner<<<grid, OWNER_THREADS, smem, s>>>(static_cast<const T*>(emb), static_cast<const int*>(idx),
+                                          static_cast<T*>(out), N, D, hw);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// emb: [B, N, D] float32 (the wrapper takes D <= 128); idx: [B, N] int32
-// already clipped to [0, hw); out: [B, hw, D] float32. All contiguous. Two
-// launches on `stream`; returns the CUDA error code.
+// emb: [B, N, D] float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1), D <= 128
+// in the wrapper; idx: [B, N] int32 already clipped to [0, hw); out: [B, hw,
+// D] in emb's dtype. All contiguous. Two launches on `stream`; returns the
+// CUDA error code.
 extern "C" int scatter_add_connection_fwd(const void* emb, const void* idx, void* out, int B,
-                                          int N, int D, int hw, void* stream) {
+                                          int N, int D, int hw, int is_bf16, void* stream) {
   if (B <= 0 || N <= 0 || D <= 0 || hw <= 0 || B > 65535) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(int4) * (size_t)((N + 3) / 4) + sizeof(float) * WINDOW * D;
+  const size_t esize = is_bf16 ? sizeof(__nv_bfloat16) : sizeof(float);
+  const size_t smem = sizeof(int4) * (size_t)((N + 3) / 4) + esize * WINDOW * D;
   if (smem > 232448) return (int)cudaErrorInvalidValue;  // a Hopper block's shared memory
   const auto s = static_cast<cudaStream_t>(stream);
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-
-  const size_t n = (size_t)B * hw * D;
-  const size_t n4 = reinterpret_cast<uintptr_t>(out) % 16 == 0 ? n / 4 : 0;
-  zero_map_kernel<<<sms * ZERO_BLOCKS_PER_SM, ZERO_THREADS, 0, s>>>(static_cast<float4*>(out), n4,
-                                                                     static_cast<float*>(out), n);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  const bool vec = D % 4 == 0 && reinterpret_cast<uintptr_t>(emb) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const auto owner = vec ? scatter_owner_kernel<float4> : scatter_owner_kernel<float>;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(owner, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid((N + OWNER_THREADS - 1) / OWNER_THREADS, B);
-  owner<<<grid, OWNER_THREADS, smem, s>>>(static_cast<const float*>(emb), static_cast<const int*>(idx),
-                                          static_cast<float*>(out), N, D, hw);
-  return (int)cudaGetLastError();
+  return (int)(is_bf16 ? launch<__nv_bfloat16, bf16x8>(emb, idx, out, B, N, D, hw, smem, sms, s)
+                       : launch<float, float4>(emb, idx, out, B, N, D, hw, smem, sms, s));
 }

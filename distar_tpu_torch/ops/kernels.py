@@ -12,7 +12,8 @@ CPU. For a CUDA tensor it launches the hand-written kernel
 (``csrc/<name>.cu``, built at first use by ``build.py``) or raises: there is
 no fallback. ``launch_counts[name]`` rises by one per wrapper call that
 reached the kernel (``scatter_add_connection`` runs as two launches, a zero
-pass and an owner pass, and counts once), so a run can show that its main
+pass and an owner pass, and ``masked_attention`` as a plan and the
+attention; each counts once), so a run can show that its main
 path went through the kernels.
 """
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 from . import build
 
 NEG_INF = -1e9
+ATTENTION_KEY_TILE = 32  # keys per tile of masked_attention.cu (BK); tiles with no valid key are skipped
 ONEHOT_CHUNK = 2048  # cells per program, as the Pallas one-hot kernel
 SCATTER_MAX_D = 128  # the scatter kernels' widest row (shared memory per block)
 
@@ -79,8 +81,10 @@ def masked_attention_plain(q, k, v, mask, upcast: bool = True):
 
 
 def masked_attention(q, k, v, mask):
-    """q, k, v: [B, H, N, Dh] (float32 or bfloat16); mask: [B, N] key
-    validity. Returns [B, H, N, Dh] in the input dtype."""
+    """q, k, v: [B, H, N, Dh] (float32 or bfloat16; on the card Dh a
+    multiple of 4 up to 128, any N); mask: [B, N] key validity. Returns
+    [B, H, N, Dh] in the input dtype, softmax and sums in float32. The kernel
+    runs both products on tensor cores (3xTF32 for float32 inputs)."""
     if _dispatch("masked_attention", q):
         return masked_attention_plain(q, k, v, mask)
     B, H, N, Dh = q.shape
@@ -94,8 +98,11 @@ def masked_attention(q, k, v, mask):
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("masked_attention: q, k, v dtypes differ")
     out = torch.empty_like(q)
+    # the kernel's plan of kept key tiles and of the order of its blocks
+    ntiles = -(-N // ATTENTION_KEY_TILE)
+    plan = torch.empty(B * (2 + 2 * ntiles), dtype=torch.int32, device=q.device)
     _launch("masked_attention", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            mask.data_ptr(), out.data_ptr(), B, H, N, Dh, 1.0 / (Dh ** 0.5),
+            mask.data_ptr(), plan.data_ptr(), out.data_ptr(), B, H, N, Dh, 1.0 / (Dh ** 0.5),
             int(q.dtype == torch.bfloat16))
     return out
 
@@ -103,8 +110,9 @@ def masked_attention(q, k, v, mask):
 # ----------------------------------------------------------------- scatter
 def scatter_add_plain(embeddings, flat_idx, hw: int):
     """Entity-order scatter-add: zero [B, hw, D], then add row i of every
-    batch at its clipped cell, for i = 0..N-1. Within one i the B rows hit
-    distinct batches, so the sum order is the loop kernel's exactly."""
+    batch at its clipped cell, for i = 0..N-1, in the input dtype. Within
+    one i the B rows hit distinct batches, so the sum order is the loop
+    kernel's exactly."""
     B, N, D = embeddings.shape
     idx = flat_idx.long().clamp(0, hw - 1)
     flat = idx + torch.arange(B, device=idx.device)[:, None] * hw
@@ -135,18 +143,25 @@ def _scatter_kernel(name: str, embeddings, flat_idx, hw: int):
     if D > SCATTER_MAX_D:
         raise ValueError(f"{name}: row width {D} (the kernel takes <= {SCATTER_MAX_D})")
     idx = flat_idx.clamp(0, hw - 1).to(torch.int32).contiguous()
-    _check_cuda(name, (embeddings, idx), (torch.float32,))
+    # the loop kernel also adds bfloat16 rows in bfloat16, as the Pallas loop
+    # kernel does; the one-hot kernel sums float32 only
+    loop = name == "scatter_add_connection"
+    _check_cuda(name, (embeddings, idx), (torch.float32, torch.bfloat16) if loop else (torch.float32,))
     out = torch.empty(B, hw, D, dtype=embeddings.dtype, device=embeddings.device)
-    _launch(name, embeddings.device, embeddings.data_ptr(), idx.data_ptr(), out.data_ptr(),
-            B, N, D, hw)
+    args = [embeddings.data_ptr(), idx.data_ptr(), out.data_ptr(), B, N, D, hw]
+    if loop:
+        args.append(int(embeddings.dtype == torch.bfloat16))
+    _launch(name, embeddings.device, *args)
     return out
 
 
 def scatter_add_connection(embeddings, flat_idx, hw: int):
-    """embeddings: [B, N, D] float32 (invalid entities zeroed; D <=
-    SCATTER_MAX_D on the card); flat_idx: [B, N] int cell index, clipped
-    here to [0, hw-1]. Returns [B, hw, D], each cell's rows summed in entity
-    order from +0.0: ``scatter_add_plain``'s result bit for bit."""
+    """embeddings: [B, N, D] float32 or bfloat16 (invalid entities zeroed; D
+    <= SCATTER_MAX_D on the card); flat_idx: [B, N] int cell index, clipped
+    here to [0, hw-1]. Returns [B, hw, D] in the input dtype, each cell's
+    rows added in entity order from +0.0, every add rounded to that dtype
+    (the Pallas loop kernel's numerics): ``scatter_add_plain``'s result bit
+    for bit."""
     if _dispatch("scatter_add_connection", embeddings):
         return scatter_add_plain(embeddings, flat_idx, hw)
     return _scatter_kernel("scatter_add_connection", embeddings, flat_idx, hw)

@@ -4,7 +4,11 @@ Counterpart of ``distar_tpu.ops.scatter.scatter_connection``: each entity's
 D-dim embedding is added (or written) at its (x, y) cell of a [B, H, W, D]
 map. x clips to [0, W-1] and y to [0, H-1], then ``flat = y*W + x``.
 'pallas' and 'pallas_onehot' dispatch the add mode to the two scatter
-kernels (float32; another dtype is summed in float32 and cast back).
+kernels, with the JAX kernels' numerics: 'pallas' adds bfloat16 rows in
+bfloat16, rounding after every add in entity order, as the Pallas loop
+kernel does; 'pallas_onehot' sums in float32 and rounds once, as the Pallas
+one-hot kernel does (any dtype but float32 and, for 'pallas', bfloat16 is
+summed in float32 and cast back).
 """
 from __future__ import annotations
 
@@ -31,7 +35,9 @@ def scatter_connection(
         if mode != "add":
             raise ValueError("the scatter kernels implement add mode")
         kernel = kernels.scatter_add_onehot if impl == "pallas_onehot" else kernels.scatter_add_connection
-        out = kernel(embeddings.float().contiguous(), flat_idx, H * W)
+        in_bf16 = impl == "pallas" and embeddings.dtype == torch.bfloat16
+        emb = embeddings if in_bf16 else embeddings.float()
+        out = kernel(emb.contiguous(), flat_idx, H * W)
         return out.to(embeddings.dtype).reshape(B, H, W, D)
     if impl != "xla":
         raise ValueError(f"unknown scatter impl {impl!r} (xla|pallas|pallas_onehot)")

@@ -43,6 +43,59 @@ def _bits(t):
     return t.view(torch.int32)
 
 
+ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # kernel vs plain, max abs
+TILE = kernels.ATTENTION_KEY_TILE
+
+
+def _attention_inputs(rng, B, H, N, Dh, mask, dtype, device, garbage=False):
+    """q, k, v from the seed; with ``garbage`` the masked K/V rows are
+    +-1e4 (finite, large), which must not reach the output."""
+    q, k, v = (rng.standard_normal((B, H, N, Dh)).astype(np.float32) for _ in range(3))
+    if garbage:
+        keep = mask[:, None, :, None]
+        k, v = (np.where(keep, t, 1e4 * np.sign(t)).astype(np.float32) for t in (k, v))
+    return [torch.from_numpy(t).to(device, dtype) for t in (q, k, v)] + [
+        torch.from_numpy(mask).to(device)]
+
+
+def _attention_err(q, k, v, mask, want=None):
+    got = kernels.masked_attention(q, k, v, mask)
+    assert got.dtype == q.dtype and torch.isfinite(got.float()).all()
+    want = kernels.masked_attention_plain(q, k, v, mask) if want is None else want
+    return float((got.float() - want.float()).abs().max())
+
+
+def _non_prefix_mask(rng, B, N, pattern):
+    """last_tile: valid keys only in the last key tile; alternating: only in
+    every other tile, starting with the second; both at random density, at
+    least one valid key per sample."""
+    tile = np.arange(N) // TILE
+    where = tile == tile[-1] if pattern == "last_tile" else tile % 2 == 1
+    if not where.any():  # one tile only: the alternating pattern keeps its first
+        where = tile == 0
+    mask = (rng.random((B, N)) < 0.5) & where
+    mask[:, np.flatnonzero(where)[-1]] = True
+    return mask
+
+
+def _peaked_inputs(rng, B, H, N, Dh, device):
+    """bf16 inputs, all keys valid, whose softmax rows weigh keys 0 and 1
+    (scores about 20 and 20 - d, d = 0.05-0.15 by query; other keys about 0)
+    with V rows +c and -c (c = 500-1000): an output of about c d / 2."""
+    r = Dh ** 0.5  # undoes the 1/sqrt(Dh) scale
+    q = np.zeros((B, H, N, Dh), np.float32)
+    q[..., 0], q[..., 1] = 1.0, rng.uniform(0.5, 1.5, (B, H, N))
+    k = 0.1 * rng.standard_normal((B, H, N, Dh)).astype(np.float32)
+    k[:, :, :2] = 0.0
+    k[:, :, :2, 0] = 20 * r
+    k[:, :, 1, 1] = -0.1 * r
+    v = rng.standard_normal((B, H, N, Dh)).astype(np.float32)
+    c = rng.uniform(500, 1000, (B, H, Dh))
+    v[:, :, 0], v[:, :, 1] = c, -c
+    return [torch.from_numpy(t).to(device, torch.bfloat16) for t in (q, k, v)] + [
+        torch.ones(B, N, dtype=torch.bool, device=device)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 def test_masked_attention_kernel(cuda, dtype, tol):
@@ -55,6 +108,73 @@ def test_masked_attention_kernel(cuda, dtype, tol):
     assert kernels.launch_counts["masked_attention"] == 1 and got.dtype == dtype
     err = (got.float() - kernels.masked_attention_plain(q, k, v, mask).float()).abs().max()
     assert float(err) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [1, 63, 64, 65, 512])
+@pytest.mark.parametrize("Dh", [4, 8, 32, 128])
+def test_masked_attention_kernel_shapes(cuda, Dh, N, dtype):
+    """Prefix masks with no, one, part and all keys valid; ragged key and
+    query tiles; head dims padded to the kernel's 32, 64 or 128."""
+    rng = np.random.default_rng(Dh * 1000 + N)
+    mask = np.arange(N)[None, :] < np.array([0, 1, N // 2, N])[:, None]
+    assert _attention_err(*_attention_inputs(rng, 4, 2, N, Dh, mask, dtype, cuda)) <= ATTN_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pattern", ["last_tile", "alternating"])
+@pytest.mark.parametrize("N,Dh", [(512, 128), (65, 8)])
+def test_masked_attention_kernel_non_prefix_masks(cuda, N, Dh, pattern, dtype):
+    """Masks serving never sends: the tiles with no valid key are skipped,
+    the partly valid ones computed with the -1e9 fill."""
+    rng = np.random.default_rng(3)
+    mask = _non_prefix_mask(rng, 4, N, pattern)
+    assert _attention_err(*_attention_inputs(rng, 4, 2, N, Dh, mask, dtype, cuda)) <= ATTN_TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_masked_attention_kernel_bf16_weights_near_f32(cuda):
+    """bf16 rows whose output is the difference of two large weighted V rows
+    (``_peaked_inputs``): the kernel keeps the softmax weights near f32 (P
+    split into bf16 hi + lo), so it lands within one bf16 ulp of the plain
+    version; weights rounded to bf16 land several ulps off."""
+    q, k, v, mask = _peaked_inputs(np.random.default_rng(11), 4, 2, 64, 32, cuda)
+    got = kernels.masked_attention(q, k, v, mask)
+    want = kernels.masked_attention_plain(q, k, v, mask).float()
+    assert float(want.abs().min()) > 1.0  # no output near zero, where an ulp is meaningless
+    _, e = torch.frexp(want)
+    assert float(((got.float() - want).abs() / torch.ldexp(torch.ones_like(want), e - 8)).max()) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,N,Dh", [(3, 2, 1100, 32), (1100, 1, 40, 8)])
+def test_masked_attention_kernel_plan_edges(cuda, B, H, N, Dh, dtype):
+    """The plan past one warp's word: more than 32 key tiles a sample (1100
+    keys), and 1100 samples to rank. Sparse random masks, one sample with no
+    valid key and one with all valid."""
+    rng = np.random.default_rng(7)
+    mask = rng.random((B, N)) < 0.05
+    mask[0], mask[1] = False, True
+    assert _attention_err(*_attention_inputs(rng, B, H, N, Dh, mask, dtype, cuda)) <= ATTN_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pattern", ["prefix", "alternating"])
+def test_masked_attention_kernel_ignores_masked_rows(cuda, pattern, dtype):
+    """Masked K/V rows at +-1e4 give the output of clean rows (every
+    sample has a valid key, so no row averages the garbage)."""
+    B, H, N, Dh = 4, 2, 512, 128
+    rng = np.random.default_rng(4)
+    mask = (np.arange(N)[None, :] < rng.integers(1, N + 1, (B, 1)) if pattern == "prefix"
+            else _non_prefix_mask(rng, B, N, pattern))
+    clean = _attention_inputs(np.random.default_rng(5), B, H, N, Dh, mask, dtype, cuda)
+    dirty = _attention_inputs(np.random.default_rng(5), B, H, N, Dh, mask, dtype, cuda, garbage=True)
+    assert not torch.equal(clean[1], dirty[1])
+    assert _attention_err(*dirty, want=kernels.masked_attention_plain(*clean)) <= ATTN_TOL[dtype]
 
 
 @pytest.mark.cuda
@@ -72,6 +192,30 @@ def test_scatter_kernels_bit_equal(cuda, hw, case, D):
     if case == "uniform":  # the matmul's sum order; a cell sums a handful of rows
         torch.testing.assert_close(loop, kernels.scatter_add_onehot_plain(emb, idx, hw), atol=1e-5,
                                    rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["uniform", "padded", "one_cell"])
+@pytest.mark.parametrize("D", [32, 6])  # 16-byte vectors of 8 bf16, and the scalar path
+def test_scatter_kernels_bf16(cuda, case, D):
+    """bfloat16 rows: the loop kernel adds in bfloat16, bit-equal to
+    ``scatter_add_plain`` on the bfloat16 rows (the Pallas loop kernel's
+    numerics); the 'pallas_onehot' route sums in float32 and rounds once."""
+    from distar_tpu_torch.ops import scatter_connection
+
+    hw = 152 * 160
+    emb, idx = _scatter_inputs(np.random.default_rng(6), 2, 512, D, hw, case, cuda)
+    emb = emb.bfloat16()
+    loop = kernels.scatter_add_connection(emb, idx, hw)
+    assert loop.dtype == torch.bfloat16
+    assert torch.equal(loop.view(torch.int16), kernels.scatter_add_plain(emb, idx, hw).view(torch.int16))
+    # the same through scatter_connection, cell (x, y) = (i % W, i // W)
+    loc = torch.stack([idx.clamp(0, hw - 1) % 160, idx.clamp(0, hw - 1) // 160], -1)
+    onehot = scatter_connection(emb, loc, (152, 160), impl="pallas_onehot").reshape(2, hw, D)
+    once = kernels.scatter_add_plain(emb.float(), idx, hw).bfloat16()
+    assert torch.equal(onehot.view(torch.int16), once.view(torch.int16))
+    via = scatter_connection(emb, loc, (152, 160), impl="pallas").reshape(2, hw, D)
+    assert torch.equal(via.view(torch.int16), loop.view(torch.int16))
 
 
 @pytest.mark.cuda

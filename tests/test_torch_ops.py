@@ -184,6 +184,30 @@ def test_scatter_connection_add(rng, impl):
     np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
+@pytest.mark.parametrize("impl", ["pallas", "pallas_onehot"])
+def test_scatter_connection_add_bf16_bit_equal(rng, impl):
+    """bf16 rows, as the 'bfloat16' compute dtype sends them: the JAX loop
+    kernel ('pallas') adds them in bf16, rounding after every add in entity
+    order; the one-hot kernel sums in f32 and rounds once. The port gives
+    each bit for bit (int16 views), with the Pallas kernels in interpret
+    mode. Collisions, out-of-range cells and padded rows (past a per-sample
+    ``entity_num``, at cell (0, 0), ``-0.0 * x``) all on a 3x3 map."""
+    B, N, D, H, W = 2, 64, 8, 3, 3
+    emb = rng.standard_normal((B, N, D)).astype(np.float32)
+    loc = np.stack([rng.integers(-2, W + 3, (B, N)), rng.integers(-2, H + 3, (B, N))], -1)
+    loc[:, :6] = loc[:, :1]  # collisions
+    for b, n in enumerate((40, 57)):
+        loc[b, n:] = 0
+        emb[b, n:] *= -0.0
+    emb16 = torch.from_numpy(emb).to(torch.bfloat16)
+    want = jops.scatter_connection(jnp.asarray(emb16.float().numpy(), jnp.bfloat16),
+                                   jnp.asarray(loc), (H, W), "add", impl=impl)
+    got = tops.scatter_connection(emb16, torch.from_numpy(loc), (H, W), "add", impl=impl)
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    np.testing.assert_array_equal(got.view(torch.int16).numpy(),
+                                  np.asarray(want).view(np.int16))
+
+
 def test_scatter_connection_cover_and_bad_impl(rng):
     B, N, D, H, W = 2, 6, 3, 4, 5
     emb = rng.standard_normal((B, N, D)).astype(np.float32)
