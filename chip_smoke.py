@@ -26,9 +26,22 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              scatter kernel, with the launch counts read around each run;
              then the kernel-backed forward held against the 'xla' strings on
              the same weights and Gumbel noise, and the median flush time.
+5. train   — the SL train step at flagship width and depth, f32, batch 2 x
+             unroll 32 (64 frames): each kernel's autograd Function at the
+             training shapes, its forward (the kernel) against the plain
+             version and its backward (the JAX formula) against autograd
+             through the plain version (attention f32 and bf16, both
+             scatter kernels bit for bit); one
+             step per config string ('pallas', 'pallas_onehot', 'xla') from
+             the same weights, batch and state, agreeing on loss, info and
+             grad_norm; 8 steps of ``bin/sl_train.py``'s learner on one fixed
+             batch, the loss falling and 3 attention + 1 scatter launches a
+             step; step ms, SL frames/s, a profiled step, peak memory and
+             each kernel's forward and backward at the training shapes; one
+             bf16 step.
 
-The line before the last is the ``kernels`` JSON; the last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is the ``kernels`` JSON (launches: the serve and
+the train paths together); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -536,23 +549,25 @@ def phase_serve(device, rng):
         order.reverse()
     flush_ms = {impl: statistics.median(t[2:]) for impl, t in times.items()}
     print(f"serve flush ms (median of 6, {SLOTS} slots, host copy included): {flush_ms}")
-    profiles = {impl: profile_flush(infer, prepared) for impl, infer in infers.items()}
+    profiles = {impl: profile_call(lambda: infer.sample(prepared)) for impl, infer in infers.items()}
     print(json.dumps({"flush_profile": profiles}))
     return launches, flush_ms
 
 
-def profile_flush(infer, prepared):
-    """One flush under torch.profiler: wall ms, device-busy ms (the sum of
-    device activity on the one stream), idle share, the number of device
-    activities (kernels and copies) and those that take the most time.
+def profile_call(fn):
+    """One call of ``fn`` (a flush or a train step, ending in a device->host
+    copy) under torch.profiler, after one call unprofiled: wall ms,
+    device-busy ms (the sum of device activity on the one stream), idle
+    share, the number of device activities (kernels and copies) and those
+    that take the most time.
 
-    The flushes themselves run unguarded, so a kernel fault fails the run;
+    The calls themselves run unguarded, so a kernel fault fails the run;
     only the profiler's own start, stop and event reading may fail softly,
     and then the profile reports why it was not measured."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    infer.sample(prepared)
+    fn()
     torch.cuda.synchronize()
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     try:
@@ -560,7 +575,7 @@ def profile_flush(infer, prepared):
     except Exception as e:  # noqa: BLE001 - the profiler's own setup
         return {"not_measured": f"profiler start: {e!r}"}
     t0 = time.perf_counter()
-    infer.sample(prepared)  # ends in the device->host copy
+    fn()
     wall = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     try:
@@ -573,6 +588,279 @@ def profile_flush(infer, prepared):
     return {"wall_ms": wall, "device_busy_ms": busy, "idle_share": 1 - busy / wall,
             "device_activities": sum(n for _, n in by_name.values()),
             "top": [{"name": k[:80], "ms": ms, "count": n} for k, (ms, n) in rows[:10]]}
+
+
+# ------------------------------------------------------------------- train
+TRAIN_B, TRAIN_T = 2, 32  # SL_LEARNER_DEFAULTS: 64 frames a step
+TRAIN_ITERS = 8
+# one f32 step under each config string, max |a - b| / max(|b|, 1) over loss,
+# info and grad_norm. The strings differ only inside the kernels: the scatter
+# kernels are bit-equal to the loop and the attention within 1e-5 of its
+# plain version (3xTF32), so the loss moves by about 1e-6 of itself; the
+# argmax metrics are equal unless a near-tie flips. 1e-4 leaves two decades.
+STEP_TOL = 1e-4
+
+
+def rel_err(got, want):
+    """max |got - want| / max(|want|, 1): absolute below 1, relative above
+    (a bf16 gradient of 8 has an ulp of 0.0625)."""
+    got, want = got.float(), want.float()
+    return float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
+
+
+def train_kernel_grads(K, rng, device, entity_num):
+    """Each kernel's autograd Function at the training shapes: attention
+    [64, 2, 512, 128] with the batch's entity counts, f32 and bf16; both
+    scatter kernels on [64, 512, 32], hw 24,320, uniform and padded indices.
+
+    The forward is the kernel: its output is held against the plain version
+    on the same inputs (attention max abs within ATTN_TOL, both scatters bit
+    for bit against the entity-order loop ``scatter_add_plain``). The
+    backward is the JAX formula in plain PyTorch and sees the kernel only
+    through the saved inputs, so its check holds that formula against
+    autograd through the plain version (attention via ``rel_err`` within
+    ATTN_TOL; the scatter gather exactly: one dout element a gradient, as
+    autograd through the one-hot plain version gives it). Returns the
+    inputs for the timings."""
+    import numpy as np
+    import torch
+
+    B, H, N, Dh = TRAIN_B * TRAIN_T, 2, 512, 128
+    mask = np.arange(N)[None, :] < entity_num[:, None]
+    fwd, bwd, inputs = {}, {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v, m = attention_inputs(rng, B, H, N, Dh, mask, dt, device)
+        w = torch.from_numpy(rng.standard_normal((B, H, N, Dh)).astype("float32")).to(device, dt)
+        outs, grads = {}, {}
+        for name, fn in (("kernel", K.masked_attention), ("plain", K.masked_attention_plain)):
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            outs[name] = fn(*leaves, m)
+            (outs[name] * w).sum().backward()
+            grads[name] = [t.grad for t in leaves]
+        name = str(dt)[6:]
+        got = outs["kernel"].detach()
+        check(got.dtype == dt and torch.isfinite(got.float()).all(), f"attention {name}: forward output")
+        err = float((got.float() - outs["plain"].detach().float()).abs().max())
+        check(err <= ATTN_TOL[name], f"attention forward {name}: max abs err {err}")
+        fwd[f"masked_attention_{name}"] = err
+        err = max(rel_err(a, b) for a, b in zip(grads["kernel"], grads["plain"]))
+        check(all(g.dtype == dt for g in grads["kernel"]), f"attention {name}: gradient dtype")
+        check(err <= ATTN_TOL[name], f"attention backward formula {name}: err {err}")
+        bwd[f"masked_attention_{name}"] = err
+        inputs[name] = (q, k, v, m, w)
+    hw, D = 152 * 160, 32
+    bits = lambda t: t.view(torch.int32)  # noqa: E731
+    for case in ("uniform", "padded"):
+        emb = rng.standard_normal((B, N, D)).astype("float32")
+        idx = rng.integers(0, hw, (B, N))
+        if case == "uniform":
+            idx[:, :8] = idx[:, :1]
+            idx[:, 8], idx[:, 9] = -3, hw + 7  # clipped to the edge cells
+        else:
+            for b, n in enumerate(entity_num):
+                idx[b, n:] = 0
+                emb[b, n:] *= -0.0
+        emb, idx = torch.from_numpy(emb).to(device), torch.from_numpy(idx).to(device)
+        w = torch.from_numpy(rng.standard_normal((B, hw, D)).astype("float32")).to(device)
+        loop = K.scatter_add_plain(emb, idx, hw)
+        e = emb.clone().requires_grad_()
+        (K.scatter_add_onehot_plain(e, idx, hw) * w).sum().backward()
+        for name in ("scatter_add_connection", "scatter_add_onehot"):
+            got = emb.clone().requires_grad_()
+            out = getattr(K, name)(got, idx, hw)
+            check(torch.equal(bits(out.detach()), bits(loop)), f"{name} forward {case}: differs from "
+                  f"scatter_add_plain")
+            fwd[f"{name}_{case}"] = float((out.detach() - loop).abs().max())
+            (out * w).sum().backward()
+            check(torch.equal(got.grad, e.grad), f"{name} gather backward {case}: differs from "
+                  f"autograd through the plain version")
+            bwd[f"{name}_{case}"] = float((got.grad - e.grad).abs().max())
+        inputs[case] = (emb, idx, w)
+    print(f"train kernels at [64, 2, 512, 128] / [64, 512, 32] hw {hw}, through their autograd "
+          f"Functions: forward (kernel vs plain version, max abs; tol {ATTN_TOL}, scatter bit-equal) "
+          + json.dumps(fwd) + "; backward formula vs autograd through the plain version (attention "
+          "max |a - b| / max(|b|, 1) over dq, dk, dv; scatter max abs, must be 0) " + json.dumps(bwd))
+    return inputs, fwd
+
+
+def train_kernel_times(K, inputs):
+    """Device ms per call of each kernel's forward and backward at the
+    training shapes (``device_ms``), with bounds counted as in the kernels
+    phase: the forward's as there; the attention backward reads q, dout and
+    the needed keys' K and V rows, writes dq, dk and dv in full, and does 5
+    products of 2 H Dh N keys operations at the f32 CUDA-core peak (a plain
+    PyTorch f32 backward, TF32 off); the scatter backward reads the indices
+    and one dout row an entity, and writes the gradient."""
+    import torch
+
+    q, k, v, m, dout = inputs["float32"]
+    B, H, N, Dh = q.shape
+    valid = m.sum(1)
+    keys = int(torch.where(valid > 0, valid, N).sum())
+    out = {}
+    fb = 2 * q.numel() * 4 + 2 * H * Dh * 4 * keys + m.numel()
+    fwd_ms, _ = device_ms(lambda: K.masked_attention(q, k, v, m))
+    bwd_ms, _ = device_ms(lambda: K.masked_attention_backward(q, k, v, m, dout), iters=5, warmup=1)
+    out["masked_attention"] = {
+        "fwd_ms": fwd_ms, "fwd_bound_ms": bound(fb, 4 * H * Dh * N * keys, PEAK_TF32_FLOPS, 3.0)[0],
+        "plain_fwd_ms": device_ms(lambda: K.masked_attention_plain(q, k, v, m), iters=5, warmup=1)[0],
+        "bwd_ms": bwd_ms,
+        "bwd_bound_ms": bound(5 * q.numel() * 4 + 2 * H * Dh * 4 * keys + m.numel(),
+                              10 * H * Dh * N * keys)[0]}
+    emb, idx, dmap = inputs["uniform"]  # dmap: an output gradient [B, hw, D]
+    hw = dmap.shape[1]
+    Bs, Ns, D = emb.shape
+    for name in ("scatter_add_connection", "scatter_add_onehot"):
+        fn = getattr(K, name)
+        out[name] = {"fwd_ms": device_ms(lambda: fn(emb, idx, hw))[0],
+                     "fwd_bound_ms": bound(emb.numel() * 4 + idx.numel() * 4 + Bs * hw * D * 4,
+                                           emb.numel())[0],
+                     "bwd_ms": device_ms(lambda: K.scatter_add_backward(idx, dmap, hw))[0],
+                     "bwd_bound_ms": bound(idx.numel() * 8 + 2 * emb.numel() * 4, 0)[0]}
+    print(json.dumps({"train_kernel_ms": out, "shapes": {
+        "attention": [B, H, N, Dh], "valid_keys": keys, "scatter": [Bs, Ns, D], "hw": hw}}))
+    return out
+
+
+def sl_learner(device, scatter_impl, attn_impl, dtype="float32"):
+    """The flagship SL learner (SL_LEARNER_DEFAULTS, seeded ``init_params``)."""
+    from distar_tpu_torch.learner import SLLearner
+
+    return SLLearner({"learner": {"batch_size": TRAIN_B, "unroll_len": TRAIN_T},
+                      "model": {"encoder": {"entity": {"attention_impl": attn_impl},
+                                            "scatter": {"impl": scatter_impl}},
+                                "dtype": dtype}}, device=device)
+
+
+def finite(log, keys=("total_loss", "grad_norm")):
+    import math
+
+    return all(math.isfinite(log[k]) for k in keys)
+
+
+def train_entry_point(K, batch):
+    """``python -m distar_tpu_torch.bin.sl_train --type learner`` at the
+    flagship with the kernel overlay, run through the bin's learner function
+    on one fixed batch for TRAIN_ITERS steps with the state carried; its
+    per-step log lines are read back from its output. The launch counts
+    must rise by one attention call a transformer layer and one scatter
+    call a step."""
+    import contextlib
+    import io
+    import itertools
+
+    from distar_tpu_torch.bin import sl_train
+
+    overlay = {"model": {"encoder": {"entity": {"attention_impl": "pallas"},
+                                     "scatter": {"impl": "pallas"}}},
+               "learner": {"log_freq": 1}}
+    args = sl_train.parser().parse_args([
+        "--type", "learner", "--full-model", "--iters", str(TRAIN_ITERS),
+        "--batch-size", str(TRAIN_B), "--traj-len", str(TRAIN_T), "--config", json.dumps(overlay)])
+    before = dict(K.launch_counts)
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        lrn = sl_train.learner(args, itertools.repeat(batch))
+    rose = {k: K.launch_counts[k] - before[k] for k in before}
+    logs = [json.loads(ln) for ln in text.getvalue().splitlines() if ln.startswith("{")]
+    check(len(logs) == TRAIN_ITERS, f"entry point: {len(logs)} log lines for {TRAIN_ITERS} steps")
+    check(all(finite(lg) for lg in logs), "entry point: a non-finite loss or grad_norm")
+    losses = [lg["total_loss"] for lg in logs]
+    check(losses[-1] < losses[0], f"entry point: loss {losses[0]} -> {losses[-1]} on a fixed batch")
+    layers = lrn.model_cfg.encoder.entity.layer_num  # one attention call a layer
+    want = {"masked_attention": layers * TRAIN_ITERS, "scatter_add_connection": TRAIN_ITERS,
+            "scatter_add_onehot": 0}
+    check(rose == want, f"entry point launches {rose}, want {want}")
+    print(f"train entry point (bin/sl_train.py learner, flagship, kernel overlay, f32, fixed batch, "
+          f"{TRAIN_ITERS} steps): total_loss " + " ".join(f"{x:.3f}" for x in losses)
+          + f"; grad_norm {logs[0]['grad_norm']:.2f} -> {logs[-1]['grad_norm']:.2f}; "
+          f"launches {rose}; log line keys {sorted(logs[0])}")
+    return losses
+
+
+def phase_train(device, rng):
+    """The SL train step on the card (module docstring, phase 5). Returns
+    the launch counts of the train path (every launch after the kernel
+    gradient and timing calls) and the measurements."""
+    import torch
+
+    from distar_tpu_torch.learner import random_sl_batch
+    from distar_tpu_torch.ops import kernels as K
+
+    print(f"train: torch.backends.cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+          f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    batch = random_sl_batch(TRAIN_B, TRAIN_T, rng)  # one fixed batch, 64 frames
+    inputs, train_fwd_err = train_kernel_grads(K, rng, device, batch["entity_num"])
+    kernel_ms = train_kernel_times(K, inputs)
+    del inputs
+
+    K.reset_launch_counts()
+    # config strings agree on one step from the same weights, batch and state
+    strings = {"pallas": ("pallas", "pallas"), "pallas_onehot": ("pallas_onehot", "pallas"),
+               "xla": ("xla", "xla")}
+    learners = {impl: sl_learner(device, *ia) for impl, ia in strings.items()}
+    logs = {impl: lrn._train(batch) for impl, lrn in learners.items()}
+    worst = {}
+    for impl in ("pallas", "pallas_onehot"):
+        check(set(logs[impl]) == set(logs["xla"]), f"{impl}: info keys differ")
+        errs = {k: abs(logs[impl][k] - v) / max(abs(v), 1.0) for k, v in logs["xla"].items()}
+        key = max(errs, key=errs.get)
+        check(errs[key] <= STEP_TOL, f"train step {impl} vs xla: {key} {logs[impl][key]} vs "
+              f"{logs['xla'][key]}")
+        worst[impl] = (key, errs[key])
+    check(all(finite(lg) for lg in logs.values()), "train step: a non-finite loss or grad_norm")
+    print(f"train step parity vs 'xla' (loss, {len(logs['xla'])} info scalars, grad_norm; "
+          f"max |a - b| / max(|b|, 1), tol {STEP_TOL}): {worst}; total_loss "
+          + json.dumps({k: lg["total_loss"] for k, lg in logs.items()}))
+
+    losses = train_entry_point(K, batch)
+
+    # step time in turns (3 warm-up steps each, the parity step included),
+    # a profiled step and the peak memory of one step
+    for _ in range(2):
+        for lrn in learners.values():
+            lrn._train(batch)
+    times = {impl: [] for impl in learners}
+    order = list(learners)
+    for _ in range(5):
+        for impl in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            learners[impl]._train(batch)  # ends in the device->host copy of the scalars
+            torch.cuda.synchronize()
+            times[impl].append((time.perf_counter() - t0) * 1e3)
+        order.reverse()
+    step_ms = {impl: statistics.median(t) for impl, t in times.items()}
+    frames = TRAIN_B * TRAIN_T
+    memory = {}
+    for impl, lrn in learners.items():
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        lrn._train(batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        memory[impl] = {"peak_gb": peak / 1e9, "step_gb": (peak - held) / 1e9}
+    profiles = {impl: profile_call(lambda: lrn._train(batch)) for impl, lrn in learners.items()}
+    del learners
+
+    # one bf16 step: finite, no parity claim
+    lrn16 = sl_learner(device, "pallas", "pallas", "bfloat16")
+    log16 = lrn16._train(batch)
+    check(finite(log16), f"bf16 train step: loss {log16['total_loss']} grad_norm {log16['grad_norm']}")
+    print(f"train bf16 step (kernel overlay): total_loss {log16['total_loss']:.4f} "
+          f"grad_norm {log16['grad_norm']:.3f}")
+    del lrn16
+    launches = dict(K.launch_counts)
+    for name, n in launches.items():
+        check(n > 0, f"{name} never launched on the train path")
+    result = {"step_ms": step_ms, "step_ms_all": times,
+              "sl_frames_per_s": {impl: frames / (ms / 1e3) for impl, ms in step_ms.items()},
+              "memory": memory, "step_profile": profiles, "train_kernel_ms": kernel_ms,
+              "train_kernel_max_abs_err": train_fwd_err,
+              "entry_point_losses": losses, "launches": launches}
+    print(json.dumps({"train": result}))
+    return launches, result
 
 
 def smi_line():
@@ -632,14 +920,25 @@ def main() -> int:
         for name in build.KERNELS:
             check(launches.get(name, 0) > 0, f"{name} never launched on the serve path")
 
-        # 5. the kernels line
+        # 5. train
+        train_launches, train = phase_train(device, rng)
+        print(f"launches: serve {launches}, train {train_launches}")
+        launches = {name: launches[name] + train_launches[name] for name in build.KERNELS}
+
+        # 6. the kernels line; max_abs_err over the serve and the f32 training shapes
+        for name, rec in records.items():
+            rec["max_abs_err"] = max([rec["max_abs_err"]] + [
+                err for key, err in train["train_kernel_max_abs_err"].items()
+                if key.startswith(name) and not key.endswith("bfloat16")])
         line = {"kernels": [
             {"name": name, "route": "cuda", "source": rec["source"], "replaces": rec["replaces"],
              "launches": launches[name], "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
              "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
              "library_ms": rec["library_ms"]}
             for name, rec in records.items()]}
-        print(json.dumps({"serve_flush_ms": flush_ms, "seconds": time.perf_counter() - t_start}))
+        print(json.dumps({"serve_flush_ms": flush_ms, "train_step_ms": train["step_ms"],
+                          "sl_frames_per_s": train["sl_frames_per_s"],
+                          "seconds": time.perf_counter() - t_start}))
         print(json.dumps(line))
     except Exception as e:  # every phase failure fails the run
         import traceback

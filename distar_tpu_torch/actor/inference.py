@@ -27,9 +27,9 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _to_device(tree, device):
+def to_device(tree, device):
     if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
+        return {k: to_device(v, device) for k, v in tree.items()}
     return torch.from_numpy(np.ascontiguousarray(tree)).to(device, non_blocking=True)
 
 
@@ -102,7 +102,7 @@ class BatchedInference:
         noise: touches neither the live weights (``params``, when given,
         run through ``torch.func.functional_call``), nor any slot's carry,
         nor the noise generator."""
-        batch = _to_device(F.batch_tree([template_obs] * self.num_slots), self.device)
+        batch = to_device(F.batch_tree([template_obs] * self.num_slots), self.device)
         g = torch.Generator(device=self.device).manual_seed(0)
         args = (batch["spatial_info"], batch["entity_info"], batch["scalar_info"],
                 batch["entity_num"], self._zero_hidden())
@@ -134,7 +134,7 @@ class BatchedInference:
         """
         if len(prepared) != self.num_slots:
             raise ValueError(f"{len(prepared)} observations for {self.num_slots} slots")
-        batch = _to_device(F.batch_tree(prepared), self.device)
+        batch = to_device(F.batch_tree(prepared), self.device)
         if noise is None:
             noise = gumbel_noise(self.model.cfg, self.num_slots, self.generator, self.device)
         else:

@@ -82,8 +82,8 @@ def default_model_config() -> Config:
             # masked sum by entity_num (reference default), 'constant' by 512.
             "entity_reduce_type": "selected_units_num",
             "dtype": "float32",  # compute dtype: 'bfloat16' runs under bf16 autocast
-            # rematerialize the encoder blocks in the backward pass; a
-            # training switch, read by no forward of the serving path
+            # recompute the spatial encoder in the backward pass
+            # (torch.utils.checkpoint) instead of keeping its activations
             "remat": False,
             "encoder": {
                 "scalar": {

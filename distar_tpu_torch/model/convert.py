@@ -1,4 +1,5 @@
-"""Weight bridge: the JAX package's flax ``params`` tree -> a port ``state_dict``.
+"""Weight bridge between the JAX package's flax ``params`` tree and a port
+``state_dict``, both ways (``params_from_flax``, ``params_to_flax``).
 
 The port's modules carry flax's names, so a leaf at ``a/b/Dense_0/kernel``
 lands at ``a.b.Dense_0.weight``. Layouts change on the way:
@@ -10,7 +11,8 @@ lands at ``a.b.Dense_0.weight``. Layouts change on the way:
 * bare params (``update_sp``, ``end_embedding``, ...) keep their names.
 
 No fc rows are permuted: the port flattens (spatial fc) and reshapes
-(location projection) maps in the JAX package's NHWC order.
+(location projection) maps in the JAX package's NHWC order. The way back
+reads each parameter's owner module to know which flax leaf it was.
 """
 from __future__ import annotations
 
@@ -65,3 +67,43 @@ def params_from_flax(params: Mapping, model: torch.nn.Module = None) -> Dict[str
                 f"flax params do not fit the port: missing {missing[:8]}, unused {unused[:8]}, "
                 f"shape mismatch {[(k, tuple(state[k].shape), want[k]) for k in wrong[:8]]}")
     return state
+
+
+def _flax_leaf(model: torch.nn.Module, name: str):
+    """(flax path, function of the torch tensor giving the flax array) of
+    parameter ``name`` of ``model``."""
+    *mods, leaf = name.split(".")
+    owner = model.get_submodule(".".join(mods))
+    if leaf == "weight":
+        if isinstance(owner, torch.nn.Linear):
+            return (*mods, "kernel"), lambda t: t.T
+        if isinstance(owner, torch.nn.Conv2d):
+            return (*mods, "kernel"), lambda t: t.permute(2, 3, 1, 0)
+        if isinstance(owner, torch.nn.LayerNorm):
+            return (*mods, "scale"), lambda t: t
+        if isinstance(owner, torch.nn.Embedding):
+            return (*mods, "embedding"), lambda t: t
+        raise ValueError(f"no flax leaf for {name} ({type(owner).__name__})")
+    return (*mods, leaf), lambda t: t
+
+
+def flax_names(model: torch.nn.Module) -> Dict[str, str]:
+    """Each parameter's flax tree path, as ``jax.tree_util`` names it under
+    the ``params`` collection: ``params/encoder/.../kernel``."""
+    return {name: "/".join(("params",) + _flax_leaf(model, name)[0])
+            for name, _ in model.named_parameters()}
+
+
+def params_to_flax(model: torch.nn.Module, tensors: Mapping[str, torch.Tensor] = None) -> dict:
+    """The inverse of :func:`params_from_flax`: ``{"params": nested dict of
+    numpy arrays}`` in flax layouts, from ``model``'s parameters or from
+    ``tensors`` keyed like them (gradients, optimizer moments)."""
+    tensors = dict(model.named_parameters()) if tensors is None else tensors
+    out: dict = {}
+    for name, t in tensors.items():
+        path, to_flax = _flax_leaf(model, name)
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = np.array(to_flax(t.detach().float().cpu()).numpy(), order="C")  # a copy
+    return {"params": out}

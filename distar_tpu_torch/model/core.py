@@ -1,10 +1,17 @@
-"""The policy network's sampling forward.
+"""The policy network: the sampling and the teacher-forced forwards.
 
 Counterparts of ``distar_tpu.model.core``: ``Encoder`` (scalar + spatial +
-entity with the entity -> map scatter connection) -> LN-LSTM core ->
-``Policy.sample`` over the six heads. ``Model.sample_action`` is actor and
-serving inference; the learner forwards and the value towers come with the
-training slice.
+entity with the entity -> map scatter connection) -> LN-LSTM core -> the six
+heads, sampled (``Policy.sample``) or teacher-forced
+(``Policy.train_forward``). Forward modes:
+
+* ``sample_action``  — actor and serving inference: one step, every head
+  sampled, log-probs and the new hidden state.
+* ``teacher_logits`` — one step's teacher-forced logits for given actions.
+* ``sl_forward``     — the supervised learner's forward over flat [B*T]
+  batch-major windows, the LSTM state carried in and returned.
+
+The RL learner forward and the value towers are not ported yet.
 """
 from __future__ import annotations
 
@@ -13,6 +20,7 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..lib.actions import SELECTED_UNITS_MASK
@@ -44,6 +52,9 @@ class Encoder(nn.Module):
         self.entity_encoder = EntityEncoder(cfg)
         self.FCBlock_0 = FCBlock(c.encoder.entity.output_dim, c.encoder.scatter.output_dim, "relu")
         self.spatial_encoder = SpatialEncoder(cfg)
+        # recompute the spatial encoder in the backward pass instead of
+        # keeping its activations, as the JAX package's nn.remat
+        self.remat = bool(c.get("remat", False))
 
     def forward(self, spatial_info, entity_info, scalar_info, entity_num):
         embedded_scalar, scalar_context, baseline_feature = self.scalar_encoder(scalar_info)
@@ -52,7 +63,11 @@ class Encoder(nn.Module):
         locations = torch.stack([entity_info["x"].long(), entity_info["y"].long()], dim=-1)
         scatter_map = scatter_connection(proj, locations, self.spatial_size, self.scatter_type,
                                          impl=self.scatter_impl)
-        embedded_spatial, map_skip = self.spatial_encoder(spatial_info, scatter_map)
+        if self.remat and torch.is_grad_enabled():
+            embedded_spatial, map_skip = torch.utils.checkpoint.checkpoint(
+                self.spatial_encoder, spatial_info, scatter_map, use_reentrant=False)
+        else:
+            embedded_spatial, map_skip = self.spatial_encoder(spatial_info, scatter_map)
         lstm_input = torch.cat([embedded_scalar, embedded_entity, embedded_spatial], dim=-1)
         return lstm_input, scalar_context, baseline_feature, entity_embeddings, map_skip
 
@@ -91,6 +106,22 @@ class Policy(nn.Module):
             emb, map_skip, noise["target_location"])
         return action, selected_units_num, logit, extra_units
 
+    def train_forward(self, lstm_output, entity_embeddings, map_skip, scalar_context, entity_num,
+                      action_info: Dict[str, torch.Tensor], selected_units_num):
+        """Teacher-forced logits of every head for the labels in ``action_info``."""
+        logit: Dict[str, torch.Tensor] = {}
+        logit["action_type"], _, emb = self.action_type_head(
+            lstm_output, scalar_context, action_type=action_info["action_type"].long())
+        logit["delay"], _, emb = self.delay_head(emb, choice=action_info["delay"].long())
+        logit["queued"], _, emb = self.queued_head(emb, choice=action_info["queued"].long())
+        logit["selected_units"], _, emb, _, _ = self.selected_units_head.teacher_forward(
+            emb, entity_embeddings, entity_num, action_info["selected_units"], selected_units_num)
+        logit["target_unit"], _ = self.target_unit_head(
+            emb, entity_embeddings, entity_num, target_unit=action_info["target_unit"].long())
+        logit["target_location"], _ = self.location_head(
+            emb, map_skip, location=action_info["target_location"].long())
+        return logit
+
 
 def noise_shapes(cfg, batch_size: int) -> Dict[str, tuple]:
     """Per-head shapes of the Gumbel noise ``sample_action`` consumes."""
@@ -118,7 +149,7 @@ def gumbel_noise(cfg, batch_size: int, generator: torch.Generator, device) -> Di
 
 
 class Model(nn.Module):
-    """Encoder + LSTM core + Policy (the sampling forward)."""
+    """Encoder + LSTM core + Policy."""
 
     def __init__(self, cfg):
         super().__init__()
@@ -141,9 +172,7 @@ class Model(nn.Module):
         B = entity_num.shape[0]
         if noise is None:
             noise = gumbel_noise(self.cfg, B, generator, entity_num.device)
-        amp = (torch.autocast(entity_num.device.type, dtype=torch.bfloat16)
-               if self.compute_dtype == torch.bfloat16 else nullcontext())
-        with amp:
+        with self._amp(entity_num.device):
             lstm_input, scalar_context, _, entity_embeddings, map_skip = self.encoder(
                 spatial_info, entity_info, scalar_info, entity_num)
             lstm_output, out_state = self.core_lstm(lstm_input[None], hidden_state)
@@ -162,6 +191,42 @@ class Model(nn.Module):
         }
 
     forward = sample_action
+
+    def _amp(self, device):
+        """bf16 autocast under the 'bfloat16' compute dtype (params stay f32)."""
+        if self.compute_dtype == torch.bfloat16:
+            return torch.autocast(device.type, dtype=torch.bfloat16)
+        return nullcontext()
+
+    def teacher_logits(self, spatial_info, entity_info, scalar_info, entity_num, hidden_state,
+                       action_info, selected_units_num):
+        """One step's teacher-forced logits for the given actions."""
+        with self._amp(entity_num.device):
+            lstm_input, scalar_context, _, entity_embeddings, map_skip = self.encoder(
+                spatial_info, entity_info, scalar_info, entity_num)
+            lstm_output, out_state = self.core_lstm(lstm_input[None], hidden_state)
+            logit = self.policy.train_forward(
+                lstm_output[0], entity_embeddings, map_skip, scalar_context, entity_num,
+                action_info, selected_units_num)
+        return {"logit": logit, "hidden_state": out_state, "entity_num": entity_num,
+                "selected_units_num": selected_units_num}
+
+    def sl_forward(self, spatial_info, entity_info, scalar_info, entity_num, action_info,
+                   selected_units_num, hidden_state, batch_size: int):
+        """Teacher-forced forward over a flat [B*T, ...] batch laid out
+        batch-major (trajectory b's T steps are rows b*T .. b*T + T-1): the
+        LSTM runs over [T, B] from ``hidden_state``. Returns (logits, each
+        [B*T, ...], the LSTM's final state)."""
+        with self._amp(entity_num.device):
+            lstm_input, scalar_context, _, entity_embeddings, map_skip = self.encoder(
+                spatial_info, entity_info, scalar_info, entity_num)
+            seq = lstm_input.reshape(batch_size, -1, lstm_input.shape[-1]).transpose(0, 1)
+            lstm_output, out_state = self.core_lstm(seq, hidden_state)
+            flat_out = lstm_output.transpose(0, 1).reshape(-1, lstm_output.shape[-1])
+            logits = self.policy.train_forward(
+                flat_out, entity_embeddings, map_skip, scalar_context, entity_num,
+                action_info, selected_units_num)
+        return logits, out_state
 
 
 def log_prob(logits: torch.Tensor, action: torch.Tensor) -> torch.Tensor:

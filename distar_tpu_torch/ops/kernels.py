@@ -15,6 +15,15 @@ reached the kernel (``scatter_add_connection`` runs as two launches, a zero
 pass and an owner pass, and ``masked_attention`` as a plan and the
 attention; each counts once), so a run can show that its main
 path went through the kernels.
+
+Each wrapper is differentiable: when a gradient is needed it runs through a
+``torch.autograd.Function`` whose forward is the same call (kernel or plain
+version) and whose backward is the JAX package's formula in plain PyTorch,
+on either device, as the JAX package's ``custom_vjp`` backward passes are
+plain XLA: attention recomputes the softmax in float32
+(``pallas_kernels.py:110-126``), each scatter gathers the output gradient at
+the clipped cells (``:202-207``, ``:287-294``). The backward launches no
+kernel, so ``launch_counts`` counts forward calls only.
 """
 from __future__ import annotations
 
@@ -80,11 +89,55 @@ def masked_attention_plain(q, k, v, mask, upcast: bool = True):
     return torch.einsum("bhqk,bhkd->bhqd", p, v).to(dtype)
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def masked_attention_backward(q, k, v, mask, dout):
+    """The JAX package's attention backward: recompute the scores and the
+    softmax in float32 whatever the input dtype, then dv = p^T dout,
+    dp = dout v^T, ds = p * (dp - sum(dp * p)), dq = ds k * scale and
+    dk = ds^T q * scale, each cast back to its input's dtype. Kept as the
+    JAX package has it where it is not the derivative: for a sample with no
+    valid key p is uniform and ds does not vanish, so dq and dk are nonzero
+    though the output (mean V) does not depend on q or k."""
+    with torch.autocast(q.device.type, enabled=False):
+        qf, kf, vf, d = q.float(), k.float(), v.float(), dout.float()
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+        score = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+        score = score.masked_fill(~mask.bool()[:, None, None, :], NEG_INF)
+        p = torch.softmax(score, dim=-1)
+        dv = torch.einsum("bhqk,bhqd->bhkd", p, d)
+        dp = torch.einsum("bhqd,bhkd->bhqk", d, vf)
+        ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+        dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+        dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _MaskedAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, mask):
+        ctx.save_for_backward(q, k, v, mask)
+        return _masked_attention(q, k, v, mask)
+
+    @staticmethod
+    def backward(ctx, dout):
+        return (*masked_attention_backward(*ctx.saved_tensors, dout.contiguous()), None)
+
+
 def masked_attention(q, k, v, mask):
     """q, k, v: [B, H, N, Dh] (float32 or bfloat16; on the card Dh a
     multiple of 4 up to 128, any N); mask: [B, N] key validity. Returns
     [B, H, N, Dh] in the input dtype, softmax and sums in float32. The kernel
-    runs both products on tensor cores (3xTF32 for float32 inputs)."""
+    runs both products on tensor cores (3xTF32 for float32 inputs).
+    Differentiable in q, k and v (:func:`masked_attention_backward`)."""
+    if _needs_grad(q, k, v):
+        return _MaskedAttention.apply(q, k, v, mask)
+    return _masked_attention(q, k, v, mask)
+
+
+def _masked_attention(q, k, v, mask):
     if _dispatch("masked_attention", q):
         return masked_attention_plain(q, k, v, mask)
     B, H, N, Dh = q.shape
@@ -155,13 +208,42 @@ def _scatter_kernel(name: str, embeddings, flat_idx, hw: int):
     return out
 
 
+def scatter_add_backward(flat_idx, dout, hw: int):
+    """The JAX package's scatter backward, for both kernels: the gradient of
+    row n of batch b is dout[b, clip(idx[b, n], 0, hw - 1)]. (The JAX one-hot
+    backward also zeroes rows whose index lies outside [0, hw); its public
+    wrapper clips first, as these wrappers do, so that guard never fires and
+    is not repeated here.)"""
+    idx = flat_idx.long().clamp(0, hw - 1)
+    return dout.gather(1, idx[..., None].expand(-1, -1, dout.shape[-1]))
+
+
+class _ScatterAdd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, embeddings, flat_idx, hw: int, forward):
+        ctx.hw = hw
+        ctx.save_for_backward(flat_idx)
+        return forward(embeddings, flat_idx, hw)
+
+    @staticmethod
+    def backward(ctx, dout):
+        (flat_idx,) = ctx.saved_tensors
+        return scatter_add_backward(flat_idx, dout.contiguous(), ctx.hw), None, None, None
+
+
 def scatter_add_connection(embeddings, flat_idx, hw: int):
     """embeddings: [B, N, D] float32 or bfloat16 (invalid entities zeroed; D
     <= SCATTER_MAX_D on the card); flat_idx: [B, N] int cell index, clipped
     here to [0, hw-1]. Returns [B, hw, D] in the input dtype, each cell's
     rows added in entity order from +0.0, every add rounded to that dtype
     (the Pallas loop kernel's numerics): ``scatter_add_plain``'s result bit
-    for bit."""
+    for bit. Differentiable in ``embeddings`` (:func:`scatter_add_backward`)."""
+    if _needs_grad(embeddings):
+        return _ScatterAdd.apply(embeddings, flat_idx, hw, _scatter_add_connection)
+    return _scatter_add_connection(embeddings, flat_idx, hw)
+
+
+def _scatter_add_connection(embeddings, flat_idx, hw: int):
     if _dispatch("scatter_add_connection", embeddings):
         return scatter_add_plain(embeddings, flat_idx, hw)
     return _scatter_kernel("scatter_add_connection", embeddings, flat_idx, hw)
@@ -170,7 +252,13 @@ def scatter_add_connection(embeddings, flat_idx, hw: int):
 def scatter_add_onehot(embeddings, flat_idx, hw: int):
     """The same function as :func:`scatter_add_connection`; the kernel gives
     the loop's f32 result bit for bit (its plain version, a matmul, does
-    not)."""
+    not). Differentiable in ``embeddings``, with the same backward."""
+    if _needs_grad(embeddings):
+        return _ScatterAdd.apply(embeddings, flat_idx, hw, _scatter_add_onehot)
+    return _scatter_add_onehot(embeddings, flat_idx, hw)
+
+
+def _scatter_add_onehot(embeddings, flat_idx, hw: int):
     if _dispatch("scatter_add_onehot", embeddings):
         return scatter_add_onehot_plain(embeddings, flat_idx, hw)
     return _scatter_kernel("scatter_add_onehot", embeddings, flat_idx, hw)

@@ -8,7 +8,9 @@ kernels, with the JAX kernels' numerics: 'pallas' adds bfloat16 rows in
 bfloat16, rounding after every add in entity order, as the Pallas loop
 kernel does; 'pallas_onehot' sums in float32 and rounds once, as the Pallas
 one-hot kernel does (any dtype but float32 and, for 'pallas', bfloat16 is
-summed in float32 and cast back).
+summed in float32 and cast back). All three are differentiable in the
+embeddings: 'xla' through autograd, the kernels through their
+``autograd.Function`` (the JAX package's gather backward).
 """
 from __future__ import annotations
 

@@ -6,9 +6,10 @@ scores are filled with -1e9 after the scale (never -inf), so a row with no
 valid key gives mean(V), not NaN. ``qkv`` splits as q | k | v and then each
 is cut into heads, giving [B, H, N, Dh] attention tensors.
 
-``impl``: 'xla' is the plain torch path; 'pallas' calls
-``kernels.masked_attention`` (the CUDA kernel on CUDA tensors, its plain
-version on CPU tensors); 'ring' needs the context-parallel mesh, which the
+``impl``: 'xla' is the plain torch path, differentiated by autograd;
+'pallas' calls ``kernels.masked_attention`` (the CUDA kernel on CUDA
+tensors, its plain version on CPU tensors; the JAX package's recompute
+backward either way); 'ring' needs the context-parallel mesh, which the
 port does not have yet.
 """
 from __future__ import annotations

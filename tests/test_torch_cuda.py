@@ -240,3 +240,62 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     for fn in (kernels.scatter_add_connection, kernels.scatter_add_onehot):
         with pytest.raises(ValueError):
             fn(wide, torch.zeros(1, 8, dtype=torch.long, device=cuda), 9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_masked_attention_gradient_matches_autograd_through_plain(cuda, dtype, tol):
+    """The kernel's autograd Function: its forward (the kernel) against the
+    plain version within ``tol`` max abs, and its backward (the JAX
+    formula's float32 recompute, which sees the kernel only through the
+    saved inputs) against autograd through the plain version; the backward
+    launches no kernel. Gradient errors are absolute below 1 and relative
+    above (a bf16 gradient of 8 has an ulp of 1/16). Sample 0 has no valid
+    key: its output mean(V) does not depend on q or k, so autograd gives
+    dq = dk = 0 there, while the JAX formula's ds = p (dp - sum(dp p)) with
+    a uniform p does not vanish; the port keeps the JAX formula, so that
+    sample is held on dv only (the model always has an entity)."""
+    rng = np.random.default_rng(8)
+    mask = np.arange(63)[None, :] < np.array([0, 1, 30, 63])[:, None]
+    q, k, v, m = _attention_inputs(rng, 4, 2, 63, 32, mask, dtype, cuda)
+    w = torch.from_numpy(rng.standard_normal((4, 2, 63, 32)).astype(np.float32)).to(cuda, dtype)
+    outs, grads = {}, {}
+    for name, fn in (("kernel", kernels.masked_attention), ("plain", kernels.masked_attention_plain)):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        kernels.reset_launch_counts()
+        outs[name] = fn(*leaves, m)
+        (outs[name] * w).sum().backward()
+        assert kernels.launch_counts["masked_attention"] == (name == "kernel")
+        grads[name] = [t.grad for t in leaves]
+    assert outs["kernel"].dtype == dtype
+    assert float((outs["kernel"].detach().float() - outs["plain"].detach().float()).abs().max()) <= tol
+    for i, (got, want) in enumerate(zip(grads["kernel"], grads["plain"])):
+        assert got.dtype == dtype
+        got, want = got.float(), want.float()
+        if i < 2:  # dq, dk: the samples with a valid key
+            got, want = got[1:], want[1:]
+        assert float(((got - want).abs() / want.abs().clamp_min(1.0)).max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["uniform", "padded"])
+@pytest.mark.parametrize("name", ["scatter_add_connection", "scatter_add_onehot"])
+def test_scatter_gradient_matches_autograd_through_plain(cuda, name, case):
+    """The kernel's autograd Function: its forward (the kernel) bit-equal to
+    the entity-order loop, and its gather backward equal element for element
+    to autograd through the kernel's plain version (each gradient is one
+    dout element)."""
+    hw = 152 * 160
+    emb, idx = _scatter_inputs(np.random.default_rng(9), 2, 64, 32, hw, case, cuda)
+    w = torch.from_numpy(np.random.default_rng(10).standard_normal((2, hw, 32)).astype(np.float32)).to(cuda)
+    plain = kernels.scatter_add_plain if name == "scatter_add_connection" else kernels.scatter_add_onehot_plain
+    grads = []
+    for fn in (getattr(kernels, name), plain):
+        e = emb.detach().clone().requires_grad_()
+        out = fn(e, idx, hw)
+        if fn is not plain:
+            want = kernels.scatter_add_plain(emb, idx, hw)
+            assert torch.equal(_bits(out.detach()), _bits(want))
+        (out * w).sum().backward()
+        grads.append(e.grad)
+    assert torch.equal(grads[0], grads[1])

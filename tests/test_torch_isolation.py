@@ -1,5 +1,6 @@
-"""The port stands alone: no module of distar_tpu_torch/ and not chip_smoke.py
-imports jax, flax, optax or anything of the JAX package distar_tpu."""
+"""The port stands alone: no module of distar_tpu_torch/ and neither of the
+port's root scripts (chip_smoke.py, attention_variants.py) imports jax,
+flax, optax or anything of the JAX package distar_tpu."""
 import ast
 import os
 
@@ -7,10 +8,11 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "distar_tpu")
+ROOT_SCRIPTS = ("chip_smoke.py", "attention_variants.py")
 
 
 def _port_files():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, name) for name in ROOT_SCRIPTS]
     for root, _, files in os.walk(os.path.join(REPO, "distar_tpu_torch")):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(os.path.relpath(p, REPO) for p in out)
@@ -31,7 +33,11 @@ def _imported_modules(path):
 
 def test_port_has_modules():
     files = _port_files()
-    assert "chip_smoke.py" in files
+    assert set(ROOT_SCRIPTS) <= set(files)
+    for module in ("bin/sl_train.py", "learner/sl_learner.py", "learner/base_learner.py",
+                   "learner/data.py", "losses/sl_loss.py", "parallel/optimizer.py",
+                   "parallel/grad_clip.py"):
+        assert os.path.join("distar_tpu_torch", module) in files
     assert len(files) > 20
 
 
