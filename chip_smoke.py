@@ -38,10 +38,37 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              batch, the loss falling and 3 attention + 1 scatter launches a
              step; step ms, SL frames/s, a profiled step, peak memory and
              each kernel's forward and backward at the training shapes; one
-             bf16 step.
+             bf16 step. Beside each kernel at the training shapes, the library
+             calls of the same functions: SDPA with the same boolean mask
+             (forward, forward + backward; f32 and bf16), ``zeros +
+             index_add_`` and an ``index_select`` gather for its backward.
+6. rl      — the RL learner (``RL_LEARNER_DEFAULTS``, 4 x 16: 68 observed
+             frames) and the distillation student at flagship width, f32:
+             each kernel's Function at the RL shapes [68, 2, 512, 128] /
+             [68, 512, 32] and the student's [68, 2, 512, 64] / [68, 512,
+             16], held as in phase 5 and timed beside the library calls; the
+             three config strings from the same weights on a zero-observation
+             ``FakeRLDataloader`` batch and on a fixed ``random_rl_batch``:
+             loss and every info scalar within STEP_TOL, the whole gradients
+             within GRAD_TOL of their norm, while planted wiring faults
+             (UPGO or KL term dropped, time and batch axes crossed) must
+             move the 'xla' gradient further than GRAD_TOL; printed beside
+             them the 'xla' string's distance from its own repeat and the
+             parameter groups that carry the strings' distance; then one
+             step each; one step
+             with the value-pretrain gate (the policy heads bit for bit
+             unchanged, the winloss tower moved); 8 steps of
+             ``RLLearner.run`` on its own ``FakeRLDataloader`` with 3
+             attention + 1 scatter launches a step; step ms, RL frames/s, a
+             profiled step, peak memory; one bf16 step; 3 steps at the
+             reference's 6 x 64 with their peak memory; the
+             ``DistillLearner`` strings held the same way, 4 steps of
+             ``DistillLearner.run`` with 2 attention + 1 scatter launches a
+             step, and its step ms.
 
-The line before the last is the ``kernels`` JSON (launches: the serve and
-the train paths together); the last line is ``{"ok": true, "device": {...}}``.
+The line before the last is the ``kernels`` JSON (launches: the serve, SL,
+RL and distillation paths together, each read from zero around its run);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -504,9 +531,6 @@ def phase_serve(device, rng):
     from distar_tpu_torch.lib import features as F
     from distar_tpu_torch.model import gumbel_noise
 
-    def overlay(scatter_impl, attn_impl):
-        return {"encoder": {"entity": {"attention_impl": attn_impl}, "scatter": {"impl": scatter_impl}}}
-
     obs = [[F.random_step_data(rng) for _ in range(3)] for _ in range(8)]
     launches = {}
     state = None
@@ -600,6 +624,25 @@ TRAIN_ITERS = 8
 # argmax metrics are equal unless a near-tie flips. 1e-4 leaves two decades.
 STEP_TOL = 1e-4
 
+RL_B, RL_T = 4, 16  # RL_LEARNER_DEFAULTS: 64 acted frames, 68 observed a step
+RL_BIG_B, RL_BIG_T = 6, 64  # the reference's trajectories x steps on one GPU (BASELINE.md)
+RL_ITERS = 8
+# the RL and distillation strings' whole gradients: within GRAD_TOL of the
+# 'xla' gradient's norm, and every held wiring fault (``rl_faults``) further
+# from it than that (``hold_strings``). On an H100 the sound strings lie
+# 1.9e-3 (random batch) and 3.1e-3 (zero observations) of the norm from
+# 'xla'; dropping UPGO moves the gradient 5.5e-2, crossing the time and
+# batch axes 1.2. 1e-2 lies between, about 3x from each.
+GRAD_TOL = 1e-2
+DISTILL_ITERS = 4
+STRINGS = {"pallas": ("pallas", "pallas"), "pallas_onehot": ("pallas_onehot", "pallas"),
+           "xla": ("xla", "xla")}
+
+
+def overlay(scatter_impl, attn_impl, dtype="float32"):
+    return {"encoder": {"entity": {"attention_impl": attn_impl}, "scatter": {"impl": scatter_impl}},
+            "dtype": dtype}
+
 
 def rel_err(got, want):
     """max |got - want| / max(|want|, 1): absolute below 1, relative above
@@ -608,10 +651,12 @@ def rel_err(got, want):
     return float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
 
 
-def train_kernel_grads(K, rng, device, entity_num):
-    """Each kernel's autograd Function at the training shapes: attention
-    [64, 2, 512, 128] with the batch's entity counts, f32 and bf16; both
-    scatter kernels on [64, 512, 32], hw 24,320, uniform and padded indices.
+def train_kernel_grads(K, rng, device, entity_num, Dh=128, D=32):
+    """Each kernel's autograd Function at a training shape: attention
+    [F, 2, 512, Dh] with the batch's F entity counts, f32 and bf16; both
+    scatter kernels on [F, 512, D], hw 24,320, uniform and padded indices
+    (F = 64 frames for the SL step, 68 for the RL step; Dh 64 and D 16 are
+    the distillation student's).
 
     The forward is the kernel: its output is held against the plain version
     on the same inputs (attention max abs within ATTN_TOL, both scatters bit
@@ -625,7 +670,7 @@ def train_kernel_grads(K, rng, device, entity_num):
     import numpy as np
     import torch
 
-    B, H, N, Dh = TRAIN_B * TRAIN_T, 2, 512, 128
+    B, H, N = len(entity_num), 2, 512
     mask = np.arange(N)[None, :] < entity_num[:, None]
     fwd, bwd, inputs = {}, {}, {}
     for dt in (torch.float32, torch.bfloat16):
@@ -648,7 +693,7 @@ def train_kernel_grads(K, rng, device, entity_num):
         check(err <= ATTN_TOL[name], f"attention backward formula {name}: err {err}")
         bwd[f"masked_attention_{name}"] = err
         inputs[name] = (q, k, v, m, w)
-    hw, D = 152 * 160, 32
+    hw = 152 * 160
     bits = lambda t: t.view(torch.int32)  # noqa: E731
     for case in ("uniform", "padded"):
         emb = rng.standard_normal((B, N, D)).astype("float32")
@@ -676,16 +721,34 @@ def train_kernel_grads(K, rng, device, entity_num):
                   f"autograd through the plain version")
             bwd[f"{name}_{case}"] = float((got.grad - e.grad).abs().max())
         inputs[case] = (emb, idx, w)
-    print(f"train kernels at [64, 2, 512, 128] / [64, 512, 32] hw {hw}, through their autograd "
+    print(f"train kernels at [{B}, {H}, {N}, {Dh}] / [{B}, {N}, {D}] hw {hw}, through their autograd "
           f"Functions: forward (kernel vs plain version, max abs; tol {ATTN_TOL}, scatter bit-equal) "
           + json.dumps(fwd) + "; backward formula vs autograd through the plain version (attention "
           "max |a - b| / max(|b|, 1) over dq, dk, dv; scatter max abs, must be 0) " + json.dumps(bwd))
     return inputs, fwd
 
 
-def train_kernel_times(K, inputs):
-    """Device ms per call of each kernel's forward and backward at the
-    training shapes (``device_ms``), with bounds counted as in the kernels
+def sdpa_calls(q, k, v, m, dout):
+    """The library yardsticks of the attention at a training shape: SDPA
+    with the same boolean key mask, forward, and forward + backward (the
+    gradients of q, k and v for ``dout``)."""
+    import torch
+    import torch.nn.functional as Fn
+
+    mask4 = m[:, None, None, :]
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    fwd = lambda: Fn.scaled_dot_product_attention(q, k, v, attn_mask=mask4)  # noqa: E731
+    both = lambda: torch.autograd.grad(  # noqa: E731
+        Fn.scaled_dot_product_attention(*leaves, attn_mask=mask4), leaves, dout)
+    return fwd, both
+
+
+def train_kernel_times(K, inputs, tag="train"):
+    """Device ms per call of each kernel's forward and backward at a
+    training shape (``device_ms``), beside the library calls of the same
+    functions (SDPA with the same boolean mask, forward and forward +
+    backward, f32 and bf16; ``zeros + index_add_`` and, for its backward,
+    an ``index_select`` gather), with bounds counted as in the kernels
     phase: the forward's as there; the attention backward reads q, dout and
     the needed keys' K and V rows, writes dq, dk and dv in full, and does 5
     products of 2 H Dh N keys operations at the f32 CUDA-core peak (a plain
@@ -701,35 +764,47 @@ def train_kernel_times(K, inputs):
     fb = 2 * q.numel() * 4 + 2 * H * Dh * 4 * keys + m.numel()
     fwd_ms, _ = device_ms(lambda: K.masked_attention(q, k, v, m))
     bwd_ms, _ = device_ms(lambda: K.masked_attention_backward(q, k, v, m, dout), iters=5, warmup=1)
-    out["masked_attention"] = {
+    rec = out["masked_attention"] = {
         "fwd_ms": fwd_ms, "fwd_bound_ms": bound(fb, 4 * H * Dh * N * keys, PEAK_TF32_FLOPS, 3.0)[0],
         "plain_fwd_ms": device_ms(lambda: K.masked_attention_plain(q, k, v, m), iters=5, warmup=1)[0],
         "bwd_ms": bwd_ms,
         "bwd_bound_ms": bound(5 * q.numel() * 4 + 2 * H * Dh * 4 * keys + m.numel(),
                               10 * H * Dh * N * keys)[0]}
+    for name in ("float32", "bfloat16"):
+        q, k, v, m, dout = inputs[name]
+        fwd, both = sdpa_calls(q, k, v, m, dout)
+        if name == "bfloat16":
+            rec["bf16_fwd_ms"] = device_ms(lambda: K.masked_attention(q, k, v, m))[0]
+            rec["bf16_bwd_ms"] = device_ms(lambda: K.masked_attention_backward(q, k, v, m, dout),
+                                           iters=5, warmup=1)[0]
+        rec[f"library_{name}_fwd_ms"] = device_ms(fwd)[0]
+        rec[f"library_{name}_fwd_bwd_ms"] = device_ms(both, iters=5, warmup=1)[0]
     emb, idx, dmap = inputs["uniform"]  # dmap: an output gradient [B, hw, D]
     hw = dmap.shape[1]
     Bs, Ns, D = emb.shape
+    flat = (idx.clamp(0, hw - 1) + torch.arange(Bs, device=idx.device)[:, None] * hw).reshape(-1)
+    flat_dmap = dmap.reshape(-1, D)
+    library = {"library_fwd_ms": device_ms(index_add_call(emb, idx, hw))[0],
+               "library_bwd_ms": device_ms(lambda: flat_dmap.index_select(0, flat))[0]}
     for name in ("scatter_add_connection", "scatter_add_onehot"):
         fn = getattr(K, name)
         out[name] = {"fwd_ms": device_ms(lambda: fn(emb, idx, hw))[0],
                      "fwd_bound_ms": bound(emb.numel() * 4 + idx.numel() * 4 + Bs * hw * D * 4,
                                            emb.numel())[0],
                      "bwd_ms": device_ms(lambda: K.scatter_add_backward(idx, dmap, hw))[0],
-                     "bwd_bound_ms": bound(idx.numel() * 8 + 2 * emb.numel() * 4, 0)[0]}
-    print(json.dumps({"train_kernel_ms": out, "shapes": {
+                     "bwd_bound_ms": bound(idx.numel() * 8 + 2 * emb.numel() * 4, 0)[0], **library}
+    print(json.dumps({f"{tag}_kernel_ms": out, "shapes": {
         "attention": [B, H, N, Dh], "valid_keys": keys, "scatter": [Bs, Ns, D], "hw": hw}}))
     return out
 
 
-def sl_learner(device, scatter_impl, attn_impl, dtype="float32"):
-    """The flagship SL learner (SL_LEARNER_DEFAULTS, seeded ``init_params``)."""
+def sl_learner(device, impl="pallas", dtype="float32"):
+    """The flagship SL learner (SL_LEARNER_DEFAULTS, seeded ``init_params``)
+    under config string ``impl``."""
     from distar_tpu_torch.learner import SLLearner
 
     return SLLearner({"learner": {"batch_size": TRAIN_B, "unroll_len": TRAIN_T},
-                      "model": {"encoder": {"entity": {"attention_impl": attn_impl},
-                                            "scatter": {"impl": scatter_impl}},
-                                "dtype": dtype}}, device=device)
+                      "model": overlay(*STRINGS[impl], dtype)}, device=device)
 
 
 def finite(log, keys=("total_loss", "grad_norm")):
@@ -796,19 +871,9 @@ def phase_train(device, rng):
 
     K.reset_launch_counts()
     # config strings agree on one step from the same weights, batch and state
-    strings = {"pallas": ("pallas", "pallas"), "pallas_onehot": ("pallas_onehot", "pallas"),
-               "xla": ("xla", "xla")}
-    learners = {impl: sl_learner(device, *ia) for impl, ia in strings.items()}
+    learners = {impl: sl_learner(device, impl) for impl in STRINGS}
     logs = {impl: lrn._train(batch) for impl, lrn in learners.items()}
-    worst = {}
-    for impl in ("pallas", "pallas_onehot"):
-        check(set(logs[impl]) == set(logs["xla"]), f"{impl}: info keys differ")
-        errs = {k: abs(logs[impl][k] - v) / max(abs(v), 1.0) for k, v in logs["xla"].items()}
-        key = max(errs, key=errs.get)
-        check(errs[key] <= STEP_TOL, f"train step {impl} vs xla: {key} {logs[impl][key]} vs "
-              f"{logs['xla'][key]}")
-        worst[impl] = (key, errs[key])
-    check(all(finite(lg) for lg in logs.values()), "train step: a non-finite loss or grad_norm")
+    worst = strings_agree(logs, "train step")
     print(f"train step parity vs 'xla' (loss, {len(logs['xla'])} info scalars, grad_norm; "
           f"max |a - b| / max(|b|, 1), tol {STEP_TOL}): {worst}; total_loss "
           + json.dumps({k: lg["total_loss"] for k, lg in logs.items()}))
@@ -817,35 +882,14 @@ def phase_train(device, rng):
 
     # step time in turns (3 warm-up steps each, the parity step included),
     # a profiled step and the peak memory of one step
-    for _ in range(2):
-        for lrn in learners.values():
-            lrn._train(batch)
-    times = {impl: [] for impl in learners}
-    order = list(learners)
-    for _ in range(5):
-        for impl in order:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            learners[impl]._train(batch)  # ends in the device->host copy of the scalars
-            torch.cuda.synchronize()
-            times[impl].append((time.perf_counter() - t0) * 1e3)
-        order.reverse()
-    step_ms = {impl: statistics.median(t) for impl, t in times.items()}
+    step_ms, times = step_times(learners, batch, warmup=2)
     frames = TRAIN_B * TRAIN_T
-    memory = {}
-    for impl, lrn in learners.items():
-        torch.cuda.synchronize()
-        held = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        lrn._train(batch)
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated()
-        memory[impl] = {"peak_gb": peak / 1e9, "step_gb": (peak - held) / 1e9}
+    memory = {impl: step_memory(lrn, batch)[0] for impl, lrn in learners.items()}
     profiles = {impl: profile_call(lambda: lrn._train(batch)) for impl, lrn in learners.items()}
     del learners
 
     # one bf16 step: finite, no parity claim
-    lrn16 = sl_learner(device, "pallas", "pallas", "bfloat16")
+    lrn16 = sl_learner(device, dtype="bfloat16")
     log16 = lrn16._train(batch)
     check(finite(log16), f"bf16 train step: loss {log16['total_loss']} grad_norm {log16['grad_norm']}")
     print(f"train bf16 step (kernel overlay): total_loss {log16['total_loss']:.4f} "
@@ -860,6 +904,340 @@ def phase_train(device, rng):
               "train_kernel_max_abs_err": train_fwd_err,
               "entry_point_losses": losses, "launches": launches}
     print(json.dumps({"train": result}))
+    return launches, result
+
+
+# --------------------------------------------------------------------- RL
+def rl_learner(device, impl="pallas", dtype="float32", B=RL_B, T=RL_T, **learner):
+    """The flagship RL learner (RL_LEARNER_DEFAULTS, seeded ``init_params``)
+    under config string ``impl``."""
+    from distar_tpu_torch.learner import RLLearner
+
+    return RLLearner({"learner": {"batch_size": B, "unroll_len": T, **learner},
+                      "model": overlay(*STRINGS[impl], dtype)}, device=device)
+
+
+def distill_learner(device, impl="pallas", **learner):
+    """The distillation student (``student_model_config``) under ``impl``."""
+    from distar_tpu_torch.learner import DistillLearner
+
+    return DistillLearner({"learner": {"batch_size": RL_B, "unroll_len": RL_T, **learner},
+                           "model": overlay(*STRINGS[impl])}, device=device)
+
+
+def strings_agree(logs, what):
+    """Every config string's step scalars within STEP_TOL of the 'xla'
+    string's (max |a - b| / max(|b|, 1)); returns the worst key of each."""
+    worst = {}
+    for impl in ("pallas", "pallas_onehot"):
+        check(set(logs[impl]) == set(logs["xla"]), f"{what} {impl}: info keys differ")
+        errs = {k: abs(logs[impl][k] - v) / max(abs(v), 1.0) for k, v in logs["xla"].items()}
+        key = max(errs, key=errs.get)
+        check(errs[key] <= STEP_TOL, f"{what} {impl} vs xla: {key} {logs[impl][key]} vs {logs['xla'][key]}")
+        worst[impl] = (key, errs[key])
+    check(all(finite(lg, [k for k in ("total_loss", "grad_norm") if k in lg]) for lg in logs.values()),
+          f"{what}: a non-finite loss or grad_norm")
+    return worst
+
+
+def step_times(learners, batch, rounds=5, warmup=3):
+    """Host ms of ``_train`` (it ends in the device->host copy of the
+    scalars) to ``synchronize``, the learners in turns, reversing the order
+    each round; (median per learner, every time)."""
+    import torch
+
+    for _ in range(warmup):
+        for lrn in learners.values():
+            lrn._train(batch)
+    times = {impl: [] for impl in learners}
+    order = list(learners)
+    for _ in range(rounds):
+        for impl in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            learners[impl]._train(batch)
+            torch.cuda.synchronize()
+            times[impl].append((time.perf_counter() - t0) * 1e3)
+        order.reverse()
+    return {impl: statistics.median(t) for impl, t in times.items()}, times
+
+
+def step_memory(lrn, batch):
+    """({peak GB, the step's working set in GB}, the step's log) of one
+    ``_train``."""
+    import torch
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    log = lrn._train(batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return {"peak_gb": peak / 1e9, "step_gb": (peak - held) / 1e9}, log
+
+
+def entry_point(K, lrn, iters, what):
+    """``lrn.run(iters)`` on its own ``FakeRLDataloader``, as the JAX
+    package drives its RL and distillation learners: the launch counts set
+    to 0 just before the run and read just after, one attention launch a
+    transformer layer and one scatter launch a step; the per-step log lines
+    read back from its output. Returns (losses, launches)."""
+    import contextlib
+    import io
+
+    text = io.StringIO()
+    K.reset_launch_counts()
+    with contextlib.redirect_stdout(text):
+        lrn.run(iters)
+    launches = dict(K.launch_counts)
+    logs = [json.loads(ln) for ln in text.getvalue().splitlines() if ln.startswith("{")]
+    check(len(logs) == iters, f"{what}: {len(logs)} log lines for {iters} steps")
+    check(all(finite(lg) for lg in logs), f"{what}: a non-finite loss or grad_norm")
+    layers = lrn.model_cfg.encoder.entity.layer_num
+    want = {"masked_attention": layers * iters, "scatter_add_connection": iters,
+            "scatter_add_onehot": 0}
+    check(launches == want, f"{what} launches {launches}, want {want}")
+    losses = [lg["total_loss"] for lg in logs]
+    print(f"{what} (kernel overlay, f32, FakeRLDataloader, {iters} steps): total_loss "
+          + " ".join(f"{x:.4f}" for x in losses)
+          + f"; grad_norm {logs[0]['grad_norm']:.3f} -> {logs[-1]['grad_norm']:.3f}; "
+          f"launches {launches}")
+    return losses, launches
+
+
+def loss_grads(loss_fn, lrn, batch):
+    """(the loss's info as floats, the gradient of each parameter) of
+    ``loss_fn(lrn, device batch)``, without an optimizer step."""
+    import torch
+
+    from distar_tpu_torch.actor.inference import to_device
+
+    tb = to_device({k: v for k, v in batch.items() if k != "model_last_iter"}, lrn.device)
+    total, info = loss_fn(lrn, tb)
+    grads = torch.autograd.grad(total, list(lrn.model.parameters()), allow_unused=True,
+                                materialize_grads=True)
+    return {k: float(v.detach()) for k, v in info.items()}, grads
+
+
+def crossed(batch):
+    """``batch`` with its observations' time and batch axes crossed: row t*B
+    + b of the flattened observations holds frame (b, t) read as [B, T+1],
+    as a model that flattened them batch-major would see them."""
+    import numpy as np
+
+    def cross(x):
+        if isinstance(x, dict):
+            return {k: cross(v) for k, v in x.items()}
+        x = np.asarray(x)
+        return np.ascontiguousarray(np.swapaxes(x, 0, 1)).reshape(x.shape)
+
+    obs = ("spatial_info", "entity_info", "scalar_info", "entity_num")
+    return {k: cross(v) if k in obs else v for k, v in batch.items()}
+
+
+def rl_faults(batch):
+    """Wiring faults planted without touching the code, each a (loss
+    function, batch, held) that the 'xla' learner runs in place of the
+    sound one: the UPGO term dropped, the time and batch axes of the
+    observations crossed, both held to move the gradient by more than
+    GRAD_TOL; and the KL terms dropped, printed only: at weights 0.02 and
+    0.1 they move the gradient about as far as the strings' rounding does
+    on zero observations, and the info check (``kl/total``) is what catches
+    their loss."""
+    import dataclasses
+
+    from distar_tpu_torch.learner import rl_loss
+
+    def with_cfg(**change):
+        return lambda lrn, tb: rl_loss(lrn.model, dataclasses.replace(lrn.loss_cfg, **change), tb,
+                                       RL_B, RL_T)
+
+    sound = with_cfg()
+    return {"no upgo": (with_cfg(upgo_weight=0.0), batch, True),
+            "crossed layout": (sound, crossed(batch), True),
+            "no kl": (with_cfg(kl_weight=0.0, action_type_kl_weight=0.0), batch, False)}
+
+
+def hold_strings(what, learners, batch, loss_fn, faults=None):
+    """The loss and every info scalar of each config string within STEP_TOL
+    of the 'xla' string's (``strings_agree``), each kernel string's whole
+    gradient within GRAD_TOL of the 'xla' gradient's norm, and each planted
+    fault of ``faults`` marked held moving the 'xla' gradient by more than
+    GRAD_TOL, so that the tolerance is shown to catch it. Printed beside
+    them, as the scale of what is held: the 'xla' string's distance from its
+    own repeat on the same weights and batch, the parameter groups that
+    carry the 'pallas' string's distance (share of its square, and the
+    group's own |a - b| / |b|), and under each fault the strings' distance
+    again."""
+    import torch
+
+    def rel(a, b):
+        return float(torch.cat([(x - y).reshape(-1) for x, y in zip(a, b)]).norm()
+                     / torch.cat([y.reshape(-1) for y in b]).norm())
+
+    res = {impl: loss_grads(loss_fn, lrn, batch) for impl, lrn in learners.items()}
+    worst = strings_agree({impl: info for impl, (info, _) in res.items()}, what)
+    gx = res["xla"][1]
+    dist = {impl: rel(res[impl][1], gx) for impl in ("pallas", "pallas_onehot")}
+    repeat = rel(loss_grads(loss_fn, learners["xla"], batch)[1], gx)
+    groups = {}  # first three name parts -> [|a - b|^2, |b|^2]
+    for (name, _), a, b in zip(learners["xla"].model.named_parameters(), res["pallas"][1], gx):
+        g = groups.setdefault(".".join(name.split(".")[:3]), [0.0, 0.0])
+        g[0] += float((a - b).pow(2).sum())
+        g[1] += float(b.pow(2).sum())
+    total = sum(d for d, _ in groups.values()) or 1.0
+    carry = {k: [round(d / total, 4), (d / n) ** 0.5 if n else None]
+             for k, (d, n) in sorted(groups.items(), key=lambda kv: -kv[1][0])[:6]}
+    planted = {}
+    for name, (fn, fb, held) in (faults or {}).items():
+        fx = loss_grads(fn, learners["xla"], fb)[1]
+        planted[name] = {"held": held, "moves_xla": rel(fx, gx),
+                         "pallas_vs_xla": rel(loss_grads(fn, learners["pallas"], fb)[1], fx)}
+    print(f"{what}, strings vs 'xla': loss and {len(res['xla'][0]) - 1} info scalars within {STEP_TOL} "
+          f"(worst {worst}); gradient |a - b| / |b|: {json.dumps(dist)} (tol {GRAD_TOL}); 'xla' vs "
+          f"its repeat {repeat:.3e}; groups carrying 'pallas' vs 'xla' ([share of |a - b|^2, the "
+          f"group's |a - b| / |b|]) "
+          f"{json.dumps(carry)}; planted faults {json.dumps(planted)}")
+    for impl, d in dist.items():
+        check(d <= GRAD_TOL, f"{what} {impl}: gradient {d:.4g} of its norm from 'xla'")
+    for name, p in planted.items():
+        check(not p["held"] or p["moves_xla"] > GRAD_TOL, f"{what}: fault '{name}' moves the gradient only "
+              f"{p['moves_xla']:.4g}, within GRAD_TOL")
+    return {"strings": dist, "xla_repeat": repeat, "carry": carry, "faults": planted}
+
+
+def steps_agree(what, learners, batch):
+    """One ``_train`` step per config string: the loss and every info scalar
+    within STEP_TOL of the 'xla' string's, and each grad_norm within
+    GRAD_TOL of it (the bound that ``hold_strings`` puts on the whole
+    gradient). Returns the logs."""
+    logs = {impl: lrn._train(batch) for impl, lrn in learners.items()}
+    norms = {impl: lg.pop("grad_norm") for impl, lg in logs.items()}
+    worst = strings_agree(logs, what)
+    for impl in ("pallas", "pallas_onehot"):
+        check(abs(norms[impl] - norms["xla"]) <= GRAD_TOL * norms["xla"],
+              f"{what} {impl}: grad_norm {norms[impl]} vs {norms['xla']}")
+    for impl, lg in logs.items():
+        lg["grad_norm"] = norms[impl]
+    print(f"{what} parity vs 'xla' (loss and {len(logs['xla']) - 2} info scalars, max |a - b| / "
+          f"max(|b|, 1), tol {STEP_TOL}): {worst}; grad_norm {norms} (tol {GRAD_TOL} of 'xla'); "
+          f"total_loss " + json.dumps({k: lg["total_loss"] for k, lg in logs.items()}))
+    return logs
+
+
+def gated_step(device, batch):
+    """One step with ``value_pretrain_iters=1``: only ``td/total``'s
+    gradient flows, so Adam (b1 = 0) leaves every policy-head parameter bit
+    for bit as it was, while the winloss tower moves."""
+    import torch
+
+    lrn = rl_learner(device, value_pretrain_iters=1)
+    before = {n: p.detach().clone() for n, p in lrn.model.named_parameters()}
+    log = lrn._train(batch)
+    check(finite(log), "gated step: a non-finite loss or grad_norm")
+    moved = {n for n, p in lrn.model.named_parameters() if not torch.equal(p, before[n])}
+    policy = [n for n in before if n.startswith("policy.")]
+    check(not moved & set(policy), f"gated step moved policy parameters {sorted(moved & set(policy))[:4]}")
+    check("value_winloss.Dense_0.weight" in moved, "gated step: the winloss tower did not move")
+    groups = sorted({n.split(".")[0] for n in moved})
+    print(f"rl gated step (value_pretrain_iters=1): {len(policy)} policy-head parameters bit-equal, "
+          f"moved {groups}; td/total {log['td/total']:.4f} total_loss {log['total_loss']:.4f}")
+    return groups
+
+
+def phase_rl(device, rng):
+    """The RL and distillation learners on the card (module docstring,
+    phase 6). Returns the launch counts of their paths and the measurements."""
+    import torch
+
+    from distar_tpu_torch.learner import FakeRLDataloader, distill_loss, random_rl_batch, rl_loss
+    from distar_tpu_torch.ops import kernels as K
+
+    print(f"rl: torch.backends.cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+          f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    # one fixed batch of random in-range observations, 68 observed frames
+    batch = random_rl_batch(RL_B, RL_T, rng)
+    entity_num = batch["entity_num"].reshape(-1)
+    inputs, rl_err = train_kernel_grads(K, rng, device, entity_num)
+    rl_kernel_ms = train_kernel_times(K, inputs, "rl")
+    del inputs
+    inputs, student_err = train_kernel_grads(K, rng, device, entity_num, Dh=64, D=16)
+    student_kernel_ms = train_kernel_times(K, inputs, "student")
+    del inputs
+
+    K.reset_launch_counts()
+    learners = {impl: rl_learner(device, impl) for impl in STRINGS}
+    rl_fn = lambda lrn, tb: rl_loss(lrn.model, lrn.loss_cfg, tb, RL_B, RL_T)  # noqa: E731
+    grads = {"rl_zero_obs": hold_strings("rl loss on a FakeRLDataloader batch (zero observations)",
+                                         learners, next(FakeRLDataloader(RL_B, RL_T)), rl_fn),
+             "rl_random": hold_strings("rl loss on the random batch", learners, batch, rl_fn,
+                                       rl_faults(batch))}
+    steps_agree("rl step", learners, batch)
+    gated = gated_step(device, batch)
+    launches = dict(K.launch_counts)  # the strings' steps and the gated step
+
+    lrn = rl_learner(device, log_freq=1)
+    losses, rl_launches = entry_point(K, lrn, RL_ITERS, "rl entry point (RLLearner.run, flagship)")
+    stale = {k: v for k, v in lrn.last_log.items() if k.startswith("staleness/")}
+    print(f"rl entry point: staleness after the last step {stale}")
+    del lrn
+    step_ms, all_ms = step_times(learners, batch)
+    memory = {impl: step_memory(lrn, batch)[0] for impl, lrn in learners.items()}
+    profiles = {impl: profile_call(lambda: lrn._train(batch)) for impl, lrn in learners.items()}
+    del learners
+
+    lrn16 = rl_learner(device, dtype="bfloat16")
+    log16 = lrn16._train(batch)
+    check(finite(log16), f"bf16 RL step: loss {log16['total_loss']} grad_norm {log16['grad_norm']}")
+    print(f"rl bf16 step (kernel overlay): total_loss {log16['total_loss']:.4f} "
+          f"grad_norm {log16['grad_norm']:.3f}")
+    del lrn16
+
+    # the reference's per-GPU shape: 6 trajectories x 64 steps (390 frames)
+    big_batch = next(FakeRLDataloader(RL_BIG_B, RL_BIG_T, seed=1))
+    big = rl_learner(device, B=RL_BIG_B, T=RL_BIG_T)
+    big_ms, big_all = step_times({"pallas": big}, big_batch, rounds=3, warmup=1)
+    big_memory, big_log = step_memory(big, big_batch)
+    check(finite(big_log), "6 x 64 RL step: a non-finite loss or grad_norm")
+    print(f"rl 6 x 64 step (kernel overlay, f32): ms {big_all['pallas']} total_loss "
+          f"{big_log['total_loss']:.4f} memory {big_memory}")
+    del big, big_batch
+
+    # the distillation student, one step per string from the same weights
+    students = {impl: distill_learner(device, impl) for impl in STRINGS}
+    d_fn = lambda lrn, tb: distill_loss(lrn.model, lrn.loss_cfg, tb, RL_B, RL_T)  # noqa: E731
+    K.reset_launch_counts()
+    grads["distill_random"] = hold_strings("distill loss on the random batch", students, batch, d_fn,
+                                           {"crossed layout": (d_fn, crossed(batch), True)})
+    steps_agree("distill step", students, batch)
+    d_strings = dict(K.launch_counts)
+    lrn = distill_learner(device, log_freq=1)
+    d_losses, d_launches = entry_point(K, lrn, DISTILL_ITERS,
+                                       "distill entry point (DistillLearner.run, student)")
+    del lrn
+    d_ms, d_all = step_times(students, batch)
+    d_profile = profile_call(lambda: students["pallas"]._train(batch))
+    del students
+
+    paths = {"rl strings": launches, "rl entry point": rl_launches,
+             "distill strings": d_strings, "distill entry point": d_launches}
+    launches = {name: sum(p[name] for p in paths.values()) for name in launches}
+    print(f"rl phase launches, each read from zero around its run: {json.dumps(paths)}")
+    for name, n in launches.items():
+        check(n > 0, f"{name} never launched on the RL path")
+    frames = RL_T * RL_B
+    result = {"step_ms": step_ms, "step_ms_all": all_ms,
+              "rl_frames_per_s": {impl: frames / (ms / 1e3) for impl, ms in step_ms.items()},
+              "memory": memory, "step_profile": profiles, "gated_moved": gated,
+              "entry_point_losses": losses, "staleness": stale, "gradients": grads,
+              "distill_entry_point_losses": d_losses,
+              "big_step_ms": big_ms["pallas"], "big_step_ms_all": big_all["pallas"],
+              "big_frames_per_s": RL_BIG_T * RL_BIG_B / (big_ms["pallas"] / 1e3), "big_memory": big_memory,
+              "distill_step_ms": d_ms, "distill_step_ms_all": d_all, "distill_profile": d_profile,
+              "rl_kernel_ms": rl_kernel_ms, "student_kernel_ms": student_kernel_ms,
+              "rl_kernel_max_abs_err": rl_err, "student_kernel_max_abs_err": student_err,
+              "launches": launches, "launches_by_path": paths}
+    print(json.dumps({"rl": result}))
     return launches, result
 
 
@@ -922,14 +1300,22 @@ def main() -> int:
 
         # 5. train
         train_launches, train = phase_train(device, rng)
-        print(f"launches: serve {launches}, train {train_launches}")
-        launches = {name: launches[name] + train_launches[name] for name in build.KERNELS}
 
-        # 6. the kernels line; max_abs_err over the serve and the f32 training shapes
+        # 6. RL and distillation
+        rl_launches, rl = phase_rl(device, rng)
+        print(f"launches: serve {launches}, train {train_launches}, rl and distill {rl_launches}")
+        launches = {name: launches[name] + train_launches[name] + rl_launches[name]
+                    for name in build.KERNELS}
+
+        # 7. the kernels line; max_abs_err over the serve shapes and the f32
+        # SL, RL and student training shapes
+        errs = {**train["train_kernel_max_abs_err"],
+                **{f"rl {k}": v for k, v in rl["rl_kernel_max_abs_err"].items()},
+                **{f"student {k}": v for k, v in rl["student_kernel_max_abs_err"].items()}}
         for name, rec in records.items():
             rec["max_abs_err"] = max([rec["max_abs_err"]] + [
-                err for key, err in train["train_kernel_max_abs_err"].items()
-                if key.startswith(name) and not key.endswith("bfloat16")])
+                err for key, err in errs.items()
+                if key.split(" ")[-1].startswith(name) and not key.endswith("bfloat16")])
         line = {"kernels": [
             {"name": name, "route": "cuda", "source": rec["source"], "replaces": rec["replaces"],
              "launches": launches[name], "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
@@ -937,7 +1323,9 @@ def main() -> int:
              "library_ms": rec["library_ms"]}
             for name, rec in records.items()]}
         print(json.dumps({"serve_flush_ms": flush_ms, "train_step_ms": train["step_ms"],
-                          "sl_frames_per_s": train["sl_frames_per_s"],
+                          "sl_frames_per_s": train["sl_frames_per_s"], "rl_step_ms": rl["step_ms"],
+                          "rl_frames_per_s": rl["rl_frames_per_s"],
+                          "distill_step_ms": rl["distill_step_ms"],
                           "seconds": time.perf_counter() - t_start}))
         print(json.dumps(line))
     except Exception as e:  # every phase failure fails the run

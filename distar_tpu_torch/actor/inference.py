@@ -30,6 +30,8 @@ def resolve_device(device=None) -> torch.device:
 def to_device(tree, device):
     if isinstance(tree, dict):
         return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(to_device(v, device) for v in tree)
     return torch.from_numpy(np.ascontiguousarray(tree)).to(device, non_blocking=True)
 
 

@@ -1,8 +1,10 @@
 """The learner skeleton: config cascade, optimizer construction, run loop.
 
-Counterpart of the parts of ``distar_tpu.learner.base_learner`` that the SL
-learner uses. Checkpoints, hooks, prefetch, the admin API and the profiler
-hooks of the JAX learner are not ported yet.
+Counterpart of the parts of ``distar_tpu.learner.base_learner`` that the SL,
+RL and distillation learners use. Checkpoints and the admin save (ROADMAP
+Queue 1 item 4), hooks, prefetch, the profiler hooks and the training-
+dynamics tree (item 9) of the JAX learner are not ported yet: asking for
+one raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -28,12 +30,25 @@ DEFAULT_LEARNER_CONFIG = Config(
 )
 
 
+def host_scalars(info: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    """Every 0-d tensor of ``info`` on the host, in one device -> host copy."""
+    device = next(iter(info.values())).device
+    values = torch.stack([v.to(device, torch.float32) for v in info.values()]).cpu().tolist()
+    return dict(zip(info, values))
+
+
 class BaseLearner:
     """Subclasses build their state in ``_setup_state`` and take one
-    optimisation step per ``_train(batch)``, returning the step's scalars."""
+    optimisation step per ``_train(batch)``, returning the step's scalars.
+    ``_CAP_FN`` is the batch layout's entity cap (``learner/data.py``)."""
+
+    _CAP_FN = None
 
     def __init__(self, cfg: Optional[dict] = None, device=None):
         self.cfg = deep_merge_dicts(DEFAULT_LEARNER_CONFIG, cfg or {})
+        if self.cfg.learner.get("dynamics"):
+            raise NotImplementedError("learner.dynamics: the training-dynamics tree is not ported "
+                                      "yet (ROADMAP Queue 1 item 9, obs/dynamics.py)")
         self.device = resolve_device(device)
         self.last_iter = 0
         self.last_log: Dict[str, float] = {}
@@ -53,6 +68,20 @@ class BaseLearner:
             weight_decay=float(lc.get("weight_decay", 0.0) or 0.0),
             clip=GradClipConfig(**lc.grad_clip),
         )
+
+    def _cap(self, batch):
+        """``_CAP_FN`` to ``learner.max_entities`` slots where that is set."""
+        n = self.cfg.learner.get("max_entities")
+        return self._CAP_FN(batch, int(n)) if n else batch
+
+    def checkpoint_path(self) -> str:
+        raise NotImplementedError("checkpoints are not ported yet (ROADMAP Queue 1 item 4)")
+
+    def save(self, path: str, sync: bool = False) -> None:
+        raise NotImplementedError("checkpoints are not ported yet (ROADMAP Queue 1 item 4)")
+
+    def request_save(self) -> None:
+        raise NotImplementedError("the admin save is not ported yet (ROADMAP Queue 1 item 4)")
 
     def _setup_state(self) -> None:  # pragma: no cover - abstract
         raise NotImplementedError

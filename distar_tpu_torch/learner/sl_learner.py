@@ -22,7 +22,7 @@ from ..model import Model, default_model_config, init_params
 from ..model.convert import flax_names
 from ..parallel.grad_clip import global_norm, leaf_norms
 from ..utils import deep_merge_dicts
-from .base_learner import DEFAULT_LEARNER_CONFIG, BaseLearner
+from .base_learner import DEFAULT_LEARNER_CONFIG, BaseLearner, host_scalars
 from .data import FakeSLDataloader, cap_entities
 
 SL_LEARNER_DEFAULTS = deep_merge_dicts(
@@ -83,6 +83,8 @@ def make_sl_train_step(model: Model, loss_cfg: SupervisedLossConfig, optimizer,
 class SLLearner(BaseLearner):
     """The SL learner on one device (``device=None``: CUDA, or raise)."""
 
+    _CAP_FN = staticmethod(cap_entities)
+
     def __init__(self, cfg: Optional[dict] = None, device=None):
         cfg = deep_merge_dicts(SL_LEARNER_DEFAULTS, cfg or {})
         self.model_cfg = deep_merge_dicts(default_model_config(), cfg.get("model", {}))
@@ -108,11 +110,6 @@ class SLLearner(BaseLearner):
         self._train_step = make_sl_train_step(self.model, self.loss_cfg, self.optimizer,
                                               lc.batch_size, save_grad=lc.get("save_grad", False))
 
-    def _cap(self, batch):
-        """``cap_entities`` to ``learner.max_entities`` where that is set."""
-        n = self.cfg.learner.get("max_entities")
-        return cap_entities(batch, int(n)) if n else batch
-
     def _train(self, data) -> Dict[str, float]:
         data = self._cap(dict(data))  # callers may reuse the batch dict
         new_episodes = np.asarray(data.pop("new_episodes"))
@@ -122,6 +119,4 @@ class SLLearner(BaseLearner):
             keep = torch.as_tensor(~new_episodes, dtype=torch.float32, device=self.device)[:, None]
             self.hidden = tuple((h * keep, c * keep) for h, c in self.hidden)
         self.hidden, info = self._train_step(to_device(data, self.device), self.hidden)
-        # one device -> host copy for every scalar
-        values = torch.stack([v.float() for v in info.values()]).cpu().tolist()
-        return dict(zip(info, values))
+        return host_scalars(info)

@@ -207,6 +207,67 @@ def random_step_data(rng: np.random.Generator, size=SPATIAL_SIZE) -> Dict:
     }
 
 
+# Centralized-critic feature schema (the RL learner's value encoder, with
+# ``use_value_feature``): opponent statistics, both sides' unit scatter
+# inputs and the opponent's build order. name -> (dtype, shape); a shape
+# names its dims, "SPATIAL" is the map.
+VALUE_FEATURE_INFO = {
+    "enemy_unit_counts_bow": (np.uint8, ("NUM_UNIT_TYPES",)),
+    "enemy_unit_type_bool": (np.uint8, ("NUM_UNIT_TYPES",)),
+    "enemy_agent_statistics": (np.float32, (10,)),
+    "enemy_upgrades": (np.int16, ("NUM_UPGRADES",)),
+    "enemy_cumulative_stat": (np.uint8, ("NUM_CUMULATIVE_STAT_ACTIONS",)),
+    "unit_alliance": (np.uint8, ("MAX_ENTITY_NUM",)),
+    "unit_type": (np.int16, ("MAX_ENTITY_NUM",)),
+    "unit_x": (np.uint8, ("MAX_ENTITY_NUM",)),
+    "unit_y": (np.uint8, ("MAX_ENTITY_NUM",)),
+    "total_unit_count": (np.int64, ()),
+    "own_units_spatial": (np.uint8, "SPATIAL"),
+    "enemy_units_spatial": (np.uint8, "SPATIAL"),
+    "beginning_order": (np.int16, (BEGINNING_ORDER_LENGTH,)),
+    "bo_location": (np.int16, (BEGINNING_ORDER_LENGTH,)),
+}
+
+
+def fake_value_feature(rng: Optional[np.random.Generator] = None) -> Dict[str, np.ndarray]:
+    """A schema-complete value feature (no batch dim): zeros except
+    ``total_unit_count``, one draw from ``rng``."""
+    rng = rng or np.random.default_rng(0)
+    dims = {
+        "NUM_UNIT_TYPES": NUM_UNIT_TYPES,
+        "NUM_UPGRADES": NUM_UPGRADES,
+        "NUM_CUMULATIVE_STAT_ACTIONS": NUM_CUMULATIVE_STAT_ACTIONS,
+        "MAX_ENTITY_NUM": MAX_ENTITY_NUM,
+    }
+    out = {}
+    for k, (dtype, shape) in VALUE_FEATURE_INFO.items():
+        if shape == "SPATIAL":
+            out[k] = np.zeros(SPATIAL_SIZE, dtype)
+        else:
+            out[k] = np.zeros(tuple(dims.get(s, s) for s in shape), dtype)
+    out["total_unit_count"] = np.asarray(int(rng.integers(1, MAX_ENTITY_NUM)), np.int64)
+    return out
+
+
+def random_value_feature(rng: np.random.Generator) -> Dict[str, np.ndarray]:
+    """A value feature with every field drawn in range (``fake_value_feature``
+    is zeros, which hide layout faults)."""
+    H, W = SPATIAL_SIZE
+    bounds = {"enemy_unit_counts_bow": 16, "enemy_unit_type_bool": 2, "enemy_upgrades": 2,
+              "enemy_cumulative_stat": 2, "unit_alliance": 2, "unit_type": NUM_UNIT_TYPES,
+              "unit_x": W, "unit_y": H, "own_units_spatial": 2, "enemy_units_spatial": 2,
+              "beginning_order": NUM_BEGINNING_ORDER_ACTIONS, "bo_location": H * W}
+    out = {}
+    for k, v in fake_value_feature(rng).items():
+        if k == "enemy_agent_statistics":
+            out[k] = rng.uniform(0, 1, v.shape).astype(v.dtype)
+        elif k == "total_unit_count":
+            out[k] = np.asarray(rng.integers(1, MAX_ENTITY_NUM + 1), v.dtype)
+        else:
+            out[k] = rng.integers(0, bounds[k], v.shape).astype(v.dtype)
+    return out
+
+
 def batch_tree(trees, stack=np.stack):
     """Stack a list of nested dict/tuple/array structures along axis 0."""
     first = trees[0]

@@ -1,22 +1,27 @@
-"""The policy network: the sampling and the teacher-forced forwards.
+"""The policy/value network and its forward modes.
 
 Counterparts of ``distar_tpu.model.core``: ``Encoder`` (scalar + spatial +
 entity with the entity -> map scatter connection) -> LN-LSTM core -> the six
 heads, sampled (``Policy.sample``) or teacher-forced
-(``Policy.train_forward``). Forward modes:
+(``Policy.train_forward``), and, with ``use_value_network``, one value
+tower per baseline (``value_{name}``; with ``use_value_feature`` their
+input adds the centralized critic's ``value_encoder``). Forward modes:
 
 * ``sample_action``  — actor and serving inference: one step, every head
   sampled, log-probs and the new hidden state.
 * ``teacher_logits`` — one step's teacher-forced logits for given actions.
+* ``rl_forward``     — the RL learner's forward over flat [(T+1)*B]
+  time-major windows: policy logits on the first T steps, the six
+  baselines' values on all T+1.
+* ``policy_forward`` — ``rl_forward``'s policy half, no towers (the
+  distillation student).
 * ``sl_forward``     — the supervised learner's forward over flat [B*T]
   batch-major windows, the LSTM state carried in and returned.
-
-The RL learner forward and the value towers are not ported yet.
 """
 from __future__ import annotations
 
 from contextlib import nullcontext
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -27,7 +32,14 @@ from ..lib.actions import SELECTED_UNITS_MASK
 from ..lib.features import ACTION_HEADS, MAX_ENTITY_NUM, MAX_SELECTED_UNITS_NUM
 from ..ops import FCBlock, StackedLSTM, scatter_connection
 from .config import cdtype, static_cfg
-from .encoders import EntityEncoder, ScalarEncoder, SpatialEncoder, scalar_dims
+from .encoders import (
+    EntityEncoder,
+    ScalarEncoder,
+    SpatialEncoder,
+    ValueEncoder,
+    scalar_dims,
+    value_encoder_dim,
+)
 from .heads import (
     ActionTypeHead,
     DelayHead,
@@ -36,6 +48,9 @@ from .heads import (
     SelectedUnitsHead,
     TargetUnitHead,
 )
+from .value import OUT_VARIANCE, ValueBaseline
+
+NEG_INF = -1e9
 
 
 class Encoder(nn.Module):
@@ -149,19 +164,29 @@ def gumbel_noise(cfg, batch_size: int, generator: torch.Generator, device) -> Di
 
 
 class Model(nn.Module):
-    """Encoder + LSTM core + Policy."""
+    """Encoder + LSTM core + Policy (+ value towers)."""
 
     def __init__(self, cfg):
         super().__init__()
         self.cfg = cfg
         c = static_cfg(cfg)
         core = c.encoder.core_lstm
-        embedded_scalar, scalar_context, _ = scalar_dims(cfg)
+        embedded_scalar, scalar_context, baseline = scalar_dims(cfg)
         lstm_in = embedded_scalar + c.encoder.entity.output_dim + c.encoder.spatial.fc_dim
         self.encoder = Encoder(cfg)
         self.policy = Policy(cfg, core.hidden_size, scalar_context)
         self.core_lstm = StackedLSTM(lstm_in, core.hidden_size, core.num_layers)
         self.compute_dtype = cdtype(cfg)
+        # the towers are attributes value_{name}, not a ModuleDict, so their
+        # parameter names are the flax tree's (model/convert.py)
+        self.baselines = list(c.enable_baselines) if c.use_value_network else []
+        critic_in = core.hidden_size
+        if self.baselines and c.use_value_feature:
+            self.value_encoder = ValueEncoder(cfg)
+            critic_in += value_encoder_dim(cfg) + baseline
+        for name in self.baselines:
+            self.add_module(f"value_{name}", ValueBaseline(
+                critic_in, c.value.res_dim, c.value.res_num, c.value.baselines[name].atan))
 
     def sample_action(self, spatial_info, entity_info, scalar_info, entity_num, hidden_state,
                       noise: Optional[Dict[str, torch.Tensor]] = None,
@@ -228,23 +253,97 @@ class Model(nn.Module):
                 action_info, selected_units_num)
         return logits, out_state
 
+    def _learner_logits(self, spatial_info, entity_info, scalar_info, entity_num, hidden_state,
+                        action_info, selected_units_num, batch_size: int, unroll_len: int):
+        """The logits half of the learner forwards: encoder -> LSTM over the
+        [T+1, B] window from ``hidden_state`` -> teacher-forced logits on the
+        first T steps (rows t*B + b). Returns (logits [T, B, ...], the
+        selected-units S axis padded to 64 with -1e9; the flat LSTM outputs
+        [(T+1)*B, H]; the baseline feature)."""
+        flat_action = {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in action_info.items()}
+        lstm_input, scalar_context, baseline_feature, entity_embeddings, map_skip = self.encoder(
+            spatial_info, entity_info, scalar_info, entity_num)
+        seq = lstm_input.reshape(-1, batch_size, lstm_input.shape[-1])  # [T+1, B, D]
+        lstm_output, _ = self.core_lstm(seq, hidden_state)
+        flat_out = lstm_output.reshape(-1, lstm_output.shape[-1])
+        n = unroll_len * batch_size
+        logits = self.policy.train_forward(
+            flat_out[:n], entity_embeddings[:n], [m[:n] for m in map_skip], scalar_context[:n],
+            entity_num[:n], flat_action, selected_units_num.reshape(-1))
+        logits = {k: v.reshape((unroll_len, batch_size) + tuple(v.shape[1:])) for k, v in logits.items()}
+        su = logits["selected_units"]
+        if su.shape[2] < MAX_SELECTED_UNITS_NUM:
+            logits["selected_units"] = F.pad(su, (0, 0, 0, MAX_SELECTED_UNITS_NUM - su.shape[2]),
+                                             value=NEG_INF)
+        return logits, flat_out, baseline_feature
+
+    def policy_forward(self, spatial_info, entity_info, scalar_info, entity_num, hidden_state,
+                       action_info, selected_units_num, batch_size: int, unroll_len: int):
+        """``rl_forward``'s policy half without the value towers (the
+        distillation student's forward): ``{"target_logit": [T, B, ...]}``."""
+        with self._amp(entity_num.device):
+            logits, _, _ = self._learner_logits(
+                spatial_info, entity_info, scalar_info, entity_num, hidden_state, action_info,
+                selected_units_num, batch_size, unroll_len)
+        return {"target_logit": logits}
+
+    def rl_forward(self, spatial_info, entity_info, scalar_info, entity_num, hidden_state,
+                   action_info, selected_units_num, batch_size: int, unroll_len: int,
+                   value_feature=None):
+        """Flat [(T+1)*B, ...] time-major inputs (row t*B + b) -> policy
+        logits [T, B, ...] and each baseline's values [T+1, B] (float32).
+        ``hidden_state`` is the trajectories' initial state, a tuple of (h,
+        c) pairs each [B, H]. With ``only_update_baseline`` the towers'
+        inputs are detached, so the critic trains only its own towers."""
+        c = static_cfg(self.cfg)
+        if not c.use_value_network:
+            raise ValueError("rl_forward requires cfg.use_value_network=True (the RL learner builds "
+                             "its model with value towers; actor-side models have none)")
+        if c.use_value_feature and value_feature is None:
+            raise ValueError("cfg.use_value_feature=True but the batch carries no value_feature "
+                             "(lib.features.VALUE_FEATURE_INFO)")
+        with self._amp(entity_num.device):
+            logits, critic_input, baseline_feature = self._learner_logits(
+                spatial_info, entity_info, scalar_info, entity_num, hidden_state, action_info,
+                selected_units_num, batch_size, unroll_len)
+            if c.only_update_baseline:
+                critic_input, baseline_feature = critic_input.detach(), baseline_feature.detach()
+            if c.use_value_feature:
+                critic_input = torch.cat(
+                    [critic_input, self.value_encoder(value_feature), baseline_feature], dim=1)
+            values = {name: getattr(self, f"value_{name}")(critic_input).reshape(unroll_len + 1,
+                                                                                 batch_size)
+                      for name in self.baselines}
+        return {"target_logit": logits, "value": values}
+
 
 def log_prob(logits: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
     """Categorical log-prob of ``action`` under ``logits`` (last axis)."""
     return F.log_softmax(logits.float(), dim=-1).gather(-1, action[..., None].long())[..., 0]
 
 
-def init_params(model: nn.Module, seed: int = 0) -> None:
+def init_params(model: nn.Module, seed: int = 0, only: Optional[Callable[[str], bool]] = None) -> None:
     """Fill every parameter from a seeded CPU generator, in the flax
     defaults' spirit: fan-in-scaled uniform weights, zero biases, unit
     LayerNorm scales, N(0, 1/n) embeddings, the gated block's 0.1 scale and
-    the end-token embedding uniform in [0, 2/sqrt(32))."""
+    the end-token embedding uniform in [0, 2/sqrt(32)), and the value
+    towers' last Dense from a truncated normal of variance 0.01 / fan_in.
+    With ``only``, just the parameters whose names it accepts are drawn
+    (the RL learner's value reset)."""
     g = torch.Generator().manual_seed(seed)
+    tower_out = {id(m.Dense_0) for m in model.modules() if isinstance(m, ValueBaseline)}
     with torch.no_grad():
         for name, p in model.named_parameters():
+            if only is not None and not only(name):
+                continue
             leaf = name.rsplit(".", 1)[-1]
             owner = model.get_submodule(name.rsplit(".", 1)[0]) if "." in name else model
-            if leaf == "update_sp":
+            if id(owner) in tower_out and leaf == "weight":
+                # flax's truncated_normal: within 2 std, rescaled to unit variance
+                std = (OUT_VARIANCE / p.shape[1]) ** 0.5 / 0.87962566103423978
+                val = torch.nn.init.trunc_normal_(torch.empty(p.shape), 0.0, std, -2 * std, 2 * std,
+                                                  generator=g)
+            elif leaf == "update_sp":
                 val = torch.full(p.shape, 0.1)
             elif leaf == "end_embedding":
                 val = torch.rand(p.shape, generator=g) * (2.0 / 32 ** 0.5)

@@ -23,6 +23,7 @@ from ..ops import (
     TransformerLayer,
     binary_encode,
     one_hot,
+    scatter_connection,
     sequence_mask,
 )
 from ..lib.features import BEGINNING_ORDER_LENGTH
@@ -250,3 +251,62 @@ class EntityEncoder(nn.Module):
         else:
             pooled = masked.sum(dim=1) / entity_num.clamp_min(1)[:, None]
         return entity_embeddings, self.embed_fc(pooled), mask
+
+
+def value_encoder_dim(cfg) -> int:
+    """Width of :class:`ValueEncoder`'s output."""
+    vc = static_cfg(cfg).value.encoder
+    return sum(out for _, _, out in vc.fc_fields) + vc.spatial.fc_dim + vc.bo.output_dim
+
+
+class ValueEncoder(nn.Module):
+    """Centralized-critic encoder over opponent statistics and both sides'
+    unit maps: per-field fc, per-unit embeddings scattered onto the map
+    (the plain ``index_add_`` scatter: the JAX package runs no kernel here),
+    a conv stack, and the opponent's build order. Input: a value-feature
+    dict (``lib.features.VALUE_FEATURE_INFO``) with a leading batch axis."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        c = static_cfg(cfg)
+        vc = c.value.encoder
+        self.fc_fields = [tuple(f) for f in vc.fc_fields]
+        self.unit_fields = [tuple(f) for f in vc.unit_fields]
+        for key, n_in, out in self.fc_fields:
+            self.add_module(f"fc_{key}", FCBlock(n_in, out, "relu"))
+        for key, n, dim in self.unit_fields:
+            self.add_module(f"embed_{key}", nn.Embedding(n, dim))
+        self.scatter_project = FCBlock(sum(d for _, _, d in self.unit_fields), vc.scatter_dim, "relu")
+        sp = vc.spatial
+        self.down_num, self.res_num = len(sp.down_channels), sp.resblock_num
+        self.Conv2DBlock_0 = Conv2DBlock(vc.scatter_dim + 2, sp.project_dim, 1, "relu")
+        ch, h, w = sp.project_dim, c.spatial_y, c.spatial_x
+        for i, out in enumerate(sp.down_channels):
+            self.add_module(f"Conv2DBlock_{i + 1}", Conv2DBlock(ch, out, 3, "relu"))
+            ch, h, w = out, h // 2, w // 2
+        for i in range(self.res_num):
+            self.add_module(f"ResBlock_{i}", ResBlock(ch, "relu"))
+        self.spatial_fc = FCBlock(h * w * ch, sp.fc_dim, "relu")
+        bo = vc.bo
+        self.bo_encoder = BeginningBuildOrderEncoder(
+            bo.action_num, bo.binary_dim, bo.head_dim, bo.output_dim, c.spatial_x)
+
+    def forward(self, x: Dict[str, torch.Tensor]):
+        fc_parts = [getattr(self, f"fc_{key}")(x[key].float()) for key, _, _ in self.fc_fields]
+        unit_emb = torch.cat([getattr(self, f"embed_{key}")(x[key].long().clamp(0, n - 1))
+                              for key, n, _ in self.unit_fields], dim=-1)
+        proj = self.scatter_project(unit_emb)
+        proj = proj * sequence_mask(x["total_unit_count"], proj.shape[1])[..., None]
+        loc = torch.stack([x["unit_x"].long(), x["unit_y"].long()], dim=-1)
+        H, W = x["own_units_spatial"].shape[-2:]
+        smap = scatter_connection(proj, loc, (H, W), "add")  # [B, H, W, D]
+        h = torch.cat([smap.permute(0, 3, 1, 2), x["own_units_spatial"].float()[:, None],
+                       x["enemy_units_spatial"].float()[:, None]], dim=1)
+        h = self.Conv2DBlock_0(h)
+        for i in range(self.down_num):
+            h = getattr(self, f"Conv2DBlock_{i + 1}")(F.max_pool2d(h, 2, 2))
+        for i in range(self.res_num):
+            h = getattr(self, f"ResBlock_{i}")(h)
+        h = self.spatial_fc(h.permute(0, 2, 3, 1).reshape(h.shape[0], -1))  # NHWC flatten
+        bo = self.bo_encoder(x["beginning_order"].float(), x["bo_location"])
+        return torch.cat(fc_parts + [h, bo], dim=-1)

@@ -102,6 +102,20 @@ class ResFCBlock(nn.Module):
         return self.act(x + self.FCBlock_1(self.FCBlock_0(x)))
 
 
+class ResFCBlock2(nn.Module):
+    """Post-norm residual fc block: LN(x + fc(fc_act(x))), no outer
+    activation (the value towers' block)."""
+
+    def __init__(self, features: int, activation: str = "relu"):
+        super().__init__()
+        self.FCBlock_0 = FCBlock(features, features, activation)
+        self.FCBlock_1 = FCBlock(features, features, None)
+        self.LayerNorm_0 = nn.LayerNorm(features, eps=LN_EPS)
+
+    def forward(self, x):
+        return self.LayerNorm_0(x + self.FCBlock_1(self.FCBlock_0(x)))
+
+
 class GLU(nn.Module):
     """Gated linear unit conditioned on a context vector:
     out = (sigmoid(W_c ctx) * x) W."""

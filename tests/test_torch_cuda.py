@@ -299,3 +299,28 @@ def test_scatter_gradient_matches_autograd_through_plain(cuda, name, case):
         (out * w).sum().backward()
         grads.append(e.grad)
     assert torch.equal(grads[0], grads[1])
+
+
+# the RL learner's shapes: (T+1) x B = 17 x 4 = 68 frames of 512 entities;
+# the flagship's head dim 128 and scatter width 32, the student's 64 and 16
+RL_FRAMES = 68
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Dh", [128, 64])
+def test_masked_attention_kernel_at_the_rl_shapes(cuda, Dh, dtype):
+    rng = np.random.default_rng(Dh)
+    mask = np.arange(512)[None, :] < np.maximum(rng.integers(1, 512, (RL_FRAMES, 1)), 8)
+    assert _attention_err(*_attention_inputs(rng, RL_FRAMES, 2, 512, Dh, mask, dtype, cuda)) <= ATTN_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["uniform", "padded"])
+@pytest.mark.parametrize("D", [32, 16])
+def test_scatter_kernels_at_the_rl_shapes(cuda, D, case):
+    hw = 152 * 160
+    emb, idx = _scatter_inputs(np.random.default_rng(D), RL_FRAMES, 512, D, hw, case, cuda)
+    loop = kernels.scatter_add_connection(emb, idx, hw)
+    assert torch.equal(_bits(loop), _bits(kernels.scatter_add_plain(emb, idx, hw)))
+    assert torch.equal(_bits(loop), _bits(kernels.scatter_add_onehot(emb, idx, hw)))

@@ -36,7 +36,8 @@ def test_port_has_modules():
     assert set(ROOT_SCRIPTS) <= set(files)
     for module in ("bin/sl_train.py", "learner/sl_learner.py", "learner/base_learner.py",
                    "learner/data.py", "losses/sl_loss.py", "parallel/optimizer.py",
-                   "parallel/grad_clip.py"):
+                   "parallel/grad_clip.py", "ops/rl.py", "model/value.py", "losses/rl_loss.py",
+                   "losses/distill_loss.py", "learner/rl_learner.py", "learner/distill_learner.py"):
         assert os.path.join("distar_tpu_torch", module) in files
     assert len(files) > 20
 

@@ -22,7 +22,7 @@ ACTION_TABLES = [
 FEATURE_TABLES = [
     "SPATIAL_SIZE", "MAX_DELAY", "BEGINNING_ORDER_LENGTH", "MAX_SELECTED_UNITS_NUM",
     "MAX_ENTITY_NUM", "EFFECT_LENGTH", "SPATIAL_INFO", "SCALAR_INFO", "ENTITY_INFO",
-    "ACTION_HEADS", "LOGIT_SHAPES", "ACTION_SHAPES",
+    "ACTION_HEADS", "LOGIT_SHAPES", "ACTION_SHAPES", "VALUE_FEATURE_INFO",
 ]
 
 
@@ -49,6 +49,18 @@ def test_fake_step_data_has_the_jax_schema():
     want = leaves(jax_features.fake_step_data(train=False))
     assert leaves(features.fake_step_data()) == want
     assert leaves(features.random_step_data(np.random.default_rng(0))) == want
+
+
+def test_value_features_have_the_jax_schema_and_draws():
+    want = jax_features.fake_value_feature(np.random.default_rng(4))
+    got = features.fake_value_feature(np.random.default_rng(4))
+    assert set(got) == set(want)
+    for k, w in want.items():
+        assert got[k].dtype == w.dtype, k
+        np.testing.assert_array_equal(got[k], w, err_msg=k)
+    rand = features.random_value_feature(np.random.default_rng(0))
+    assert {k: (v.shape, v.dtype) for k, v in rand.items()} == {k: (w.shape, w.dtype) for k, w in want.items()}
+    assert rand["unit_x"].max() > 0 and rand["own_units_spatial"].any()
 
 
 @pytest.mark.parametrize("which", ["default_model_config", "student_model_config"])

@@ -56,6 +56,16 @@ def test_res_fc_block(rng):
     np.testing.assert_allclose(tm(torch.from_numpy(x)).detach().numpy(), _jax(jm, p, x), **TOL)
 
 
+def test_res_fc_block2(rng):
+    """The value towers' post-norm block: LN(x + fc(fc_relu(x)))."""
+    x = rng.standard_normal((5, 16)).astype(np.float32)
+    tm, jm = tops.ResFCBlock2(16), jops.blocks.ResFCBlock2(16)
+    p = _carry(jm, tm, x)
+    assert set(tm.state_dict()) == {"FCBlock_0.Dense_0.weight", "FCBlock_0.Dense_0.bias", "FCBlock_1.Dense_0.weight",
+                                    "FCBlock_1.Dense_0.bias", "LayerNorm_0.weight", "LayerNorm_0.bias"}
+    np.testing.assert_allclose(tm(torch.from_numpy(x)).detach().numpy(), _jax(jm, p, x), **TOL)
+
+
 def test_glu(rng):
     x = rng.standard_normal((4, 10)).astype(np.float32)
     ctx = rng.standard_normal((4, 6)).astype(np.float32)
