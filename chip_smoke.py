@@ -26,7 +26,24 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              scatter kernel, with the launch counts read around each run;
              then the kernel-backed forward held against the 'xla' strings on
              the same weights and Gumbel noise, and the median flush time.
-5. train   — the SL train step at flagship width and depth, f32, batch 2 x
+5. serve_process — the serving process, flagship with the kernel overlay,
+             f32, 32 slots, observations from a generator of its own:
+             seeded weights written by the port's
+             ``save_checkpoint`` as a learner checkpoint (v1, and v2 from
+             another seed), verified, a byte-flipped and a truncated copy
+             refused; the stack as ``bin/serve.py`` builds it (registry from
+             the checkpoint, HTTP and TCP frontends): 8 sessions x 3 steps
+             through ``ServeClient.act_many``, the teacher (v2) installed over
+             TCP and asked for by half the lanes, one HTTP act, status and
+             ``/metrics``; every output bit-equal to an in-process gateway
+             given the same weights, seed and request order, teacher logits
+             against ``teacher_step``, launches equal to the flushes derived
+             from the script, ``/metrics`` counting the requests; a TCP hot
+             swap to v2 and a swap under traffic; the wire's timings, with
+             the serialization of one 32-lane request and answer; then
+             ``python -m distar_tpu_torch.bin.serve`` as a process, one act,
+             SIGTERM, exit 0.
+6. train   — the SL train step at flagship width and depth, f32, batch 2 x
              unroll 32 (64 frames): each kernel's autograd Function at the
              training shapes, its forward (the kernel) against the plain
              version and its backward (the JAX formula) against autograd
@@ -42,11 +59,15 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              calls of the same functions: SDPA with the same boolean mask
              (forward, forward + backward; f32 and bf16), ``zeros +
              index_add_`` and an ``index_select`` gather for its backward.
-6. rl      — the RL learner (``RL_LEARNER_DEFAULTS``, 4 x 16: 68 observed
+7. rl      — the RL learner (``RL_LEARNER_DEFAULTS``, 4 x 16: 68 observed
              frames) and the distillation student at flagship width, f32:
              each kernel's Function at the RL shapes [68, 2, 512, 128] /
              [68, 512, 32] and the student's [68, 2, 512, 64] / [68, 512,
-             16], held as in phase 5 and timed beside the library calls; the
+             16], held as in phase 6 and timed beside the library calls; the
+             readings of the strings' gradient gap (``rl_gap``: repeat,
+             mixed strings, intermediates, an f64 yardstick, the ReLU and
+             max-pool kinks and UPGO's step) on the phase's batch and a
+             seed-0 batch, held, and on zero observations, printed; the
              three config strings from the same weights on a zero-observation
              ``FakeRLDataloader`` batch and on a fixed ``random_rl_batch``:
              loss and every info scalar within STEP_TOL, the whole gradients
@@ -66,12 +87,14 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              ``DistillLearner.run`` with 2 attention + 1 scatter launches a
              step, and its step ms.
 
-The line before the last is the ``kernels`` JSON (launches: the serve, SL,
-RL and distillation paths together, each read from zero around its run);
+The line before the last is the ``kernels`` JSON (launches: the serve,
+serve-process, SL, RL and distillation paths together, each read from zero
+around its run);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -614,6 +637,425 @@ def profile_call(fn):
             "top": [{"name": k[:80], "ms": ms, "count": n} for k, (ms, n) in rows[:10]]}
 
 
+# ---------------------------------------------------------- serve process
+SERVE_LAYERS = 3  # default_model_config's entity transformer layers
+SERVE_SESSIONS, SERVE_STEPS = 8, 3
+WIRE_ROUNDS = 8
+
+
+def lz4_block(data: bytes) -> bytes:
+    """A greedy LZ4-block compressor (4-byte hash table, the format's end
+    rules: the last 5 bytes literals, no match starting in the last 12), to
+    make the ``DTL0`` frames the JAX package's native codec writes; the
+    port itself only decodes them."""
+    import struct
+
+    out = bytearray()
+
+    def length(v):
+        while v >= 255:
+            out.append(255)
+            v -= 255
+        out.append(v)
+
+    def emit(lit, offset=None, mlen=0):
+        ml = mlen - 4
+        out.append((min(len(lit), 15) << 4) | (min(ml, 15) if offset else 0))
+        if len(lit) >= 15:
+            length(len(lit) - 15)
+        out.extend(lit)
+        if offset:
+            out.extend(struct.pack("<H", offset))
+            if ml >= 15:
+                length(ml - 15)
+
+    n, table, anchor, i = len(data), {}, 0, 0
+    while i < n - 12:
+        key = data[i:i + 4]
+        j = table.get(key)
+        table[key] = i
+        if j is None or i - j > 0xFFFF:
+            i += 1
+            continue
+        m, end = 4, n - 5
+        while i + m + 64 <= end and data[j + m:j + m + 64] == data[i + m:i + m + 64]:
+            m += 64
+        while i + m < end and data[j + m] == data[i + m]:
+            m += 1
+        emit(data[anchor:i], i - j, m)
+        i = anchor = i + m
+    emit(data[anchor:])
+    return bytes(out)
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def learner_checkpoint(model):
+    """A learner checkpoint of ``model``, as the JAX learners write them:
+    ``{"params": flax params, "opt_state": optax's adam chain state}`` (the
+    moments zero, the count 0)."""
+    import numpy as np
+
+    from distar_tpu_torch.model.convert import params_to_flax
+
+    params = params_to_flax(model)
+
+    def zeros(tree):
+        return {k: zeros(v) for k, v in tree.items()} if isinstance(tree, dict) else np.zeros_like(tree)
+
+    return {"params": params, "opt_state": ((), (np.int32(0), zeros(params), zeros(params)), ())}
+
+
+def checkpoint_files(tmp, model, model_v2):
+    """v1 and v2 written by the port's ``save_checkpoint``, v1 verified and
+    a byte-flipped and a truncated copy of it refused. Returns (v1 path, v2
+    path, readings)."""
+    from distar_tpu_torch.utils import checkpoint as C
+
+    v1, v2 = os.path.join(tmp, "v1.ckpt"), os.path.join(tmp, "v2.ckpt")
+    t0 = time.perf_counter()
+    C.save_checkpoint(v1, learner_checkpoint(model), metadata={"iter": 1, "player": "MP0"})
+    write_s = time.perf_counter() - t0
+    C.save_checkpoint(v2, learner_checkpoint(model_v2), metadata={"iter": 2, "player": "MP0"})
+    check(C.verify_checkpoint(v1) and C.verify_checkpoint(v2), "checkpoint: verify_checkpoint failed")
+    t0 = time.perf_counter()
+    loaded = C.load_checkpoint(v1)
+    read_s = time.perf_counter() - t0
+    check(loaded["metadata"] == {"iter": 1, "player": "MP0"}, f"checkpoint metadata {loaded['metadata']}")
+    blob = open(v1, "rb").read()
+    refused = {}
+    for name, bad in (("flipped", blob[:len(blob) // 2] + bytes([blob[len(blob) // 2] ^ 0x40])
+                       + blob[len(blob) // 2 + 1:]), ("truncated", blob[:-1000])):
+        path = os.path.join(tmp, f"v1_{name}.ckpt")
+        with open(path, "wb") as f:
+            f.write(bad)
+        with open(path + ".manifest", "wb") as f:
+            f.write(open(v1 + ".manifest", "rb").read())
+        check(not C.verify_checkpoint(path), f"checkpoint: the {name} copy verifies")
+        try:
+            C.load_checkpoint(path)
+        except C.CheckpointCorruptError as e:
+            refused[name] = str(e)[:90]
+        else:
+            raise SmokeFailure(f"checkpoint: the {name} copy loaded")
+        os.unlink(path)
+    return v1, v2, {"bytes": len(blob), "write_s": write_s, "read_s": read_s, "refused": refused}
+
+
+def stop_all(stack):
+    """Stop the frontends and gateways of ``stack``, last started first,
+    and empty it."""
+    while stack:
+        part = stack.pop()
+        if hasattr(part, "drain_and_stop"):
+            part.drain_and_stop()
+        else:
+            part.stop()
+
+
+def same_outputs(got, want, what):
+    """Served outputs bit-equal to the in-process gateway's: every action,
+    logit and log-prob, and the version and step fields."""
+    import numpy as np
+
+    for g, w in zip(got, want):
+        check(isinstance(g, dict) and isinstance(w, dict), f"{what}: an error {g!r} / {w!r}")
+        for key in ("model_version", "session_step"):
+            check(g[key] == w[key], f"{what}: {key} {g[key]} vs {w[key]}")
+        for part in ("action_info", "action_logp", "logit") + (("teacher_logit",) if "teacher_logit" in w
+                                                              else ()):
+            check(part in g, f"{what}: no {part} in the served output")
+            for k, v in w[part].items():
+                check(np.array_equal(g[part][k], v), f"{what}: {part}[{k}] differs from the in-process "
+                      f"gateway's (max abs {np.abs(np.asarray(g[part][k], float) - v).max()})")
+
+
+def serve_script(act_many, set_teacher, act, obs, teacher):
+    """The served request script, run on the served stack and on the
+    in-process gateway alike: SERVE_SESSIONS sessions x SERVE_STEPS steps,
+    one ``act_many`` a step; the ``teacher`` weights installed after the
+    first step and asked for by the even sessions from then on; one more
+    ``act`` for session 0 (over HTTP on the served stack). Returns every
+    output, in order."""
+    outs = []
+    for step in range(SERVE_STEPS):
+        if step == 1:
+            set_teacher(teacher)
+        outs.append(act_many([{"session_id": f"s{i}", "obs": obs[i][step],
+                               **({"want_teacher": True} if step and i % 2 == 0 else {})}
+                              for i in range(SERVE_SESSIONS)]))
+    outs.append([act("s0", obs[0][SERVE_STEPS])])
+    return outs
+
+
+def phase_serve_process(device, rng, smi):
+    """The serving process on the card (module docstring, phase 5). Returns
+    the launch counts of its served requests and its readings."""
+    import shutil
+    import signal
+    import tempfile
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from distar_tpu_torch.actor import BatchedInference
+    from distar_tpu_torch.bin import serve as serve_bin
+    from distar_tpu_torch.comm import serializer
+    from distar_tpu_torch.lib import features as F
+    from distar_tpu_torch.obs import MetricsRegistry, set_registry
+    from distar_tpu_torch.ops import kernels as K
+    from distar_tpu_torch.serve import (BatchedInferenceEngine, InferenceGateway, ServeClient,
+                                        ServeHTTPServer, ServeTCPServer)
+    from distar_tpu_torch.serve.http_frontend import jsonable
+
+    cfg = overlay("pallas", "pallas")
+    model, model_v2 = build_model(cfg, 0), build_model(cfg, 1)
+    v1_state = {k: v.cpu() for k, v in model.state_dict().items()}
+    v2_state = {k: v.cpu() for k, v in model_v2.state_dict().items()}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    proc, stack = None, []
+    try:
+        v1, v2, ckpt = checkpoint_files(tmp, model, model_v2)
+        del model, model_v2
+        obs = [[F.random_step_data(rng) for _ in range(SERVE_STEPS + 1)] for _ in range(SERVE_SESSIONS)]
+
+        # the stack as bin/serve.py builds it, on a registry of its own
+        set_registry(MetricsRegistry())
+        args = serve_bin.parser().parse_args([
+            "--checkpoint", v1, "--slots", str(SLOTS), "--max-delay-ms", "50", "--device", device.type,
+            "--config", json.dumps({"model": cfg})])
+        gw = serve_bin.build_gateway(args)
+        gw.start()
+        stack.append(gw)
+        http = ServeHTTPServer(gw, port=0).start()
+        stack.append(http)
+        tcp = ServeTCPServer(gw, port=0).start()
+        stack.append(tcp)
+        client = ServeClient(tcp.host, tcp.port, timeout_s=60.0)
+        status = gw.registry.status()["versions"]["v1"]
+        url = f"http://{http.host}:{http.port}"
+
+        def post(route, body):
+            req = urllib.request.Request(url + route, json.dumps(body).encode(),
+                                         {"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return json.loads(r.read())
+
+        http_ms = []
+
+        def served_http(session, o):
+            t0 = time.perf_counter()
+            resp = post("/serve/act", {"session_id": session, "obs": jsonable(o)})
+            http_ms.append((time.perf_counter() - t0) * 1e3)
+            check(resp["code"] == 0, f"HTTP act: {resp}")
+            return {part: ({k: np.asarray(v) for k, v in val.items()} if isinstance(val, dict) else val)
+                    for part, val in resp["info"].items()}
+
+        K.reset_launch_counts()
+        served = serve_script(client.act_many, client.set_teacher, served_http, obs, v2_state)
+        launches = dict(K.launch_counts)
+        flushes, teacher_flushes = gw.flushes, gw.teacher_flushes
+        metrics = urllib.request.urlopen(url + "/metrics", timeout=30).read().decode()
+        http_status = post("/serve/status", {})
+        want_flushes = SERVE_STEPS + 1  # one flush a step, one for the HTTP act
+        want_teacher = SERVE_STEPS - 1  # the steps whose lanes asked for teacher logits
+        check((flushes, teacher_flushes) == (want_flushes, want_teacher),
+              f"served flushes {flushes} and teacher flushes {teacher_flushes}, want {want_flushes} "
+              f"and {want_teacher}")
+        want = {"masked_attention": SERVE_LAYERS * (want_flushes + want_teacher),
+                "scatter_add_connection": want_flushes + want_teacher, "scatter_add_onehot": 0}
+        check(launches == want, f"served launches {launches}, want {want}")
+        sent = SERVE_SESSIONS * SERVE_STEPS + 1
+        line = f'distar_serve_requests_total{{outcome="ok"}} {sent}'
+        check(line in metrics.splitlines(), f"/metrics does not count {sent} ok requests: "
+              + " | ".join(ln for ln in metrics.splitlines() if ln.startswith("distar_serve_requests")))
+        flush_lines = [ln.split() for ln in metrics.splitlines() if ln.startswith("distar_serve_flush_total{")]
+        check(sum(float(v) for _, v in flush_lines) == want_flushes, f"/metrics flushes {flush_lines}")
+        check(http_status["code"] == 0 and http_status["info"]["generation"] == 1, f"/serve/status {http_status}")
+
+        # the in-process gateway: the same weights as params, seed, order
+        set_registry(MetricsRegistry())
+        ref_infer = BatchedInference(build_model(cfg, 0, v1_state), SLOTS, seed=args.seed, device=device)
+        ref = InferenceGateway(BatchedInferenceEngine(ref_infer), max_delay_s=0.05).start()
+        stack.append(ref)
+        ref.load_version("v1", params=v1_state, activate=True)
+
+        want_out = serve_script(ref.act_many, ref.set_teacher, ref.act, obs, v2_state)
+        for step, (g, w) in enumerate(zip(served, want_out)):
+            same_outputs(g, w, f"served step {step}")
+        check(all("teacher_logit" in served[s][i] for s in (1, 2) for i in range(0, SERVE_SESSIONS, 2)),
+              "teacher logits missing")
+        # teacher logits against teacher_step on an in-process engine (the
+        # lanes that did not ask hold other actions here than in the served
+        # flush; each lane's logits depend on its own inputs only)
+        t_infer = BatchedInference(build_model(cfg, 0, v1_state), SLOTS, seed=args.seed, device=device)
+        t_infer.set_teacher_params(v2_state)
+        teacher_err = 0.0
+        for step in (1, 2):
+            active = [i < SERVE_SESSIONS and i % 2 == 0 for i in range(SLOTS)]
+            prepared = [obs[i][step] if i < SERVE_SESSIONS else ref._template for i in range(SLOTS)]
+            outs = [served[step][i if i < SERVE_SESSIONS else 0] for i in range(SLOTS)]
+            t_out = t_infer.teacher_step(prepared, outs, active)
+            for i in range(0, SERVE_SESSIONS, 2):
+                for k, v in t_out[i].items():
+                    got, live = served[step][i]["teacher_logit"][k], v > -1e8
+                    check(np.array_equal(got > -1e8, live), f"teacher logit {k} masks differ")
+                    teacher_err = max(teacher_err, float(np.abs(got[live] - v[live]).max(initial=0.0)))
+        check(teacher_err <= LOGIT_TOL, f"teacher logits vs teacher_step: max abs err {teacher_err}")
+        del t_infer
+        print(f"serve_process outputs: {len(served) - 1} act_many frames x {SERVE_SESSIONS} sessions and "
+              f"one HTTP act bit-equal to the in-process gateway (actions, logits, log-probs, teacher "
+              f"logits on {SERVE_SESSIONS // 2} lanes x 2 steps); teacher logits vs teacher_step max abs err "
+              f"{teacher_err:.3e} (tol {LOGIT_TOL}); launches {launches} "
+              f"= {SERVE_LAYERS} x ({want_flushes} + {want_teacher}) flushes; /metrics ok requests {sent}")
+
+        # hot swap: TCP load of v2, swap; the next flush serves v2 on both
+        info = client.load("v2", source=v2)
+        gen = client.swap("v2")
+        ref.load_version("v2", params=v2_state, activate=True)
+        req = [{"session_id": f"s{i}", "obs": obs[i][SERVE_STEPS]} for i in range(SERVE_SESSIONS)]
+        after, after_ref = client.act_many(req), ref.act_many(req)
+        check(all(o["model_version"] == "v2" for o in after), "hot swap: not serving v2")
+        same_outputs(after, after_ref, "after the swap")
+        for i in range(SERVE_SESSIONS):
+            client.end(f"s{i}")
+            ref.end_session(f"s{i}")
+        # and no request fails across a swap under traffic
+        errors, done = [], threading.Event()
+
+        def traffic():
+            c = ServeClient(tcp.host, tcp.port, timeout_s=60.0)
+            while not done.is_set():
+                for o in c.act_many([{"session_id": f"t{i}", "obs": obs[i][0]} for i in range(4)]):
+                    if not isinstance(o, dict):
+                        errors.append(repr(o))
+            c.close()
+
+        th = threading.Thread(target=traffic)
+        th.start()
+        client.load("v3", source=v1)
+        client.swap("v3")
+        time.sleep(0.5)
+        done.set()
+        th.join(120)
+        check(not errors, f"requests failed across the swap: {errors[:3]}")
+        check(client.status()["served_version"] == "v3", "the swap under traffic did not land")
+        print(f"serve_process hot swap: TCP load v2 ({info['load_s']:.3f} s load, {info['warmup_s']:.3f} s "
+              f"warm-up), swap to generation {gen}: the next flush served v2, bit-equal to the in-process "
+              f"gateway; a swap under traffic failed no request")
+
+        # the wire: act_many at 32 lanes, HTTP act, a DTL0 frame's decode
+        for i in range(4):
+            client.end(f"t{i}")
+        lanes = [{"session_id": f"w{i}", "obs": obs[i % SERVE_SESSIONS][0]} for i in range(SLOTS)]
+        wire_ms, flush_ms = [], []
+        for _ in range(WIRE_ROUNDS):
+            t0 = time.perf_counter()
+            check(all(isinstance(o, dict) for o in client.act_many(lanes)), "a 32-lane act_many failed")
+            wire_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            outputs = ref.act_many(lanes)
+            flush_ms.append((time.perf_counter() - t0) * 1e3)
+            check(all(isinstance(o, dict) for o in outputs), "an in-process act_many failed")
+        # the serialization inside that overhead: the 32-lane request and
+        # its answer, each encoded and decoded as the client and server do
+        split = {}
+        for leg, msg in (("request", {"op": "act_many", "requests": lanes}),
+                         ("response", {"code": 0, "results": [{"ok": o} for o in outputs]})):
+            enc, dec = [], []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                blob = serializer.dumps(msg)
+                enc.append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                serializer.loads(blob)
+                dec.append((time.perf_counter() - t0) * 1e3)
+            split[leg] = {"bytes": len(blob), "encode_ms": statistics.median(enc),
+                          "decode_ms": statistics.median(dec)}
+        raw = serializer.dumps({"op": "act", "session_id": "s0", "obs": obs[0][0]}, compress=False)[4:]
+        frame = serializer.MAGIC_LZ + len(raw).to_bytes(8, "little") + lz4_block(raw)
+        check(serializer.lz_decompress(frame[12:], len(raw)) == raw,
+              "the DTL0 frame does not decode to its payload")
+        decode = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            serializer.loads(frame)
+            decode.append((time.perf_counter() - t0) * 1e3)
+        wire = {"tcp_act_many_32_ms": statistics.median(wire_ms), "in_process_act_many_32_ms":
+                statistics.median(flush_ms), "http_act_ms": http_ms[0],
+                "dtl0_act_frame": {"bytes": len(frame), "raw_bytes": len(raw),
+                                   "decode_ms": statistics.median(decode)}}
+        wire["wire_overhead_ms"] = wire["tcp_act_many_32_ms"] - wire["in_process_act_many_32_ms"]
+        wire["serialization"] = split
+        wire["serialization_ms"] = sum(leg["encode_ms"] + leg["decode_ms"] for leg in split.values())
+        print(f"serve_process wire split ({smi}): overhead {wire['wire_overhead_ms']:.2f} ms of which "
+              f"serialization {wire['serialization_ms']:.2f} ms {json.dumps(split)}; the rest "
+              f"(sockets, loopback, frontend threads) {wire['wire_overhead_ms'] - wire['serialization_ms']:.2f} ms")
+        client.close()
+        stop_all(stack)
+
+        # the process: bin/serve.py on free ports, one act, SIGTERM
+        http_port, tcp_port = free_port(), free_port()
+        log_path = os.path.join(tmp, "serve.log")
+        t0 = time.perf_counter()
+        with open(log_path, "w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "distar_tpu_torch.bin.serve", "--checkpoint", v1, "--slots", "8",
+                 "--host", "127.0.0.1", "--http-port", str(http_port), "--tcp-port", str(tcp_port),
+                 "--drain-timeout-s", "20", "--device", device.type, "--config", json.dumps({"model": cfg})],
+                cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+        c = None
+        while c is None:
+            check(proc.poll() is None and time.perf_counter() - t0 < 300,
+                  f"bin/serve.py did not answer: {open(log_path).read()[-2000:]}")
+            try:
+                c = ServeClient("127.0.0.1", tcp_port, timeout_s=60.0)
+                c.ping()
+            except OSError:
+                c = None
+                time.sleep(0.5)
+        startup_s = time.perf_counter() - t0
+        boot = c.status()["registry"]["versions"]["v1"]
+        out = c.act("p0", obs[0][0])
+        check(out["session_step"] == 1 and out["model_version"] == "v1", f"process act: {out.keys()}")
+        c.close()
+        t1 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=30)
+        exit_s = time.perf_counter() - t1
+        check(rc == 0, f"bin/serve.py exited {rc} on SIGTERM: {open(log_path).read()[-2000:]}")
+        check(exit_s < 20, f"bin/serve.py took {exit_s:.1f} s to drain")
+        proc = None
+        result = {"checkpoint": ckpt, "registry": {"load_s": status["load_s"], "warmup_s": status["warmup_s"]},
+                  "wire": wire, "process": {"startup_s": startup_s, "load_s": boot["load_s"],
+                                            "warmup_s": boot["warmup_s"], "sigterm_exit_s": exit_s},
+                  "launches": launches}
+        print(f"serve_process ({smi}): checkpoint {ckpt['bytes']} bytes, write {ckpt['write_s']:.3f} s, "
+              f"read {ckpt['read_s']:.3f} s, flipped and truncated copies refused; registry load_s "
+              f"{status['load_s']:.3f} warmup_s {status['warmup_s']:.3f}; TCP act_many at {SLOTS} lanes "
+              f"{wire['tcp_act_many_32_ms']:.2f} ms (median of {WIRE_ROUNDS}) vs in-process "
+              f"{wire['in_process_act_many_32_ms']:.2f} ms; HTTP act {wire['http_act_ms']:.2f} ms; DTL0 act "
+              f"frame {len(frame)} bytes decoded in {wire['dtl0_act_frame']['decode_ms']:.2f} ms; "
+              f"bin/serve.py up in {startup_s:.2f} s (load {boot['load_s']:.3f} s, warm-up "
+              f"{boot['warmup_s']:.3f} s), exit 0 {exit_s:.2f} s after SIGTERM")
+        print(json.dumps({"serve_process": result}))
+        return launches, result
+    finally:
+        stop_all(stack)
+        if proc is not None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+        set_registry(None)
+
+
 # ------------------------------------------------------------------- train
 TRAIN_B, TRAIN_T = 2, 32  # SL_LEARNER_DEFAULTS: 64 frames a step
 TRAIN_ITERS = 8
@@ -629,11 +1071,28 @@ RL_BIG_B, RL_BIG_T = 6, 64  # the reference's trajectories x steps on one GPU (B
 RL_ITERS = 8
 # the RL and distillation strings' whole gradients: within GRAD_TOL of the
 # 'xla' gradient's norm, and every held wiring fault (``rl_faults``) further
-# from it than that (``hold_strings``). On an H100 the sound strings lie
-# 1.9e-3 (random batch) and 3.1e-3 (zero observations) of the norm from
-# 'xla'; dropping UPGO moves the gradient 5.5e-2, crossing the time and
-# batch axes 1.2. 1e-2 lies between, about 3x from each.
+# from it than that (``hold_strings``). The sound strings part by the
+# reference model's own kinks, not by a fault of the port (``rl_gap``): of
+# about 4e8 ReLU and max-pool decisions in an RL step, 40-260 sit within
+# f32 rounding (inputs 1e-8 to 1e-5 against a row scale of 0.1-6) and fall
+# on either side in any two f32 runs, and one that carries a large gradient
+# moves the whole gradient (UPGO's test never flipped). On an H100, f32
+# 'xla' itself lies 2.0e-3 from an f64 yardstick on one batch while
+# 'pallas' lies 2.9e-5 from it. With every decision pinned to the f64
+# run's, or in a smooth copy (GELU, average pool), the strings lie 5e-6 to
+# 8e-6 apart on random batches; on zero observations pinning takes 3.1e-3
+# to 6.4e-5, the rest being rounding that the LSTM amplifies there (f32
+# 'xla' alone 3.8e-5 from f64). So the sound gap is set by which kinks a
+# batch puts near zero: 9.1e-5 to 2.2e-3 on random batches, 3.1e-3 on zero
+# observations. Dropping UPGO moves the gradient 2.4e-2 to 5.5e-2, crossing
+# the time and batch axes 0.9 to 1.2. 1e-2 lies between.
 GRAD_TOL = 1e-2
+# the RL gap readings (``rl_gap``): the first intermediate whose max |a - b| /
+# max |b| exceeds this names the layer where two strings part
+GAP_TOL = 1e-5
+# the smooth copy's UPGO step, sigmoid(margin / T): the winloss values are
+# 0.01-1, so f32 rounding of a margin (1e-7) moves a lambda by 1e-6
+UPGO_SMOOTH_T = 0.1
 DISTILL_ITERS = 4
 STRINGS = {"pallas": ("pallas", "pallas"), "pallas_onehot": ("pallas_onehot", "pallas"),
            "xla": ("xla", "xla")}
@@ -854,7 +1313,7 @@ def train_entry_point(K, batch):
 
 
 def phase_train(device, rng):
-    """The SL train step on the card (module docstring, phase 5). Returns
+    """The SL train step on the card (module docstring, phase 6). Returns
     the launch counts of the train path (every launch after the kernel
     gradient and timing calls) and the measurements."""
     import torch
@@ -1106,6 +1565,492 @@ def hold_strings(what, learners, batch, loss_fn, faults=None):
     return {"strings": dist, "xla_repeat": repeat, "carry": carry, "faults": planted}
 
 
+def grad_dist(a, b):
+    """|a - b| / |b| over two whole gradients (lists of tensors), in f64."""
+    import torch
+
+    return float(torch.cat([(x.double() - y.double()).reshape(-1) for x, y in zip(a, b)]).norm()
+                 / torch.cat([y.double().reshape(-1) for y in b]).norm())
+
+
+def set_string(model, scatter, attn):
+    """Switch a built model's scatter and entity-attention routes in place:
+    the same weights under another config string (``overlay`` sets the
+    entity encoder's attention only; the build-order transformer stays
+    plain)."""
+    from distar_tpu_torch.ops.transformer import Attention
+
+    model.encoder.scatter_impl = scatter
+    for m in model.encoder.entity_encoder.modules():
+        if isinstance(m, Attention):
+            m.impl = attn
+
+
+def tapped_loss(loss_fn, lrn, batch):
+    """``loss_grads`` with the forward's intermediates tapped: each
+    transformer layer's attention (the raw attention ``attention_raw_i``,
+    before its output Dense, and the layer's attention block output
+    ``attention_i``), the entity embeddings, the scatter map, the spatial
+    embedding, the LSTM input and output, every head's logits and every
+    value, in forward order. Returns (info, parameter gradients, {name:
+    forward value}, {name: gradient of the loss at that tensor}, {layer:
+    (attention input, mask)})."""
+    import torch
+
+    from distar_tpu_torch.actor.inference import to_device
+
+    model = lrn.model
+    taps, att_in = {}, {}
+    put = taps.__setitem__
+    ent = model.encoder.entity_encoder
+    hooks = []
+    for i in range(ent.layer_num):
+        att = getattr(ent, f"TransformerLayer_{i}").Attention_0
+        hooks += [att.register_forward_pre_hook(lambda m, a, i=i: att_in.__setitem__(i, a)),
+                  att.Dense_1.register_forward_pre_hook(lambda m, a, i=i: put(f"attention_raw_{i}", a[0])),
+                  att.register_forward_hook(lambda m, a, o, i=i: put(f"attention_{i}", o))]
+    hooks += [ent.register_forward_hook(lambda m, a, o: put("entity_embeddings", o[0])),
+              model.encoder.spatial_encoder.register_forward_pre_hook(lambda m, a: put("scatter_map", a[1])),
+              model.encoder.spatial_encoder.register_forward_hook(lambda m, a, o: put("spatial_embedding", o[0])),
+              model.core_lstm.register_forward_pre_hook(lambda m, a: put("lstm_input", a[0])),
+              model.core_lstm.register_forward_hook(lambda m, a, o: put("lstm_output", o[0]))]
+    rl_forward = model.rl_forward
+
+    def record(*a, **kw):
+        out = rl_forward(*a, **kw)
+        for name, t in out["target_logit"].items():
+            put(f"logit_{name}", t)
+        for name, t in out["value"].items():
+            put(f"value_{name}", t)
+        return out
+
+    model.rl_forward = record
+    try:
+        tb = to_device({k: v for k, v in batch.items() if k != "model_last_iter"}, lrn.device)
+        total, info = loss_fn(lrn, tb)
+        params = list(model.parameters())
+        names = list(taps)
+        grads = torch.autograd.grad(total, params + [taps[n] for n in names], allow_unused=True,
+                                    materialize_grads=True)
+    finally:
+        del model.rl_forward
+        for h in hooks:
+            h.remove()
+    return ({k: float(v.detach()) for k, v in info.items()}, grads[:len(params)],
+            {n: taps[n].detach() for n in names}, dict(zip(names, grads[len(params):])), att_in)
+
+
+def tensor_gap(a, b):
+    """(max |a - b| / max |b|, the largest over rows (the last axis) of max
+    |a - b| / max |b| within the row), in f64; entries where ``b`` is a
+    -1e9 fill are left out."""
+    import torch
+
+    a, b = a.double(), b.double()
+    keep = b.abs() < 1e8
+    d = torch.where(keep, (a - b).abs(), 0.0)
+    m = torch.where(keep, b.abs(), 0.0)
+    whole = float(d.max() / m.max().clamp_min(1e-300))
+    rows = d.reshape(-1, d.shape[-1]).amax(1) / m.reshape(-1, m.shape[-1]).amax(1).clamp_min(1e-300)
+    return whole, float(rows.max())
+
+
+def first_over(gaps, tol=GAP_TOL):
+    """The first tensor, in the order given, whose gap exceeds ``tol``."""
+    return next((name for name, (whole, _) in gaps.items() if whole > tol), None)
+
+
+def plain_forward_formula_backward(q, k, v, mask):
+    """Attention whose forward is the plain version (f32, the kernel's
+    numerics) and whose backward is the kernel's formula
+    (``masked_attention_backward``): the custom backward without the kernel."""
+    import torch
+
+    from distar_tpu_torch.ops import kernels as K
+
+    class Fn(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, mask):
+            ctx.save_for_backward(q, k, v, mask)
+            return K.masked_attention_plain(q, k, v, mask)
+
+        @staticmethod
+        def backward(ctx, dout):
+            return (*K.masked_attention_backward(*ctx.saved_tensors, dout.contiguous()), None)
+
+    return Fn.apply(q, k, v, mask)
+
+
+def kernel_forward_autograd_backward(q, k, v, mask):
+    """The kernel's forward values with autograd through the plain
+    version's graph as the backward: plain + (kernel - plain), the second
+    term detached."""
+    import torch
+
+    from distar_tpu_torch.ops import kernels as K
+
+    plain = K.masked_attention_plain(q, k, v, mask, upcast=False)
+    with torch.no_grad():
+        kern = K._masked_attention(q, k, v, mask)
+    return plain + (kern - plain).detach()
+
+
+@contextlib.contextmanager
+def attention_route(fn):
+    """Within the block, the 'pallas' attention route calls ``fn`` in place
+    of ``kernels.masked_attention``."""
+    from distar_tpu_torch.ops import kernels as K
+
+    saved, K.masked_attention = K.masked_attention, fn
+    try:
+        yield
+    finally:
+        K.masked_attention = saved
+
+
+@contextlib.contextmanager
+def float64_model():
+    """Within the block, every ``Tensor.float()`` gives float64 and new
+    tensors default to float64, so a model moved to ``double()`` computes
+    its forward, loss and backward in float64 throughout (the port's code
+    casts to float32 with ``.float()`` at the heads, the loss and the
+    encoders' inputs)."""
+    import torch
+
+    to_float, dtype = torch.Tensor.float, torch.get_default_dtype()
+    torch.Tensor.float = lambda t, *a, **kw: t.double() if not t.is_complex() else to_float(t, *a, **kw)
+    torch.set_default_dtype(torch.float64)
+    try:
+        yield
+    finally:
+        torch.Tensor.float = to_float
+        torch.set_default_dtype(dtype)
+
+
+def float64_batch(batch):
+    import numpy as np
+
+    if isinstance(batch, dict):
+        return {k: float64_batch(v) for k, v in batch.items()}
+    if isinstance(batch, (list, tuple)):
+        return type(batch)(float64_batch(v) for v in batch)
+    x = np.asarray(batch)
+    return x.astype(np.float64) if x.dtype == np.float32 else x
+
+
+def real_activation_attention(K, att_in, model):
+    """The kernel against the plain version on the attention inputs that
+    the 'xla' forward of the batch gave each transformer layer: max |a - b|
+    over max |b| and its largest value per row, for the kernel and the f32
+    plain version each against the plain version in f64; beside them the
+    largest score over valid keys and the largest sum_d |q_d k_d| / sqrt(Dh)
+    (the scale that the kernel's 3xTF32 error follows)."""
+    import torch
+
+    ent = model.encoder.entity_encoder
+    out = {}
+    with torch.no_grad():
+        for i, (x, mask) in att_in.items():
+            att = getattr(ent, f"TransformerLayer_{i}").Attention_0
+            B, N, _ = x.shape
+            q, k, v = (t.reshape(B, N, att.head_num, att.head_dim).transpose(1, 2).contiguous()
+                       for t in att.Dense_0(x).chunk(3, dim=-1))
+            want = K.masked_attention_plain(q.double(), k.double(), v.double(), mask, upcast=False)
+            kern = K._masked_attention(q, k, v, mask)
+            plain = K.masked_attention_plain(q, k, v, mask, upcast=False)
+            valid = mask.bool()[:, None, None, :]
+            scale = att.head_dim ** -0.5
+            score = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+            abs_sum = torch.einsum("bhqd,bhkd->bhqk", q.abs(), k.abs()) * scale
+            out[f"layer_{i}"] = {
+                "kernel_vs_f64": tensor_gap(kern, want), "plain_f32_vs_f64": tensor_gap(plain, want),
+                "max_score": float(score.masked_fill(~valid, 0).abs().max()),
+                "max_abs_qk_sum": float(abs_sum.masked_fill(~valid, 0).max())}
+    return out
+
+
+class Kinks:
+    """Every ReLU and 2x2 max-pool decision of the model's forward, and
+    every trace-continues test of the RL loss's UPGO returns, for the RL
+    gap readings (``rl_gap``). Within the block ``F.relu``, the blocks'
+    ReLU, ``F.max_pool2d`` and the loss's ``upgo_returns`` go through this
+    object (a model must be built inside the block for its blocks'
+    activations to); ``mode``:
+
+    * ``"pass"``: the plain functions;
+    * ``"record"``: the plain functions, each call's decisions kept (which
+      inputs are > 0; which element each window takes), in call order;
+    * ``"compare"``: the plain functions, each call's decisions counted
+      against the recorded ones by call site (``sites``: flips, elements)
+      with the first few flipped inputs kept (``flipped``);
+    * ``"pin"``: each call takes the recorded decisions (x * the recorded
+      mask; the recorded window elements): the function without its kinks
+      near this point, as the recording run crossed them;
+    * ``"smooth"``: ReLU becomes GELU, the max-pool an average pool of the
+      same windows and UPGO's step a sigmoid of its margin at temperature
+      UPGO_SMOOTH_T: a copy of the model and loss without those kinks.
+
+    The port's code is untouched: this only patches ``torch.nn.functional``,
+    the blocks' activation table and the loss module's ``upgo_returns``
+    inside the block."""
+
+    def __init__(self, names=None):
+        self.mode, self.ref, self.i = "pass", [], 0
+        self.sites, self.flipped, self.names = {}, [], names or {}
+
+    def __enter__(self):
+        import torch.nn.functional as Fn
+
+        from distar_tpu_torch.losses import rl_loss
+        from distar_tpu_torch.ops import blocks
+
+        self.saved = (Fn.relu, Fn.max_pool2d, blocks.ACTIVATIONS["relu"], rl_loss.upgo_returns)
+        Fn.relu = blocks.ACTIVATIONS["relu"] = self.relu
+        Fn.max_pool2d = self.max_pool2d
+        rl_loss.upgo_returns = self.upgo_returns
+        return self
+
+    def __exit__(self, *exc):
+        import torch.nn.functional as Fn
+
+        from distar_tpu_torch.losses import rl_loss
+        from distar_tpu_torch.ops import blocks
+
+        Fn.relu, Fn.max_pool2d, blocks.ACTIVATIONS["relu"], rl_loss.upgo_returns = self.saved
+
+    def start(self, mode):
+        self.mode, self.i, self.sites, self.flipped = mode, 0, {}, []
+        if mode == "record":
+            self.ref = []
+
+    def _site(self, kind):
+        frame = sys._getframe(3)  # _site <- _decide <- relu / max_pool2d / upgo_returns <- the caller
+        owner = frame.f_locals.get("self")
+        name = self.names.get(id(owner)) if owner is not None else None
+        return f"{kind} {name if name is not None else frame.f_code.co_name}"
+
+    def _decide(self, kind, x, got):
+        """Keep, count or hand back the call's decisions ``got``."""
+        if self.mode == "record":
+            self.ref.append(got)
+        elif self.mode in ("compare", "pin"):
+            ref = self.ref[self.i]
+            if self.mode == "pin":
+                got = ref
+            else:
+                flips = got != ref
+                n = int(flips.sum())
+                site = self._site(kind)
+                rec = self.sites.setdefault(site, [0, 0])
+                rec[0] += n
+                rec[1] += flips.numel()
+                if n and kind in ("relu", "upgo") and len(self.flipped) < 16:
+                    x = x.detach()
+                    for pos in flips.nonzero()[:4].tolist():
+                        row = x[tuple(pos[:-1])]
+                        self.flipped.append({"site": site, "input": float(x[tuple(pos)]),
+                                             "row_max_abs": float(row.abs().max())})
+        self.i += 1
+        return got
+
+    def relu(self, x, inplace=False):
+        import torch.nn.functional as Fn
+
+        if self.mode == "smooth":
+            return Fn.gelu(x)
+        if self.mode == "pass":
+            return self.saved[0](x)
+        return x * self._decide("relu", x, x > 0).to(x.dtype)
+
+    def max_pool2d(self, x, kernel_size, stride=None, *args, **kw):
+        import torch.nn.functional as Fn
+
+        if self.mode == "smooth":
+            return Fn.avg_pool2d(x, kernel_size, stride, *args, **kw)
+        if self.mode == "pass":
+            return self.saved[1](x, kernel_size, stride, *args, **kw)
+        y, idx = self.saved[1](x, kernel_size, stride, return_indices=True)
+        idx = self._decide("maxpool", x, idx)
+        return x.flatten(2).gather(2, idx.flatten(2)).view_as(y)
+
+    def upgo_returns(self, rewards, bootstrap_values):
+        """``ops.rl.upgo_returns`` with its test r_{t+1} + V_{t+2} >= V_{t+1}
+        as a decision of this object (the flipped inputs are its margins)."""
+        import torch
+
+        from distar_tpu_torch.ops import generalized_lambda_returns
+
+        margin = rewards + bootstrap_values[1:] - bootstrap_values[:-1]
+        if self.mode == "smooth":
+            lambdas = torch.sigmoid(margin / UPGO_SMOOTH_T)
+        else:
+            lambdas = (rewards + bootstrap_values[1:]) >= bootstrap_values[:-1]
+            if self.mode != "pass":
+                lambdas = self._decide("upgo", margin, lambdas)
+        lambdas = torch.cat([lambdas[1:], torch.ones_like(lambdas[-1:])], dim=0)
+        return generalized_lambda_returns(rewards, 1.0, bootstrap_values, lambdas.to(rewards.dtype))
+
+
+def rl_gap(device, batch, loss_fn, what, held=True):
+    """The RL strings' gradient gap (ROADMAP Queue 3 item 1), on the flagship
+    with value towers, f32, TF32 off, one fixed batch; each reading on its
+    own line:
+
+    a. 'pallas' against its own repeat;
+    b. the mixed strings, kernel attention with the 'xla' scatter and plain
+       attention with the kernel scatter, against 'xla';
+    c. the forward's intermediates of 'pallas' against 'xla' (``tapped_loss``:
+       max |a - b| / max |b| and its largest value per row), the first over
+       GAP_TOL named; the gradient of the loss at each of them, likewise;
+       the kernel against the plain version on the real activations;
+       then the kernel's forward with autograd through the plain version as
+       its backward, and the plain forward with the kernel's backward
+       formula, each against 'xla': the forward's share and the backward's;
+    d. an f64 'xla' gradient as the yardstick, and each f32 string's
+       distance from it (gradients, intermediates, gradients at them);
+    k. the kinks (``Kinks``): every ReLU, max-pool and UPGO decision of each
+       f32 string counted against the f64 run's by call site, with the
+       inputs at the first flips beside their row's scale; then the strings
+       with every decision pinned to the f64 run's, and a smooth copy (ReLU
+       as GELU, max-pool as average pool, UPGO's step as a sigmoid), each
+       held to put the strings within GAP_TOL.
+
+    ``held=False`` prints k. without holding it to GAP_TOL. The launches of
+    these calls are not the main path's: the caller sets the counts to 0
+    after it."""
+    from distar_tpu_torch.ops import kernels as K
+
+    res = {}
+    with Kinks() as kinks:
+        lrn = rl_learner(device, "xla")
+        lrn64 = rl_learner(device, "xla")
+        lrn64.model.double()
+        kinks.names = {id(m): n for n, m in lrn.model.named_modules()}
+        model = lrn.model
+        runs = {}
+
+        def run(name, scatter, attn):
+            set_string(model, scatter, attn)
+            runs[name] = tapped_loss(loss_fn, lrn, batch)
+            return runs[name]
+
+        run("xla", "xla", "xla")
+        run("pallas", "pallas", "pallas")
+        gx = runs["xla"][1]
+
+        # a. the kernel string against its own repeat
+        again = tapped_loss(loss_fn, lrn, batch)
+        res["a"] = {"pallas_repeat": grad_dist(again[1], runs["pallas"][1]),
+                    "pallas_repeat_forward_equal": all(
+                        bool((again[2][n] == t).all()) for n, t in runs["pallas"][2].items())}
+        set_string(model, "xla", "xla")
+        res["a"]["xla_repeat"] = grad_dist(tapped_loss(loss_fn, lrn, batch)[1], gx)
+        print(f"rl gap ({what}) a. 'pallas' vs its repeat (gradient |a - b| / |b|): "
+              f"{res['a']['pallas_repeat']:.3e}, forward intermediates bit-equal "
+              f"{res['a']['pallas_repeat_forward_equal']}; 'xla' vs its repeat {res['a']['xla_repeat']:.3e}")
+
+        # b. the mixed strings
+        run("attn kernel, scatter xla", "xla", "pallas")
+        run("attn xla, scatter kernel", "pallas", "xla")
+        run("pallas_onehot", "pallas_onehot", "pallas")
+        res["b"] = {name: grad_dist(runs[name][1], gx) for name in
+                    ("pallas", "pallas_onehot", "attn kernel, scatter xla", "attn xla, scatter kernel")}
+        print(f"rl gap ({what}) b. gradient |a - b| / |b| against 'xla': {json.dumps(res['b'])}")
+
+        # c. intermediates, the gradients at them, the kernel on real activations
+        fwd = {n: tensor_gap(t, runs["xla"][2][n]) for n, t in runs["pallas"][2].items()}
+        bwd = {n: tensor_gap(t, runs["xla"][3][n]) for n, t in runs["pallas"][3].items()}
+        real = real_activation_attention(K, runs["xla"][4], model)
+        res["c"] = {"forward": fwd, "first_forward_over": first_over(fwd),
+                    "grad_at": bwd, "first_grad_over_from_top": first_over(dict(reversed(bwd.items()))),
+                    "kernel_on_real_activations": real}
+        print(f"rl gap ({what}) c. 'pallas' vs 'xla' forward intermediates [max |a - b| / max |b|, worst row]: "
+              f"{json.dumps(fwd)}; first over {GAP_TOL:.0e}: {res['c']['first_forward_over']}")
+        print(f"rl gap ({what}) c. 'pallas' vs 'xla' gradient of the loss at each intermediate: {json.dumps(bwd)}; "
+              f"first over {GAP_TOL:.0e} from the loss down: {res['c']['first_grad_over_from_top']}")
+        print(f"rl gap ({what}) c. the kernel vs the plain version on the 'xla' forward's attention inputs "
+              f"(each against the plain version in f64): {json.dumps(real)}")
+        set_string(model, "xla", "pallas")
+        with attention_route(kernel_forward_autograd_backward):
+            split_fwd = tapped_loss(loss_fn, lrn, batch)
+        with attention_route(plain_forward_formula_backward):
+            split_bwd = tapped_loss(loss_fn, lrn, batch)
+        res["c"]["split"] = {"kernel forward, autograd backward": grad_dist(split_fwd[1], gx),
+                             "plain forward, formula backward": grad_dist(split_bwd[1], gx)}
+        print(f"rl gap ({what}) c. attention split (scatter 'xla'), gradient against 'xla': "
+              f"{json.dumps(res['c']['split'])}")
+        del split_fwd, split_bwd
+
+        # d. the f64 yardstick, its kink decisions recorded
+        kinks.start("record")
+        with float64_model():
+            ref = tapped_loss(loss_fn, lrn64, float64_batch(batch))
+        kinks.start("pass")
+        strings = ("xla", "pallas", "attn kernel, scatter xla", "attn xla, scatter kernel")
+        res["d"] = {name: {"gradient": grad_dist(runs[name][1], ref[1]),
+                           "first_forward_over": first_over(
+                               {n: tensor_gap(t, ref[2][n]) for n, t in runs[name][2].items()}),
+                           "first_grad_over_from_top": first_over(
+                               {n: tensor_gap(t, ref[3][n]) for n, t in reversed(runs[name][3].items())},
+                               tol=1e-4)}
+                    for name in strings}
+        res["d"]["f64_loss_vs_xla"] = abs(ref[0]["total_loss"] - runs["xla"][0]["total_loss"])
+        fwd64 = {name: {n: tensor_gap(t, ref[2][n])[0] for n, t in runs[name][2].items()}
+                 for name in ("xla", "pallas")}
+        bwd64 = {name: {n: tensor_gap(t, ref[3][n])[0] for n, t in runs[name][3].items()}
+                 for name in ("xla", "pallas")}
+        print(f"rl gap ({what}) d. f64 'xla' yardstick: each f32 string's gradient |a - b| / |b| from it, the first "
+              f"forward tensor over {GAP_TOL:.0e} and the first gradient (from the loss down) over 1e-4: "
+              + json.dumps(res["d"]))
+        print(f"rl gap ({what}) d. forward intermediates vs f64 (max |a - b| / max |b|): {json.dumps(fwd64)}")
+        print(f"rl gap ({what}) d. gradient at each intermediate vs f64: {json.dumps(bwd64)}")
+        res["d"]["forward_vs_f64"], res["d"]["grad_at_vs_f64"] = fwd64, bwd64
+        del runs
+
+        # k. the kinks: census, then pinned to the f64 run's decisions, then smooth
+        census, pinned = {}, {}
+        for name, (scatter, attn) in (("xla", ("xla", "xla")), ("pallas", ("pallas", "pallas"))):
+            set_string(model, scatter, attn)
+            kinks.start("compare")
+            loss_grads(loss_fn, lrn, batch)
+            census[name] = {"flips": {k: v for k, v in kinks.sites.items() if v[0]},
+                            "decisions": sum(v[1] for v in kinks.sites.values()),
+                            "first_flipped_inputs": kinks.flipped}
+            kinks.start("pin")
+            pinned[name] = loss_grads(loss_fn, lrn, batch)[1]
+        kinks.start("pin")
+        with float64_model():
+            pinned_ref = loss_grads(loss_fn, lrn64, float64_batch(batch))[1]
+        del lrn64
+        smooth = {}
+        kinks.start("smooth")
+        for name, (scatter, attn) in (("xla", ("xla", "xla")), ("pallas", ("pallas", "pallas"))):
+            set_string(model, scatter, attn)
+            smooth[name] = loss_grads(loss_fn, lrn, batch)[1]
+        kinks.start("pass")
+    res["k"] = {"census": census,
+                "pinned": {"pallas_vs_xla": grad_dist(pinned["pallas"], pinned["xla"]),
+                           "xla_vs_f64": grad_dist(pinned["xla"], pinned_ref),
+                           "pallas_vs_f64": grad_dist(pinned["pallas"], pinned_ref)},
+                "smooth_pallas_vs_xla": grad_dist(smooth["pallas"], smooth["xla"])}
+    for name, c in census.items():
+        print(f"rl gap ({what}) k. {name}: {sum(v[0] for v in c['flips'].values())} of {c['decisions']} ReLU, "
+              f"max-pool and UPGO decisions on the other side from the f64 run's, by site [flips, decisions]: "
+              f"{json.dumps(c['flips'])}; the first flipped ReLU and UPGO inputs beside their row's max |x|: "
+              f"{json.dumps(c['first_flipped_inputs'])}")
+    print(f"rl gap ({what}) k. every decision pinned to the f64 run's, gradient |a - b| / |b|: "
+          f"{json.dumps(res['k']['pinned'])}; a smooth copy (ReLU as GELU, max-pool as average pool, UPGO's "
+          f"step as a sigmoid), "
+          f"'pallas' vs 'xla': "
+          f"{res['k']['smooth_pallas_vs_xla']:.3e} ({f'tol {GAP_TOL:.0e} each' if held else 'printed only'})")
+    check(not held or res["k"]["smooth_pallas_vs_xla"] <= GAP_TOL,
+          f"rl gap ({what}): the smooth copy leaves the strings {res['k']['smooth_pallas_vs_xla']:.3e} apart")
+    check(not held or res["k"]["pinned"]["pallas_vs_xla"] <= GAP_TOL,
+          f"rl gap ({what}): with the kinks pinned the strings lie {res['k']['pinned']['pallas_vs_xla']:.3e} apart")
+    del lrn
+    return res
+
+
 def steps_agree(what, learners, batch):
     """One ``_train`` step per config string: the loss and every info scalar
     within STEP_TOL of the 'xla' string's, and each grad_norm within
@@ -1147,7 +2092,8 @@ def gated_step(device, batch):
 
 def phase_rl(device, rng):
     """The RL and distillation learners on the card (module docstring,
-    phase 6). Returns the launch counts of their paths and the measurements."""
+    phase 7). Returns the launch counts of their paths and the measurements."""
+    import numpy as np
     import torch
 
     from distar_tpu_torch.learner import FakeRLDataloader, distill_loss, random_rl_batch, rl_loss
@@ -1165,11 +2111,21 @@ def phase_rl(device, rng):
     student_kernel_ms = train_kernel_times(K, inputs, "student")
     del inputs
 
+    rl_fn = lambda lrn, tb: rl_loss(lrn.model, lrn.loss_cfg, tb, RL_B, RL_T)  # noqa: E731
+    zero_obs = next(FakeRLDataloader(RL_B, RL_T))
+    # the gap on this phase's batch, on a second seeded apart, and on zero
+    # observations: which kinks a batch puts near zero sets it. On zero
+    # observations the LSTM amplifies f32 rounding (f32 'xla' lies 4e-5 from
+    # f64 with every kink pinned), so GAP_TOL holds the random batches only
+    gaps = {what: rl_gap(device, b, rl_fn, what, held) for what, b, held in (
+        ("phase batch", batch, True),
+        ("seed-0 batch", random_rl_batch(RL_B, RL_T, np.random.default_rng(0)), True),
+        ("zero-observation batch", zero_obs, False))}
+
     K.reset_launch_counts()
     learners = {impl: rl_learner(device, impl) for impl in STRINGS}
-    rl_fn = lambda lrn, tb: rl_loss(lrn.model, lrn.loss_cfg, tb, RL_B, RL_T)  # noqa: E731
     grads = {"rl_zero_obs": hold_strings("rl loss on a FakeRLDataloader batch (zero observations)",
-                                         learners, next(FakeRLDataloader(RL_B, RL_T)), rl_fn),
+                                         learners, zero_obs, rl_fn),
              "rl_random": hold_strings("rl loss on the random batch", learners, batch, rl_fn,
                                        rl_faults(batch))}
     steps_agree("rl step", learners, batch)
@@ -1236,6 +2192,11 @@ def phase_rl(device, rng):
               "distill_step_ms": d_ms, "distill_step_ms_all": d_all, "distill_profile": d_profile,
               "rl_kernel_ms": rl_kernel_ms, "student_kernel_ms": student_kernel_ms,
               "rl_kernel_max_abs_err": rl_err, "student_kernel_max_abs_err": student_err,
+              "gap": {what: {"a": gap["a"], "b": gap["b"], "c_split": gap["c"]["split"],
+                             "d": {k: v for k, v in gap["d"].items()
+                                   if k not in ("forward_vs_f64", "grad_at_vs_f64")},
+                             "k_pinned": gap["k"]["pinned"], "k_smooth": gap["k"]["smooth_pallas_vs_xla"]}
+                      for what, gap in gaps.items()},
               "launches": launches, "launches_by_path": paths}
     print(json.dumps({"rl": result}))
     return launches, result
@@ -1271,7 +2232,8 @@ def main() -> int:
     try:
         # 1. device
         device = torch.device("cuda")
-        print(smi_line())
+        smi = smi_line()
+        print(smi)
         kind = torch.cuda.get_device_name(0)
         print(f"device {kind}, torch {torch.__version__}, cuda {torch.version.cuda}")
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -1298,16 +2260,22 @@ def main() -> int:
         for name in build.KERNELS:
             check(launches.get(name, 0) > 0, f"{name} never launched on the serve path")
 
-        # 5. train
+        # 5. the serving process
+        # a generator of its own, so the phases after it draw what they drew
+        # before it was added
+        process_launches, process = phase_serve_process(device, np.random.default_rng(5), smi)
+
+        # 6. train
         train_launches, train = phase_train(device, rng)
 
-        # 6. RL and distillation
+        # 7. RL and distillation
         rl_launches, rl = phase_rl(device, rng)
-        print(f"launches: serve {launches}, train {train_launches}, rl and distill {rl_launches}")
-        launches = {name: launches[name] + train_launches[name] + rl_launches[name]
+        print(f"launches: serve {launches}, serve process {process_launches}, train {train_launches}, "
+              f"rl and distill {rl_launches}")
+        launches = {name: launches[name] + process_launches[name] + train_launches[name] + rl_launches[name]
                     for name in build.KERNELS}
 
-        # 7. the kernels line; max_abs_err over the serve shapes and the f32
+        # 8. the kernels line; max_abs_err over the serve shapes and the f32
         # SL, RL and student training shapes
         errs = {**train["train_kernel_max_abs_err"],
                 **{f"rl {k}": v for k, v in rl["rl_kernel_max_abs_err"].items()},
@@ -1322,7 +2290,8 @@ def main() -> int:
              "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
              "library_ms": rec["library_ms"]}
             for name, rec in records.items()]}
-        print(json.dumps({"serve_flush_ms": flush_ms, "train_step_ms": train["step_ms"],
+        print(json.dumps({"serve_flush_ms": flush_ms, "serve_process_wire": process["wire"],
+                          "train_step_ms": train["step_ms"],
                           "sl_frames_per_s": train["sl_frames_per_s"], "rl_step_ms": rl["step_ms"],
                           "rl_frames_per_s": rl["rl_frames_per_s"],
                           "distill_step_ms": rl["distill_step_ms"],

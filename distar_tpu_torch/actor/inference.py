@@ -6,9 +6,15 @@ prepared observation is stacked into one fixed-shape device batch and one
 carries on the device and the Gumbel noise generator. Each flush copies its
 whole output to the host in ONE device->host transfer (every leaf packed
 into one byte buffer) and hands out per-slot views of that host copy.
+
+It also owns the optional frozen-teacher side of the rollout contract: a
+teacher copy of the model, its ``teacher_params`` and one teacher LSTM
+carry per slot, advanced by ``teacher_step`` and zeroed with the policy
+carry in ``reset_slot``.
 """
 from __future__ import annotations
 
+import copy
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -77,9 +83,11 @@ def _slot_view(tree, i):
 
 
 class BatchedInference:
-    """Owns the model and hidden states for all slots of one player."""
+    """Owns the model and hidden states for all slots of one player, and
+    the optional frozen teacher (its weights and per-slot carries)."""
 
-    def __init__(self, model: Model, num_slots: int, seed: int = 0, device=None):
+    def __init__(self, model: Model, num_slots: int, seed: int = 0, device=None,
+                 teacher_params=None):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.num_slots = num_slots
@@ -88,6 +96,11 @@ class BatchedInference:
         self._num_layers = core["num_layers"]
         self.hidden = self._zero_hidden()
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.teacher_params = None
+        self.teacher_model: Optional[Model] = None
+        self.teacher_hidden = self._zero_hidden()
+        if teacher_params is not None:
+            self.set_teacher_params(teacher_params)
 
     def _zero_hidden(self):
         z = torch.zeros(self.num_slots, self._hidden_size, device=self.device)
@@ -97,6 +110,15 @@ class BatchedInference:
         """Install new weights (a ``state_dict`` of the same shapes). The
         gateway calls this at a flush boundary, between forwards."""
         self.model.load_state_dict(params)
+
+    def set_teacher_params(self, params) -> None:
+        """Install (or replace) the frozen teacher's weights, a
+        ``state_dict`` of the policy model's shapes: they load into a copy
+        of the model kept for the teacher."""
+        if self.teacher_model is None:
+            self.teacher_model = copy.deepcopy(self.model).eval()
+        self.teacher_model.load_state_dict(params)
+        self.teacher_params = params
 
     @torch.no_grad()
     def warmup(self, template_obs: dict, params=None) -> None:
@@ -115,9 +137,12 @@ class BatchedInference:
             torch.func.functional_call(self.model, params, args, {"generator": g})
 
     def reset_slot(self, idx: int) -> None:
-        """Zero one slot's hidden state (episode boundary)."""
+        """Zero one slot's policy AND teacher hidden state (episode
+        boundary: the slot's whole recurrent state restarts together)."""
         i = torch.tensor([idx], device=self.device)
         self.hidden = tuple((h.index_fill(0, i, 0.0), c.index_fill(0, i, 0.0)) for h, c in self.hidden)
+        self.teacher_hidden = tuple((h.index_fill(0, i, 0.0), c.index_fill(0, i, 0.0))
+                                    for h, c in self.teacher_hidden)
 
     def hidden_for_slot(self, idx: int):
         """The slot's carry as host numpy ((h, c) per layer), one fetch."""
@@ -154,3 +179,32 @@ class BatchedInference:
         mask = torch.as_tensor(np.asarray(active, bool), device=self.device)[:, None]
         return tuple((torch.where(mask, nh, oh), torch.where(mask, nc, oc))
                      for (nh, nc), (oh, oc) in zip(new, old))
+
+    @torch.no_grad()
+    def teacher_logits(self, prepared: List[dict], teacher_hidden, outputs: List[dict],
+                       active: Optional[List[bool]] = None):
+        """Teacher-forced logits of the installed teacher for the freshly
+        sampled actions in ``outputs`` (``sample``'s per-slot dicts);
+        returns (per-slot logit dicts, the new teacher hidden: inactive
+        slots keep the old carry)."""
+        batch = to_device(F.batch_tree(prepared), self.device)
+        action_info = to_device(F.batch_tree([o["action_info"] for o in outputs]), self.device)
+        sun = to_device(np.stack([np.asarray(o["selected_units_num"]) for o in outputs]), self.device)
+        out = self.teacher_model.teacher_logits(
+            batch["spatial_info"], batch["entity_info"], batch["scalar_info"],
+            batch["entity_num"], teacher_hidden, action_info, sun)
+        merged = self._merge_hidden(out["hidden_state"], teacher_hidden, active)
+        host = to_host(out["logit"])
+        return [_slot_view(host, i) for i in range(self.num_slots)], merged
+
+    def teacher_step(self, prepared: List[dict], outputs: List[dict],
+                     active: Optional[List[bool]] = None) -> List[dict]:
+        """The teacher forward over the installed teacher weights and the
+        per-slot teacher carries (advanced here; inactive slots keep
+        theirs). Requires ``teacher_params`` to be installed."""
+        if self.teacher_params is None:
+            raise RuntimeError("teacher_step: no teacher params installed "
+                               "(set_teacher_params / teacher_params constructor argument)")
+        per_slot, self.teacher_hidden = self.teacher_logits(
+            prepared, self.teacher_hidden, outputs, active)
+        return per_slot

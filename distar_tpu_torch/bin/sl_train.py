@@ -21,10 +21,10 @@ block cascades over the learner defaults, and its ``batch_size`` and
 from __future__ import annotations
 
 import argparse
-import json
 from typing import Iterable, Optional, Sequence
 
 from ..learner import SLLearner
+from ..utils import read_config
 
 NOT_PORTED = "not ported yet: the SL learner runtime (ROADMAP Queue 1 item 4)"
 
@@ -46,18 +46,6 @@ SMOKE_MODEL = {
     },
     "value": {"res_dim": 8, "res_num": 1},
 }
-
-
-def read_config(spec: str) -> dict:
-    """``--config``: an inline JSON object, a JSON file or a YAML file."""
-    if spec.lstrip().startswith("{"):
-        return json.loads(spec)
-    with open(spec) as f:
-        if spec.endswith(".json"):
-            return json.load(f)
-        import yaml
-
-        return yaml.safe_load(f) or {}
 
 
 def learner(args, dataloader: Optional[Iterable] = None) -> SLLearner:

@@ -1,12 +1,14 @@
 """The inference gateway: sessions + batcher + registry around one engine.
 
-Counterpart of ``distar_tpu.serve.gateway.InferenceGateway`` (its metrics,
-trace spans and teacher-logit piggyback are left out). Request path (caller
-thread): resolve or allocate the sticky session slot, enqueue into the
-micro-batcher, block on the rendezvous with the caller's timeout. Flush path
-(batcher thread): apply any pending version swap at the flush boundary, pad
-the fixed-shape batch with the zero template on inactive lanes, run ONE
-engine forward, deliver per request.
+Counterpart of ``distar_tpu.serve.gateway.InferenceGateway``, with its
+metrics (``distar_serve_*``), trace spans and teacher-logit piggyback.
+Request path (caller thread): resolve or allocate the sticky session slot,
+mint a trace context, enqueue into the micro-batcher, block on the
+rendezvous with the caller's timeout. Flush path (batcher thread): apply
+any pending version swap at the flush boundary (in-flight forwards finish
+on the old params), pad the fixed-shape batch with the zero template on
+inactive lanes, run ONE engine forward (and one teacher forward for the
+lanes that asked), deliver per request.
 
 Shutdown is drain-then-stop: admissions shed with ``DrainingError`` while
 everything already admitted flushes and completes.
@@ -19,6 +21,15 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from ..obs import (
+    Span,
+    annotate,
+    finish_trace,
+    get_registry,
+    join_trace,
+    note_exemplar,
+    tracing_enabled,
+)
 from .batcher import MicroBatcher, PendingRequest
 from .errors import DrainingError, ServeError, ShedError
 from .registry import ModelRegistry
@@ -26,7 +37,8 @@ from .sessions import SessionTable
 
 
 def _zeros_like_tree(t):
-    """Host zero template with the request's exact structure and dtypes."""
+    """Host zero template with the request's exact structure and dtypes
+    (the gateway never touches the device outside the engine)."""
     if isinstance(t, dict):
         return {k: _zeros_like_tree(v) for k, v in t.items()}
     if isinstance(t, (list, tuple)):
@@ -49,9 +61,12 @@ class InferenceGateway:
         ``BatchedInference`` holds the rule that CUDA is the default and the
         CPU must be asked for."""
         self.engine = engine
-        self.registry = registry if registry is not None else ModelRegistry(warmup_fn=self._warmup)
-        self.sessions = SessionTable(engine.num_slots, idle_ttl_s=idle_ttl_s,
-                                     on_alloc=engine.reset_slot)
+        self.registry = registry if registry is not None else ModelRegistry(
+            warmup_fn=self._warmup
+        )
+        self.sessions = SessionTable(
+            engine.num_slots, idle_ttl_s=idle_ttl_s, on_alloc=engine.reset_slot
+        )
         self.batcher = MicroBatcher(
             self._flush,
             max_batch=min(max_batch or engine.num_slots, engine.num_slots),
@@ -64,45 +79,60 @@ class InferenceGateway:
         self._applied_generation = 0
         self._served_version: Optional[str] = None
         self._draining = False
-        #: set by whoever registered this gateway for discovery: a callable
-        #: that leaves discovery; drain invokes it first
-        self.deregister = None
-        self._deregistered = False
-        self._drain_lock = threading.Lock()
-        self.flushes = 0  # engine forwards run
+        self.flushes = 0  # engine forwards run (policy; teacher forwards apart)
+        self.teacher_flushes = 0
+        reg = get_registry()
+        self._c_req = {
+            outcome: reg.counter(
+                "distar_serve_requests_total", "requests by outcome", outcome=outcome
+            )
+            for outcome in ("ok", "shed", "error", "timeout")
+        }
+        self._h_latency = reg.histogram(
+            "distar_serve_request_latency_seconds", "submit-to-response latency"
+        )
+        self._g_inflight = reg.gauge(
+            "distar_serve_inflight", "requests admitted and not yet completed"
+        )
 
     def _warmup(self, params) -> None:
-        """Default registry warm-up: one scratch forward once a request has
-        taught the gateway the observation template."""
+        """Default registry warm-up: one scratch forward, needs a template
+        observation — skipped before the first request taught us the shape
+        (cold start compiles on the first real flush instead)."""
         template = self._template
         if template is not None and hasattr(self.engine, "warmup"):
             self.engine.warmup(template, params=params)
+
+    def set_template(self, obs) -> None:
+        """Teach the gateway the observation structure before its first
+        request: the zero copy of ``obs`` pads inactive lanes and is what
+        the registry's warm-up runs on (otherwise the first request sets it
+        and a version loaded before then is not warmed up)."""
+        with self._template_lock:
+            self._template = _zeros_like_tree(obs)
 
     # ------------------------------------------------------------- lifecycle
     def start(self) -> "InferenceGateway":
         self.batcher.start()
         return self
 
-    def _deregister_once(self) -> None:
-        with self._drain_lock:
-            if self._deregistered:
-                return
-            self._deregistered = True
-            fn = self.deregister
-        if fn is not None:
-            try:
-                fn()
-            except Exception:  # noqa: BLE001 - best effort
-                pass
-
     def begin_drain(self) -> dict:
-        """Leave discovery, then shed every NEW request with
-        ``DrainingError`` while admitted requests flush. Idempotent."""
-        self._deregister_once()
-        self._draining = True
+        """Enter graceful retirement: shed every NEW request with the typed
+        ``DrainingError`` while requests already admitted flush and
+        complete on the live batcher (the batcher thread keeps running).
+        Clients end their sessions on ``DrainingError``, so
+        ``resident_sessions()`` drains to zero, the exit condition
+        ``bin/serve.py`` polls. Idempotent."""
+        if not self._draining:
+            self._draining = True
+            get_registry().counter(
+                "distar_serve_drains_total",
+                "graceful drains started on this gateway",
+            ).inc()
         return {"draining": True, "resident": self.resident_sessions()}
 
     def resident_sessions(self) -> int:
+        """Sessions still holding a slot — the number a drain waits on."""
         return self.sessions.stats()["active"]
 
     @property
@@ -115,72 +145,146 @@ class InferenceGateway:
         self.batcher.drain_and_stop(timeout)
 
     # ----------------------------------------------------------- client API
-    def act(self, session_id: str, obs: Dict[str, Any], timeout_s: Optional[float] = None):
-        """One agent step: the engine's per-slot output dict plus
-        ``model_version`` and ``session_step``. Raises a typed
-        ``ServeError``."""
-        out = self.act_many([{"session_id": session_id, "obs": obs}], timeout_s=timeout_s)[0]
+    def act(self, session_id: str, obs: Dict[str, Any], timeout_s: Optional[float] = None,
+            want_teacher: bool = False, trace=None):
+        """One agent step: returns the engine's per-slot output dict plus
+        ``model_version``. Raises a typed ``ServeError`` (``ShedError``
+        subclasses are retryable load sheds). ``trace`` is the caller's
+        compact wire trace-context field — the gateway's span joins it."""
+        req = {"session_id": session_id, "obs": obs, "want_teacher": want_teacher}
+        if trace is not None:
+            req["trace"] = trace
+        out = self.act_many([req], timeout_s=timeout_s)[0]
         if isinstance(out, ServeError):
             raise out
         return out
 
     def act_many(self, requests, timeout_s: Optional[float] = None):
-        """Submit one cycle of requests — ``[{"session_id", "obs"}, ...]`` —
-        and wait for all of them. Returns a per-request list of output dicts
-        or typed ``ServeError`` instances (never raised, so lanes that did
-        complete are not lost)."""
+        """Submit one cycle of requests — ``[{"session_id", "obs",
+        "want_teacher"?}, ...]`` — and wait for all of them. Returns a
+        per-request list whose entries are either the output dict or a
+        typed ``ServeError`` INSTANCE (never raised: partial success must
+        not lose the lanes that did complete — the rollout plane retries
+        shed lanes individually). This is the actor-grade surface: a whole
+        env cycle lands in the micro-batcher in one call, with no
+        per-slot caller threads, and coalesces with every other caller's
+        cycle into the same fixed-shape flush."""
         timeout_s = self.default_timeout_s if timeout_s is None else timeout_s
+        t0 = time.perf_counter()
         if self._draining:
+            # graceful retirement: NEW work sheds typed at the door (before
+            # any session slot is touched) while already-admitted requests
+            # finish on the live batcher
+            self._c_req["shed"].inc(len(requests))
             err = DrainingError("gateway is draining; sessions are migrating")
             return [err for _ in requests]
         results: List[Any] = [None] * len(requests)
         pending: List[tuple] = []
         for i, r in enumerate(requests):
             session_id = r["session_id"]
+            # server-side span: JOINS the caller's trace when the request
+            # carries the compact wire field (client-minted span becomes the
+            # parent — one trace_id across client/router/gateway), minted
+            # fresh for untraced legacy callers
+            ctx = None
+            if tracing_enabled():
+                ctx = join_trace(r.get("trace"), "serve_request",
+                                 session=session_id)
             try:
                 slot = self.sessions.acquire(session_id)
-            except ShedError as e:  # no slot, nothing to evict
+            except ShedError as e:  # CapacityError: no slot, nothing to evict
+                self._c_req["shed"].inc()
+                finish_trace(ctx, "shed", outcome="shed")
                 results[i] = e
                 continue
             with self._template_lock:
                 if self._template is None:
                     self._template = _zeros_like_tree(r["obs"])
-            req = PendingRequest(session_id, slot, r["obs"], deadline_ts=time.time() + timeout_s)
+            req = PendingRequest(
+                session_id, slot, r["obs"],
+                deadline_ts=time.time() + timeout_s, ctx=ctx,
+                want_teacher=bool(r.get("want_teacher", False)),
+            )
             try:
-                self.batcher.submit(req)
+                self.batcher.submit(req)  # QueueFull/Draining shed here
             except ShedError as e:
+                self._c_req["shed"].inc()
                 self.sessions.release(session_id)
+                finish_trace(ctx, "shed", outcome="shed")
                 results[i] = e
                 continue
+            self._g_inflight.inc()
             pending.append((i, session_id, req))
         wall_deadline = time.monotonic() + timeout_s + 0.25
         for i, session_id, req in pending:
             try:
-                if not req.wait(max(0.0, wall_deadline - time.monotonic())) and req.abandon():
-                    results[i] = ServeError(f"no response within {timeout_s}s")
+                if not req.wait(max(0.0, wall_deadline - time.monotonic())):
+                    # rendezvous never fired (flush wedged past the grace):
+                    # abandon so a late delivery is discarded
+                    if req.abandon():
+                        self._c_req["timeout"].inc()
+                        finish_trace(req.ctx, "timeout", outcome="error")
+                        results[i] = ServeError(f"no response within {timeout_s}s")
+                        continue
+                if req.error is not None:
+                    shed = req.error.shed
+                    self._c_req["shed" if shed else "error"].inc()
+                    finish_trace(req.ctx, "shed" if shed else "error",
+                                 outcome="shed" if shed else "error")
+                    results[i] = req.error
                     continue
-                results[i] = req.error if req.error is not None else req.result
+                self._c_req["ok"].inc()
+                latency = time.perf_counter() - t0
+                self._h_latency.observe(latency)
+                if req.ctx is not None:
+                    # close the server span HERE (the waiter's thread) with
+                    # the flush's queue/service attribution — the flush
+                    # thread only stamped the cheap facts
+                    annotate(req.ctx, "queue_s", req.queue_s)
+                    annotate(req.ctx, "service_s", req.service_s)
+                    finish_trace(req.ctx, "serve_done")
+                    if req.ctx.get("_kept"):
+                        # exemplar: the latency series names its last
+                        # RETAINED witness (a dropped trace_id would 404 on
+                        # retrieval) — a firing p99 SLO alert then names a
+                        # retrievable trace
+                        note_exemplar("distar_serve_request_latency_seconds",
+                                      req.ctx.get("trace_id"), latency)
+                results[i] = req.result
             finally:
+                self._g_inflight.dec()
                 self.sessions.release(session_id)
         return results
 
     def reserve_sessions(self, session_ids) -> Dict[str, int]:
-        """All-or-nothing bulk admission (``CapacityError`` when the table
-        cannot host every id)."""
+        """Exact-capacity bulk admission: allocate (or confirm) a slot for
+        every id atomically, shedding the WHOLE reservation typed
+        (``CapacityError``) when the table can't host it — actors fail fast
+        at job start instead of shedding mid-episode."""
         if self._draining:
             raise DrainingError("gateway is draining; no new reservations")
         return self.sessions.reserve(list(session_ids))
 
     def session_hidden(self, session_id: str):
-        """The session's current policy carry, or None when unknown."""
+        """The session's current policy carry (actors stamp it into
+        trajectories as the learner's burn-in state). ``None`` when the
+        session is unknown or the engine keeps no readable carry."""
         slot = self.sessions.slot_of(session_id)
         if slot is None or not hasattr(self.engine, "hidden_for_slot"):
             return None
         return self.engine.hidden_for_slot(slot)
 
+    def set_teacher(self, params) -> bool:
+        """Install frozen-teacher weights on the engine (the rollout
+        plane's teacher-logits path batches through the same flushes)."""
+        if not hasattr(self.engine, "set_teacher_params"):
+            raise ServeError("engine has no teacher surface")
+        self.engine.set_teacher_params(params)
+        return True
+
     def reset_session(self, session_id: str) -> bool:
-        """Episode boundary: zero the session's LSTM carry, restart its step
-        counter, keep the slot."""
+        """Episode boundary: zero the session's LSTM carry (policy AND
+        teacher), restart its step counter, keep the slot."""
         slot = self.sessions.slot_of(session_id)
         if slot is None:
             return False
@@ -200,32 +304,79 @@ class InferenceGateway:
         return self.registry.activate(version)
 
     def status(self) -> dict:
+        requests = {name: c.value for name, c in self._c_req.items()}
+        total = sum(requests.values())
         return {
             "draining": self._draining,
             "queue_depth": self.batcher.depth,
             "served_version": self._served_version,
+            # the generation actually serving (applied at a flush boundary),
+            # which trails registry.generation during an in-progress swap
             "generation": self._applied_generation,
             "sessions": self.sessions.stats(),
             "registry": self.registry.status(),
+            # cumulative outcome counters + latency tails
+            "requests": requests,
+            "shed_rate": round(requests.get("shed", 0.0) / total, 6) if total else 0.0,
+            "latency_s": {"p50": self._h_latency.quantile(0.5),
+                          "p99": self._h_latency.quantile(0.99)},
         }
 
     # ---------------------------------------------------------------- flush
     def _flush(self, batch: List[PendingRequest], reason: str) -> None:
         generation, version, params = self.registry.current()
         if params is not None and generation != self._applied_generation:
-            # the swap boundary: earlier flushes ran the old params
+            # the swap boundary: the previous flush (and anything still
+            # executing) used the old params reference; from here on the
+            # engine serves the new generation
             self.engine.set_params(params)
             self._applied_generation = generation
             self._served_version = version
-        prepared: List[dict] = [self._template] * self.engine.num_slots
+            self.registry.swap_applied(generation)
+        template = self._template
+        prepared: List[dict] = [template] * self.engine.num_slots
         active = [False] * self.engine.num_slots
+        flush_ts = time.time()
         for r in batch:
             prepared[r.slot] = r.obs
             active[r.slot] = True
-        outs = self.engine.forward(prepared, active)
+            if r.ctx is not None:
+                # bare hop append, NO histogram: the flush thread is the
+                # gateway's serial bottleneck, so per-request trace work
+                # here costs throughput one-for-one — everything heavier
+                # (service annotation, finish, exemplar) runs on the
+                # waiter's thread, which overlaps the next forward
+                r.ctx["hops"].append({"hop": "serve_flush", "ts": flush_ts})
+        with Span("serve_forward") as fwd:
+            outs = self.engine.forward(prepared, active)
         self.flushes += 1
+        for r in batch:
+            # service-time attribution: the whole batched forward serves
+            # every lane of the flush (fixed-shape batching — a lane cannot
+            # pay less than the flush it rode); annotated at completion
+            r.service_s = fwd.elapsed
+        # teacher logits piggyback on the same flush (one extra batched
+        # forward serving every lane that asked, not one per caller); lanes
+        # that didn't ask must not advance their teacher carry
+        t_outs = None
+        wanting = [r for r in batch if r.want_teacher]
+        if wanting and getattr(self.engine, "has_teacher", False):
+            t_active = [False] * self.engine.num_slots
+            for r in wanting:
+                t_active[r.slot] = True
+            with Span("serve_teacher_forward"):
+                t_outs = self.engine.teacher_forward(prepared, outs, t_active)
+            self.teacher_flushes += 1
         for r in batch:
             out = dict(outs[r.slot])
             out["model_version"] = self._served_version
+            if t_outs is not None and r.want_teacher:
+                out["teacher_logit"] = t_outs[r.slot]
+            # episode-local forward count: clients detect a server-side
+            # carry reset (gateway restart, eviction) when it runs backwards
             out["session_step"] = self.sessions.note_step(r.session_id)
-            r.complete(result=out)
+            if not r.complete(result=out):
+                # waiter already abandoned (its timeout fired): nobody will
+                # finish this span downstream — close it here so the trace
+                # is retained with the truth
+                finish_trace(r.ctx, "abandoned", outcome="error")

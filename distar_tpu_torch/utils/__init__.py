@@ -1,3 +1,3 @@
-from .config import Config, deep_merge_dicts
+from .config import Config, deep_merge_dicts, read_config
 
-__all__ = ["Config", "deep_merge_dicts"]
+__all__ = ["Config", "deep_merge_dicts", "read_config"]

@@ -5,6 +5,7 @@ unchanged."""
 from __future__ import annotations
 
 import copy
+import json
 from typing import Any, Dict, Mapping
 
 
@@ -60,3 +61,16 @@ def deep_merge_dicts(base: Mapping, override: Mapping) -> Config:
         else:
             out[k] = copy.deepcopy(v)
     return out
+
+
+def read_config(spec: str) -> dict:
+    """A launcher's ``--config``: an inline JSON object, a JSON file or a
+    YAML file."""
+    if spec.lstrip().startswith("{"):
+        return json.loads(spec)
+    with open(spec) as f:
+        if spec.endswith(".json"):
+            return json.load(f)
+        import yaml
+
+        return yaml.safe_load(f) or {}

@@ -1,0 +1,134 @@
+"""Byte-blob storage routed by URL scheme.
+
+Counterpart of ``distar_tpu.utils.storage``, its read half and atomic
+write: checkpoints go through ``read_bytes`` / ``write_bytes`` /
+``exists``, so a path may name a local file or an in-process blob. Deleting
+and listing come with the checkpoint manager (ROADMAP Queue 1 item 4).
+
+Schemes:
+  * plain paths and ``file://`` -> ``LocalBackend`` (unique tmp, fsync,
+    rename, and the rename itself fsynced)
+  * ``mem://``                  -> ``MemBackend`` (a process-local dict; tests)
+
+Any other scheme (the JAX package's ``gs://`` stub, a registered pod
+backend) raises ``NotImplementedError``: those backends come with ROADMAP
+Queue 1 item 10.
+"""
+from __future__ import annotations
+
+import glob
+import os
+import threading
+import time
+from typing import Dict, Tuple
+
+
+class StorageBackend:
+    """Byte-blob store. Paths are backend-native (scheme stripped)."""
+
+    def write_bytes(self, path: str, data: bytes) -> None:
+        raise NotImplementedError
+
+    def read_bytes(self, path: str) -> bytes:
+        raise NotImplementedError
+
+    def exists(self, path: str) -> bool:
+        raise NotImplementedError
+
+
+class LocalBackend(StorageBackend):
+    """The local filesystem, written atomically: a tmp file unique to the
+    process and thread, fsynced, renamed over the target, and the directory
+    fsynced so the rename is durable; tmps older than 10 minutes that a
+    killed writer left behind are reaped."""
+
+    def write_bytes(self, path: str, data: bytes) -> None:
+        parent = os.path.dirname(os.path.abspath(path))
+        os.makedirs(parent, exist_ok=True)
+        tmp = f"{path}.tmp.{os.getpid()}.{threading.get_ident()}"
+        try:
+            with open(tmp, "wb") as f:
+                f.write(data)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, path)
+            try:  # not every filesystem lets a directory be fsynced
+                dirfd = os.open(parent, os.O_RDONLY)
+                try:
+                    os.fsync(dirfd)
+                finally:
+                    os.close(dirfd)
+            except OSError:
+                pass
+        except BaseException:
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+            raise
+        for stale in glob.glob(glob.escape(path) + ".tmp.*"):
+            try:
+                if time.time() - os.path.getmtime(stale) > 600:
+                    os.unlink(stale)
+            except OSError:
+                pass
+
+    def read_bytes(self, path: str) -> bytes:
+        with open(path, "rb") as f:
+            return f.read()
+
+    def exists(self, path: str) -> bool:
+        return os.path.exists(path)
+
+
+class MemBackend(StorageBackend):
+    """A process-local blob dict."""
+
+    def __init__(self):
+        self._blobs: Dict[str, bytes] = {}
+        self._lock = threading.Lock()
+
+    def write_bytes(self, path: str, data: bytes) -> None:
+        with self._lock:
+            self._blobs[path] = bytes(data)
+
+    def read_bytes(self, path: str) -> bytes:
+        with self._lock:
+            if path not in self._blobs:
+                raise FileNotFoundError(f"mem://{path}")
+            return self._blobs[path]
+
+    def exists(self, path: str) -> bool:
+        with self._lock:
+            return path in self._blobs
+
+
+_BACKENDS: Dict[str, StorageBackend] = {"file": LocalBackend(), "mem": MemBackend()}
+
+
+def resolve(path: str) -> Tuple[StorageBackend, str]:
+    """``scheme://rest`` -> (backend, rest); a path without ``://`` is local."""
+    if "://" in path:
+        scheme, rest = path.split("://", 1)
+        backend = _BACKENDS.get(scheme)
+        if backend is None:
+            raise NotImplementedError(
+                f"storage scheme {scheme}:// is not ported (file and mem:// are); other "
+                f"backends come with ROADMAP Queue 1 item 10")
+        return backend, rest
+    return _BACKENDS["file"], path
+
+
+def write_bytes(path: str, data: bytes) -> None:
+    backend, rest = resolve(path)
+    backend.write_bytes(rest, data)
+
+
+def read_bytes(path: str) -> bytes:
+    backend, rest = resolve(path)
+    return backend.read_bytes(rest)
+
+
+def exists(path: str) -> bool:
+    backend, rest = resolve(path)
+    return backend.exists(rest)

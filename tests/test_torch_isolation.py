@@ -1,13 +1,17 @@
 """The port stands alone: no module of distar_tpu_torch/ and neither of the
 port's root scripts (chip_smoke.py, attention_variants.py) imports jax,
-flax, optax or anything of the JAX package distar_tpu."""
+flax, optax or anything of the JAX package distar_tpu, nor msgpack or lz4,
+which the GPU machine lacks (the port reads and writes checkpoints and
+frames with its own codecs); zstandard only under an ImportError guard, as
+the JAX serializer imports it."""
 import ast
 import os
 
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "distar_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "distar_tpu", "msgpack", "lz4")
+GUARDED = ("zstandard",)  # optional: imported only inside try / except ImportError
 ROOT_SCRIPTS = ("chip_smoke.py", "attention_variants.py")
 
 
@@ -18,9 +22,23 @@ def _port_files():
     return sorted(os.path.relpath(p, REPO) for p in out)
 
 
-def _imported_modules(path):
-    tree = ast.parse(open(os.path.join(REPO, path)).read(), filename=path)
+def _guarded_imports(tree):
+    """Import nodes inside a ``try`` whose handlers catch ImportError."""
+    out = set()
     for node in ast.walk(tree):
+        if isinstance(node, ast.Try) and any(
+                h.type is not None and "ImportError" in ast.dump(h.type) for h in node.handlers):
+            for stmt in node.body:
+                out.update(id(n) for n in ast.walk(stmt) if isinstance(n, (ast.Import, ast.ImportFrom)))
+    return out
+
+
+def _imported_modules(path, unguarded_only=False):
+    tree = ast.parse(open(os.path.join(REPO, path)).read(), filename=path)
+    guarded = _guarded_imports(tree) if unguarded_only else set()
+    for node in ast.walk(tree):
+        if id(node) in guarded:
+            continue
         if isinstance(node, ast.Import):
             for alias in node.names:
                 yield alias.name
@@ -37,7 +55,11 @@ def test_port_has_modules():
     for module in ("bin/sl_train.py", "learner/sl_learner.py", "learner/base_learner.py",
                    "learner/data.py", "losses/sl_loss.py", "parallel/optimizer.py",
                    "parallel/grad_clip.py", "ops/rl.py", "model/value.py", "losses/rl_loss.py",
-                   "losses/distill_loss.py", "learner/rl_learner.py", "learner/distill_learner.py"):
+                   "losses/distill_loss.py", "learner/rl_learner.py", "learner/distill_learner.py",
+                   "utils/storage.py", "utils/msgpack.py", "utils/checkpoint.py", "obs/registry.py",
+                   "obs/trace.py", "obs/tracestore.py", "obs/exporters.py", "resilience/policy.py",
+                   "comm/serializer.py", "serve/http_frontend.py", "serve/tcp_frontend.py",
+                   "serve/mux.py", "bin/serve.py"):
         assert os.path.join("distar_tpu_torch", module) in files
     assert len(files) > 20
 
@@ -46,3 +68,9 @@ def test_port_has_modules():
 def test_no_jax_imports(path):
     bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize("path", _port_files())
+def test_optional_imports_are_guarded(path):
+    bad = [m for m in _imported_modules(path, unguarded_only=True) if m.split(".")[0] in GUARDED]
+    assert not bad, f"{path} imports {bad} outside a try / except ImportError"

@@ -1,7 +1,9 @@
 """The port's serving path on the CPU at SMALL_MODEL: ``BatchedInference``
 against the JAX package's over a 3-step session under the same Gumbel
 noise (so the hidden-state carry and the inactive-lane merge are checked),
-then the gateway's sticky sessions, reset, drain and the device rule.
+the teacher piggyback (``teacher_step`` over the same session, and through
+the gateway's ``want_teacher``), then the gateway's sticky sessions, reset,
+drain and the device rule.
 
 Tolerance atol 2e-4 / rtol 1e-3 (tests/test_golden_parity.py:132)."""
 import jax
@@ -71,7 +73,74 @@ def session():
         got = tinf.sample(prepared, active, noise=jax_noise(key, model.cfg, SLOTS))
         record.append(dict(want=want, got=got, jh=jax.device_get(jinf.hidden),
                            th=[(h.numpy(), c.numpy()) for h, c in tinf.hidden]))
-    return dict(record=record, tinf=tinf, state=model.state_dict())
+    return dict(record=record, tinf=tinf, state=model.state_dict(), jm=jm, params=params, steps=steps,
+                first=first, h0=h0)
+
+
+@pytest.fixture(scope="module")
+def teacher_session(session):
+    """Three teacher steps over the session's observations and sampled
+    actions, in both packages, from a second set of JAX weights; slot 1
+    sits out step 2."""
+    jm, first, h0 = session["jm"], session["first"], session["h0"]
+    teacher = jax.jit(jm.init)(jax.random.PRNGKey(7), first["spatial_info"], first["entity_info"],
+                               first["scalar_info"], first["entity_num"], h0, jax.random.PRNGKey(8))
+    jinf = JaxBatchedInference(jm, session["params"], SLOTS, teacher_params=teacher)
+    model = Model(small_cfg(KERNEL_OVERLAY))
+    model.load_state_dict(session["state"])
+    tinf = BatchedInference(model, SLOTS, device="cpu",
+                            teacher_params=params_from_flax(jax.tree.map(np.asarray, teacher), model))
+    record = []
+    for prepared, active, rec in zip(session["steps"], ACTIVE, session["record"]):
+        outputs = [jax.tree.map(np.asarray, o) for o in rec["want"]]
+        want = jinf.teacher_step(prepared, outputs, active)
+        got = tinf.teacher_step(prepared, outputs, active)
+        record.append(dict(want=want, got=got, jh=jax.device_get(jinf.teacher_hidden),
+                           th=[(h.numpy(), c.numpy()) for h, c in tinf.teacher_hidden]))
+    return dict(record=record, tinf=tinf, teacher=teacher)
+
+
+@pytest.mark.parametrize("step", [0, 1, 2])
+def test_teacher_step_matches_jax(teacher_session, step):
+    rec = teacher_session["record"][step]
+    for slot in range(SLOTS):
+        if not ACTIVE[step][slot]:
+            continue
+        for k in F.ACTION_HEADS:
+            np.testing.assert_allclose(rec["got"][slot][k], np.asarray(rec["want"][slot][k]), **TOL)
+    for (th, tc), (jh, jc) in zip(rec["th"], rec["jh"]):
+        np.testing.assert_allclose(th, np.asarray(jh), **TOL)
+        np.testing.assert_allclose(tc, np.asarray(jc), **TOL)
+
+
+def test_reset_slot_zeroes_the_teacher_carry_too(teacher_session):
+    tinf = teacher_session["tinf"]
+    assert all(h[0].any() for h, _ in tinf.teacher_hidden)
+    tinf.reset_slot(0)
+    assert not any(h[0].any() or c[0].any() for h, c in tinf.teacher_hidden)
+    assert all(h[2].any() for h, _ in tinf.teacher_hidden)
+    with pytest.raises(RuntimeError, match="no teacher params"):
+        BatchedInference(Model(small_cfg()), SLOTS, device="cpu").teacher_step([], [], None)
+
+
+def test_gateway_piggybacks_teacher_logits(session, teacher_session):
+    """``want_teacher`` lanes get the teacher's logits from the same flush;
+    the others get none and keep their teacher carry."""
+    rng = np.random.default_rng(8)
+    gw, infer = make_gateway(session["state"], seed=4)
+    try:
+        assert not gw.engine.has_teacher
+        assert gw.set_teacher(params_from_flax(jax.tree.map(np.asarray, teacher_session["teacher"]),
+                                               infer.model))
+        assert gw.engine.has_teacher
+        outs = gw.act_many([{"session_id": "a", "obs": F.random_step_data(rng), "want_teacher": True},
+                            {"session_id": "b", "obs": F.random_step_data(rng)}])
+        assert set(outs[0]["teacher_logit"]) == set(F.ACTION_HEADS) and "teacher_logit" not in outs[1]
+        slot_b = gw.sessions.slot_of("b")
+        assert not any(h[slot_b].any() for h, _ in infer.teacher_hidden)
+        assert gw.teacher_flushes == 1 and gw.flushes == 1
+    finally:
+        gw.drain_and_stop()
 
 
 @pytest.mark.parametrize("step", [0, 1, 2])
