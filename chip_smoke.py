@@ -42,8 +42,29 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              swap to v2 and a swap under traffic; the wire's timings, with
              the serialization of one 32-lane request and answer; then
              ``python -m distar_tpu_torch.bin.serve`` as a process, one act,
-             SIGTERM, exit 0.
-6. train   — the SL train step at flagship width and depth, f32, batch 2 x
+             SIGTERM, exit 0. The wire is TCP only here.
+6. serve_fleet — the serving fleet on the same model and checkpoints,
+             observations from a generator of its own: a ``CoordinatorServer``
+             in process; gateway A, the stack ``bin/serve.py`` builds, in
+             process and registered with a deregister hook (its launches are
+             read from zero around the fleet script); gateway B,
+             ``python -m distar_tpu_torch.bin.serve --coordinator-addr`` as a
+             process on the same card. a. the native shuttle: crc32 against
+             zlib, the LZ4 codec round-tripping a 32-lane answer, the plain
+             decoder on its stream, the native decoder on ``lz4_block``'s. c. a
+             ``FleetClient`` discovers both and runs ``serve_script``: each
+             session on its ``HashRing`` owner, every answer bit-equal to an
+             in-process gateway fed that gateway's sessions in order. d.
+             ``FleetRollout``: a canary of v2 on B (new sessions split by the
+             hash, existing ones unmoved), promote, then a rollout of a
+             missing checkpoint that NACKs and changes nothing. e. SIGTERM to
+             B under traffic: it leaves discovery within one refresh, exits 0,
+             its sessions migrate to A (counted), no request fails. f. a
+             32-lane ``act_many`` against A in process, over TCP (``DTL0``) and
+             over shared-memory rings sized from the answer, median of 8 in
+             turns, the shm row failing on any fallback to TCP; the
+             encode/decode split.
+7. train   — the SL train step at flagship width and depth, f32, batch 2 x
              unroll 32 (64 frames): each kernel's autograd Function at the
              training shapes, its forward (the kernel) against the plain
              version and its backward (the JAX formula) against autograd
@@ -59,7 +80,7 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              calls of the same functions: SDPA with the same boolean mask
              (forward, forward + backward; f32 and bf16), ``zeros +
              index_add_`` and an ``index_select`` gather for its backward.
-7. rl      — the RL learner (``RL_LEARNER_DEFAULTS``, 4 x 16: 68 observed
+8. rl      — the RL learner (``RL_LEARNER_DEFAULTS``, 4 x 16: 68 observed
              frames) and the distillation student at flagship width, f32:
              each kernel's Function at the RL shapes [68, 2, 512, 128] /
              [68, 512, 32] and the student's [68, 2, 512, 64] / [68, 512,
@@ -88,8 +109,8 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              step, and its step ms.
 
 The line before the last is the ``kernels`` JSON (launches: the serve,
-serve-process, SL, RL and distillation paths together, each read from zero
-around its run);
+serve-process, fleet (gateway A), SL, RL and distillation paths together,
+each read from zero around its run);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -97,9 +118,11 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -644,10 +667,12 @@ WIRE_ROUNDS = 8
 
 
 def lz4_block(data: bytes) -> bytes:
-    """A greedy LZ4-block compressor (4-byte hash table, the format's end
-    rules: the last 5 bytes literals, no match starting in the last 12), to
-    make the ``DTL0`` frames the JAX package's native codec writes; the
-    port itself only decodes them."""
+    """A greedy LZ4-block compressor in plain Python (4-byte hash table, the
+    format's end rules: the last 5 bytes literals, no match starting in the
+    last 12): the plain encoder the native codec's decoder
+    (``comm/native/shuttle.cpp``) is held against. Its streams differ from
+    the native encoder's, which matches greedily over a hash table of
+    other width, and must decode all the same."""
     import struct
 
     out = bytearray()
@@ -776,30 +801,30 @@ def same_outputs(got, want, what):
                       f"gateway's (max abs {np.abs(np.asarray(g[part][k], float) - v).max()})")
 
 
-def serve_script(act_many, set_teacher, act, obs, teacher):
+def serve_script(act_many, set_teacher, act, obs, teacher, sids=None):
     """The served request script, run on the served stack and on the
-    in-process gateway alike: SERVE_SESSIONS sessions x SERVE_STEPS steps,
-    one ``act_many`` a step; the ``teacher`` weights installed after the
-    first step and asked for by the even sessions from then on; one more
-    ``act`` for session 0 (over HTTP on the served stack). Returns every
-    output, in order."""
+    in-process gateway alike: SERVE_SESSIONS sessions (``sids``, by default
+    s0, s1, ...) x SERVE_STEPS steps, one ``act_many`` a step; the
+    ``teacher`` weights installed after the first step and asked for by the
+    even sessions from then on; one more ``act`` for the first session
+    (over HTTP on the served stack). Returns every output, in order."""
+    sids = sids or [f"s{i}" for i in range(SERVE_SESSIONS)]
     outs = []
     for step in range(SERVE_STEPS):
         if step == 1:
             set_teacher(teacher)
-        outs.append(act_many([{"session_id": f"s{i}", "obs": obs[i][step],
+        outs.append(act_many([{"session_id": sids[i], "obs": obs[i][step],
                                **({"want_teacher": True} if step and i % 2 == 0 else {})}
                               for i in range(SERVE_SESSIONS)]))
-    outs.append([act("s0", obs[0][SERVE_STEPS])])
+    outs.append([act(sids[0], obs[0][SERVE_STEPS])])
     return outs
 
 
-def phase_serve_process(device, rng, smi):
-    """The serving process on the card (module docstring, phase 5). Returns
-    the launch counts of its served requests and its readings."""
-    import shutil
+def phase_serve_process(device, rng, smi, tmp):
+    """The serving process on the card (module docstring, phase 5). The
+    checkpoints v1 and v2 stay in ``tmp`` for the fleet phase. Returns the
+    launch counts of its served requests and its readings."""
     import signal
-    import tempfile
     import threading
     import urllib.request
 
@@ -807,7 +832,7 @@ def phase_serve_process(device, rng, smi):
 
     from distar_tpu_torch.actor import BatchedInference
     from distar_tpu_torch.bin import serve as serve_bin
-    from distar_tpu_torch.comm import serializer
+    from distar_tpu_torch.comm import serializer, shuttle
     from distar_tpu_torch.lib import features as F
     from distar_tpu_torch.obs import MetricsRegistry, set_registry
     from distar_tpu_torch.ops import kernels as K
@@ -819,7 +844,6 @@ def phase_serve_process(device, rng, smi):
     model, model_v2 = build_model(cfg, 0), build_model(cfg, 1)
     v1_state = {k: v.cpu() for k, v in model.state_dict().items()}
     v2_state = {k: v.cpu() for k, v in model_v2.state_dict().items()}
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
     proc, stack = None, []
     try:
         v1, v2, ckpt = checkpoint_files(tmp, model, model_v2)
@@ -836,9 +860,10 @@ def phase_serve_process(device, rng, smi):
         stack.append(gw)
         http = ServeHTTPServer(gw, port=0).start()
         stack.append(http)
-        tcp = ServeTCPServer(gw, port=0).start()
+        # this phase's wire is TCP: the fleet phase holds the rings
+        tcp = ServeTCPServer(gw, port=0, transport="tcp").start()
         stack.append(tcp)
-        client = ServeClient(tcp.host, tcp.port, timeout_s=60.0)
+        client = ServeClient(tcp.host, tcp.port, timeout_s=60.0, transport="tcp")
         status = gw.registry.status()["versions"]["v1"]
         url = f"http://{http.host}:{http.port}"
 
@@ -931,7 +956,7 @@ def phase_serve_process(device, rng, smi):
         errors, done = [], threading.Event()
 
         def traffic():
-            c = ServeClient(tcp.host, tcp.port, timeout_s=60.0)
+            c = ServeClient(tcp.host, tcp.port, timeout_s=60.0, transport="tcp")
             while not done.is_set():
                 for o in c.act_many([{"session_id": f"t{i}", "obs": obs[i][0]} for i in range(4)]):
                     if not isinstance(o, dict):
@@ -981,7 +1006,7 @@ def phase_serve_process(device, rng, smi):
                           "decode_ms": statistics.median(dec)}
         raw = serializer.dumps({"op": "act", "session_id": "s0", "obs": obs[0][0]}, compress=False)[4:]
         frame = serializer.MAGIC_LZ + len(raw).to_bytes(8, "little") + lz4_block(raw)
-        check(serializer.lz_decompress(frame[12:], len(raw)) == raw,
+        check(shuttle.lz_decompress(frame[12:], len(raw)) == raw,
               "the DTL0 frame does not decode to its payload")
         decode = []
         for _ in range(3):
@@ -1036,7 +1061,7 @@ def phase_serve_process(device, rng, smi):
         result = {"checkpoint": ckpt, "registry": {"load_s": status["load_s"], "warmup_s": status["warmup_s"]},
                   "wire": wire, "process": {"startup_s": startup_s, "load_s": boot["load_s"],
                                             "warmup_s": boot["warmup_s"], "sigterm_exit_s": exit_s},
-                  "launches": launches}
+                  "launches": launches, "checkpoints": (v1, v2)}
         print(f"serve_process ({smi}): checkpoint {ckpt['bytes']} bytes, write {ckpt['write_s']:.3f} s, "
               f"read {ckpt['read_s']:.3f} s, flipped and truncated copies refused; registry load_s "
               f"{status['load_s']:.3f} warmup_s {status['warmup_s']:.3f}; TCP act_many at {SLOTS} lanes "
@@ -1052,7 +1077,398 @@ def phase_serve_process(device, rng, smi):
         if proc is not None:
             proc.kill()
             proc.wait()
-        shutil.rmtree(tmp, ignore_errors=True)
+        set_registry(None)
+
+
+# ------------------------------------------------------------- serve fleet
+FLEET_LEASE_S = 30.0  # the gateways' registration lease
+FLEET_REFRESH_S = 2.0  # FleetClient's re-discovery cadence
+FLEET_CANARY_PCT = 50.0
+FLEET_CANARY_SESSIONS = 8
+
+
+def counter_sum(prefix):
+    """The sum of the process registry's series whose name starts with
+    ``prefix``, over every label set."""
+    from distar_tpu_torch.obs import get_registry
+
+    return sum(v for k, v in get_registry().snapshot().items() if k.startswith(prefix))
+
+
+def split_sessions(ring, addrs):
+    """SERVE_SESSIONS session ids that the ring spreads over every gateway
+    of ``addrs``, two at least on each: those of the first prefix that
+    does, so the choice depends on the addresses alone."""
+    for prefix in "stuvwxyz":
+        sids = [f"{prefix}{i}" for i in range(SERVE_SESSIONS)]
+        owners = [ring.lookup(s) for s in sids]
+        if all(owners.count(a) >= 2 for a in addrs):
+            return sids
+    raise SmokeFailure(f"no session prefix spreads over {addrs}")
+
+
+def timed(fn, what):
+    """(ms, result) of one call whose every answer must be an output."""
+    t0 = time.perf_counter()
+    out = fn()
+    ms = (time.perf_counter() - t0) * 1e3
+    check(all(isinstance(o, dict) for o in out), f"{what}: {[o for o in out if not isinstance(o, dict)][:2]}")
+    return ms, out
+
+
+def phase_serve_fleet(device, rng, smi, v1, v2):
+    """The serving fleet on the card (module docstring, phase 6). Returns the
+    launch counts of gateway A's served requests and the readings."""
+    import io
+    import pickle
+    import signal
+    import threading
+    import zlib
+
+    import torch
+
+    from distar_tpu_torch.actor import BatchedInference
+    from distar_tpu_torch.bin import serve as serve_bin
+    from distar_tpu_torch.comm import serializer, shuttle
+    from distar_tpu_torch.comm.coordinator import CoordinatorServer
+    from distar_tpu_torch.lib import features as F
+    from distar_tpu_torch.obs import MetricsRegistry, set_registry
+    from distar_tpu_torch.ops import kernels as K
+    from distar_tpu_torch.replay.sharding import HashRing
+    from distar_tpu_torch.serve import (BatchedInferenceEngine, InferenceGateway, ServeClient,
+                                        ServeHTTPServer, ServeTCPServer)
+    from distar_tpu_torch.serve.fleet import (FleetClient, FleetRollout, GatewayMap, fetch_canary,
+                                              register_gateway)
+
+    t_phase = time.perf_counter()
+    cfg = overlay("pallas", "pallas")
+    v1_state = {k: v.cpu() for k, v in build_model(cfg, 0).state_dict().items()}
+    v2_state = {k: v.cpu() for k, v in build_model(cfg, 1).state_dict().items()}
+    obs = [[F.random_step_data(rng) for _ in range(SERVE_STEPS + 1)] for _ in range(SERVE_SESSIONS)]
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    log_b = os.path.join(log_dir, "gateway_b.log")
+    set_registry(MetricsRegistry())  # the phase's series, fleet and shm included
+    stack, proc, fc, ctl, clients = [], None, None, None, []
+    result = {}
+    try:
+        coord_srv = CoordinatorServer(port=0)
+        coord_srv.start()
+        stack.append(coord_srv)
+        coord = (coord_srv.host, coord_srv.port)
+        serve_flags = ["--slots", str(SLOTS), "--max-delay-ms", "50", "--device", device.type,
+                       "--config", json.dumps({"model": cfg})]
+
+        # b. gateway B, bin/serve.py as a process on this card, starts while
+        # gateway A (the stack bin/serve.py builds, in process) is built.
+        # Both hold float32 as float32: the port's device rule turns TF32
+        # off (actor.inference.resolve_device)
+        t0 = time.perf_counter()
+        with open(log_b, "w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "distar_tpu_torch.bin.serve", "--checkpoint", v1, "--host", "127.0.0.1",
+                 "--http-port", "0", "--tcp-port", "0", "--drain-timeout-s", "20", "--coordinator-addr",
+                 f"{coord_srv.host}:{coord_srv.port}", "--lease-s", str(FLEET_LEASE_S), *serve_flags],
+                cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+        args = serve_bin.parser().parse_args(["--checkpoint", v1, *serve_flags])
+        gw_a = serve_bin.build_gateway(args).start()
+        stack.append(gw_a)
+        http_a = ServeHTTPServer(gw_a, host="127.0.0.1", port=0).start()
+        stack.append(http_a)
+        tcp_a = ServeTCPServer(gw_a, host="127.0.0.1", port=0).start()
+        stack.append(tcp_a)
+        addr_a = f"{tcp_a.host}:{tcp_a.port}"
+        register_gateway(coord, tcp_a.host, tcp_a.port,
+                         meta={"players": [], "slots": SLOTS, "http_port": http_a.port, "version": "v1",
+                               "mock": False}, lease_s=FLEET_LEASE_S, target=gw_a)
+        while True:
+            check(proc.poll() is None and time.perf_counter() - t0 < 300,
+                  f"gateway B did not register: {open(log_b).read()[-2000:]}")
+            gmap = GatewayMap.discover(coord)
+            if len(gmap) == 2:
+                break
+            time.sleep(0.5)
+        startup_b = time.perf_counter() - t0
+        addr_b = next(a for a in gmap.addrs if a != addr_a)
+        check(gmap.meta[addr_b]["slots"] == SLOTS and gmap.meta[addr_a]["http_port"] == http_a.port,
+              f"registration meta {gmap.meta}")
+
+        # c. affinity: serve_script through a FleetClient that discovered
+        # both; each answer bit-equal to an in-process gateway fed what the
+        # ring sent that gateway, in the same order
+        fc = FleetClient(coordinator_addr=coord, timeout_s=120.0, refresh_s=FLEET_REFRESH_S)
+        ring = HashRing(sorted(gmap.addrs))
+        sids = split_sessions(ring, gmap.addrs)
+        owner = {s: ring.lookup(s) for s in sids}
+        flushes0, teacher0 = gw_a.flushes, gw_a.teacher_flushes
+        K.reset_launch_counts()
+        served = serve_script(fc.act_many, fc.set_teacher, fc.act, obs, v2_state, sids=sids)
+        launches = dict(K.launch_counts)
+        flushes, teacher_flushes = gw_a.flushes - flushes0, gw_a.teacher_flushes - teacher0
+        check({s: fc.router.gateway_for(s) for s in sids} == owner,
+              f"pins {fc.router.stats()['pins_per_gateway']} are not the ring's owners")
+        want = {"masked_attention": SERVE_LAYERS * (flushes + teacher_flushes),
+                "scatter_add_connection": flushes + teacher_flushes, "scatter_add_onehot": 0}
+        want_flushes = SERVE_STEPS + (owner[sids[0]] == addr_a)
+        check(launches == want and flushes == want_flushes and teacher_flushes == SERVE_STEPS - 1,
+              f"gateway A launches {launches} for {flushes} + {teacher_flushes} flushes, want {want} "
+              f"and {want_flushes} + {SERVE_STEPS - 1}")
+        for addr in gmap.addrs:
+            ref = InferenceGateway(BatchedInferenceEngine(BatchedInference(
+                build_model(cfg, 0, v1_state), SLOTS, seed=args.seed, device=device)), max_delay_s=0.05).start()
+            ref.load_version("v1", params=v1_state, activate=True)
+
+            def act_many(reqs, ref=ref, addr=addr):
+                outs = iter(ref.act_many([r for r in reqs if owner[r["session_id"]] == addr]))
+                return [next(outs) if owner[r["session_id"]] == addr else None for r in reqs]
+
+            def act(s, o, ref=ref, addr=addr):
+                return ref.act(s, o) if owner[s] == addr else None
+
+            try:
+                want_out = serve_script(act_many, ref.set_teacher, act, obs, v2_state, sids=sids)
+            finally:
+                ref.drain_and_stop()
+            del ref
+            for step, (g, w) in enumerate(zip(served, want_out)):
+                kept = [(gi, wi) for gi, wi in zip(g, w) if wi is not None]
+                same_outputs([k[0] for k in kept], [k[1] for k in kept],
+                             f"fleet step {step}, gateway {'A' if addr == addr_a else 'B'}")
+        torch.cuda.empty_cache()
+        on_b = [s for s in sids if owner[s] == addr_b]
+        result["affinity"] = {"sessions_on_a": len(sids) - len(on_b), "sessions_on_b": len(on_b),
+                              "gateway_b_startup_s": startup_b, "gateway_a_launches": launches}
+        print(f"serve_fleet affinity: {len(sids)} sessions x {SERVE_STEPS} act_many steps + 1 act through "
+              f"FleetClient, {len(sids) - len(on_b)} on A (in process) and {len(on_b)} on B (bin/serve.py "
+              f"process, registered {startup_b:.2f} s after its start), each on its HashRing owner; every "
+              f"answer bit-equal to an in-process gateway fed its gateway's sessions in order (teacher logits "
+              f"on the even sessions); gateway A launches {launches} = {SERVE_LAYERS} x ({flushes} + "
+              f"{teacher_flushes} teacher) flushes")
+
+        # d. rollout: a canary on B, promote, then a rollout whose load NACKs
+        ctl = FleetRollout(GatewayMap.discover(coord), timeout_s=300.0, coordinator_addr=coord)
+        t0 = time.perf_counter()
+        verdict = ctl.canary_start("v2", [addr_b], FLEET_CANARY_PCT, source=v2, router=fc.router)
+        canary_s = time.perf_counter() - t0
+        check(verdict["ok"], f"canary_start: {verdict}")
+        check(fetch_canary(coord) == {"addrs": [addr_b], "pct": FLEET_CANARY_PCT, "version": "v2"},
+              f"published canary {fetch_canary(coord)}")
+        canary_sids = [f"c{i}" for i in range(FLEET_CANARY_SESSIONS)]
+        _, outs = timed(lambda: fc.act_many([{"session_id": c, "obs": obs[i % SERVE_SESSIONS][0]}
+                                             for i, c in enumerate(canary_sids)]), "canary sessions")
+        to_b = [fc.router.is_canary_session(c) for c in canary_sids]
+        check(0 < sum(to_b) < len(canary_sids), f"the canary split put {sum(to_b)} of {len(canary_sids)} on B")
+        for c, b, o in zip(canary_sids, to_b, outs):
+            check(fc.router.gateway_for(c) == (addr_b if b else addr_a), f"canary session {c} misrouted")
+            check(o["model_version"] == ("v2" if b else "v1"), f"canary session {c}: {o['model_version']}")
+        _, outs = timed(lambda: fc.act_many([{"session_id": s, "obs": obs[i][0]} for i, s in enumerate(sids)]),
+                        "existing sessions under the canary")
+        for s, o in zip(sids, outs):
+            check(fc.router.gateway_for(s) == owner[s], f"session {s} moved for the canary")
+            check(o["model_version"] == ("v2" if owner[s] == addr_b else "v1"), f"session {s}: {o['model_version']}")
+        t0 = time.perf_counter()
+        verdict = ctl.promote("v2", source=v2, router=fc.router)
+        promote_s = time.perf_counter() - t0
+        check(verdict["ok"] and fc.router.canary_config() == ([], 0.0) and fetch_canary(coord)["pct"] == 0.0,
+              f"promote: {verdict}")
+        every = sids + canary_sids
+        lanes_every = [{"session_id": s, "obs": obs[i % SERVE_SESSIONS][1]} for i, s in enumerate(every)]
+        _, outs = timed(lambda: fc.act_many(lanes_every), "after promote")
+        check(all(o["model_version"] == "v2" for o in outs), "promote: not every gateway serves v2")
+        nack = ctl.rollout("v3", source=os.path.join(log_dir, "missing.ckpt"))
+        current = {a: st.get("registry", {}).get("current") for a, st in ctl.fleet_status().items()}
+        check(not nack["ok"] and nack["outcome"] == "load_nack", f"rollout of a missing checkpoint: {nack}")
+        check(current == {addr_a: "v2", addr_b: "v2"}, f"after the NACKed rollout: {current}")
+        _, outs = timed(lambda: fc.act_many(lanes_every), "after the NACKed rollout")
+        check(all(o["model_version"] == "v2" for o in outs), "the NACKed rollout changed a served version")
+        result["rollout"] = {"canary_start_s": canary_s, "promote_s": promote_s, "canary_on_b": sum(to_b),
+                             "canary_sessions": len(canary_sids), "nack": nack["outcome"]}
+        print(f"serve_fleet rollout: canary v2 on B at {FLEET_CANARY_PCT:g}% ({canary_s:.2f} s): "
+              f"{sum(to_b)} of {len(canary_sids)} new sessions on B answering v2, the rest on A answering v1, "
+              f"existing sessions unmoved; promote ({promote_s:.2f} s): every gateway v2; a rollout of a "
+              f"missing checkpoint answered {nack['outcome']} and left {current}")
+
+        # e. drain: SIGTERM B under traffic
+        steps = {s: [] for s in every}
+        untyped, rounds, stop_traffic = [], [0], threading.Event()
+        migrations0 = counter_sum("distar_fleet_session_migrations_total")
+        reroutes0 = counter_sum("distar_fleet_reroutes_total")
+        on_b = [s for s in every if fc.router.gateway_for(s) == addr_b]
+
+        def traffic():
+            while not stop_traffic.is_set():
+                for s, o in zip(every, fc.act_many(lanes_every)):
+                    if isinstance(o, dict):
+                        steps[s].append(o["session_step"])
+                    else:
+                        untyped.append(repr(o))
+                rounds[0] += 1
+
+        th = threading.Thread(target=traffic, name="fleet-traffic")
+        th.start()
+        try:
+            while rounds[0] < 1:
+                check(th.is_alive(), "the traffic thread died")
+                time.sleep(0.01)
+            t0 = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            while addr_b in GatewayMap.discover(coord):
+                check(time.perf_counter() - t0 < FLEET_LEASE_S, "B stayed in discovery for its whole lease")
+                time.sleep(0.02)
+            left_s = time.perf_counter() - t0
+            rc = proc.wait(timeout=120)
+            exit_s = time.perf_counter() - t0
+            r0 = rounds[0]
+            while rounds[0] < r0 + 2 and th.is_alive():
+                time.sleep(0.01)
+        finally:
+            stop_traffic.set()
+            th.join(300)
+        log_tail = open(log_b).read()[-2000:]
+        check(rc == 0 and "drained; bye" in log_tail, f"gateway B exited {rc}: {log_tail}")
+        proc = None
+        check(left_s < FLEET_REFRESH_S, f"B left discovery {left_s:.2f} s after SIGTERM, past one refresh")
+        check(not untyped, f"requests failed untyped in the drain: {untyped[:3]}")
+        check(all(fc.router.gateway_for(s) == addr_a for s in every), "a session was left on B")
+        migrations = counter_sum("distar_fleet_session_migrations_total") - migrations0
+        reroutes = counter_sum("distar_fleet_reroutes_total") - reroutes0
+        check(migrations == len(on_b) and reroutes >= len(on_b),
+              f"{len(on_b)} sessions on B: {migrations} migrations, {reroutes} reroutes")
+        for s in every:
+            seq = steps[s]
+            drops = [k for k in range(1, len(seq)) if seq[k] != seq[k - 1] + 1]
+            if s in on_b:
+                check(len(drops) == 1 and seq[drops[0]] == 1, f"migrated session {s} steps {seq}")
+            else:
+                check(not drops, f"session {s} on A restarted: {seq}")
+        result["drain"] = {"left_discovery_s": left_s, "exit_s": exit_s, "sessions_migrated": len(on_b),
+                           "migrations": migrations, "reroutes": reroutes, "traffic_rounds": rounds[0]}
+        print(f"serve_fleet drain: SIGTERM to B under traffic; B left discovery after {left_s:.3f} s (lease "
+              f"{FLEET_LEASE_S:g} s, refresh {FLEET_REFRESH_S:g} s), finished its admitted requests and exited 0 "
+              f"{exit_s:.2f} s after the signal; its {len(on_b)} sessions moved to A (migrations {migrations:g}, "
+              f"reroutes {reroutes:g}), session_step restarting at 1, in {rounds[0]} rounds no request failed")
+
+        # f. the wire at 32 lanes against A: in process, TCP (DTL0), shm
+        for s in every:
+            fc.end(s)
+        lanes = [{"session_id": f"w{i}", "obs": obs[i % SERVE_SESSIONS][0]} for i in range(SLOTS)]
+        _, outputs = timed(lambda: gw_a.act_many(lanes), "a 32-lane act_many in process")
+        request = {"op": "act_many", "requests": lanes}
+        answer = {"code": 0, "results": [{"ok": o} for o in outputs]}
+        raw_bytes = {leg: len(serializer.dumps(msg, compress=False)) for leg, msg in
+                     (("request", request), ("response", answer))}
+        ring_bytes = -(-(int(1.25 * max(raw_bytes.values())) + (1 << 16)) // 4096) * 4096
+        try:
+            shm_free = shutil.disk_usage("/dev/shm").free
+        except OSError:
+            shm_free = None
+        print(f"serve_fleet wire: ring_bytes {ring_bytes} (raw request {raw_bytes['request']} and answer "
+              f"{raw_bytes['response']} bytes; the default ring is 4 MiB), /dev/shm free {shm_free} bytes")
+        check(shm_free is None or shm_free >= 2 * ring_bytes, f"/dev/shm has {shm_free} bytes free, two rings "
+              f"need {2 * ring_bytes}")
+
+        # a. the native shuttle on the 32-lane answer
+        t0 = time.perf_counter()
+        shuttle.build()
+        build_s = time.perf_counter() - t0
+        raw = pickle.dumps(answer, protocol=5)
+        check(shuttle.crc32(raw) == zlib.crc32(raw), "native crc32 differs from zlib.crc32")
+        t0 = time.perf_counter()
+        stream = shuttle.lz_compress(raw)
+        lz_enc = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        check(shuttle.lz_decompress(stream, len(raw)) == raw, "the native LZ4 does not round-trip the answer")
+        lz_dec = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        check(shuttle.py_lz_decompress(stream, len(raw)) == raw,
+              "the plain decoder reads the native stream otherwise")
+        plain_dec = (time.perf_counter() - t0) * 1e3
+        act_raw = serializer.dumps({"op": "act", "session_id": "w0", "obs": obs[0][0]}, compress=False)[4:]
+        block = lz4_block(act_raw)
+        check(shuttle.lz_decompress(block, len(act_raw)) == act_raw,
+              "the native decoder reads lz4_block's stream otherwise")
+        result["shuttle"] = {"library_build_or_load_s": build_s, "answer_bytes": len(raw),
+                             "lz4_bytes": len(stream), "encode_ms": lz_enc, "decode_ms": lz_dec,
+                             "plain_decode_ms": plain_dec, "lz4_block_frame_bytes": len(block)}
+        print(f"serve_fleet shuttle: crc32 = zlib.crc32; the 32-lane answer ({len(raw)} bytes) LZ4 {len(stream)} "
+              f"bytes, native encode {lz_enc:.2f} ms / decode {lz_dec:.2f} ms, round trip exact; the plain "
+              f"decoder reads it to the same bytes in {plain_dec:.1f} ms; the native decoder reads lz4_block's "
+              f"act frame ({len(block)} of {len(act_raw)} bytes)")
+
+        tcp_client = ServeClient(tcp_a.host, tcp_a.port, timeout_s=120.0, transport="tcp")
+        clients.append(tcp_client)
+        wire_srv = ServeTCPServer(gw_a, host="127.0.0.1", port=0, ring_bytes=ring_bytes).start()
+        stack.append(wire_srv)
+        shm_client = ServeClient(wire_srv.host, wire_srv.port, timeout_s=120.0, transport="shm")
+        clients.append(shm_client)
+        check(shm_client.transport_active == "shm", "the shm client got no rings")
+        fallbacks0 = counter_sum("distar_shm_fallbacks_total")
+        frames0 = counter_sum("distar_shm_tx_frames_total")
+        routes = {"in_process": lambda: gw_a.act_many(lanes), "tcp": lambda: tcp_client.act_many(lanes),
+                  "shm": lambda: shm_client.act_many(lanes)}
+        ms = {name: [] for name in routes}
+        for _ in range(WIRE_ROUNDS):  # the three routes in turns
+            for name, fn in routes.items():
+                ms[name].append(timed(fn, f"a 32-lane act_many ({name})")[0])
+        fallbacks = counter_sum("distar_shm_fallbacks_total") - fallbacks0
+        frames = counter_sum("distar_shm_tx_frames_total") - frames0
+        # A's status sums its two TCP frontends: tcp_a (the fleet's and the
+        # TCP row's connections) and wire_srv (the shm row's alone)
+        transports = gw_a.status()["transports"]
+        on_wire, on_tcp_a = wire_srv.transport_counts(), tcp_a.transport_counts()
+        check(fallbacks == 0 and shm_client.transport_active == "shm",
+              f"the shm row fell back to TCP ({fallbacks:g} fallbacks): not a ring measurement")
+        check(on_wire == {"tcp": 0, "shm": 1} and on_tcp_a["tcp"] >= 1
+              and transports == {k: on_wire[k] + on_tcp_a[k] for k in on_wire} and frames == 2 * WIRE_ROUNDS,
+              f"status transports {transports} (ring server {on_wire}, A's server {on_tcp_a}), {frames:g} ring "
+              f"frames for {WIRE_ROUNDS} rounds")
+        split = {}
+        for leg, msg in (("request", request), ("response", answer)):
+            enc, dec, enc_raw, dec_raw = [], [], [], []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                blob = serializer.dumps(msg)
+                enc.append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                serializer.loads(blob)
+                dec.append((time.perf_counter() - t0) * 1e3)
+                buf = io.BytesIO()
+                t0 = time.perf_counter()
+                serializer.dump_stream(msg, buf)
+                enc_raw.append((time.perf_counter() - t0) * 1e3)
+                view = buf.getbuffer()
+                t0 = time.perf_counter()
+                serializer.loads(view)
+                dec_raw.append((time.perf_counter() - t0) * 1e3)
+                view.release()
+            split[leg] = {"dtl0_bytes": len(blob), "dtl0_encode_ms": statistics.median(enc),
+                          "dtl0_decode_ms": statistics.median(dec), "raw_bytes": raw_bytes[leg],
+                          "raw_stream_ms": statistics.median(enc_raw), "raw_decode_ms": statistics.median(dec_raw)}
+        wire = {name: statistics.median(v) for name, v in ms.items()}
+        wire.update({"tcp_overhead_ms": wire["tcp"] - wire["in_process"],
+                     "shm_overhead_ms": wire["shm"] - wire["in_process"], "ring_bytes": ring_bytes,
+                     "dev_shm_free_bytes": shm_free, "shm_fallbacks": fallbacks, "transports": transports,
+                     "ring_server_transports": on_wire, "serialization": split, "rounds": WIRE_ROUNDS})
+        result["wire"] = wire
+        print(f"serve_fleet wire ({smi}): 32-lane act_many, median of {WIRE_ROUNDS} in turns: in process "
+              f"{wire['in_process']:.2f} ms, TCP (DTL0) {wire['tcp']:.2f} ms (+{wire['tcp_overhead_ms']:.2f}), shm "
+              f"{wire['shm']:.2f} ms (+{wire['shm_overhead_ms']:.2f}) over {frames:g} ring frames, 0 fallbacks, "
+              f"status transports {transports}; serialization {json.dumps(split)}")
+        result["seconds"] = time.perf_counter() - t_phase
+        print(f"serve_fleet: {result['seconds']:.1f} s")
+        print(json.dumps({"serve_fleet": result}))
+        return launches, result
+    finally:
+        for c in clients:
+            c.close()
+        if fc is not None:
+            fc.close()
+        if ctl is not None:
+            ctl.close()
+        stop_all(stack)
+        if proc is not None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(log_dir, ignore_errors=True)
         set_registry(None)
 
 
@@ -2229,6 +2645,7 @@ def main() -> int:
         return 2
 
     t_start = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")  # the serving phases' checkpoints
     try:
         # 1. device
         device = torch.device("cuda")
@@ -2263,19 +2680,23 @@ def main() -> int:
         # 5. the serving process
         # a generator of its own, so the phases after it draw what they drew
         # before it was added
-        process_launches, process = phase_serve_process(device, np.random.default_rng(5), smi)
+        process_launches, process = phase_serve_process(device, np.random.default_rng(5), smi, tmp)
 
-        # 6. train
+        # 6. the serving fleet, on the checkpoints phase 5 wrote
+        fleet_launches, fleet = phase_serve_fleet(device, np.random.default_rng(6), smi,
+                                                  *process["checkpoints"])
+
+        # 7. train
         train_launches, train = phase_train(device, rng)
 
-        # 7. RL and distillation
+        # 8. RL and distillation
         rl_launches, rl = phase_rl(device, rng)
-        print(f"launches: serve {launches}, serve process {process_launches}, train {train_launches}, "
-              f"rl and distill {rl_launches}")
-        launches = {name: launches[name] + process_launches[name] + train_launches[name] + rl_launches[name]
-                    for name in build.KERNELS}
+        print(f"launches: serve {launches}, serve process {process_launches}, serve fleet (gateway A) "
+              f"{fleet_launches}, train {train_launches}, rl and distill {rl_launches}")
+        launches = {name: launches[name] + process_launches[name] + fleet_launches[name] + train_launches[name]
+                    + rl_launches[name] for name in build.KERNELS}
 
-        # 8. the kernels line; max_abs_err over the serve shapes and the f32
+        # 9. the kernels line; max_abs_err over the serve shapes and the f32
         # SL, RL and student training shapes
         errs = {**train["train_kernel_max_abs_err"],
                 **{f"rl {k}": v for k, v in rl["rl_kernel_max_abs_err"].items()},
@@ -2291,6 +2712,7 @@ def main() -> int:
              "library_ms": rec["library_ms"]}
             for name, rec in records.items()]}
         print(json.dumps({"serve_flush_ms": flush_ms, "serve_process_wire": process["wire"],
+                          "serve_fleet_wire": {k: fleet["wire"][k] for k in ("in_process", "tcp", "shm")},
                           "train_step_ms": train["step_ms"],
                           "sl_frames_per_s": train["sl_frames_per_s"], "rl_step_ms": rl["step_ms"],
                           "rl_frames_per_s": rl["rl_frames_per_s"],
@@ -2305,6 +2727,7 @@ def main() -> int:
         return 1
     finally:
         kernels.reset_launch_counts()
+        shutil.rmtree(tmp, ignore_errors=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))
     return 0

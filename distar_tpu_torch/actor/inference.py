@@ -26,10 +26,18 @@ from ..model.core import Model, gumbel_noise
 
 def resolve_device(device=None) -> torch.device:
     """The entry points' device rule: CUDA unless the caller asks for
-    another device, and no silent slide onto the CPU when CUDA is absent."""
+    another device, and no silent slide onto the CPU when CUDA is absent.
+
+    On CUDA it also turns TF32 off for matmuls and cuDNN convolutions (the
+    process-wide ``torch.backends`` switches): the model's float32 is held
+    as float32, where torch's defaults let cuDNN round convolution inputs
+    to TF32's 10-bit mantissa. bfloat16 runs are not affected."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
     return dev
 
 

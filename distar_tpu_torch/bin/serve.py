@@ -14,15 +14,22 @@ none unless given ``cpu``. ``--players MP0,MP1`` (mock) or repeated
 ``--player-checkpoint PLAYER=URL`` serve several players behind this one
 address (``GatewayMux``).
 
-Shutdown (SIGTERM or SIGINT) is drain-then-stop: the frontends stop
-accepting, admitted requests flush, the process exits 0.
+``--transport`` (default ``auto``) lets the TCP frontend negotiate
+shared-memory rings with clients on the same host (``shm`` too; ``tcp``
+refuses rings). ``--coordinator-addr host:port`` registers the TCP
+address under the ``serve_gateway`` token with a ``--lease-s`` lease kept
+alive by heartbeats, so a ``serve.fleet`` router or ``FleetClient``
+discovers the gateway.
 
-Not ported yet, each raising ``NotImplementedError``: ``--coordinator-addr``
-(fleet registration, ``serve/fleet``; ROADMAP Queue 1 item 2),
-``--telemetry-interval-s`` above 0 (the telemetry shipper,
-``obs/shipper.py``; item 9), and ``--transport auto|shm`` (shared-memory
-rings; item 2). Fleet health (``obs/health.py``, item 9) is not ported:
-``--no-health`` is accepted and the start-up line says so.
+Shutdown (SIGTERM or SIGINT) is drain-then-stop: the gateway leaves
+discovery first (it unregisters from the coordinator), sheds new requests
+with the typed ``DrainingError``, flushes those it admitted, stops its
+frontends and exits 0.
+
+Not ported yet: ``--telemetry-interval-s`` above 0 raises
+``NotImplementedError`` (the telemetry shipper, ``obs/shipper.py``;
+ROADMAP Queue 1 item 9). Fleet health (``obs/health.py``, item 9) is not
+ported: ``--no-health`` is accepted and the start-up line says so.
 """
 from __future__ import annotations
 
@@ -108,7 +115,10 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="torch device of the model (default cuda; raises without CUDA unless 'cpu')")
     p.add_argument("--coordinator-addr", default="",
-                   help="fleet registration: not ported yet (serve/fleet, ROADMAP Queue 1 item 2)")
+                   help="register this gateway under the serve_gateway token at host:port "
+                        "(lease and heartbeats; routers discover the fleet there)")
+    p.add_argument("--lease-s", type=float, default=10.0,
+                   help="registration lease (a gateway that stops heartbeating leaves the map)")
     p.add_argument("--no-health", action="store_true",
                    help="accepted; fleet health is not ported yet (ROADMAP Queue 1 item 9)")
     p.add_argument("--no-trace", action="store_true",
@@ -116,9 +126,10 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--telemetry-interval-s", type=float, default=0.0,
                    help="telemetry shipping to the coordinator: not ported yet (obs/shipper.py, "
                         "ROADMAP Queue 1 item 9); only 0 is accepted")
-    p.add_argument("--transport", default="tcp", choices=("auto", "shm", "tcp"),
-                   help="TCP-frontend transport: only tcp is ported (auto and shm need the "
-                        "shared-memory rings, ROADMAP Queue 1 item 2)")
+    p.add_argument("--transport", default="auto", choices=("auto", "shm", "tcp"),
+                   help="TCP-frontend transport: auto and shm negotiate shared-memory rings with "
+                        "clients on this host (the socket stays as control channel and fallback); "
+                        "tcp refuses rings")
     return p
 
 
@@ -130,15 +141,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         p.error("--checkpoint (or --player-checkpoint) is required unless --mock")
     if args.players and not args.mock:
         p.error("--players is the mock multiplexer; use --player-checkpoint PLAYER=URL for models")
-    if args.coordinator_addr:
-        raise NotImplementedError("--coordinator-addr: fleet registration (serve/fleet) is not "
-                                  "ported yet (ROADMAP Queue 1 item 2)")
     if args.telemetry_interval_s > 0:
         raise NotImplementedError("--telemetry-interval-s: the telemetry shipper (obs/shipper.py) "
                                   "is not ported yet (ROADMAP Queue 1 item 9)")
-    from ..serve.tcp_frontend import check_transport
-
-    check_transport(args.transport)
     if args.no_trace:
         from ..obs import set_tracing
 
@@ -159,11 +164,26 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     target.start()
     http = ServeHTTPServer(target, host=args.host, port=args.http_port).start()
     tcp = ServeTCPServer(target, host=args.host, port=args.tcp_port, transport=args.transport).start()
+
+    beat = None
+    if args.coordinator_addr:
+        from ..serve.fleet import register_gateway
+
+        chost, _, cport = args.coordinator_addr.rpartition(":")
+        # target: a drain's first step (begin_drain) leaves discovery now,
+        # so routers stop pinning sessions here, not a lease later
+        beat = register_gateway(
+            (chost or "127.0.0.1", int(cport)), tcp.host, tcp.port,
+            meta={"players": players, "slots": args.slots, "http_port": http.port,
+                  "version": args.version, "mock": bool(args.mock)},
+            lease_s=args.lease_s or None, target=target)
     log(f"serving: http={http.host}:{http.port} tcp={tcp.host}:{tcp.port} slots={args.slots} "
         f"max_delay={args.max_delay_ms}ms players={players or ['<single>']} "
         f"{'mock' if args.mock else (args.checkpoint or player_ckpts)} "
         f"device={'cpu (mock)' if args.mock else (args.device or 'cuda')} "
-        f"startup_s={time.perf_counter() - t0:.3f}; fleet health not ported "
+        f"transport={args.transport}"
+        + (f" registered@{args.coordinator_addr}" if beat else "")
+        + f" startup_s={time.perf_counter() - t0:.3f}; fleet health not ported "
         f"(ROADMAP Queue 1 item 9)")
 
     done = threading.Event()
@@ -175,9 +195,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     signal.signal(signal.SIGTERM, _shutdown)
     signal.signal(signal.SIGINT, _shutdown)
     done.wait()
+    # leave discovery (the deregister hook), shed new requests typed while
+    # the admitted ones flush, then stop the frontends
+    target.drain_and_stop(args.drain_timeout_s)
     http.stop()
     tcp.stop()
-    target.drain_and_stop(args.drain_timeout_s)
     log("drained; bye")
 
 

@@ -1,19 +1,20 @@
-"""Payload (de)serialization and framing for the serve data plane.
+"""Payload (de)serialization and framing for the data plane.
 
 Counterpart of ``distar_tpu.comm.serializer``: a payload is a 4-byte magic
 and a pickle (protocol 5), compressed or not; a frame is an 8-byte
 big-endian length prefix around one payload. Both packages' frontends and
 clients speak this, so either package's client talks to either's server.
 
-Encoding: the JAX package's ``lz4`` codec name writes ``DTL0`` (LZ4 block)
-through its native library and falls back to zlib-1 (``DTZ0``) on a host
-without it. The port has no native LZ codec yet, so ``lz4`` writes the
-zlib-1 fallback, as the JAX package does on such a host; ``zlib`` writes
-zlib-1 too, and ``zstd`` (``DTS0``) only where a ``zstandard`` binding
-imports. Decoding takes every magic the JAX package writes: ``DTL0``
-through a pure-Python LZ4-block decoder (a copy of the JAX shuttle's
-fallback decoder), ``DTS0`` gated on ``zstandard``. A native LZ codec is
-not in the port yet.
+Codecs: ``lz4`` (the default) writes ``DTL0``, the pickle's LZ4 block
+stream from the native codec (``comm/native/shuttle.cpp``, the JAX
+package's source, so the bytes are the JAX package's); ``zlib`` writes
+zlib-1 (``DTZ0``); ``zstd`` (``DTS0``) only where a ``zstandard`` binding
+imports. Decoding takes every magic, ``DTL0`` through the native decoder
+(``shuttle.py_lz_decompress`` is the plain version the tests hold it
+against). The native library builds at first use and a failed build
+raises: ``lz4`` never quietly becomes zlib. ``dump_stream`` writes an
+uncompressed payload straight into a file-like (the shared-memory rings'
+path); ``Opaque`` carries an encoded payload inside a larger message.
 """
 from __future__ import annotations
 
@@ -21,6 +22,8 @@ import pickle
 import struct
 import zlib
 from typing import Any, Optional, Sequence, Tuple
+
+from . import shuttle
 
 MAGIC_RAW = b"DTR0"
 MAGIC_ZLIB = b"DTZ0"
@@ -53,62 +56,6 @@ def negotiate_codec(client_prefs: Optional[Sequence[str]],
     return "lz4"
 
 
-def lz_decompress(blob, decompressed_len: int) -> bytes:
-    """Pure-Python LZ4-block decoder (the JAX shuttle's fallback decoder).
-    Raises ValueError, never IndexError, on a truncated or malformed
-    stream."""
-    src = memoryview(blob)
-    out = bytearray()
-    i, end = 0, len(src)
-
-    def read_byte(pos: int) -> int:
-        if pos >= end:
-            raise ValueError("malformed lz stream (truncated)")
-        return src[pos]
-
-    while i < end:
-        token = src[i]
-        i += 1
-        lit = token >> 4
-        if lit == 15:
-            while True:
-                b = read_byte(i)
-                i += 1
-                lit += b
-                if b != 255:
-                    break
-        if i + lit > end:
-            raise ValueError("malformed lz stream (truncated literals)")
-        out += src[i:i + lit]
-        i += lit
-        if i >= end:
-            break
-        if i + 2 > end:
-            raise ValueError("malformed lz stream (truncated offset)")
-        offset = src[i] | (src[i + 1] << 8)
-        i += 2
-        if offset == 0 or offset > len(out):
-            raise ValueError("malformed lz stream (bad offset)")
-        mlen = token & 0x0F
-        if mlen == 15:
-            while True:
-                b = read_byte(i)
-                i += 1
-                mlen += b
-                if b != 255:
-                    break
-        mlen += 4
-        start = len(out) - offset
-        if offset >= mlen:
-            out += out[start:start + mlen]
-        else:
-            for k in range(mlen):  # an overlapping copy runs byte by byte
-                out.append(out[start + k])
-    if len(out) != decompressed_len:
-        raise ValueError(f"decompressed {len(out)} != expected {decompressed_len}")
-    return bytes(out)
-
-
 def dumps_sized(obj: Any, compress: bool = True, codec: str = "lz4") -> "tuple[bytes, int]":
     """``(blob, raw_len)``: ``raw_len`` is the pickle's size before
     compression."""
@@ -121,13 +68,25 @@ def dumps_sized(obj: Any, compress: bool = True, codec: str = "lz4") -> "tuple[b
             raise ValueError("zstd codec requested but no zstd binding on this host")
         return (MAGIC_ZSTD + struct.pack("<Q", raw_len)
                 + _zstd.ZstdCompressor(level=3).compress(payload), raw_len)
-    if codec not in ("lz4", "zlib"):
+    if codec == "zlib":
+        return MAGIC_ZLIB + zlib.compress(payload, level=1), raw_len
+    if codec != "lz4":
         raise ValueError(f"unknown wire codec {codec!r} (know {supported_codecs()})")
-    return MAGIC_ZLIB + zlib.compress(payload, level=1), raw_len
+    return MAGIC_LZ + struct.pack("<Q", raw_len) + shuttle.lz_compress(payload), raw_len
 
 
 def dumps(obj: Any, compress: bool = True, codec: str = "lz4") -> bytes:
     return dumps_sized(obj, compress=compress, codec=codec)[0]
+
+
+def dump_stream(obj: Any, fileobj) -> None:
+    """Serialize ``obj`` uncompressed straight into a writable file-like:
+    pickle protocol 5 writes each large numpy buffer as its own chunk, so a
+    ring-backed file receives the array bytes with no intermediate ``bytes``
+    object. The output is a ``DTR0`` payload ``loads`` reads; both ends of
+    a ring share memory, so there is no codec pass."""
+    fileobj.write(MAGIC_RAW)
+    pickle.Pickler(fileobj, protocol=5).dump(obj)
 
 
 def _checked_size(body, what: str) -> int:
@@ -152,7 +111,7 @@ def loads_sized(blob: bytes) -> "tuple[Any, int]":
         return pickle.loads(_zstd.ZstdDecompressor().decompress(bytes(body[8:]), max_output_size=n)), n
     if magic == MAGIC_LZ:
         n = _checked_size(body, "lz")
-        return pickle.loads(lz_decompress(body[8:], n)), n
+        return pickle.loads(shuttle.lz_decompress(body[8:], n)), n
     if magic == MAGIC_ZLIB:
         payload = zlib.decompress(body)
         return pickle.loads(payload), len(payload)
@@ -163,6 +122,47 @@ def loads_sized(blob: bytes) -> "tuple[Any, int]":
 
 def loads(blob: bytes) -> Any:
     return loads_sized(blob)[0]
+
+
+class Opaque:
+    """A whole encoded payload (a ``dumps`` blob, magic included) carried
+    as a value inside a larger message, so a sender need not compress its
+    bulk twice; ``decode()`` gives the object back."""
+
+    __slots__ = ("blob",)
+
+    def __init__(self, blob: bytes):
+        self.blob = blob
+
+    def decode(self) -> Any:
+        return loads(self.blob)
+
+    @classmethod
+    def encode(cls, obj: Any, compress: bool = True) -> "Opaque":
+        return cls(dumps(obj, compress=compress))
+
+    def __reduce__(self):
+        return (Opaque, (self.blob,))
+
+
+def maybe_decode(obj: Any) -> Any:
+    """Unwrap an ``Opaque``; anything else passes through untouched."""
+    return obj.decode() if isinstance(obj, Opaque) else obj
+
+
+def save_payload(path: str, obj: Any, compress: bool = True) -> str:
+    """Serialize ``obj`` and store it on a storage backend
+    (``utils.storage``'s scheme routing)."""
+    from ..utils import storage
+
+    storage.write_bytes(path, dumps(obj, compress=compress))
+    return path
+
+
+def load_payload(path: str) -> Any:
+    from ..utils import storage
+
+    return loads(storage.read_bytes(path))
 
 
 #: a frame header claiming more than this is garbage (another protocol, or

@@ -15,10 +15,12 @@ Pieces:
   * ``GatewayMux``       — several player models behind one address
   * ``ServeHTTPServer``  — stdlib HTTP/JSON control + light data plane
   * ``ServeTCPServer`` / ``ServeClient`` — framed-TCP data plane on the
-                           ``comm.serializer`` wire format
+                           ``comm.serializer`` wire format, with
+                           shared-memory rings for clients on the same host
+  * ``serve.fleet``      — discovery, session-affinity routing and rollout
+                           across many gateways
 
 Everything publishes into the process ``obs`` registry (``distar_serve_*``).
-The serving fleet (``serve/fleet/``) comes with ROADMAP Queue 1 item 2.
 """
 from .batcher import MicroBatcher, PendingRequest
 from .engine import BatchedInferenceEngine, MockModelEngine

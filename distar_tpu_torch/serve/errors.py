@@ -68,8 +68,9 @@ class BadRequestError(ServeError):
 
 
 class RingServiceError(ServeError):
-    """The shared-memory ring transport answered for a dispatch bug: the
-    request reached the server but its handler raised something untyped."""
+    """The shm ring pump answered for a dispatch bug (``comm/shm_ring.py``
+    ``RingService``): the request reached the server but its handler raised
+    something untyped."""
 
     code = "shm_error"
 

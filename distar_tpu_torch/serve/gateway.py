@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -44,6 +44,18 @@ def _zeros_like_tree(t):
     if isinstance(t, (list, tuple)):
         return type(t)(_zeros_like_tree(v) for v in t)
     return np.zeros_like(np.asarray(t))
+
+
+def transports_status(counts: List[Callable[[], Dict[str, int]]]) -> dict:
+    """``status()``'s ``transports`` entry: the TCP frontends' live
+    connection counts by transport, summed; no entry without a frontend."""
+    if not counts:
+        return {}
+    total = {"tcp": 0, "shm": 0}
+    for fn in counts:
+        for kind, n in fn().items():
+            total[kind] = total.get(kind, 0) + n
+    return {"transports": total}
 
 
 class InferenceGateway:
@@ -79,6 +91,14 @@ class InferenceGateway:
         self._applied_generation = 0
         self._served_version: Optional[str] = None
         self._draining = False
+        #: ``serve.fleet.register_gateway(..., target=gateway)`` sets this to
+        #: its idempotent leave-the-fleet callable; ``begin_drain`` calls it
+        #: first, so a draining gateway leaves discovery before it sheds
+        #: instead of a lease TTL later
+        self.deregister = None
+        #: per-transport connection counts of the TCP frontends in front of
+        #: this gateway (``add_transport_counts``), summed by ``status()``
+        self._transport_counts: List[Callable[[], Dict[str, int]]] = []
         self.flushes = 0  # engine forwards run (policy; teacher forwards apart)
         self.teacher_flushes = 0
         reg = get_registry()
@@ -117,12 +137,19 @@ class InferenceGateway:
         return self
 
     def begin_drain(self) -> dict:
-        """Enter graceful retirement: shed every NEW request with the typed
-        ``DrainingError`` while requests already admitted flush and
-        complete on the live batcher (the batcher thread keeps running).
-        Clients end their sessions on ``DrainingError``, so
-        ``resident_sessions()`` drains to zero, the exit condition
-        ``bin/serve.py`` polls. Idempotent."""
+        """Enter graceful retirement, in this order:
+
+          1. call the ``deregister`` hook (leave discovery now, so routers
+             stop pinning new sessions here);
+          2. shed every NEW request with the typed ``DrainingError`` while
+             requests already admitted flush and complete on the live
+             batcher (the batcher thread keeps running).
+
+        A ``FleetClient`` seeing ``DrainingError`` re-pins the session to a
+        survivor and ends it here, so ``resident_sessions()`` drains to
+        zero. Idempotent."""
+        if self.deregister is not None:
+            self.deregister()
         if not self._draining:
             self._draining = True
             get_registry().counter(
@@ -140,7 +167,8 @@ class InferenceGateway:
         return self._draining
 
     def drain_and_stop(self, timeout: Optional[float] = 30.0) -> None:
-        """Stop admissions, serve out the queue, stop the batcher thread."""
+        """Stop admissions (deregistering first), serve out the queue, stop
+        the batcher thread."""
         self.begin_drain()
         self.batcher.drain_and_stop(timeout)
 
@@ -303,10 +331,17 @@ class InferenceGateway:
     def activate_version(self, version: str) -> int:
         return self.registry.activate(version)
 
+    def add_transport_counts(self, counts: Callable[[], Dict[str, int]]) -> None:
+        """A TCP frontend mounted on this gateway hands in its live
+        connection count by transport (shm, tcp); ``status()["transports"]``
+        sums the counts of every frontend."""
+        self._transport_counts.append(counts)
+
     def status(self) -> dict:
         requests = {name: c.value for name, c in self._c_req.items()}
         total = sum(requests.values())
         return {
+            **transports_status(self._transport_counts),
             "draining": self._draining,
             "queue_depth": self.batcher.depth,
             "served_version": self._served_version,
@@ -315,7 +350,8 @@ class InferenceGateway:
             "generation": self._applied_generation,
             "sessions": self.sessions.stats(),
             "registry": self.registry.status(),
-            # cumulative outcome counters + latency tails
+            # cumulative outcome counters + latency tails: what the fleet
+            # rollout's canary-vs-stable compare reads per gateway
             "requests": requests,
             "shed_rate": round(requests.get("shed", 0.0) / total, 6) if total else 0.0,
             "latency_s": {"p50": self._h_latency.quantile(0.5),

@@ -15,7 +15,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional
 
 from .errors import UnknownPlayerError
-from .gateway import InferenceGateway
+from .gateway import InferenceGateway, transports_status
 
 #: Model-tiering player ids (docs/serving.md, model tiering): the wire
 #: ``player`` field IS the QoS class — teacher-tier traffic (eval, ladder,
@@ -61,6 +61,10 @@ class GatewayMux:
             raise ValueError(
                 f"default player {self.default_player!r} not in "
                 f"{sorted(self.gateways)}")
+        #: one registration per address: the mux owns the coordinator lease
+        #: (the player gateways behind it never deregister on their own)
+        self.deregister = None
+        self._transport_counts = []  # as InferenceGateway's
 
     # ---------------------------------------------------------------- routing
     def resolve(self, player: Optional[str]):
@@ -115,6 +119,11 @@ class GatewayMux:
         return self._default.activate_version(version)
 
     # ---------------------------------------------------------------- status
+    def add_transport_counts(self, counts) -> None:
+        """As ``InferenceGateway.add_transport_counts``: the mux's own
+        frontends' connection counts."""
+        self._transport_counts.append(counts)
+
     def status(self) -> dict:
         """Aggregate view: per-player gateway status plus the fields a
         single gateway reports — sessions/requests SUMMED over players,
@@ -131,6 +140,7 @@ class GatewayMux:
         total = sum(requests.values())
         return {
             **default,
+            **transports_status(self._transport_counts),
             "sessions": sessions,
             "requests": requests,
             "shed_rate": round(requests.get("shed", 0.0) / total, 6) if total else 0.0,
@@ -146,8 +156,12 @@ class GatewayMux:
         return self
 
     def begin_drain(self) -> dict:
-        """Graceful retirement of the whole address: every player gateway
-        sheds new requests and finishes those in flight. Idempotent."""
+        """Graceful retirement of the whole address: call the one
+        ``deregister`` hook first (leave discovery), then every player
+        gateway sheds new requests and finishes those in flight.
+        Idempotent."""
+        if self.deregister is not None:
+            self.deregister()
         for gw in self.gateways.values():
             gw.begin_drain()
         return {"draining": True, "resident": self.resident_sessions()}

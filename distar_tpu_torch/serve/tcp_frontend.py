@@ -7,7 +7,7 @@ losslessly. One request/response pair per frame; the ``session_id`` field
 is authoritative, so a pool of connections can front many sessions.
 
 Requests are ``{"op": ..., ...}`` dicts:
-  hello    {transports?, codecs?, host?}   -> {code: 0, transport: "tcp"}
+  hello    {transports?, codecs?, host?}   -> {code: 0, transport, shm_*?}
   act      {session_id, obs, timeout_s?, want_teacher?} -> {code: 0, outputs}
   act_many {requests: [{session_id, obs, want_teacher?}], timeout_s?}
                                            -> {code: 0, results: [entry]}
@@ -23,18 +23,23 @@ Requests are ``{"op": ..., ...}`` dicts:
   drain    {}                              -> {code: 0, draining, resident}
   ping     {}                              -> {code: 0, pong: True}
 
+``act_many`` carries a whole env cycle in one frame, with per-lane results
+(typed sheds included) in one answer frame.
+
+``hello`` is the transport negotiation (``comm.shm_ring``): a client
+advertising ``transports: [shm, tcp]`` from the same host gets a
+shared-memory ring pair minted, and its data frames move over the rings
+with the socket as control channel and fallback leg. ``transport="tcp"``
+on the server refuses rings; on the client it sends no hello, so the wire
+stays the pre-negotiation one byte for byte. A hello whose preference
+lists name nothing known is NACKed with the typed ``bad_hello`` code; a
+garbage frame answers ``bad_frame``; both close the connection. A frame
+larger than the ring goes over the TCP leg, counted in
+``distar_shm_fallbacks_total``.
+
 Every request may carry an optional ``player`` field: a multiplexed server
 (``serve.mux.GatewayMux``) resolves it to the right model; a single-model
 server ignores it.
-
-Transports: TCP only. The JAX package negotiates shared-memory rings for
-colocated callers in ``hello`` (``comm/shm_ring.py``); the port answers
-every well-formed hello ``{"code": 0, "transport": "tcp"}``, as the JAX
-server does under ``transport="tcp"``, and NACKs a hello whose preference
-lists name nothing known with the typed ``bad_hello`` code. ``transport=
-"auto"`` and ``"shm"`` raise ``NotImplementedError``: the rings come with
-ROADMAP Queue 1 item 2. A garbage frame answers the typed ``bad_frame``
-code and closes the connection.
 
 Serve errors answer ``{code: <wire code>, error, shed}`` (errors.to_wire);
 the client rehydrates them into the typed exceptions.
@@ -45,11 +50,13 @@ import socket
 import threading
 from typing import Optional
 
-from ..comm.serializer import KNOWN_CODECS, recv_msg, send_msg
+from ..comm import shm_ring
+from ..comm.serializer import recv_msg, send_msg
 from ..obs import (
     finish_trace,
     get_registry,
     is_trace,
+    set_active_trace,
     start_trace,
     tracing_enabled,
     wire_ctx,
@@ -57,41 +64,22 @@ from ..obs import (
 from ..resilience import RetryPolicy, retry_call
 from .errors import BadFrameError, BadRequestError, ServeError, error_from_wire
 
-#: transport names the hello protocol defines (the JAX package's
-#: ``comm.shm_ring.KNOWN_TRANSPORTS``)
-KNOWN_TRANSPORTS = ("shm", "tcp")
-
-
-def check_transport(transport: str) -> None:
-    """Only ``"tcp"`` is ported; ``"auto"`` and ``"shm"`` need the
-    shared-memory rings."""
-    if transport in ("auto", "shm"):
-        raise NotImplementedError(
-            f"transport {transport!r} needs the shared-memory rings (comm/shm_ring.py), which "
-            f"come with ROADMAP Queue 1 item 2; the port serves transport='tcp'")
-    if transport != "tcp":
-        raise ValueError(f"transport must be auto|shm|tcp, got {transport!r}")
-
-
-def hello_nack(req: dict) -> Optional[str]:
-    """The reason when a hello's preference lists contain no recognized
-    name at all (a garbage or hostile hello, NACKed typed); None when the
-    hello is answerable. A recognized but unavailable preference degrades
-    to TCP. The port's copy of ``comm.shm_ring.hello_nack``."""
-    codecs = req.get("codecs")
-    if codecs and not any(c in KNOWN_CODECS for c in codecs):
-        return f"no recognized codec in {list(codecs)!r} (know {list(KNOWN_CODECS)})"
-    transports = req.get("transports")
-    if transports and not any(t in KNOWN_TRANSPORTS for t in transports):
-        return f"no recognized transport in {list(transports)!r} (know {list(KNOWN_TRANSPORTS)})"
-    return None
-
 
 class ServeTCPServer:
-    def __init__(self, gateway, host: str = "127.0.0.1", port: int = 0, transport: str = "tcp"):
+    def __init__(self, gateway, host: str = "127.0.0.1", port: int = 0,
+                 transport: str = "auto",
+                 ring_bytes: int = shm_ring.DEFAULT_RING_BYTES):
         self.gateway = gateway
-        check_transport(transport)
+        if transport not in ("auto", "shm", "tcp"):
+            raise ValueError(f"transport must be auto|shm|tcp, got {transport!r}")
         self.transport = transport
+        self.ring_bytes = int(ring_bytes)
+        self._transports = {"tcp": 0, "shm": 0}
+        self._transports_lock = threading.Lock()
+        # gateway.status() reports the live per-connection transport split
+        # of every frontend mounted on it (a router's adapter keeps none)
+        if hasattr(gateway, "add_transport_counts"):
+            gateway.add_transport_counts(self.transport_counts)
         self._listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         self._listener.bind((host, port))
@@ -100,6 +88,7 @@ class ServeTCPServer:
         self._stop = threading.Event()
         self._accept_thread: Optional[threading.Thread] = None
         self._conns: set = set()
+        self._ring_services: set = set()
         self._conns_lock = threading.Lock()
         reg = get_registry()
         self._g_conns = reg.gauge(
@@ -133,11 +122,17 @@ class ServeTCPServer:
         # recv until every peer goes away, pinning the port past stop()
         with self._conns_lock:
             conns = list(self._conns)
+            rings = list(self._ring_services)
         for conn in conns:
             try:
                 conn.close()
             except OSError:
                 pass
+        # sever the shm leg synchronously: a closed socket does not stop a
+        # ring pump, and a stopped server must not keep answering data
+        # frames out of shared memory
+        for svc in rings:
+            svc.stop()
         t = self._accept_thread
         if t is not None:
             t.join(5.0)
@@ -158,10 +153,34 @@ class ServeTCPServer:
                 target=self._serve_conn, args=(conn,), name="serve-tcp-conn", daemon=True
             ).start()
 
+    def _count_transport(self, kind: str, delta: int) -> None:
+        with self._transports_lock:
+            self._transports[kind] = max(0, self._transports[kind] + delta)
+
+    def transport_counts(self) -> dict:
+        with self._transports_lock:
+            return dict(self._transports)
+
+    def _handle_hello(self, req: dict, have_rings: bool) -> "tuple[dict, object]":
+        """Negotiate one connection's transport. Returns (reply, peer) —
+        ``peer`` is the server ring endpoint when shm was agreed."""
+        nack = shm_ring.hello_nack(req)
+        if nack:
+            return {"code": "bad_hello", "error": nack, "shed": False}, None
+        reply = {"code": 0, "transport": "tcp"}
+        if have_rings:  # one ring pair per connection, ever
+            return reply, None
+        extra, peer = shm_ring.negotiate_server(
+            req, self.transport, self.ring_bytes, op="serve")
+        reply.update(extra)
+        return reply, peer
+
     def _serve_conn(self, conn: socket.socket) -> None:
         self._g_conns.inc()
         with self._conns_lock:
             self._conns.add(conn)
+        ring_svc = None
+        self._count_transport("tcp", +1)
         try:
             with conn:
                 while not self._stop.is_set():
@@ -176,14 +195,19 @@ class ServeTCPServer:
                         return
                     self._c_frames.inc()
                     if isinstance(req, dict) and req.get("op") == "hello":
-                        nack = hello_nack(req)
-                        reply = ({"code": "bad_hello", "error": nack, "shed": False} if nack
-                                 else {"code": 0, "transport": "tcp"})
+                        reply, peer = self._handle_hello(req, ring_svc is not None)
+                        if peer is not None:
+                            ring_svc = shm_ring.RingService(
+                                peer, self._dispatch, name="serve-shm-ring").start()
+                            with self._conns_lock:
+                                self._ring_services.add(ring_svc)
+                            self._count_transport("tcp", -1)
+                            self._count_transport("shm", +1)
                         try:
                             send_msg(conn, reply)
                         except (ConnectionError, OSError):
                             return
-                        if nack:
+                        if reply.get("code") == "bad_hello":
                             return  # a desynced peer can't be trusted framed
                         continue
                     try:
@@ -191,8 +215,15 @@ class ServeTCPServer:
                     except (ConnectionError, OSError):
                         return
         finally:
+            if ring_svc is not None:
+                ring_svc.stop()
+                self._count_transport("shm", -1)
+            else:
+                self._count_transport("tcp", -1)
             with self._conns_lock:
                 self._conns.discard(conn)
+                if ring_svc is not None:
+                    self._ring_services.discard(ring_svc)
             self._g_conns.dec()
 
     def _dispatch(self, req) -> dict:
@@ -201,10 +232,9 @@ class ServeTCPServer:
         op = req["op"]
         gw = self.gateway
         try:
-            # a multiplexed gateway (serve.mux.GatewayMux) resolves the
-            # optional wire ``player`` field to the right model; a plain
-            # single-model gateway ignores it — legacy clients never send
-            # it and keep working unchanged
+            # multiplexed gateways (serve.mux.GatewayMux, the fleet router's
+            # adapter) resolve the optional wire ``player`` field to the
+            # right model; a plain single-model gateway ignores it
             if hasattr(gw, "resolve"):
                 gw = gw.resolve(req.get("player"))
             if op == "act":
@@ -273,8 +303,7 @@ class ServeClient:
 
     def __init__(self, host: str, port: int, timeout_s: float = 30.0,
                  retry_policy: Optional[RetryPolicy] = None,
-                 player: Optional[str] = None, transport: str = "tcp"):
-        check_transport(transport)
+                 player: Optional[str] = None, transport: str = "auto"):
         self._addr = (host, port)
         self._timeout_s = timeout_s
         self._player = player
@@ -282,34 +311,69 @@ class ServeClient:
             max_attempts=3, backoff_base_s=0.2, backoff_max_s=2.0,
             deadline_s=4 * timeout_s,
         )
+        shm_ring.offer_transports(transport)  # validate the name early
+        self._transport = transport
+        self._shm: Optional[shm_ring.ShmPeer] = None
         self._sock: Optional[socket.socket] = None
         self._lock = threading.Lock()
         self._connect()
 
     @property
     def transport_active(self) -> str:
-        """The leg this connection's data frames ride: always TCP here."""
-        return "tcp"
+        """The leg this connection's data frames currently ride."""
+        return "shm" if self._shm is not None else "tcp"
 
     def _connect(self) -> None:
-        # a TCP-only client sends no hello: the wire stays the JAX
-        # package's pre-negotiation one, byte for byte
         self.close()
         self._sock = socket.create_connection(self._addr, timeout=self._timeout_s)
         self._sock.settimeout(self._timeout_s)
+        offers = shm_ring.offer_transports(self._transport)
+        if "shm" not in offers:
+            return  # tcp-only clients keep the pre-shm wire byte-identical
+        try:
+            send_msg(self._sock, {"op": "hello", "transports": offers,
+                                  "host": shm_ring.host_identity()})
+            resp = recv_msg(self._sock)
+        except (ConnectionError, OSError, ValueError):
+            self.close()
+            raise
+        if isinstance(resp, dict) and resp.get("code") == 0:
+            self._shm = shm_ring.maybe_attach(resp, op="serve")
+        # a pre-negotiation gateway answers bad_request: stay on TCP
+
+    def _drop_shm(self) -> None:
+        shm, self._shm = self._shm, None
+        if shm is not None:
+            shm.close()
 
     def _call_once(self, req: dict) -> dict:
         with self._lock:
             if self._sock is None:
                 self._connect()
-            try:
-                send_msg(self._sock, req)
-                resp = recv_msg(self._sock)
-            except (ConnectionError, OSError, ValueError):
-                # the stream is no longer trustworthy (peer died mid-frame,
-                # garbage header): drop it so the retry dials fresh
-                self.close()
-                raise
+            resp = None
+            if self._shm is not None:
+                try:
+                    resp = self._shm.request(req, timeout_s=self._timeout_s)
+                except shm_ring.ShmTimeout:
+                    self._drop_shm()
+                    self.close()
+                    raise
+                except shm_ring.ShmError as e:
+                    # typed ring fault (peer death mid-frame, oversized
+                    # frame, corruption): counted, then THIS call falls
+                    # back to the TCP leg on the same connection
+                    shm_ring.note_fallback(e.reason)
+                    self._drop_shm()
+            if resp is None:
+                try:
+                    send_msg(self._sock, req)
+                    resp = recv_msg(self._sock)
+                except (ConnectionError, OSError, ValueError):
+                    # the stream is no longer trustworthy (peer died
+                    # mid-frame / garbage header): drop it so the retry
+                    # dials fresh
+                    self.close()
+                    raise
         if resp.get("code") != 0:
             raise error_from_wire(resp)
         return resp
@@ -332,7 +396,8 @@ class ServeClient:
         """One agent step. A client-side span rides the wire as the compact
         ``trace`` field, so the gateway's server span joins under the same
         trace_id (client -> gateway in one waterfall). ``trace`` lets the
-        caller supply its own context (it then owns finishing it); otherwise one is minted and finished
+        caller supply its own context (it then owns finishing it, as
+        ``FleetClient`` does); otherwise one is minted and finished
         here. Typed errors gain ``.trace_id`` either way."""
         owned = None
         ctx = trace
@@ -345,6 +410,10 @@ class ServeClient:
             req["want_teacher"] = True
         if is_trace(ctx):
             req["trace"] = wire_ctx(ctx)
+        # active trace: transport-level blocking (shm ring-full) attributes
+        # its wait to this request's span — only the shm leg consumes it
+        on_shm = self._shm is not None
+        prev = set_active_trace(ctx) if on_shm else None
         try:
             out = self._call(self._stamp(req, player))["outputs"]
         except BaseException as e:
@@ -353,6 +422,9 @@ class ServeClient:
             finish_trace(owned, "client_done",
                          outcome="shed" if getattr(e, "shed", False) else "error")
             raise
+        finally:
+            if on_shm:
+                set_active_trace(prev)
         if is_trace(ctx) and isinstance(out, dict):
             out.setdefault("trace_id", ctx["trace_id"])
         finish_trace(owned, "client_done")
@@ -399,12 +471,18 @@ class ServeClient:
         req = {"op": "act_many", "requests": wire_reqs}
         if timeout_s is not None:
             req["timeout_s"] = timeout_s
+        on_shm = self._shm is not None
+        prev = set_active_trace(
+            next((c for c in ctxs if c is not None), None)) if on_shm else None
         try:
             entries = self._call(self._stamp(req, player))["results"]
         except BaseException:
             for mine in owned:
                 finish_trace(mine, "client_done", outcome="error")
             raise
+        finally:
+            if on_shm:
+                set_active_trace(prev)
         out = []
         for ctx, mine, e in zip(ctxs, owned, entries):
             if isinstance(e, dict) and "ok" in e:
@@ -469,6 +547,7 @@ class ServeClient:
         return self._call({"op": "ping"})["pong"]
 
     def close(self) -> None:
+        self._drop_shm()
         sock, self._sock = self._sock, None
         if sock is not None:
             try:

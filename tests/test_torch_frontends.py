@@ -33,10 +33,8 @@ from distar_tpu_torch.utils import deep_merge_dicts
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LIBS = {"port": (pserve, pobs), "jax": (jserve, jobs)}
-# the JAX status's "transports" (live connections by tcp/shm) is not
-# ported: it comes with the shared-memory rings
-STATUS_KEYS = ("draining", "queue_depth", "served_version", "generation", "sessions", "requests",
-               "shed_rate")
+STATUS_KEYS = ("transports", "draining", "queue_depth", "served_version", "generation", "sessions",
+               "requests", "shed_rate")
 
 
 def plain(tree):
@@ -254,15 +252,53 @@ def test_clients_talk_to_the_other_packages_server():
             stop(gw, http, tcp)
 
 
-def test_transports_other_than_tcp_raise():
+def test_transports_auto_and_shm_negotiate_rings():
+    """``auto`` (the default) and ``shm`` get a ring pair from the same
+    host, ``tcp`` does not; the status counts connections by transport,
+    as the JAX server's does."""
     gw, http, tcp = stack("port")
     try:
-        with pytest.raises(NotImplementedError, match="item 2"):
-            pserve.ServeClient("127.0.0.1", tcp.port, transport="auto")
-        with pytest.raises(NotImplementedError, match="item 2"):
-            pserve.ServeTCPServer(gw, port=0, transport="shm")
+        for transport in ("auto", "shm"):
+            srv = pserve.ServeTCPServer(gw, port=0, transport=transport).start()
+            c = pserve.ServeClient("127.0.0.1", srv.port, transport=transport)
+            assert c.transport_active == "shm" and c.act("s", {"x": np.ones(2)})["model_version"] == "v1"
+            assert gw.status()["transports"] == {"tcp": 0, "shm": 1}
+            c.close()
+            srv.stop()
+        c = pserve.ServeClient("127.0.0.1", tcp.port)  # the stack's server refuses rings
+        assert c.transport_active == "tcp" and c.ping()
+        c.close()
+        with pytest.raises(ValueError):
+            pserve.ServeTCPServer(gw, port=0, transport="carrier-pigeon")
+        with pytest.raises(ValueError):
+            pserve.ServeClient("127.0.0.1", tcp.port, transport="carrier-pigeon")
     finally:
         stop(gw, http, tcp)
+
+
+@pytest.mark.parametrize("kind", ["gateway", "mux"])
+def test_two_tcp_frontends_on_one_target_sum_their_transports(kind):
+    """Every TCP frontend mounted on a gateway or a mux hands in its
+    connection counts; ``status()["transports"]`` sums them (one frontend
+    does not hide another's)."""
+    pobs.set_registry(pobs.MetricsRegistry())
+    gw = pserve.InferenceGateway(pserve.MockModelEngine(2), max_delay_s=0.005)
+    target = (gw if kind == "gateway" else pserve.GatewayMux({"MP0": gw})).start()
+    assert "transports" not in target.status()
+    servers = [pserve.ServeTCPServer(target, port=0, transport=t).start() for t in ("tcp", "shm")]
+    clients = []
+    try:
+        clients = [pserve.ServeClient("127.0.0.1", srv.port, transport=t)
+                   for srv, t in zip(servers, ("tcp", "shm"))]
+        assert [c.transport_active for c in clients] == ["tcp", "shm"]
+        assert target.status()["transports"] == {"tcp": 1, "shm": 1}
+        assert clients[0].status()["transports"] == {"tcp": 1, "shm": 1}
+    finally:
+        for c in clients:
+            c.close()
+        for srv in servers:
+            srv.stop()
+        target.drain_and_stop()
 
 
 def test_mux_routes_by_player():
@@ -378,9 +414,8 @@ def test_bin_serve_checkpoint_process_on_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("argv, match", [
-    (["--mock", "--coordinator-addr", "127.0.0.1:1"], "item 2"),
+    (["--mock", "--telemetry-interval-s", "0.5"], "item 9"),
     (["--mock", "--telemetry-interval-s", "5"], "item 9"),
-    (["--mock", "--transport", "auto"], "item 2"),
 ])
 def test_bin_serve_flags_not_ported_raise(argv, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -59,8 +59,13 @@ def test_port_has_modules():
                    "utils/storage.py", "utils/msgpack.py", "utils/checkpoint.py", "obs/registry.py",
                    "obs/trace.py", "obs/tracestore.py", "obs/exporters.py", "resilience/policy.py",
                    "comm/serializer.py", "serve/http_frontend.py", "serve/tcp_frontend.py",
-                   "serve/mux.py", "bin/serve.py"):
+                   "serve/mux.py", "bin/serve.py", "comm/shuttle.py", "comm/shm_ring.py",
+                   "comm/coordinator.py", "comm/discovery.py", "replay/sharding.py",
+                   "serve/fleet/__init__.py", "serve/fleet/discovery.py", "serve/fleet/router.py",
+                   "serve/fleet/rollout.py", "serve/fleet/gateway_proc.py"):
         assert os.path.join("distar_tpu_torch", module) in files
+    # the data plane's native library is the port's own copy of the source
+    assert os.path.exists(os.path.join(REPO, "distar_tpu_torch", "comm", "native", "shuttle.cpp"))
     assert len(files) > 20
 
 

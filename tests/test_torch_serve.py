@@ -245,6 +245,21 @@ def test_sticky_sessions_keep_separate_state_and_reset(session):
     assert isinstance(gw.act_many([{"session_id": "a", "obs": {}}])[0], DrainingError)
 
 
+def test_the_cuda_device_rule_holds_float32_without_tf32(monkeypatch):
+    """On CUDA the entry points' device rule turns TF32 off for matmuls and
+    cuDNN convolutions, whoever calls it (``bin/serve.py``, a gateway built
+    in process, a learner); the CPU leaves torch's switches as they are."""
+    from distar_tpu_torch.actor.inference import resolve_device
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device() == torch.device("cuda")
+    assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+
+
 def test_entry_points_refuse_to_slide_onto_the_cpu():
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA: the default device is valid")
