@@ -80,11 +80,36 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              calls of the same functions: SDPA with the same boolean mask
              (forward, forward + backward; f32 and bf16), ``zeros +
              index_add_`` and an ``index_select`` gather for its backward.
-8. rl      — the RL learner (``RL_LEARNER_DEFAULTS``, 4 x 16: 68 observed
+8. sl_runtime — the SL learner runtime at the flagship (kernel overlay, f32,
+             2 x 32): a train set (6 x 40 steps) and a held-out set (2 x 40)
+             of ``random_sl_batch`` steps written with ``ReplayDataset.save``,
+             with the bytes a step, the write time, one batch's collation and
+             its host-to-device copy (pinned, pageable); ``python -m
+             distar_tpu_torch.bin.sl_train --data --eval-data`` as a process
+             under 'pallas_onehot' for 12 steps (a checkpoint every 4, EVAL
+             every 4): exit 0, finite log lines, the pointer's generations
+             newest first and verified, its launches read from its output;
+             the same command again, SIGTERM after its next periodic
+             checkpoint (the crash save lands and the pointer names it),
+             restarted (it resumes there), then its newest generation torn
+             (the next start falls back a generation and counts it); in
+             process under 'pallas' on the dataset's first 8 batches: A and
+             A' train them straight, B too with a sync save after 4, C
+             restores B bit-equal (params, mu, nu, count), its first loss
+             equal to B's fifth (one state, one batch), its losses and
+             parameters held against A within twice the envelope of A, A'
+             and B (the card's backward does not repeat bit for bit); prefetch
+             depth 2 against 0 through ``run()`` on the same batches (placed
+             batches bit-equal to the host ones, each run held against A the
+             same way, step and data-wait ms, a profiled step); the async save (the loop's blocked time against the
+             write), a sync save and a restore; the admin API's status,
+             save_ckpt (landing at the next boundary) and profile (an error
+             naming item 9) during a run; ``evaluate`` on the held-out set.
+9. rl      — the RL learner (``RL_LEARNER_DEFAULTS``, 4 x 16: 68 observed
              frames) and the distillation student at flagship width, f32:
              each kernel's Function at the RL shapes [68, 2, 512, 128] /
              [68, 512, 32] and the student's [68, 2, 512, 64] / [68, 512,
-             16], held as in phase 6 and timed beside the library calls; the
+             16], held as in phase 7 and timed beside the library calls; the
              readings of the strings' gradient gap (``rl_gap``: repeat,
              mixed strings, intermediates, an f64 yardstick, the ReLU and
              max-pool kinks and UPGO's step) on the phase's batch and a
@@ -109,8 +134,8 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              step, and its step ms.
 
 The line before the last is the ``kernels`` JSON (launches: the serve,
-serve-process, fleet (gateway A), SL, RL and distillation paths together,
-each read from zero around its run);
+serve-process, fleet (gateway A), SL, SL runtime, RL and distillation
+paths together, each read from zero around its run);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -182,7 +207,9 @@ def device_ms(fn, iters=20, warmup=3):
         fn()
     torch.cuda.synchronize()
     # now and then a profiler session reports no device activity at all (seen
-    # on the H100 after some hundreds of sessions in one process): run it again
+    # on the H100 after some hundreds of sessions in one process, three in a
+    # row once): run it again, and after three such sessions time the calls
+    # with CUDA events instead, which also count the gaps the host leaves
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -190,9 +217,16 @@ def device_ms(fn, iters=20, warmup=3):
             torch.cuda.synchronize()
         per = {k: ms / iters for k, (ms, _) in device_activities(prof).items()}
         if per:
-            break
-    check(per, "the profiler saw no device activity")
-    return sum(per.values()), per
+            return sum(per.values()), per
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / iters
+    print(f"device_ms: the profiler saw no device activity in 3 sessions; CUDA events: {ms:.4f} ms a call")
+    return ms, {"cuda_events_ms": ms}
 
 
 def bound(nbytes, flops, peak=PEAK_F32_FLOPS, passes=1.0):
@@ -1729,7 +1763,7 @@ def train_entry_point(K, batch):
 
 
 def phase_train(device, rng):
-    """The SL train step on the card (module docstring, phase 6). Returns
+    """The SL train step on the card (module docstring, phase 7). Returns
     the launch counts of the train path (every launch after the kernel
     gradient and timing calls) and the measurements."""
     import torch
@@ -1780,6 +1814,479 @@ def phase_train(device, rng):
               "entry_point_losses": losses, "launches": launches}
     print(json.dumps({"train": result}))
     return launches, result
+
+
+# ------------------------------------------------------------- SL runtime
+RT_TRAJ, RT_HELD_OUT, RT_STEPS = 6, 2, 40  # trajectories x steps: 32-step windows cross their ends
+RT_ITERS, RT_SAVE_FREQ, RT_EVAL_FREQ = 12, 4, 4  # the bin as a process
+RT_BATCHES = 8  # resume equivalence: A trains 8, B 4, C restores B and trains 5-8
+# two runs from one state on one batch compute the same loss: the forward
+# repeats bit for bit on the card; this is the allowance for that loss
+RT_REPEAT_FLOOR = 1e-6
+# 8 steps of two straight runs from the same weights and batches part by the
+# card's backward, which does not repeat bit for bit (8e-8 to 7e-7 of the
+# gradient's norm a step, ``rl_gap``), amplified by Adam and by the model's
+# kinks (a ReLU or max-pool decision that f32 rounding flips carries its
+# gradient along): on an NVIDIA H100 80GB HBM3 at 700 W two straight runs
+# lay 0.0019 to 0.0147 of the loss and 0.0049 to 0.0225 of the parameters'
+# norm apart, in two clusters after one flipped decision. A run is held
+# within twice the envelope of three straight runs or within these bounds,
+# whichever is larger: a wrong, shifted or torn batch moves a step's loss
+# 15-20% (this dataset's batches alternate between about 300-340 and 390-410)
+RT_TRAJECTORY_TOL = {"loss": 0.03, "params": 0.05}
+# the flagship's learner checkpoint: params, mu and nu, 12 bytes a parameter
+# and the format's overhead
+RT_CKPT_BYTES = 346_103_242
+
+
+def rt_learner(device, save, scatter, **learner):
+    """A flagship SL learner (SL_LEARNER_DEFAULTS at 2 x 32) with its
+    experiment directory at ``save``, saving only where asked."""
+    from distar_tpu_torch.learner import SLLearner
+
+    return SLLearner({"common": {"save_path": save},
+                      "learner": {"batch_size": TRAIN_B, "unroll_len": TRAIN_T, "save_freq": 10 ** 9,
+                                  "log_freq": 10 ** 9, **learner},
+                      "model": overlay(scatter, "pallas")}, device=device)
+
+
+def write_dataset(root, n, rng):
+    """``n`` trajectories of RT_STEPS ``random_sl_batch`` steps written with
+    ``ReplayDataset.save``: (dataset, bytes on disk, seconds)."""
+    from distar_tpu_torch.learner import random_sl_batch
+    from distar_tpu_torch.learner.sl_dataloader import ReplayDataset, batch_steps
+
+    t0 = time.perf_counter()
+    nbytes = 0
+    for i in range(n):
+        path = ReplayDataset.save(root, f"traj_{i:04d}", batch_steps(random_sl_batch(1, RT_STEPS, rng), RT_STEPS))
+        nbytes += os.path.getsize(path)
+    return ReplayDataset(root), nbytes, time.perf_counter() - t0
+
+
+def sl_train_process(tmp, name, device, save, data, iters, config, extra=()):
+    """``python -m distar_tpu_torch.bin.sl_train`` at the flagship on
+    ``data``, its output (standard error too) in ``<tmp>/<name>.log``."""
+    log_path = os.path.join(tmp, f"{name}.log")
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "distar_tpu_torch.bin.sl_train", "--type", "learner", "--full-model",
+             "--device", device.type, "--data", data, "--save-path", save, "--iters", str(iters),
+             "--batch-size", str(TRAIN_B), "--traj-len", str(TRAIN_T), "--config", json.dumps(config),
+             *extra],
+            cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+    return proc, log_path
+
+
+def process_output(log_path):
+    """(JSON log lines, EVAL lines, the resume line, the done line's
+    launches or None) of a ``bin/sl_train.py`` log."""
+    logs, evals, resume, launches = [], [], "", None
+    for ln in open(log_path).read().splitlines():
+        if ln.startswith("{"):
+            logs.append(json.loads(ln))
+        elif ln.startswith("EVAL "):
+            evals.append(json.loads(ln[5:]))
+        elif ln.startswith("sl_train resume: "):
+            resume = ln
+        elif ln.startswith("sl_train done: "):
+            launches = json.loads(ln.split("launches=", 1)[1])
+    return logs, evals, resume, launches
+
+
+def wait_ok(proc, log_path, what, timeout=300):
+    rc = proc.wait(timeout=timeout)
+    check(rc == 0, f"{what} exited {rc}: {open(log_path).read()[-3000:]}")
+
+
+def newest_generation(save):
+    from distar_tpu_torch.utils.checkpoint import CheckpointManager
+
+    gens = CheckpointManager(os.path.join(save, "checkpoints")).generations()
+    return gens[0] if gens else None
+
+
+def rel_dist(a, b):
+    """||a - b|| / ||b|| over lists of arrays, in float64."""
+    import numpy as np
+
+    num = sum(float(((x.astype(np.float64) - y) ** 2).sum()) for x, y in zip(a, b))
+    den = sum(float((y.astype(np.float64) ** 2).sum()) for y in b)
+    return (num / den) ** 0.5
+
+
+def params_of(lrn):
+    return [p.detach().float().cpu().numpy() for p in lrn.model.parameters()]
+
+
+def loss_dist(a, b):
+    return max(abs(x["total_loss"] - y["total_loss"]) / abs(y["total_loss"]) for x, y in zip(a, b))
+
+
+def post_admin(admin, route, body=None):
+    import urllib.request
+
+    req = urllib.request.Request(f"http://{admin.host}:{admin.port}/learner/{route}",
+                                 data=json.dumps(body or {}).encode(), method="POST",
+                                 headers={"Content-Type": "application/json"})
+    return json.loads(urllib.request.urlopen(req, timeout=30).read())
+
+
+def runtime_processes(tmp, device, smi, root, train_ds, eval_ds, layers):
+    """Phase 8's processes: ``bin/sl_train.py`` for 12 steps, then SIGTERM,
+    a restart and a torn generation (module docstring). Returns the
+    measurements and the first process's launches."""
+    import signal
+
+    import numpy as np
+
+    from distar_tpu_torch.utils import checkpoint as C
+
+    out = {}
+    # 2. the bin as a process: 12 steps, a checkpoint every 4, EVAL every 4
+    save = os.path.join(root, "run")
+    cfg = {"model": overlay("pallas_onehot", "pallas"),
+           "learner": {"save_freq": RT_SAVE_FREQ, "log_freq": 1}}
+    eval_flags = ("--eval-data", eval_ds.root, "--eval-freq", str(RT_EVAL_FREQ), "--eval-batches", "1")
+    t0 = time.perf_counter()
+    proc, log_path = sl_train_process(tmp, "sl_train_1", device, save, train_ds.root, RT_ITERS, cfg, eval_flags)
+    wait_ok(proc, log_path, "bin/sl_train.py")
+    run_s = time.perf_counter() - t0
+    logs, evals, resume, p_launches = process_output(log_path)
+    check(resume.endswith("cold iter 0 skipped 0"), f"first run's resume line: {resume!r}")
+    check([lg["iter"] for lg in logs] == list(range(1, RT_ITERS + 1)), f"log lines {[lg['iter'] for lg in logs]}")
+    check(all(finite(lg) for lg in logs), "bin/sl_train.py: a non-finite loss or grad_norm")
+    check([e["iter"] for e in evals] == list(range(RT_EVAL_FREQ, RT_ITERS + 1, RT_EVAL_FREQ))
+          and all(np.isfinite(e["total_loss"]) for e in evals), f"EVAL lines {evals}")
+    gens = C.CheckpointManager(os.path.join(save, "checkpoints")).generations()
+    steps = [g["step"] for g in gens]
+    check(steps == list(range(RT_ITERS, 0, -RT_SAVE_FREQ)), f"pointer generations {steps}")
+    check(all(C.verify_checkpoint(g["path"]) for g in gens), "a recorded generation does not verify")
+    runs = RT_ITERS + len(evals)  # forward passes: the steps and one held-out batch an EVAL
+    want = {"masked_attention": layers * runs, "scatter_add_connection": 0, "scatter_add_onehot": runs}
+    check(p_launches == want, f"bin/sl_train.py launches {p_launches}, want {want}")
+    out["process"] = {"seconds": run_s, "losses": [lg["total_loss"] for lg in logs], "evals": evals,
+                      "generations": steps, "launches": p_launches}
+    print(f"sl_runtime process ({smi}): {RT_ITERS} steps in {run_s:.1f} s, exit 0, total_loss "
+          + " ".join(f"{lg['total_loss']:.2f}" for lg in logs) + f"; EVAL at {[e['iter'] for e in evals]} "
+          f"total_loss {[round(e['total_loss'], 3) for e in evals]}; pointer {steps}; launches {p_launches}")
+
+    # 3. SIGTERM after the next periodic checkpoint, restart, then a torn newest generation
+    first = RT_ITERS + RT_SAVE_FREQ
+    proc, log_path = sl_train_process(tmp, "sl_train_2", device, save, train_ds.root, 10 ** 6, cfg)
+    t0 = time.perf_counter()
+    while (newest_generation(save) or {}).get("step", 0) < first:
+        check(proc.poll() is None and time.perf_counter() - t0 < 300,
+              f"no checkpoint at {first}: {open(log_path).read()[-3000:]}")
+        time.sleep(0.05)
+    t1 = time.perf_counter()
+    proc.send_signal(signal.SIGTERM)
+    rc = proc.wait(timeout=120)
+    term_s = time.perf_counter() - t1
+    text = open(log_path).read()
+    check(rc == 1 and "checkpoint saved" in text, f"SIGTERM exit {rc}: {text[-3000:]}")
+    logs, _, resume, _ = process_output(log_path)
+    check(resume.endswith(f"iter {RT_ITERS} skipped 0"), f"second run's resume line: {resume!r}")
+    crash = newest_generation(save)
+    killed_at = crash["step"]
+    check(killed_at == logs[-1]["iter"] and killed_at >= first and C.verify_checkpoint(crash["path"]),
+          f"crash save {crash} against the last step {logs[-1]['iter']}")
+    proc, log_path = sl_train_process(tmp, "sl_train_3", device, save, train_ds.root, killed_at + 2, cfg)
+    wait_ok(proc, log_path, "the restarted bin/sl_train.py")
+    logs, _, resume, _ = process_output(log_path)
+    check(resume == f"sl_train resume: {crash['path']} iter {killed_at} skipped 0", f"restart: {resume!r}")
+    check([lg["iter"] for lg in logs] == [killed_at + 1, killed_at + 2], f"restart logs {logs}")
+    torn, before = C.CheckpointManager(os.path.join(save, "checkpoints")).generations()[:2]
+    with open(torn["path"], "r+b") as f:
+        f.truncate(os.path.getsize(torn["path"]) // 2)
+    proc, log_path = sl_train_process(tmp, "sl_train_4", device, save, train_ds.root, before["step"] + 1, cfg)
+    wait_ok(proc, log_path, "bin/sl_train.py after a torn generation")
+    logs, _, resume, _ = process_output(log_path)
+    check(resume == f"sl_train resume: {before['path']} iter {before['step']} skipped 1", f"fallback: {resume!r}")
+    check([lg["iter"] for lg in logs] == [before["step"] + 1], f"fallback logs {logs}")
+    out["crash"] = {"sigterm_at": killed_at, "sigterm_exit_s": term_s, "torn": torn["step"],
+                    "fell_back_to": before["step"]}
+    print(f"sl_runtime crash ({smi}): SIGTERM after the checkpoint at {first}: saved at {killed_at}, "
+          f"exit {rc} after {term_s:.2f} s; restarted at {killed_at} and trained 2 steps; the torn "
+          f"generation {torn['step']} skipped (counted), resumed at {before['step']}")
+    shutil.rmtree(save, ignore_errors=True)  # 346 MB a generation
+    out["launches"] = p_launches
+    return out
+
+
+def phase_sl_runtime(device, rng, smi, tmp):
+    """The SL learner runtime on the card (module docstring, phase 8).
+    Returns the launch counts of its paths and the measurements."""
+    import itertools
+    import threading
+
+    import numpy as np
+    import torch
+
+    from distar_tpu_torch.actor.inference import to_device
+    from distar_tpu_torch.learner.hooks import LambdaHook
+    from distar_tpu_torch.learner.prefetch import DevicePrefetcher, place_on
+    from distar_tpu_torch.learner.sl_dataloader import SLDataloader
+    from distar_tpu_torch.ops import kernels as K
+    from distar_tpu_torch.utils import checkpoint as C
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "sl_runtime")
+    layers = 3  # default_model_config's entity transformer layers: one attention call each
+    out = {}
+
+    # 1. the datasets, and one batch collated on the host
+    train_ds, train_bytes, write_s = write_dataset(os.path.join(root, "train"), RT_TRAJ, rng)
+    eval_ds, _, _ = write_dataset(os.path.join(root, "held_out"), RT_HELD_OUT, rng)
+    loader = SLDataloader(train_ds, TRAIN_B, TRAIN_T, seed=9)
+    collate = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        batch = next(loader)
+        collate.append((time.perf_counter() - t0) * 1e3)
+    batch_bytes = sum(a.nbytes for a in array_leaves(batch))
+    copies = {}
+    for how, place in (("pinned_side_path", lambda b: place_on(b, device)),
+                       ("pageable_to_device", lambda b: to_device(b, device))):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            place(batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        copies[how] = statistics.median(times)
+    out["dataset"] = {"trajectories": RT_TRAJ, "steps": RT_STEPS, "bytes": train_bytes,
+                      "bytes_per_step": train_bytes / (RT_TRAJ * RT_STEPS), "write_s": write_s,
+                      "collate_ms": statistics.median(collate), "batch_bytes": batch_bytes,
+                      "h2d_ms": copies}
+    print(f"sl_runtime dataset ({smi}): {RT_TRAJ} x {RT_STEPS} steps, {train_bytes} bytes "
+          f"({train_bytes / (RT_TRAJ * RT_STEPS):.0f} a step) written in {write_s:.2f} s; one "
+          f"{TRAIN_B} x {TRAIN_T} batch collates in {statistics.median(collate):.1f} ms, {batch_bytes} "
+          f"bytes, host-to-device {copies['pinned_side_path']:.2f} ms pinned, "
+          f"{copies['pageable_to_device']:.2f} ms pageable")
+
+    # 2-3. the bin as processes, on a thread of this process's own while it
+    # holds the resume equivalence (4), which times nothing
+    chain = {}
+
+    def processes():
+        try:
+            chain.update(runtime_processes(tmp, device, smi, root, train_ds, eval_ds, layers))
+        except BaseException as e:  # noqa: BLE001 - raised on this thread after the join
+            chain["error"] = e
+
+    worker = threading.Thread(target=processes, name="sl-train-processes", daemon=True)
+    worker.start()
+
+    K.reset_launch_counts()
+    # 4. resume equivalence under 'pallas' on the dataset's first 8 batches:
+    # A and A' straight, B straight with a save after 4, C restores B
+    batches = list(itertools.islice(SLDataloader(train_ds, TRAIN_B, TRAIN_T, seed=5), RT_BATCHES))
+    half = RT_BATCHES // 2
+    check(bool(batches[half]["new_episodes"].all()), "batch 5 does not restart every trajectory")
+    runs = {}
+    for name in ("A", "A'"):
+        lrn = rt_learner(device, os.path.join(root, "a"), "pallas")
+        runs[name] = ([lrn._train(b) for b in batches], params_of(lrn))
+        del lrn
+    b = rt_learner(device, os.path.join(root, "b"), "pallas")
+    b_logs = [b._train(bt) for bt in batches[:half]]
+    b.last_iter.update(half)
+    path = os.path.join(root, "b", "b.ckpt")
+    b.save(path, sync=True)
+    saved = b.state
+    c = rt_learner(device, os.path.join(root, "c"), "pallas")
+    c.restore(path)
+    restored = c.state
+    same = all(np.array_equal(x, y) and x.dtype == y.dtype
+               for x, y in zip(array_leaves(restored), array_leaves(saved)))
+    check(same and c.last_iter.val == half and c.optimizer.count == half,
+          "the restored state is not bit-equal to the saved one")
+    del saved, restored
+    runs["B"] = (b_logs + [b._train(bt) for bt in batches[half:]], params_of(b))
+    del b
+    c_logs = [c._train(bt) for bt in batches[half:]]
+    # C's first step and B's fifth start from one state on one batch: the
+    # forward repeats, so their losses agree where later steps part by the
+    # backward's repeat
+    first = abs(c_logs[0]["total_loss"] - runs["B"][0][half]["total_loss"]) / abs(c_logs[0]["total_loss"])
+    check(first <= RT_REPEAT_FLOOR, f"C's first step loss {first:.3g} from B's fifth on the same state")
+    # the straight runs' envelope: the largest distance between any two of
+    # A, A' and B (three runs, so one outlier does not set it alone)
+    names = list(runs)
+    envelope = {"loss": max(loss_dist(runs[x][0], runs[y][0]) for x in names for y in names if x < y),
+                "params": max(rel_dist(runs[x][1], runs[y][1]) for x in names for y in names if x < y)}
+    resumed = {"loss": loss_dist(c_logs, runs["A"][0][half:]), "params": rel_dist(params_of(c), runs["A"][1])}
+    del c
+    for k, v in resumed.items():
+        check(v <= max(2 * envelope[k], RT_TRAJECTORY_TOL[k]),
+              f"resumed run {k} {v:.3g} from the straight one, the straight runs' envelope {envelope[k]:.3g}")
+    resume_launches = dict(K.launch_counts)
+    steps_run = 3 * RT_BATCHES + half
+    want = {"masked_attention": layers * steps_run, "scatter_add_connection": steps_run, "scatter_add_onehot": 0}
+    check(resume_launches == want, f"resume launches {resume_launches}, want {want}")
+    spread = {"loss": loss_dist(runs["A'"][0], runs["A"][0]), "params": rel_dist(runs["A'"][1], runs["A"][1])}
+    out["resume"] = {"spread": spread, "envelope": envelope, "resumed": resumed, "first_step": first,
+                     "losses": {name: [lg["total_loss"] for lg in logs] for name, (logs, _) in runs.items()}
+                     | {"C": [lg["total_loss"] for lg in c_logs]}, "launches": resume_launches}
+    print(f"sl_runtime resume ({smi}, 'pallas'): C restored B bit-equal (params, mu, nu, count {half}); C's "
+          f"first step {first:.3g} from B's fifth; C vs A loss {resumed['loss']:.3g} params "
+          f"{resumed['params']:.3g}; A' vs A (the repeat) loss {spread['loss']:.3g} params "
+          f"{spread['params']:.3g}, envelope of A, A', B loss {envelope['loss']:.3g} params "
+          f"{envelope['params']:.3g}; launches {resume_launches}")
+    worker.join()
+    if "error" in chain:
+        raise chain["error"]
+    p_launches = chain.pop("launches")
+    out.update(chain)
+
+    # 5. prefetch on and off, through run() on the same dataset batches
+    K.reset_launch_counts()
+    pf = {}
+    for depth in (2, 0):
+        lrn = rt_learner(device, os.path.join(root, f"prefetch{depth}"), "pallas_onehot", prefetch_depth=depth)
+        if depth:
+            # the placed batches: the host ones, bit for bit, in order
+            probe = DevicePrefetcher(SLDataloader(train_ds, TRAIN_B, TRAIN_T, seed=5), lrn._place_batch,
+                                     depth=depth, device=device)
+            for want_batch, got in zip(batches[:3], probe):
+                host = {k: v for k, v in want_batch.items() if k not in ("new_episodes", "traj_lens")}
+                check(all(torch.equal(x, y.to(x.device)) for x, y in
+                          zip(array_leaves({k: got[k] for k in host}), array_leaves(to_device(host, "cpu"))))
+                      and np.array_equal(got["new_episodes"], want_batch["new_episodes"]) and got["_on_device"],
+                      "a prefetched batch differs from its host batch")
+            probe.close()
+        lrn.set_dataloader(SLDataloader(train_ds, TRAIN_B, TRAIN_T, seed=5))
+        rec = {"wall": [], "data": [], "train": [], "logs": []}
+
+        def timing(learner, rec=rec):
+            now = time.perf_counter()
+            rec["wall"].append((now - rec["t"]) * 1e3)
+            rec["t"] = now
+            rec["data"].append(learner.log_buffer["data_time"] * 1e3)
+            rec["train"].append(learner.log_buffer["train_time"] * 1e3)
+            rec["logs"].append(learner.last_log)
+
+        lrn.hooks.add(LambdaHook("rt_timing", "after_iter", timing, priority=0))
+        rec["t"] = time.perf_counter()
+        lrn.run(RT_BATCHES)
+        dist = {"loss": loss_dist(rec["logs"], runs["A"][0]), "params": rel_dist(params_of(lrn), runs["A"][1]),
+                "first_step": loss_dist(rec["logs"][:1], runs["A"][0][:1])}
+        profile = profile_call(lambda: lrn._train(next(lrn._dataloader)))
+        pf[depth] = {"step_ms": statistics.median(rec["wall"][3:RT_BATCHES]),
+                     "step_ms_mean": statistics.mean(rec["wall"][3:RT_BATCHES]),
+                     "data_wait_ms": statistics.median(rec["data"][3:RT_BATCHES]),
+                     "train_ms": statistics.median(rec["train"][3:RT_BATCHES]),
+                     "step_ms_all": rec["wall"][:RT_BATCHES], "vs_A": dist,
+                     "profile": {k: v for k, v in profile.items() if k != "top"}}
+        check(dist["first_step"] <= RT_REPEAT_FLOOR, f"prefetch depth {depth}: first loss {dist['first_step']:.3g} "
+              "from A's on the same weights and batch")
+        for k in ("loss", "params"):
+            check(dist[k] <= max(2 * envelope[k], RT_TRAJECTORY_TOL[k]),
+                  f"prefetch depth {depth} against A: {k} {dist[k]:.3g}, the straight runs' envelope "
+                  f"{envelope[k]:.3g}")
+        pf[depth]["losses"] = [lg["total_loss"] for lg in rec["logs"][:RT_BATCHES]]
+        if depth == 0:
+            rt = lrn  # kept for the save and admin measurements
+        else:
+            check(isinstance(lrn._dataloader, DevicePrefetcher), "prefetch_depth 2 did not prefetch")
+            lrn._dataloader.close()
+            del lrn
+            shutil.rmtree(os.path.join(root, f"prefetch{depth}"), ignore_errors=True)
+    out["prefetch"] = {"depth_2": pf[2], "depth_0": pf[0]}
+    print(f"sl_runtime prefetch ({smi}): step ms (median of 5 after 3; mean) depth 2 {pf[2]['step_ms']:.1f}; "
+          f"{pf[2]['step_ms_mean']:.1f} (data wait {pf[2]['data_wait_ms']:.1f}, train {pf[2]['train_ms']:.1f}) vs "
+          f"depth 0 {pf[0]['step_ms']:.1f}; {pf[0]['step_ms_mean']:.1f} (data wait {pf[0]['data_wait_ms']:.1f}, "
+          f"train {pf[0]['train_ms']:.1f}); "
+          f"profiled step idle share {pf[2]['profile'].get('idle_share')} vs {pf[0]['profile'].get('idle_share')}; "
+          f"against A: depth 2 {pf[2]['vs_A']}, depth 0 {pf[0]['vs_A']}")
+
+    # 6. the async save, a sync save, a restore, and the admin API during a run
+    path = os.path.join(root, "async.ckpt")
+    t0 = time.perf_counter()
+    rt.save(path)
+    blocked_s = time.perf_counter() - t0
+    rt._checkpointer.wait()
+    write_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(path)
+    check(abs(nbytes - RT_CKPT_BYTES) < 1e-3 * RT_CKPT_BYTES and C.verify_checkpoint(path),
+          f"checkpoint {nbytes} bytes, about {RT_CKPT_BYTES} expected")
+    path = os.path.join(root, "sync.ckpt")
+    t0 = time.perf_counter()
+    rt.save(path, sync=True)
+    sync_save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rt.restore(path)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    admin = rt.start_admin()
+    posted = {}
+    start = rt.last_iter.val
+
+    def client():
+        while rt.last_iter.val < start + 1:
+            time.sleep(0.01)
+        posted["status"] = post_admin(admin, "status")
+        posted["save"] = post_admin(admin, "save_ckpt")
+        posted["profile"] = post_admin(admin, "profile", {"steps": 1})
+
+    th = threading.Thread(target=client, daemon=True)
+    th.start()
+    rt.run(start + 5)
+    th.join(timeout=60)
+    admin.stop()
+    check(posted.get("status", {}).get("code") == 0 and posted["status"]["info"]["last_iter"] >= start + 1,
+          f"admin status {posted.get('status')}")
+    check(posted["save"] == {"code": 0, "info": "queued"}, f"admin save {posted['save']}")
+    check(posted["profile"]["code"] == 1 and "item 9" in posted["profile"]["info"],
+          f"admin profile {posted['profile']}")
+    admin_gens = [g["step"] for g in rt.checkpoint_manager.generations()]
+    check(any(start + 1 <= s < start + 5 for s in admin_gens), f"no admin checkpoint in {admin_gens}")
+    out["save"] = {"bytes": nbytes, "async_blocked_s": blocked_s, "async_write_s": write_s,
+                   "sync_save_s": sync_save_s, "restore_s": restore_s, "admin_generations": admin_gens}
+    print(f"sl_runtime save ({smi}): {nbytes} bytes; async save blocks the loop {blocked_s:.3f} s, "
+          f"written in {write_s:.2f} s; sync save {sync_save_s:.2f} s; restore {restore_s:.2f} s; admin "
+          f"status at iter {posted['status']['info']['last_iter']}, save_ckpt landed at "
+          f"{[s for s in admin_gens if start + 1 <= s < start + 5]}, profile answered "
+          f"{posted['profile']['info'][:60]!r}")
+
+    # 7. the held-out evaluation
+    before = dict(K.launch_counts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = rt.evaluate(SLDataloader(eval_ds, TRAIN_B, TRAIN_T, seed=2), max_batches=2)
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) * 1e3 / 2
+    eval_launches = {k: K.launch_counts[k] - before[k] for k in before}
+    check(all(np.isfinite(v) for v in metrics.values()) and "total_loss" in metrics, f"evaluate {metrics}")
+    check(eval_launches == {"masked_attention": 2 * layers, "scatter_add_connection": 0, "scatter_add_onehot": 2},
+          f"evaluate launches {eval_launches}")
+    del rt
+    out["evaluate"] = {"ms_per_batch": eval_ms, "total_loss": metrics["total_loss"], "launches": eval_launches}
+    print(f"sl_runtime evaluate ({smi}): {eval_ms:.1f} ms a batch, total_loss {metrics['total_loss']:.3f}, "
+          f"launches {eval_launches}")
+
+    shutil.rmtree(root, ignore_errors=True)
+    in_process = dict(K.launch_counts)
+    launches = {k: resume_launches[k] + in_process[k] + p_launches[k] for k in in_process}
+    for name, n in launches.items():
+        check(n > 0, f"{name} never launched on the SL runtime path")
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"sl_runtime: {out['seconds']:.1f} s, launches (the process {p_launches}, resume "
+          f"{resume_launches}, prefetch, admin and evaluate {in_process})")
+    print(json.dumps({"sl_runtime": out}))
+    return launches, out
+
+
+def array_leaves(tree):
+    """The array leaves of a tree of dicts, tuples and lists, in order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in array_leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in array_leaves(v)]
+    return [tree]
 
 
 # --------------------------------------------------------------------- RL
@@ -2508,7 +3015,7 @@ def gated_step(device, batch):
 
 def phase_rl(device, rng):
     """The RL and distillation learners on the card (module docstring,
-    phase 7). Returns the launch counts of their paths and the measurements."""
+    phase 9). Returns the launch counts of their paths and the measurements."""
     import numpy as np
     import torch
 
@@ -2645,7 +3152,9 @@ def main() -> int:
         return 2
 
     t_start = time.perf_counter()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_")  # the serving phases' checkpoints
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")  # the phases' checkpoints and datasets
+    # the learners' default experiment directories, out of the checkout
+    os.environ["DISTAR_EXPERIMENTS_ROOT"] = os.path.join(tmp, "experiments")
     try:
         # 1. device
         device = torch.device("cuda")
@@ -2689,12 +3198,16 @@ def main() -> int:
         # 7. train
         train_launches, train = phase_train(device, rng)
 
-        # 8. RL and distillation
+        # 8. the SL learner runtime, on a generator of its own
+        runtime_launches, runtime = phase_sl_runtime(device, np.random.default_rng(8), smi, tmp)
+
+        # 9. RL and distillation
         rl_launches, rl = phase_rl(device, rng)
         print(f"launches: serve {launches}, serve process {process_launches}, serve fleet (gateway A) "
-              f"{fleet_launches}, train {train_launches}, rl and distill {rl_launches}")
+              f"{fleet_launches}, train {train_launches}, sl runtime {runtime_launches}, rl and distill "
+              f"{rl_launches}")
         launches = {name: launches[name] + process_launches[name] + fleet_launches[name] + train_launches[name]
-                    + rl_launches[name] for name in build.KERNELS}
+                    + runtime_launches[name] + rl_launches[name] for name in build.KERNELS}
 
         # 9. the kernels line; max_abs_err over the serve shapes and the f32
         # SL, RL and student training shapes
@@ -2717,6 +3230,9 @@ def main() -> int:
                           "sl_frames_per_s": train["sl_frames_per_s"], "rl_step_ms": rl["step_ms"],
                           "rl_frames_per_s": rl["rl_frames_per_s"],
                           "distill_step_ms": rl["distill_step_ms"],
+                          "sl_runtime_step_ms": {k: runtime["prefetch"][k]["step_ms"]
+                                                 for k in ("depth_2", "depth_0")},
+                          "sl_runtime_seconds": runtime["seconds"],
                           "seconds": time.perf_counter() - t_start}))
         print(json.dumps(line))
     except Exception as e:  # every phase failure fails the run

@@ -1,30 +1,75 @@
-"""The learner skeleton: config cascade, optimizer construction, run loop.
+"""The learner skeleton: config cascade, optimizer, checkpoints, hooks and
+the crash-safe run loop.
 
-Counterpart of the parts of ``distar_tpu.learner.base_learner`` that the SL,
-RL and distillation learners use. Checkpoints and the admin save (ROADMAP
-Queue 1 item 4), hooks, prefetch, the profiler hooks and the training-
-dynamics tree (item 9) of the JAX learner are not ported yet: asking for
-one raises ``NotImplementedError``.
+Counterpart of ``distar_tpu.learner.base_learner`` on one device.
+Subclasses build their model and optimizer in ``_setup_state`` and take one
+optimisation step per ``_train(batch)``, returning the step's scalars.
+Around that: the experiment directory (``experiments_root()`` /
+``common.experiment_name``, or ``common.save_path``) with its text log,
+scalar sink and meters; ``last_iter``; checkpoints in the JAX package's
+layout (``model.convert.learner_state_to_flax``), written on a background
+thread by default and published in the ``latest`` pointer only once
+durable; ``restore``, which refuses a checkpoint that does not fit and
+names the leaves, and ``resume_latest``, which falls back past a corrupt
+generation; the admin API; the hooks; the prefetcher; and the
+``distar_learner_*`` series.
+
+Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
+Queue 1 item: sharded checkpoints (item 7), the profiler hooks, on-demand
+profiles and the training-dynamics tree (item 9).
 """
 from __future__ import annotations
 
 import json
-import time
+import os
 from typing import Any, Dict, Iterable, Optional
 
 import torch
 
 from ..actor.inference import resolve_device
+from ..model.convert import learner_state_to_flax, load_learner_state
+from ..obs import get_registry
 from ..parallel import GradClipConfig, build_optimizer
-from ..utils import Config, deep_merge_dicts
+from ..utils import Config, EasyTimer, build_logger, deep_merge_dicts
+from ..utils.checkpoint import (
+    AsyncCheckpointer,
+    CheckpointCorruptError,
+    CheckpointManager,
+    CheckpointMismatchError,
+    CountVar,
+    SignalGuard,
+    auto_checkpoint,
+    load_checkpoint,
+)
+from ..utils.timing import sw as global_stopwatch
+from .hooks import HookRegistry, default_hooks
+from .prefetch import DevicePrefetcher
+
+PROFILE_NOT_PORTED = ("on-demand profiles need obs/profiler.py and obs/traceview.py, which are not "
+                      "ported yet (ROADMAP Queue 1 item 9)")
+
+
+def experiments_root() -> str:
+    """The experiment directories' root: ``DISTAR_EXPERIMENTS_ROOT``, else
+    ``./experiments`` (the test harness points the variable at a temporary
+    directory, so no run resumes from another's checkpoints)."""
+    return os.environ.get("DISTAR_EXPERIMENTS_ROOT") or os.path.join(os.getcwd(), "experiments")
+
 
 DEFAULT_LEARNER_CONFIG = Config(
     {
+        "common": {"experiment_name": "default_experiment", "save_path": ""},
         "learner": {
             "learning_rate": 1e-5,
+            "save_freq": 1000,
             "log_freq": 100,
+            "load_path": "",
             "max_iterations": 10 ** 9,
             "grad_clip": {"type": "none", "threshold": 1.0},
+            # one CRC'd blob per parameter shard (ROADMAP Queue 1 item 7)
+            "sharded_ckpt": False,
+            # the profiler hook, every profile.freq iterations (item 9)
+            "profile": {"freq": 0, "duration": 2, "logdir": ""},
         },
     }
 )
@@ -37,24 +82,67 @@ def host_scalars(info: Dict[str, torch.Tensor]) -> Dict[str, float]:
     return dict(zip(info, values))
 
 
+def _leaf_shapes(tree, prefix="") -> Dict[str, tuple]:
+    """``{path: shape}`` of every leaf of a tree of dicts and tuples."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tuple(getattr(tree, "shape", ()) or ())}
+    out = {}
+    for k, v in items:
+        out.update(_leaf_shapes(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
 class BaseLearner:
-    """Subclasses build their state in ``_setup_state`` and take one
-    optimisation step per ``_train(batch)``, returning the step's scalars.
-    ``_CAP_FN`` is the batch layout's entity cap (``learner/data.py``)."""
+    """Subclasses build ``self.model`` and ``self.optimizer`` (a
+    ``parallel.Optimizer`` over the model's parameters) in ``_setup_state``
+    and take one step per ``_train(batch)``. ``_CAP_FN`` is the batch
+    layout's entity cap (``learner/data.py``); ``CKPT_ROLE`` keeps a role's
+    checkpoint generations apart from the default tier's."""
 
     _CAP_FN = None
+    CKPT_ROLE = ""
+    rank = 0  # one process
 
     def __init__(self, cfg: Optional[dict] = None, device=None):
         self.cfg = deep_merge_dicts(DEFAULT_LEARNER_CONFIG, cfg or {})
-        if self.cfg.learner.get("dynamics"):
+        lc = self.cfg.learner
+        if (lc.get("dynamics") or {}).get("enabled", True) and lc.get("dynamics"):
             raise NotImplementedError("learner.dynamics: the training-dynamics tree is not ported "
                                       "yet (ROADMAP Queue 1 item 9, obs/dynamics.py)")
+        if lc.get("sharded_ckpt"):
+            raise NotImplementedError("learner.sharded_ckpt: sharded checkpoints are not ported yet "
+                                      "(ROADMAP Queue 1 item 7, parallel/ckpt.py)")
         self.device = resolve_device(device)
-        self.last_iter = 0
+        root = self.cfg.common.save_path or os.path.join(experiments_root(),
+                                                         self.cfg.common.experiment_name)
+        self.save_dir = root
+        self.logger, self.scalar_sink, self.variable_record = build_logger(
+            os.path.join(root, "logs"), f"{self.name}_rank{self.rank}")
+        self.timer = EasyTimer()
+        self.last_iter = CountVar(0)
         self.last_log: Dict[str, float] = {}
+        self.log_buffer: Dict[str, Any] = {}
+        self.metrics = get_registry()
+        self._checkpointer = AsyncCheckpointer()
+        self._ckpt_manager = CheckpointManager(os.path.join(root, "checkpoints"),
+                                               role=lc.get("ckpt_role", "") or self.CKPT_ROLE)
+        self.hooks: HookRegistry = default_hooks(
+            save_freq=lc.save_freq, log_freq=lc.log_freq,
+            profile_freq=int(lc.get("profile", {}).get("freq", 0)))
+        self._step_guard = SignalGuard()
+        self._pending_save = False
+        self._stop_requested = False
         self._dataloader = None
         self._setup_dataloader()
         self._setup_state()
+
+    @property
+    def name(self) -> str:
+        return type(self).__name__.lower()
 
     def _build_optimizer(self, params: Iterable[torch.Tensor]):
         """learning_rate, betas, eps, weight_decay and the ``grad_clip``
@@ -74,15 +162,88 @@ class BaseLearner:
         n = self.cfg.learner.get("max_entities")
         return self._CAP_FN(batch, int(n)) if n else batch
 
+    # ----------------------------------------------------------- checkpoints
+    @property
+    def state(self) -> dict:
+        """``{"params", "opt_state"}`` in the JAX learner's layout, as numpy
+        copies (the checkpoint's content)."""
+        return learner_state_to_flax(self.model, self.optimizer)
+
+    @property
+    def checkpoint_manager(self) -> CheckpointManager:
+        return self._ckpt_manager
+
     def checkpoint_path(self) -> str:
-        raise NotImplementedError("checkpoints are not ported yet (ROADMAP Queue 1 item 4)")
+        return os.path.join(self.save_dir, "checkpoints", f"iteration_{self.last_iter.val}.ckpt")
 
     def save(self, path: str, sync: bool = False) -> None:
-        raise NotImplementedError("checkpoints are not ported yet (ROADMAP Queue 1 item 4)")
+        """Checkpoint the learner state with ``{"last_iter"}``. By default
+        (``learner.async_save``) the host copy is taken here and the write
+        runs on a background thread; ``sync`` writes before returning. The
+        ``latest`` pointer names ``path`` only once its bytes are durable."""
+        step = self.last_iter.val
+        self._checkpointer.save(path, self, metadata={"last_iter": step},
+                                snapshot_fn=lambda learner: learner.state,
+                                on_complete=lambda p: self._ckpt_manager.record(p, step=step))
+        if sync or not self.cfg.learner.get("async_save", True):
+            self._checkpointer.wait()
 
-    def request_save(self) -> None:
-        raise NotImplementedError("the admin save is not ported yet (ROADMAP Queue 1 item 4)")
+    def restore(self, path: str) -> None:
+        """Load a checkpoint of either package into the model and optimizer,
+        and ``last_iter`` from its metadata. A leaf the checkpoint lacks
+        keeps its value; one whose shape differs raises
+        ``CheckpointMismatchError`` before anything changes."""
+        self._checkpointer.wait()  # the path may still be being written
+        target = self.state
+        out = load_checkpoint(path, target=target)
+        self._validate_restored(path, out["state"], target)
+        load_learner_state(out["state"], self.model, self.optimizer)
+        self.last_iter.update(out["metadata"].get("last_iter", 0))
 
+    def _validate_restored(self, path: str, state, target=None) -> None:
+        """Refuse a checkpoint whose leaves do not fit this learner's state
+        (another model config, or a stale experiment directory), naming
+        them, so ``resume_latest`` falls back instead of training on
+        foreign weights."""
+        cur = _leaf_shapes(self.state if target is None else target)
+        mismatched = [f"{k}: ckpt {shape} != state {cur[k]}"
+                      for k, shape in _leaf_shapes(state).items() if k in cur and cur[k] != shape]
+        if mismatched:
+            raise CheckpointMismatchError(
+                f"{path} does not fit this learner ({len(mismatched)} mismatched leaves, e.g. "
+                f"{'; '.join(mismatched[:3])}); refusing to resume from it")
+
+    def resume_latest(self) -> Optional[str]:
+        """Restore the newest generation behind the ``latest`` pointer that
+        loads and fits, skipping (and counting) the ones that do not; the
+        path restored, or None for a cold start."""
+        self._checkpointer.wait()
+        for gen in self._ckpt_manager.generations():
+            try:
+                self.restore(gen["path"])
+            except (CheckpointCorruptError, FileNotFoundError, OSError, ValueError):
+                CheckpointManager._note_fallback(gen["path"])
+                continue
+            self.metrics.counter("distar_resilience_resumes_total",
+                                 "learner restarts resumed from the latest pointer").inc()
+            # the JAX package also records a "learner_resume" flight-recorder
+            # event; the flight recorder comes with ROADMAP Queue 1 item 9
+            self.logger.info(f"resumed from {gen['path']} (iter {self.last_iter.val})")
+            return gen["path"]
+        return None
+
+    def _apply_pending_save(self) -> None:
+        """The admin save: synchronous, so durable before it is reported.
+        The run loop applies it at every iteration boundary; the RL and
+        distillation learners apply it inside their step, as the JAX ones
+        do."""
+        if self._pending_save:
+            self._pending_save = False
+            path = self.checkpoint_path()
+            self.save(path, sync=True)
+            self.logger.info(f"admin checkpoint saved: {path}")
+
+    # ------------------------------------------------------------- abstract
     def _setup_state(self) -> None:  # pragma: no cover - abstract
         raise NotImplementedError
 
@@ -92,19 +253,111 @@ class BaseLearner:
     def _train(self, data) -> Dict[str, Any]:  # pragma: no cover - abstract
         raise NotImplementedError
 
+    # -------------------------------------------------------------- prefetch
+    def _place_batch(self, batch):  # overridden by learners that prefetch
+        return batch
+
+    def set_dataloader(self, it) -> None:
+        """Train on ``it`` from the next step (a prefetcher of the old
+        loader is closed)."""
+        if isinstance(self._dataloader, DevicePrefetcher):
+            self._dataloader.close()
+        self._dataloader = iter(it)
+
+    def _maybe_enable_prefetch(self) -> None:
+        """Wrap the dataloader in a ``DevicePrefetcher`` placing batches with
+        ``_place_batch`` ``learner.prefetch_depth`` (default 2; 0 turns it
+        off) ahead. A prefetcher spent by an error is replaced by a new one
+        on the same source, so a resumed run reads on."""
+        depth = int(self.cfg.learner.get("prefetch_depth", 2))
+        current = self._dataloader
+        if isinstance(current, DevicePrefetcher):
+            if not current.failed:
+                return
+            current.close()
+            self._dataloader = current.source
+        if depth <= 0 or type(self)._place_batch is BaseLearner._place_batch:
+            return
+        self._dataloader = DevicePrefetcher(self._dataloader, self._place_batch, depth=depth,
+                                            device=self.device)
+
+    # ----------------------------------------------------------------- admin
+    def start_admin(self, port: int = 0):
+        """Serve the admin API (status, save_ckpt, and update_config /
+        reset_value where the learner has them); requests apply at the
+        iteration boundary."""
+        from .admin import LearnerAdminServer
+
+        self._admin = LearnerAdminServer(self, port=port)
+        self._admin.start()
+        self.logger.info(f"admin API on {self._admin.host}:{self._admin.port}")
+        return self._admin
+
+    def request_save(self) -> None:
+        self._pending_save = True
+
+    def request_stop(self) -> None:
+        """Leave the run loop at the next iteration boundary; the after_run
+        hooks (the final checkpoint) still run."""
+        self._stop_requested = True
+
+    def request_profile(self, steps: int = 2, timeout_s: float = 600.0) -> dict:
+        raise NotImplementedError(PROFILE_NOT_PORTED)
+
+    def _profile_tick(self) -> None:
+        raise NotImplementedError(PROFILE_NOT_PORTED)
+
+    # ------------------------------------------------------------------- run
     def run(self, max_iterations: Optional[int] = None) -> None:
-        """Train until ``last_iter`` reaches ``max_iterations``, printing one
-        JSON line of the step's scalars (no per-parameter norms) every
-        ``learner.log_freq`` steps."""
+        """Train until ``last_iter`` reaches ``max_iterations`` (or a stop
+        request), under ``auto_checkpoint``: an exception, SIGTERM or
+        SIGINT saves a checkpoint synchronously first (a signal during a
+        step waits for the step's end). Every ``learner.log_freq`` steps a
+        JSON line of the step's scalars (no per-parameter norms) goes to
+        standard output."""
         max_iterations = max_iterations or self.cfg.learner.max_iterations
         log_freq = max(int(self.cfg.learner.log_freq), 1)
-        while self.last_iter < max_iterations:
-            data = next(self._dataloader)
-            t0 = time.perf_counter()
-            self.last_log = self._train(data)
-            train_s = time.perf_counter() - t0
-            self.last_iter += 1
-            if self.last_iter % log_freq == 0:
-                scalars = {k: v for k, v in self.last_log.items() if "/" not in k}
-                print(json.dumps({"learner": type(self).__name__.lower(), "iter": self.last_iter,
-                                  "train_time": train_s, **scalars}), flush=True)
+        self._maybe_enable_prefetch()
+        iters_total = self.metrics.counter("distar_learner_iterations_total",
+                                           "optimisation steps completed")
+        step_time = self.metrics.histogram("distar_learner_step_seconds", "device train-step wall time")
+        data_wait = self.metrics.histogram("distar_learner_data_wait_seconds",
+                                           "dataloader wait per iteration")
+        # a gauge, not a histogram: a health rule reads the raw last value
+        loss_gauge = self.metrics.gauge("distar_learner_loss",
+                                        "last total_loss (NaN/Inf watchdog input)")
+        self._stop_requested = False
+
+        @auto_checkpoint(lambda: self.save(self.checkpoint_path(), sync=True), guard=self._step_guard)
+        def _run():
+            self.hooks.call("before_run", self)
+            while self.last_iter.val < max_iterations and not self._stop_requested:
+                with self.timer:
+                    data = next(self._dataloader)
+                t_data = self.timer.value
+                self.log_buffer["data_time"] = t_data
+                self.hooks.call("before_iter", self)
+                with self._step_guard:  # the step and its log line, whole
+                    with self.timer:
+                        log_vars = self._train(data)
+                    self.last_iter.add(1)
+                    t_train = self.timer.value
+                    self.last_log = log_vars
+                    self.log_buffer["train_time"] = t_train
+                    self.log_buffer.update(log_vars)
+                    if "total_loss" in log_vars:
+                        loss_gauge.set(float(log_vars["total_loss"]))
+                    if self.last_iter.val % log_freq == 0:
+                        scalars = {k: v for k, v in log_vars.items() if "/" not in k}
+                        print(json.dumps({"learner": self.name, "iter": self.last_iter.val,
+                                          "train_time": t_train, **scalars}), flush=True)
+                self.hooks.call("after_iter", self)
+                self._apply_pending_save()
+                iters_total.inc()
+                step_time.observe(t_train)
+                data_wait.observe(t_data)
+            self.hooks.call("after_run", self)
+
+        _run()
+        global_stopwatch.report(registry=self.metrics)
+        self._checkpointer.wait()  # drain the async writer before returning

@@ -7,12 +7,14 @@ through the masked per-head KL of ``losses.distill_loss``. The batch's
 ``hidden_state`` has the teacher's LSTM dims, so every window trains the
 student from a zero state of its own dims, built inside the step.
 
+Its checkpoints are ``student_iteration_<n>.ckpt`` under the role
+``student``, so a teacher's resume never picks a student's generation.
 Not ported yet: the ``distar_distill_*`` gauges and the FLOPs-derived cost
-ratio (ROADMAP Queue 1 item 9), and student checkpoints (item 4); each
-raises ``NotImplementedError``.
+ratio (ROADMAP Queue 1 item 9), which raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Optional
 
 import torch
@@ -94,6 +96,7 @@ class DistillLearner(BaseLearner):
     raise)."""
 
     _CAP_FN = staticmethod(cap_entities_rl)
+    CKPT_ROLE = "student"
 
     def __init__(self, cfg: Optional[dict] = None, device=None):
         cfg = deep_merge_dicts(DISTILL_LEARNER_DEFAULTS, cfg or {})
@@ -111,9 +114,6 @@ class DistillLearner(BaseLearner):
                                                  hidden_size=core.hidden_size,
                                                  hidden_layers=core.num_layers))
 
-    def set_dataloader(self, it) -> None:
-        self._dataloader = iter(it)
-
     def _setup_state(self) -> None:
         lc = self.cfg.learner
         self.model = Model(self.model_cfg)
@@ -122,6 +122,9 @@ class DistillLearner(BaseLearner):
         self.optimizer = self._build_optimizer(self.model.parameters())
         self._train_step = make_distill_train_step(self.model, self.loss_cfg, self.optimizer,
                                                    lc.batch_size, lc.unroll_len)
+
+    def checkpoint_path(self) -> str:
+        return os.path.join(self.save_dir, "checkpoints", f"student_iteration_{self.last_iter.val}.ckpt")
 
     def _strip_batch(self, data: Dict) -> Dict:
         """Drop the RL batch's fields that distillation does not read."""
@@ -132,4 +135,6 @@ class DistillLearner(BaseLearner):
         for k in ("model_last_iter", "trace_span_ids", "trace_age_s"):
             data.pop(k, None)
         data = self._strip_batch(self._cap(data))
-        return host_scalars(self._train_step(to_device(data, self.device)))
+        log = host_scalars(self._train_step(to_device(data, self.device)))
+        self._apply_pending_save()
+        return log

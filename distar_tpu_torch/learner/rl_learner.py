@@ -10,8 +10,8 @@ are flattened to rows t*B + b.
 
 Not ported yet, each raising ``NotImplementedError``: ``attach_comm`` (the
 weight publication and league train-info of ``bin/rl_train.py``'s roles,
-ROADMAP Queue 1 item 5), ``shard_batch`` and meshes (item 7), the
-training-dynamics tree (item 9) and the admin save (item 4).
+ROADMAP Queue 1 item 5), ``shard_batch`` and meshes (item 7) and the
+training-dynamics tree (item 9).
 """
 from __future__ import annotations
 
@@ -157,9 +157,6 @@ class RLLearner(BaseLearner):
             lc.batch_size, lc.unroll_len, hidden_size=core.hidden_size,
             hidden_layers=core.num_layers, use_value_feature=self.model_cfg.use_value_feature))
 
-    def set_dataloader(self, it) -> None:
-        self._dataloader = iter(it)
-
     def _setup_state(self) -> None:
         self.model = Model(self.model_cfg)
         init_params(self.model, 0)  # the JAX learner's init_prng_seed
@@ -196,10 +193,11 @@ class RLLearner(BaseLearner):
             self.cfg = deep_merge_dicts(self.cfg, patch)
             # hyperparameter changes rebuild the optimizer; its state resets
             self._build_step()
+        self._apply_pending_save()
         if self._pending_value_reset:
             self._pending_value_reset = False
             # fresh draws for the value towers and the value encoder only
-            init_params(self.model, self.last_iter + 1, only=_is_critic)
+            init_params(self.model, self.last_iter.val + 1, only=_is_critic)
 
     # ------------------------------------------------------------- training
     def step_value_pretrain(self) -> bool:
@@ -214,7 +212,7 @@ class RLLearner(BaseLearner):
         only_value = self.step_value_pretrain()
         data = dict(data)  # callers may reuse the batch dict
         model_last_iter = np.asarray(data.pop("model_last_iter"))
-        staleness = self.last_iter - model_last_iter
+        staleness = self.last_iter.val - model_last_iter
         # pipeline-span fields minted in the actor (host side)
         span_ids = data.pop("trace_span_ids", None)
         trace_age = data.pop("trace_age_s", None)

@@ -6,17 +6,20 @@ trajectories that restarted (``new_episodes``). The carry lives in the
 learner on the device and is detached after every step, so a step's
 backward never reaches into the step before it.
 
-Not ported yet: the loss-spike guard, checkpoints, hooks, prefetch, the
-replay dataloader and the held-out evaluation.
+Beside the step: ``evaluate`` (the held-out metric pass), ``_place_batch``
+(the prefetcher's placing) and, with ``learner.debug_loss_spike``, the
+loss-spike guard, which dumps a step's inputs and a checkpoint when a loss
+term jumps or goes non-finite.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import os
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
-from ..actor.inference import to_device
+from ..actor.inference import to_device, to_host
 from ..losses import SupervisedLossConfig, compute_sl_loss
 from ..model import Model, default_model_config, init_params
 from ..model.convert import flax_names
@@ -24,6 +27,7 @@ from ..parallel.grad_clip import global_norm, leaf_norms
 from ..utils import deep_merge_dicts
 from .base_learner import DEFAULT_LEARNER_CONFIG, BaseLearner, host_scalars
 from .data import FakeSLDataloader, cap_entities
+from .prefetch import place_on
 
 SL_LEARNER_DEFAULTS = deep_merge_dicts(
     DEFAULT_LEARNER_CONFIG,
@@ -41,6 +45,10 @@ SL_LEARNER_DEFAULTS = deep_merge_dicts(
             "save_grad": False,
             # pad-to-bucket entity cap (see data.cap_entities)
             "max_entities": None,
+            # loss-spike debug snapshots (the reference's SL debug mode)
+            "debug_loss_spike": False,
+            "debug_spike_factor": 10.0,
+            "debug_spike_warmup": 200,
         },
         "model": {},
     },
@@ -95,28 +103,131 @@ class SLLearner(BaseLearner):
         lc = self.cfg.learner
         self._dataloader = iter(FakeSLDataloader(lc.batch_size, lc.unroll_len))
 
-    def set_dataloader(self, it) -> None:
-        self._dataloader = iter(it)
+    def _zero_hidden(self):
+        core = self.model_cfg.encoder.core_lstm
+        z = torch.zeros(self.cfg.learner.batch_size, core.hidden_size, device=self.device)
+        return tuple((z, z) for _ in range(core.num_layers))
 
     def _setup_state(self) -> None:
         lc = self.cfg.learner
         self.model = Model(self.model_cfg)
         init_params(self.model, 0)  # the JAX learner's init_prng_seed
         self.model.to(self.device).train()
-        core = self.model_cfg.encoder.core_lstm
-        z = torch.zeros(lc.batch_size, core.hidden_size, device=self.device)
-        self.hidden = tuple((z, z) for _ in range(core.num_layers))
+        self.hidden = self._zero_hidden()
         self.optimizer = self._build_optimizer(self.model.parameters())
         self._train_step = make_sl_train_step(self.model, self.loss_cfg, self.optimizer,
                                               lc.batch_size, save_grad=lc.get("save_grad", False))
 
+    @torch.no_grad()
+    def evaluate(self, dataloader, max_batches: int = 0) -> Dict[str, float]:
+        """The held-out metric pass: the SL forward and loss over
+        ``dataloader``'s batches with no gradient and no change of state,
+        each scalar averaged over the batches. The carry starts cold per
+        batch (the unroll within a window still carries it). Stops after
+        ``max_batches`` (0: when the loader ends)."""
+        B = self.cfg.learner.batch_size
+        sums: Dict[str, float] = {}
+        n = 0
+        for batch in dataloader:
+            batch = self._cap(dict(batch))
+            batch.pop("new_episodes", None)
+            batch.pop("traj_lens", None)
+            total, info, _ = sl_loss(self.model, self.loss_cfg, to_device(batch, self.device),
+                                     self._zero_hidden(), B)
+            info["total_loss"] = total
+            for k, v in host_scalars(info).items():
+                sums[k] = sums.get(k, 0.0) + v
+            n += 1
+            if max_batches and n >= max_batches:
+                break
+        return {k: v / max(n, 1) for k, v in sums.items()}
+
+    def _place_batch(self, data):
+        """The prefetcher's placing: the capped batch on the device (from
+        pinned memory on CUDA), the host fields kept as numpy."""
+        data = self._cap(dict(data))
+        host = {k: np.asarray(data.pop(k)) for k in ("new_episodes", "traj_lens") if k in data}
+        out = place_on(data, self.device)
+        out.update(host)
+        out["_on_device"] = True
+        return out
+
     def _train(self, data) -> Dict[str, float]:
-        data = self._cap(dict(data))  # callers may reuse the batch dict
+        data = dict(data)  # callers may reuse the batch dict
+        on_device = data.pop("_on_device", False)
+        if not on_device:
+            data = self._cap(data)
         new_episodes = np.asarray(data.pop("new_episodes"))
-        data.pop("traj_lens", None)
+        traj_lens = data.pop("traj_lens", None)
         if new_episodes.any():
             # zero the carry of the trajectories that restarted
             keep = torch.as_tensor(~new_episodes, dtype=torch.float32, device=self.device)[:, None]
             self.hidden = tuple((h * keep, c * keep) for h, c in self.hidden)
-        self.hidden, info = self._train_step(to_device(data, self.device), self.hidden)
-        return host_scalars(info)
+        batch = data if on_device else to_device(data, self.device)
+        pre_step = {"batch": batch, "hidden_state": self.hidden, "new_episodes": new_episodes,
+                    "traj_lens": traj_lens}
+        self.hidden, info = self._train_step(batch, self.hidden)
+        log = host_scalars(info)
+        if self.cfg.learner.get("debug_loss_spike", False):
+            self._loss_spike_guard(log, pre_step)
+        return log
+
+    # snapshots a run: a misbehaving trigger must not fill the disk
+    _DEBUG_DUMP_CAP = 20
+    # an EMA this small is no signal yet (a masked head's loss is exactly 0
+    # on batches without its actions): growth from it is not a spike
+    _DEBUG_EMA_FLOOR = 0.01
+
+    def _loss_spike_guard(self, log: Dict[str, float], pre_step: dict) -> None:
+        """Track every loss term's EMA (0.95 / 0.05); when one exceeds
+        ``debug_spike_factor`` x its EMA after ``debug_spike_warmup`` steps,
+        or turns non-finite (even at the first step), dump the step's inputs
+        and save a checkpoint beside them: one dump a step, one a
+        divergence, at most ``_DEBUG_DUMP_CAP`` a run."""
+        if not hasattr(self, "_debug_ema"):
+            self._debug_ema = {}
+            self._debug_dumps = 0
+            self._debug_nonfinite = set()  # keys already dumped as non-finite
+        factor = float(self.cfg.learner.get("debug_spike_factor", 10.0))
+        warmup = int(self.cfg.learner.get("debug_spike_warmup", 200))
+        dumped = False
+        for k, v in log.items():
+            if "loss" not in k:
+                continue
+            prev = self._debug_ema.get(k)
+            blown_up = not np.isfinite(v)
+            if not blown_up:
+                self._debug_nonfinite.discard(k)  # recovered: armed again
+            elif k in self._debug_nonfinite:
+                continue
+            spiked = blown_up or (prev is not None and np.isfinite(prev)
+                                  and prev > self._DEBUG_EMA_FLOOR and v > prev * factor)
+            if (spiked and (blown_up or self.last_iter.val > warmup) and not dumped
+                    and self._debug_dumps < self._DEBUG_DUMP_CAP):
+                dumped = True
+                self._debug_dumps += 1
+                if blown_up:
+                    self._debug_nonfinite.add(k)
+                self._dump_spike(k, v, prev, log, pre_step)
+            if not blown_up:  # never poison the EMA with inf or nan
+                self._debug_ema[k] = v if prev is None else prev * 0.95 + v * 0.05
+
+    def _dump_spike(self, key, value, ema, log, pre_step) -> None:
+        from ..comm.serializer import dumps
+
+        os.makedirs(os.path.join(self.save_dir, "debug"), exist_ok=True)
+        path = os.path.join(self.save_dir, "debug",
+                            f"{key.replace('/', '_')}_iter_{self.last_iter.val}"
+                            f"_rank{self.rank}_{self._debug_dumps}.spike")
+        snapshot: Dict[str, Any] = {
+            "key": key, "value": value, "ema": ema, "log": log,
+            "batch": to_host(pre_step["batch"]),
+            "hidden_state": tuple((h.cpu().numpy(), c.cpu().numpy()) for h, c in pre_step["hidden_state"]),
+            "new_episodes": pre_step["new_episodes"], "traj_lens": pre_step["traj_lens"],
+            "note": "params in the companion checkpoint are one optimizer step PAST the spike; "
+                    "batch/hidden_state are the step's exact inputs"}
+        with open(path, "wb") as f:
+            f.write(dumps(snapshot, compress=True))
+        self.save(self.checkpoint_path(), sync=True)  # debug artifacts are durable
+        ema_txt = f"{ema:.4f}" if ema is not None else "unseeded"
+        self.logger.info(f"loss spike: {key}={value:.4f} (ema {ema_txt}); snapshot {path}")

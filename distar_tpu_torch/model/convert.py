@@ -13,10 +13,25 @@ lands at ``a.b.Dense_0.weight``. Layouts change on the way:
 No fc rows are permuted: the port flattens (spatial fc) and reshapes
 (location projection) maps in the JAX package's NHWC order. The way back
 reads each parameter's owner module to know which flax leaf it was.
+
+A learner's whole state crosses too (``learner_state_to_flax``,
+``load_learner_state``): every JAX learner checkpoints ``{"params",
+"opt_state"}``, the optax chain state of ``parallel.build_optimizer``:
+
+    (clip state, (ScaleByAdamState(count, mu, nu)[, adamw's EmptyState],
+                  EmptyState | ScaleByScheduleState(count)))
+
+where the clip state is an ``EmptyState`` but for ``max_norm`` and
+``momentum_norm``, whose ``_EMAState(ema, step, last_norm)`` holds one
+scalar EMA (``max_norm``) or one a parameter in the params tree's layout
+(``momentum_norm``); a schedule (warm-up or decay) replaces the last
+``EmptyState``. Counts and steps are int32, the rest float32; the moments
+take the flax layouts, as the parameters do. An empty state is an empty
+tuple here, and both are an empty map on disk.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping
 
 import numpy as np
 import torch
@@ -107,3 +122,95 @@ def params_to_flax(model: torch.nn.Module, tensors: Mapping[str, torch.Tensor] =
             node = node.setdefault(k, {})
         node[path[-1]] = np.array(to_flax(t.detach().float().cpu()).numpy(), order="C")  # a copy
     return {"params": out}
+
+
+def _nest(leaves: Dict[str, np.ndarray]) -> dict:
+    """``{"params/a/b": x}`` -> ``{"params": {"a": {"b": x}}}``."""
+    out: dict = {}
+    for path, value in leaves.items():
+        *mods, leaf = path.split("/")
+        node = out
+        for k in mods:
+            node = node.setdefault(k, {})
+        node[leaf] = value
+    return out
+
+
+def _seq(node) -> list:
+    """A tuple, list or ``{"__seq_<i>": ...}`` map (a tuple as stored) as a list."""
+    if isinstance(node, dict):
+        return [node[f"__seq_{i}"] for i in range(len(node))]
+    return list(node)
+
+
+def _param_names(model: torch.nn.Module, optimizer) -> List[str]:
+    """The model's parameter names in ``optimizer.params`` order."""
+    by_id = {id(p): n for n, p in model.named_parameters()}
+    names = [by_id.get(id(p)) for p in optimizer.params]
+    if None in names or len(names) != len(by_id):
+        raise ValueError("the optimizer's parameters are not the model's")
+    return names
+
+
+def _ema_kind(optimizer) -> str:
+    kind = optimizer.clip.cfg.type or "none"
+    return kind if kind in ("max_norm", "momentum_norm") else ""
+
+
+def learner_state_to_flax(model: torch.nn.Module, optimizer) -> dict:
+    """``{"params", "opt_state"}`` of a port learner (its ``model`` and
+    ``parallel.Optimizer``) as the JAX learner of the same optimizer config
+    holds it, in numpy copies: what a checkpoint of either package stores."""
+    names = _param_names(model, optimizer)
+    count = np.array(optimizer.count, np.int32)
+
+    def moments(tensors):
+        return params_to_flax(model, dict(zip(names, tensors)))
+
+    inner = [(count, moments(optimizer.mu), moments(optimizer.nu))]
+    if optimizer.weight_decay > 0.0:
+        inner.append(())
+    inner.append((count,) if optimizer.warmup_steps > 0 or optimizer.decay_boundaries else ())
+    clip, kind = optimizer.clip, _ema_kind(optimizer)
+    clip_state = ()
+    if kind:
+        n = 1 if kind == "max_norm" else len(names)
+        ema = np.zeros(n, np.float32) if clip.ema is None else (
+            clip.ema.detach().float().cpu().numpy().reshape(n))
+        if kind == "max_norm":
+            ema = np.array(ema[0])
+        else:
+            flax = flax_names(model)
+            ema = _nest({flax[name]: np.array(e) for name, e in zip(names, ema)})
+        last = 0.0 if clip.last_norm is None else float(clip.last_norm)
+        clip_state = (ema, np.array(clip.step, np.int32), np.array(last, np.float32))
+    return {"params": params_to_flax(model), "opt_state": (clip_state, tuple(inner))}
+
+
+@torch.no_grad()
+def load_learner_state(state: Mapping, model: torch.nn.Module, optimizer) -> None:
+    """Load ``{"params", "opt_state"}`` in the layout of
+    ``learner_state_to_flax`` (as stored, or restored into that function's
+    tree by ``utils.checkpoint.load_checkpoint(..., target=)``) into
+    ``model`` and ``optimizer``, in place."""
+    names = _param_names(model, optimizer)
+    model.load_state_dict(params_from_flax(state["params"], model))
+    clip_state, inner = _seq(state["opt_state"])
+    count, mu, nu = _seq(_seq(inner)[0])
+    for dst, tree in ((optimizer.mu, mu), (optimizer.nu, nu)):
+        loaded = params_from_flax(tree, model)
+        for t, name in zip(dst, names):
+            t.copy_(loaded[name])
+    optimizer.count = int(np.asarray(count))
+    kind, clip = _ema_kind(optimizer), optimizer.clip
+    if kind:
+        ema, step, last = _seq(clip_state)
+        device = optimizer.params[0].device
+        if kind == "max_norm":
+            clip.ema = torch.tensor(float(np.asarray(ema)), device=device)
+        else:
+            flat = {"/".join(k): v for k, v in _flatten(ema).items()}
+            flax = flax_names(model)
+            clip.ema = torch.tensor([float(flat[flax[n]]) for n in names], device=device)
+        clip.step = int(np.asarray(step))
+        clip.last_norm = torch.tensor(float(np.asarray(last)), device=device)

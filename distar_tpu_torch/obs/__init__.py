@@ -10,6 +10,7 @@ Queue 1 item 9.
 """
 from .exporters import (
     PROMETHEUS_CONTENT_TYPE,
+    JsonlExporter,
     handle_health_get,
     render_prometheus,
     write_json_response,
@@ -54,6 +55,7 @@ __all__ = [
     "ExemplarStore",
     "Gauge",
     "Histogram",
+    "JsonlExporter",
     "MetricsRegistry",
     "PROMETHEUS_CONTENT_TYPE",
     "Span",

@@ -8,7 +8,7 @@ per labelset; histograms render as summaries (quantile-labelled samples +
 Not here yet: the fleet-health routes (``/healthz``, ``/alerts``,
 ``/timeseries``, ``/traces``, ``/trace/<id>``) answer 404 through
 ``handle_health_get`` until ``obs/health.py`` is ported (ROADMAP Queue 1
-item 9), and ``JsonlExporter`` comes with the learner runtime (item 4).
+item 9). ``JsonlExporter`` writes registry snapshots as JSON lines.
 """
 from __future__ import annotations
 
@@ -123,3 +123,22 @@ def handle_health_get(handler, path: str) -> bool:
                                            f"port has not ported yet: ROADMAP Queue 1 item 9"},
                         status=404)
     return True
+
+
+class JsonlExporter:
+    """Registry snapshots into the JSON-lines scalar stream: each
+    ``export(step)`` writes one line per scalar of the flattened snapshot
+    through ``utils.log.ScalarSink`` (always JSON lines), so tooling that
+    tails ``scalars.jsonl`` reads the registry's series too."""
+
+    def __init__(self, path: str, registry: Optional[MetricsRegistry] = None):
+        from ..utils.log import ScalarSink
+
+        self._sink = ScalarSink(path, force_jsonl=True)
+        self._registry = registry
+
+    def export(self, step: int = 0) -> int:
+        """Write the current snapshot; returns the number of scalars."""
+        snap = (self._registry or get_registry()).snapshot()
+        self._sink.add_scalars(snap, global_step=step)
+        return len(snap)

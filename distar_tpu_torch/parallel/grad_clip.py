@@ -50,6 +50,9 @@ class GradClip:
         self.cfg = cfg
         self.step = 0
         self.ema = None  # [] for max_norm, [leaves] for momentum_norm
+        # optax's _EMAState.last_norm: the global norm before (max_norm) or
+        # after (momentum_norm) clipping; kept for the checkpoint only
+        self.last_norm = None
 
     @torch.no_grad()
     def clip(self, grads: List[torch.Tensor]) -> None:
@@ -78,9 +81,11 @@ class GradClip:
         scale = (limit / (norm + 1e-6)).clamp(max=1.0)
         if kind == "max_norm":
             torch._foreach_mul_(grads, scale)
+            self.last_norm = norm
         else:
             for g, s in zip(grads, scale.unbind()):
                 g.mul_(s)
+            self.last_norm = global_norm(grads)
         self.step += 1
 
 

@@ -1,7 +1,9 @@
-"""Fault tolerance: the retry and circuit-breaker primitive.
+"""Fault tolerance: the retry and circuit-breaker primitive, and role
+supervision.
 
-Counterpart of ``distar_tpu.resilience``'s ``policy`` module; the
-supervisor and the chaos harness come with ROADMAP Queue 1 items 5 and 9.
+Counterpart of ``distar_tpu.resilience``'s ``policy`` and ``supervisor``
+modules; ``AlertRemediator`` and the chaos harness come with ROADMAP Queue
+1 item 9.
 """
 from .policy import (
     DEFAULT_COMM_POLICY,
@@ -15,6 +17,7 @@ from .policy import (
     retry_call,
     retryable,
 )
+from .supervisor import RestartPolicy, Supervisor, TaskContext, supervise_call
 
 __all__ = [
     "DEFAULT_COMM_POLICY",
@@ -23,8 +26,12 @@ __all__ = [
     "CircuitOpenError",
     "CommError",
     "FatalError",
+    "RestartPolicy",
     "RetryPolicy",
     "RetryableError",
+    "Supervisor",
+    "TaskContext",
     "retry_call",
     "retryable",
+    "supervise_call",
 ]

@@ -1,9 +1,9 @@
 """Byte-blob storage routed by URL scheme.
 
-Counterpart of ``distar_tpu.utils.storage``, its read half and atomic
-write: checkpoints go through ``read_bytes`` / ``write_bytes`` /
-``exists``, so a path may name a local file or an in-process blob. Deleting
-and listing come with the checkpoint manager (ROADMAP Queue 1 item 4).
+Counterpart of ``distar_tpu.utils.storage``: checkpoints and the
+checkpoint manager's pointer go through ``read_bytes`` / ``write_bytes`` /
+``exists`` / ``delete``, so a path may name a local file or an in-process
+blob; each backend also lists the paths under a prefix.
 
 Schemes:
   * plain paths and ``file://`` -> ``LocalBackend`` (unique tmp, fsync,
@@ -20,7 +20,7 @@ import glob
 import os
 import threading
 import time
-from typing import Dict, Tuple
+from typing import Dict, Iterable, Tuple
 
 
 class StorageBackend:
@@ -33,6 +33,12 @@ class StorageBackend:
         raise NotImplementedError
 
     def exists(self, path: str) -> bool:
+        raise NotImplementedError
+
+    def delete(self, path: str) -> None:
+        raise NotImplementedError
+
+    def list(self, prefix: str) -> Iterable[str]:
         raise NotImplementedError
 
 
@@ -80,6 +86,12 @@ class LocalBackend(StorageBackend):
     def exists(self, path: str) -> bool:
         return os.path.exists(path)
 
+    def delete(self, path: str) -> None:
+        os.unlink(path)
+
+    def list(self, prefix: str) -> Iterable[str]:
+        return sorted(glob.glob(prefix + "*"))
+
 
 class MemBackend(StorageBackend):
     """A process-local blob dict."""
@@ -101,6 +113,16 @@ class MemBackend(StorageBackend):
     def exists(self, path: str) -> bool:
         with self._lock:
             return path in self._blobs
+
+    def delete(self, path: str) -> None:
+        with self._lock:
+            if path not in self._blobs:
+                raise FileNotFoundError(f"mem://{path}")
+            del self._blobs[path]
+
+    def list(self, prefix: str) -> Iterable[str]:
+        with self._lock:
+            return sorted(k for k in self._blobs if k.startswith(prefix))
 
 
 _BACKENDS: Dict[str, StorageBackend] = {"file": LocalBackend(), "mem": MemBackend()}
@@ -132,3 +154,8 @@ def read_bytes(path: str) -> bytes:
 def exists(path: str) -> bool:
     backend, rest = resolve(path)
     return backend.exists(rest)
+
+
+def delete(path: str) -> None:
+    backend, rest = resolve(path)
+    backend.delete(rest)

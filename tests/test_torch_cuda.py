@@ -324,3 +324,73 @@ def test_scatter_kernels_at_the_rl_shapes(cuda, D, case):
     loop = kernels.scatter_add_connection(emb, idx, hw)
     assert torch.equal(_bits(loop), _bits(kernels.scatter_add_plain(emb, idx, hw)))
     assert torch.equal(_bits(loop), _bits(kernels.scatter_add_onehot(emb, idx, hw)))
+
+
+# ------------------------------------------------------ the learner runtime
+def _array_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _array_leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _array_leaves(v)]
+    return [tree]
+
+
+@pytest.mark.cuda
+def test_prefetcher_places_on_a_side_stream_from_pinned_memory(cuda, monkeypatch):
+    """The producer thread places on the prefetcher's own stream, from
+    pinned host memory; the batches arrive in order, equal to their host
+    values, and the consumer's stream reads them after the copy."""
+    from distar_tpu_torch.learner.prefetch import DevicePrefetcher, place_on
+
+    pinned = []
+    real_pin = torch.Tensor.pin_memory
+    monkeypatch.setattr(torch.Tensor, "pin_memory", lambda t, *a: pinned.append(1) or real_pin(t, *a))
+    rng = np.random.default_rng(0)
+    host = [{"x": rng.standard_normal((1024, 512)).astype(np.float32), "i": np.arange(7) + k}
+            for k in range(4)]
+    streams = []
+
+    def place(batch):
+        streams.append(torch.cuda.current_stream(cuda))
+        return place_on(batch, cuda)
+
+    pf = DevicePrefetcher(iter(host), place, depth=2, device=cuda)
+    main = torch.cuda.current_stream(cuda)
+    for k, batch in enumerate(pf):
+        assert batch["x"].is_cuda and batch["x"].device == torch.device("cuda", 0)
+        assert torch.equal(batch["x"].cpu(), torch.from_numpy(host[k]["x"]))
+        assert batch["i"].tolist() == list(range(k, k + 7))
+    assert len(streams) == 4 and all(s == pf._stream and s != main for s in streams)
+    assert len(pinned) == 8  # every array went through pinned memory
+
+
+@pytest.mark.cuda
+def test_async_save_from_cuda_tensors_holds_the_saved_step(cuda, tmp_path):
+    """A learner on the card saves in the background while it trains on:
+    the checkpoint holds the state at the save, and a fresh learner on the
+    card restores it bit for bit."""
+    from distar_tpu_torch.bin.sl_train import SMOKE_MODEL
+    from distar_tpu_torch.learner import SLLearner, random_sl_batch
+
+    def learner(root):
+        return SLLearner({"common": {"save_path": str(root)},
+                          "learner": {"batch_size": 2, "unroll_len": 4, "save_freq": 10 ** 9},
+                          "model": SMOKE_MODEL}, device=cuda)
+
+    rng = np.random.default_rng(1)
+    a = learner(tmp_path / "a")
+    a._train(random_sl_batch(2, 4, rng))
+    want = a.state
+    path = str(tmp_path / "async.ckpt")
+    a.save(path)  # the host copy is taken here, the write runs on
+    a._train(random_sl_batch(2, 4, rng))  # an in-place update while it writes
+    a._checkpointer.wait()
+    assert a.checkpoint_manager.generations()[0]["path"] == path
+    b = learner(tmp_path / "b")
+    b.restore(path)
+    got, want = _array_leaves(b.state), _array_leaves(want)
+    assert len(got) == len(want) > 200
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype
+        np.testing.assert_array_equal(x, y)
+    assert next(b.model.parameters()).is_cuda and b.optimizer.mu[0].is_cuda

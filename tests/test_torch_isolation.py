@@ -2,8 +2,8 @@
 port's root scripts (chip_smoke.py, attention_variants.py) imports jax,
 flax, optax or anything of the JAX package distar_tpu, nor msgpack or lz4,
 which the GPU machine lacks (the port reads and writes checkpoints and
-frames with its own codecs); zstandard only under an ImportError guard, as
-the JAX serializer imports it."""
+frames with its own codecs); zstandard and tensorboardX only under an
+ImportError guard, as the JAX serializer and scalar sink import them."""
 import ast
 import os
 
@@ -11,7 +11,7 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "distar_tpu", "msgpack", "lz4")
-GUARDED = ("zstandard",)  # optional: imported only inside try / except ImportError
+GUARDED = ("zstandard", "tensorboardX")  # optional: imported only inside try / except ImportError
 ROOT_SCRIPTS = ("chip_smoke.py", "attention_variants.py")
 
 
@@ -62,7 +62,9 @@ def test_port_has_modules():
                    "serve/mux.py", "bin/serve.py", "comm/shuttle.py", "comm/shm_ring.py",
                    "comm/coordinator.py", "comm/discovery.py", "replay/sharding.py",
                    "serve/fleet/__init__.py", "serve/fleet/discovery.py", "serve/fleet/router.py",
-                   "serve/fleet/rollout.py", "serve/fleet/gateway_proc.py"):
+                   "serve/fleet/rollout.py", "serve/fleet/gateway_proc.py", "utils/log.py",
+                   "utils/timing.py", "resilience/supervisor.py", "learner/hooks.py",
+                   "learner/prefetch.py", "learner/admin.py", "learner/sl_dataloader.py"):
         assert os.path.join("distar_tpu_torch", module) in files
     # the data plane's native library is the port's own copy of the source
     assert os.path.exists(os.path.join(REPO, "distar_tpu_torch", "comm", "native", "shuttle.cpp"))

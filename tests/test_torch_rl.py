@@ -626,11 +626,11 @@ def test_learners_run_two_steps_on_the_cpu():
     rl = RLLearner({"learner": {"batch_size": B, "unroll_len": T, "log_freq": 1},
                     "model": {**SMALL_MODEL, "use_value_feature": True}}, device="cpu")
     rl.run(2)
-    assert rl.last_iter == 2 and np.isfinite(rl.last_log["total_loss"])
+    assert rl.last_iter.val == 2 and np.isfinite(rl.last_log["total_loss"])
     assert rl.last_log["staleness/mean"] == 1.0  # model_last_iter 0 at learner iteration 1
     st = DistillLearner({"learner": {"batch_size": B, "unroll_len": T}, "model": SMALL_MODEL}, device="cpu")
     st.run(2)
-    assert st.last_iter == 2 and np.isfinite(st.last_log["divergence"])
+    assert st.last_iter.val == 2 and np.isfinite(st.last_log["divergence"])
     assert not any(n.startswith("value_") for n, _ in st.model.named_parameters())
 
 
@@ -663,9 +663,9 @@ def test_learners_need_cuda_unless_told_cpu(monkeypatch, cls):
 @pytest.mark.parametrize("cls,call,item", [
     (RLLearner, lambda lrn: lrn.attach_comm(None, "MP0"), "item 5"),
     (RLLearner, lambda lrn: lrn.shard_batch({}), "item 7"),
-    (RLLearner, lambda lrn: lrn.request_save(), "item 4"),
-    (RLLearner, lambda lrn: lrn.save("x.ckpt"), "item 4"),
-    (DistillLearner, lambda lrn: lrn.save(lrn.checkpoint_path()), "item 4"),
+    (RLLearner, lambda lrn: lrn.request_profile(), "item 9"),
+    (RLLearner, lambda lrn: lrn._profile_tick(), "item 9"),
+    (DistillLearner, lambda lrn: lrn.request_profile(steps=1), "item 9"),
 ])
 def test_learner_parts_not_ported_raise(cls, call, item):
     learner = cls({"learner": {"batch_size": B, "unroll_len": T}, "model": SMALL_MODEL}, device="cpu")
@@ -676,6 +676,8 @@ def test_learner_parts_not_ported_raise(cls, call, item):
 @pytest.mark.parametrize("cls,learner_cfg,item", [
     (RLLearner, {"dynamics": {"every_n": 10}}, "item 9"),
     (DistillLearner, {"teacher_flops_per_step": 1e12}, "item 9"),
+    (RLLearner, {"sharded_ckpt": True}, "item 7"),
+    (DistillLearner, {"profile": {"freq": 5}}, "item 9"),
 ])
 def test_learner_options_not_ported_raise(cls, learner_cfg, item):
     with pytest.raises(NotImplementedError, match=item):
