@@ -138,7 +138,8 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              in-process coordinator, the actor on 8 mock envs of 300 game
              loops with trajectories of 16 steps (weights refreshed every
              second), the RL learner on 4 x 16 batches of the actors'
-             trajectories for 8 iterations, publishing its weights and its
+             trajectories for 4 iterations (8 before phase 11 came; cut to
+             keep the script in its time), publishing its weights and its
              train-info every 2 (the launcher's 4 replaced by attaching the
              weight plane again). a. one actor job alone on a thread. b. the
              loop: the actor's job loop on the supervisor's thread, the
@@ -163,10 +164,43 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              data wait, publish and refresh ms, trajectory push ms and
              bytes, peak memory, the profiled step's idle share.
 
+11. replay — the replay store between actors and learner, as
+             ``bin/rl_train.py --type all --replay`` builds it
+             (``rl_train.build_all``) at the flagship (kernel overlay, f32):
+             rl_loop's league, actor (8 mock envs of 300 game loops,
+             trajectories of 16) and learner (4 x 16, 8 iterations, prefetch
+             depth 2), and between them one ``ReplayServer`` on loopback,
+             transport auto (its rings sized for a flagship trajectory where
+             /dev/shm has room), sampler uniform, samples-per-insert 4, spill
+             on. Checked: the store's inserts are the actor's acknowledged
+             pushes; its samples the learner's 32 and at most what the
+             prefetcher drew ahead; the limiter's ratio within its buffer at
+             every insert and sample; every sampled trajectory bit-equal to
+             one pushed (a sha256 of its leaves a push); both kernels
+             launched on both sides (``ThreadCounts``), and on one call's
+             inputs captured from each side against their plain versions;
+             the spill's live blobs the unsampled items, recovered by a new
+             store; one step on a store-sampled batch across the strings
+             (``steps_agree``). Then, on the smoke model: on a thread
+             started during phase 10's untimed part d, the
+             roles as processes (``--type replay`` on a spill directory, an
+             actor on ``--replay-addr``, the store SIGKILLed with four
+             acknowledged, unsampled inserts and restarted on its port and
+             directory, recovering the four; a learner of 2 steps; SIGTERM
+             exit 0 each); ``--replay-shards 2`` and ``--replay-fast-path``
+             runs; ``bin/sl_train.py --remote`` fed by an in-script
+             ``ReplayActor`` with a stub decoder, 4 steps; ``bin/play.py
+             --game_type mock``, 2 games. Printed: inserts, samples, reuse
+             against spi, the learner's data wait a batch beside rl_loop's,
+             frames made and consumed a second, step and flush ms in the loop
+             beside alone, insert, sample and spill-append ms, bytes a
+             trajectory, recovery count and seconds, the in-loop step's idle
+             share and peak memory.
+
 The line before the last is the ``kernels`` JSON (launches: the serve,
 serve-process, fleet (gateway A), SL, SL runtime, RL and distillation
-paths and the RL loop's actor and learner together, each read from zero
-around its run);
+paths, the RL loop's and the replay loop's actor and learner together,
+each read from zero around its run);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -3158,7 +3192,7 @@ def phase_rl(device, rng):
 
 # ----------------------------------------------------------------- RL loop
 LOOP_ENV_NUM, LOOP_EPISODE_LOOPS = 8, 300  # the actor: 8 mock envs of 300 game loops
-LOOP_ITERS = 8  # the learner: RL_B x RL_T batches from the actors
+LOOP_ITERS = 4  # the learner: RL_B x RL_T batches from the actors (8 until the replay phase came)
 LOOP_PUBLISH_FREQ = 2  # send_model_freq and send_train_info_freq
 LOOP_REFRESH_S = 1.0  # the actor's model_update_interval_s: jobs last a few seconds
 LOOP_PROCESS_ITERS = 4  # the learner process: 4 steps of 4 x 4
@@ -3177,6 +3211,37 @@ LOOP_LEAGUE = {
         "z_path": ["3map.json"], "z_prob": [0.0],
     },
 }
+
+
+class Background:
+    """``fn`` on a thread of its own: ``start()``, then ``result()`` joins
+    it and returns what ``fn`` returned, or raises what it raised."""
+
+    def __init__(self, fn):
+        self._fn, self._out, self._thread = fn, {}, None
+
+    @property
+    def started(self):
+        return self._thread is not None
+
+    def start(self):
+        import threading
+
+        def run():
+            try:
+                self._out["value"] = self._fn()
+            except BaseException as e:  # noqa: BLE001 - raised again by result()
+                self._out["error"] = e
+
+        self._thread = threading.Thread(target=run)
+        self._thread.start()
+        return self
+
+    def result(self):
+        self._thread.join()
+        if "error" in self._out:
+            raise self._out["error"]
+        return self._out["value"]
 
 
 class ThreadCounts(dict):
@@ -3215,6 +3280,25 @@ class TimedBatches:
         self.first = self.first if self.first is not None else batch
         self.spans.append(len(batch.get("trace_span_ids", ())))
         return batch
+
+
+def time_prefetched(learner):
+    """Once ``run()`` wraps the learner's loader in its prefetcher, wrap that
+    in ``TimedBatches``: the ms the learner itself waited for each placed
+    batch (a ``TimedBatches`` under the prefetcher times the source). The
+    returned dict holds it under "it"."""
+    from distar_tpu_torch.learner.prefetch import DevicePrefetcher
+
+    above = {}
+    real_enable = learner._maybe_enable_prefetch
+
+    def enable():
+        real_enable()
+        check(isinstance(learner._dataloader, DevicePrefetcher), "the RL learner does not prefetch")
+        above["it"] = learner._dataloader = TimedBatches(learner._dataloader)
+
+    learner._maybe_enable_prefetch = enable
+    return above
 
 
 def same_params(model, snapshot):
@@ -3337,10 +3421,11 @@ def loop_processes(tmp, smi, device):
     return out
 
 
-def phase_rl_loop(device, smi, tmp):
+def phase_rl_loop(device, smi, tmp, untimed=()):
     """The league-RL loop at the flagship (module docstring, phase 10).
-    Returns the launch counts of its path (the actor's and the learner's)
-    and the measurements."""
+    ``untimed``: ``Background`` jobs started when the loop's timed part has
+    ended. Returns the launch counts of its path (the actor's and the
+    learner's) and the measurements."""
     import threading
 
     import numpy as np
@@ -3481,6 +3566,7 @@ def phase_rl_loop(device, smi, tmp):
     learner._train = train
     batches = TimedBatches(learner._dataloader)
     learner.set_dataloader(batches)
+    above = time_prefetched(learner)
     actor.adapter.push, actor._params_from_publication = push, from_publication
     actor.plane.client_for, actor._refresh_models = client_for, refresh_models
     BatchedInference.sample, InlinePolicyClient.refresh = sample, refresh
@@ -3530,7 +3616,8 @@ def phase_rl_loop(device, smi, tmp):
     logs = [log for _, log in steps]
     check(learner.last_iter.val == LOOP_ITERS and len(steps) == LOOP_ITERS,
           f"rl loop: {learner.last_iter.val} iterations, {len(steps)} steps")
-    check(batches.spans == [RL_B] * LOOP_ITERS,
+    # the prefetcher draws up to its depth and one more past the last step
+    check(len(batches.spans) >= LOOP_ITERS and set(batches.spans) == {RL_B},
           f"rl loop: the learner's batches carry {batches.spans} actor trajectory spans, want {RL_B} each")
     check(all(finite(lg) for lg in logs), "rl loop: a non-finite loss or grad_norm")
     mp0 = league.all_players[mp]
@@ -3555,17 +3642,11 @@ def phase_rl_loop(device, smi, tmp):
     step_alone, _ = step_times({"pallas": learner}, held, rounds=5, warmup=1)
     del learner, loop, snapshots
 
-    # e. the roles as processes, on a thread while d. (which times nothing) runs
-    procs = {}
-
-    def run_processes():
-        try:
-            procs["out"] = loop_processes(tmp, smi, device)
-        except BaseException as e:  # noqa: BLE001 - raised again on the phase's thread
-            procs["error"] = e
-
-    runner = threading.Thread(target=run_processes)
-    runner.start()
+    # e. the roles as processes, on a thread while d. (which times nothing)
+    # runs; so does ``untimed``, work of a later phase that times nothing
+    runner = Background(lambda: loop_processes(tmp, smi, device)).start()
+    for job in untimed:
+        job.start()
     try:
         # d. the loop's flush and step held against the 'xla' strings
         check("flush" in captured, "rl loop: no flush captured")
@@ -3574,10 +3655,7 @@ def phase_rl_loop(device, smi, tmp):
         strings = hold_strings("rl loop: the RL loss on an actor-made batch", learners, held, rl_fn)
         del learners
     finally:
-        runner.join()
-    if "error" in procs:
-        raise procs["error"]
-    processes = procs["out"]
+        processes = runner.result()
 
     flush_alone = flushes["alone"][2:] or flushes["alone"]
     result = {
@@ -3590,7 +3668,9 @@ def phase_rl_loop(device, smi, tmp):
                      statistics.median(flush_alone), "loop_n": len(flushes["loop"])},
         "step_ms": {"loop_median": statistics.median(ms for ms, _ in steps), "loop_all": [ms for ms, _ in steps],
                     "alone_median": step_alone["pallas"]},
-        "data_wait_ms": {"median": statistics.median(batches.wait_ms), "all": batches.wait_ms},
+        "data_wait_ms": {"median": statistics.median(batches.wait_ms), "all": batches.wait_ms,
+                         "learner_median": statistics.median(above["it"].wait_ms),
+                         "learner_all": above["it"].wait_ms},
         "publish_ms": [{"iter": it, "ms": ms, "bytes": nb} for it, ms, nb in published],
         "refresh_ms": refresh_ms,
         "push": {"ms_median": statistics.median(ms for ms, _ in pushes["loop"]),
@@ -3605,6 +3685,546 @@ def phase_rl_loop(device, smi, tmp):
     print(f"rl loop ({smi}): " + json.dumps({k: v for k, v in result.items() if k != "in_loop_step_profile"}))
     print(f"rl loop: a learner step profiled inside the loop (the actor running): "
           f"{json.dumps(in_loop_profile)}")
+    total = {n: launches["learner"][n] + launches["actor"][n] for n in build.KERNELS}
+    return total, result
+
+
+# ------------------------------------------------------------------ replay
+REPLAY_ITERS = 8  # the replay loop's learner: RL_B x RL_T batches from the store
+REPLAY_SPI = 4.0  # --replay-spi: each trajectory sampled about four times
+REPLAY_SMALL_ITERS = 2  # the smaller runs: smoke model, 2 x 4 batches
+# the 2-shard run: the ring sends each insert to a shard by the hash of a
+# random key, so both take some with probability 1 - 2^(1 - inserts); 8
+# steps draw about 10 inserts at spi 2 (a 4-step run once sent all 4 to one)
+REPLAY_SHARDS_ITERS = 8
+REPLAY_SMALL = ("--env-num", "2", "--traj-len", "4", "--batch-size", "2", "--episode-game-loops", "60")
+REMOTE_SL_ITERS = 4  # bin/sl_train.py --remote: 4 steps of 2 x 8
+# the store's shared-memory rings: a flagship trajectory pickles to about
+# 7 MB and a sample reply carries RL_B of them, past the 4 MiB default
+REPLAY_RING_BYTES = 48 << 20
+PLAY_GAMES = 2
+
+
+def traj_digest(traj):
+    """sha256 over a trajectory's leaves (path, dtype, shape, bytes): equal
+    digests are equal trees, bit for bit."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+
+    def walk(x, path):
+        if isinstance(x, dict):
+            for k in sorted(x):
+                walk(x[k], f"{path}/{k}")
+        elif isinstance(x, (list, tuple)):
+            for i, v in enumerate(x):
+                walk(v, f"{path}/{i}")
+        else:
+            a = np.asarray(x)
+            h.update(f"{path}|{a.dtype.str}|{a.shape}|".encode())
+            h.update(np.ascontiguousarray(a).tobytes() if a.dtype != object else repr(x).encode())
+
+    walk(traj, "")
+    return h.hexdigest()
+
+
+def counter_delta(prefix, before):
+    from distar_tpu_torch.obs import get_registry
+
+    return sum(v for k, v in get_registry().snapshot().items() if k.startswith(prefix)) - before
+
+
+def limiter_holds(state, what):
+    """The samples-per-insert invariant of a table's ``RateLimiter.state()``:
+    past ``min_size`` inserts, ``spi * (inserts - min_size)`` within
+    ``error_buffer`` of the samples on either side."""
+    spi, eb = state["samples_per_insert"], state["error_buffer"]
+    if spi is None:
+        return
+    adj = max(state["inserts"] - state["min_size_to_sample"], 0)
+    check(state["samples"] <= spi * adj + eb and spi * adj <= state["samples"] + eb,
+          f"{what}: the limiter let the ratio out of its buffer: {state}")
+
+
+def replay_processes(tmp, smi, device):
+    """``bin/rl_train.py`` roles as processes on the smoke model: coordinator,
+    league, ``--type replay`` on a spill directory and an actor on
+    ``--replay-addr``; once the limiter parks the actor (fifo, spi 1, a
+    batch of 2: four inserts acknowledged and unsampled) the store is
+    SIGKILLed and started again on its port and directory, and must recover
+    the four; a learner on ``--replay-addr`` then trains 2 steps (exit 0,
+    ``learner done``), and SIGTERM ends the actor, the store, the
+    coordinator and the league with exit 0."""
+    import signal
+    import urllib.request
+
+    cfg = json.dumps({"league": LOOP_LEAGUE})
+    spill, port = os.path.join(tmp, "replay_role_spill"), free_port()
+    procs, logs, out = {}, {}, {}
+    dev = ("--device", device.type)
+
+    def start(name, role, *flags):
+        logs[name] = os.path.join(tmp, f"replay_{name}.log")
+        with open(logs[name], "w") as log:
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "distar_tpu_torch.bin.rl_train", "--type", role, *dev, *flags],
+                cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+
+    def line(name, prefix, timeout=120):
+        deadline = time.time() + timeout
+        while time.time() < deadline:
+            for ln in open(logs[name]).read().splitlines():
+                if ln.startswith(prefix):
+                    return ln
+            check(procs[name].poll() is None, f"replay {name} exited: {open(logs[name]).read()[-2000:]}")
+            time.sleep(0.1)
+        raise SmokeFailure(f"replay {name}: no line '{prefix}' in {timeout} s")
+
+    def stats(admin):
+        with urllib.request.urlopen(f"{admin}/replay/stats", timeout=10) as resp:
+            return json.loads(resp.read())
+
+    store_flags = ("--port", str(port), "--replay-spill-dir", spill, "--metrics-port", "0", "--batch-size", "2")
+    sizes = REPLAY_SMALL
+    t0 = time.perf_counter()
+    try:
+        start("coordinator", "coordinator", "--port", "0")
+        start("league", "league", "--port", "0", "--config", cfg)
+        start("store", "replay", *store_flags)
+        co = line("coordinator", "coordinator serving on ").rsplit(" ", 1)[1]
+        lg = line("league", "league serving on ").rsplit(" ", 1)[1]
+        admin = line("store", "replay admin on ").split()[-1].rsplit("/replay/stats", 1)[0]
+        line("store", "replay store serving on ")
+        replay = ("--replay-addr", f"127.0.0.1:{port}")
+        start("actor", "actor", "--coordinator-addr", co, "--league-addr", lg, *replay, *sizes)
+        deadline = time.time() + 300
+        while True:
+            st = stats(admin)
+            lim = st.get("tables", {}).get("MP0", {}).get("limiter", {})
+            if lim.get("inserts", 0) >= 4 and not lim.get("can_insert", True):
+                break
+            check(time.time() < deadline and procs["actor"].poll() is None,
+                  f"replay actor never filled the store: {open(logs['actor']).read()[-2000:]}")
+            time.sleep(0.2)
+        acked = st["tables"]["MP0"]["size"]
+        check(acked == lim["inserts"] == 4 and lim["samples"] == 0 and st["spill"]["live"] == 4,
+              f"replay store before the kill: {st}")
+        out["transports_before_kill"] = st.get("transports")
+        procs["store"].kill()
+        procs["store"].wait(timeout=30)
+        t1 = time.perf_counter()
+        start("store2", "replay", *store_flags)
+        # the learner starts with the restart: its client dials through the
+        # store's absence under its retry policy
+        start("learner", "learner", "--coordinator-addr", co, "--league-addr", lg, *replay, "--iters", "2",
+              "--save-path", os.path.join(tmp, "replay_learner"), *sizes)
+        recovered = line("store2", f"replay shard :{port}: recovered ")
+        line("store2", "replay store serving on ")
+        out["restart_to_serving_s"] = time.perf_counter() - t1
+        check(f"recovered {acked} acked trajectories" in recovered,
+              f"replay restart: '{recovered}', want {acked} recovered")
+        out["recovered"] = acked
+        wait_ok(procs["learner"], logs["learner"], "replay learner process", timeout=300)
+        check("learner done: 2 iters" in open(logs["learner"]).read(), "replay learner: no done line")
+        out["learner_done_s"] = time.perf_counter() - t1
+        names = ("actor", "store2", "coordinator", "league")
+        for name in names:
+            check(procs[name].poll() is None, f"replay {name} exited early: {open(logs[name]).read()[-2000:]}")
+            procs[name].send_signal(signal.SIGTERM)
+        for name in names:
+            rc = procs[name].wait(timeout=60)
+            text = open(logs[name]).read()
+            check(rc == 0 and (name not in ("actor", "store2") or "Traceback" not in text),
+                  f"replay {name} after SIGTERM: rc {rc} {text[-2000:]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"replay processes ({smi}): coordinator, league, --type replay (spill; SIGKILL with 4 acknowledged, "
+          f"unsampled inserts; restarted on its port and directory), actor and learner on --replay-addr "
+          f"(2 steps, exit 0), SIGTERM exit 0 each: {json.dumps(out)}")
+    return out
+
+
+def replay_small_runs(device, tmp):
+    """``bin/rl_train.py --type all --replay`` on the smoke model in the two
+    other layouts: ``--replay-shards 2`` (each shard takes inserts, their
+    sum the actor's acknowledged pushes) and ``--replay-fast-path`` (no
+    server; the same count). Runs on a thread beside other work, so it
+    reads what the runs return, not what they print."""
+    from distar_tpu_torch.bin import rl_train
+
+    out = {}
+    for name, iters, flags in (("shards_2", REPLAY_SHARDS_ITERS, ("--replay-shards", "2")),
+                               ("fast_path", REPLAY_SMALL_ITERS, ("--replay-fast-path",))):
+        pushed0 = counter_delta("distar_actor_replay_pushed_total", 0.0)
+        t0 = time.perf_counter()
+        loop = rl_train.main(["--type", "all", "--replay", "--replay-sampler", "uniform", "--replay-spi", "2",
+                              "--device", device.type, "--iters", str(iters),
+                              "--save-path", os.path.join(tmp, f"replay_{name}"), *REPLAY_SMALL, *flags])
+        seconds = time.perf_counter() - t0
+        check(loop.learner.last_iter.val == iters and finite(loop.learner.last_log),
+              f"replay {name}: {loop.learner.last_iter.val} iterations, {loop.learner.last_log}")
+        pushed = counter_delta("distar_actor_replay_pushed_total", pushed0)
+        per = [s.table("MP0").limiter.state() if "MP0" in s.tables() else {"inserts": 0, "samples": 0}
+               for s in loop.replay_stores]
+        inserts = [st["inserts"] for st in per]
+        check(sum(inserts) == pushed > 0, f"replay {name}: store inserts {inserts}, acknowledged pushes {pushed}")
+        check(sum(st["samples"] for st in per) >= iters * 2, f"replay {name}: samples {per}")
+        if name == "shards_2":
+            check(len(per) == 2 and min(inserts) > 0 and len(loop.replay_servers) == 2,
+                  f"replay shards: inserts per shard {inserts}")
+        else:
+            check(not loop.replay_servers and len(per) == 1, "replay fast path: a server was started")
+        out[name] = {"seconds": seconds, "inserts": inserts, "samples": [st["samples"] for st in per],
+                     "acked_pushes": pushed}
+        del loop
+    print(f"replay smaller runs (smoke model, batches of 2 x 4; 2 shards {REPLAY_SHARDS_ITERS} steps, the fast "
+          f"path {REPLAY_SMALL_ITERS}): {json.dumps(out)}")
+    return out
+
+
+def remote_sl_and_play(device, tmp):
+    """``bin/sl_train.py --remote`` on a coordinator that an in-script
+    ``ReplayActor`` feeds through a stub decoder (SL steps of
+    ``fake_sl_batch``, 16 a trajectory), REMOTE_SL_ITERS steps of 2 x 8;
+    then ``bin/play.py --game_type mock`` for PLAY_GAMES games. Runs on a
+    thread beside other work, so it reads what the entry points return."""
+    import numpy as np
+
+    from distar_tpu_torch.bin import play, sl_train
+    from distar_tpu_torch.comm import Adapter, CoordinatorServer
+    from distar_tpu_torch.learner.data import fake_sl_batch
+    from distar_tpu_torch.learner.replay_actor import RemoteSLDataloader, ReplayActor
+    from distar_tpu_torch.learner.sl_dataloader import batch_steps
+
+    class StubDecoder:
+        def __init__(self):
+            self.rng = np.random.default_rng(10)
+
+        def run(self, path, player_idx):
+            return batch_steps(fake_sl_batch(1, 16, rng=self.rng), 16)
+
+    out = {}
+    co = CoordinatorServer()
+    co.start()
+    try:
+        addr = (co.host, co.port)
+        # 2 x 8 a step: REMOTE_SL_ITERS + 2 (the prefetch depth) batches of two 8-step windows
+        actor = ReplayActor([f"r{i}.SC2Replay" for i in range(3)],
+                            adapter_factory=lambda: Adapter(coordinator_addr=addr),
+                            decoder_factory=StubDecoder, ntasks=1, proc_id=0)
+        t0 = time.perf_counter()
+        actor.run()
+        out["replay_actor_s"] = time.perf_counter() - t0
+        check(actor.pushed == 6 and actor.failed == 0, f"replay actor pushed {actor.pushed}, failed {actor.failed}")
+        t0 = time.perf_counter()
+        lrn = sl_train.main(["--remote", "--coordinator-addr", f"{co.host}:{co.port}", "--device", device.type,
+                             "--iters", str(REMOTE_SL_ITERS), "--batch-size", "2", "--traj-len", "8",
+                             "--no-supervise", "--save-path", os.path.join(tmp, "remote_sl")])
+        out["sl_train_s"] = time.perf_counter() - t0
+        check(lrn.last_iter.val == REMOTE_SL_ITERS, f"sl_train --remote: {lrn.last_iter.val} iterations")
+        source = getattr(lrn._dataloader, "source", lrn._dataloader)
+        check(isinstance(source, RemoteSLDataloader), f"sl_train --remote trained on {type(source).__name__}")
+        check(finite(lrn.last_log), f"sl_train --remote: {lrn.last_log}")
+        out["sl_loss"] = lrn.last_log["total_loss"]
+    finally:
+        co.stop()
+    t0 = time.perf_counter()
+    results = play.main(["--game_type", "mock", "--device", device.type, "--game-count", str(PLAY_GAMES),
+                         "--episode-game-loops", "60"])
+    out["play_s"] = time.perf_counter() - t0
+    check(len(results) == PLAY_GAMES and all(r[s]["winloss"] in (-1, 0, 1) for r in results for s in ("0", "1")),
+          f"play: {results}")
+    out["play_winloss"] = [r["0"]["winloss"] for r in results]
+    print(f"replay: bin/sl_train.py --remote ({REMOTE_SL_ITERS} steps of 2 x 8 from a ReplayActor's 6 "
+          f"trajectories) and bin/play.py --game_type mock ({PLAY_GAMES} games): {json.dumps(out)}")
+    return out
+
+
+def path_kernels_against_plain(K, captured):
+    """Each kernel's wrapper on one call's inputs captured from each side of
+    the replay loop (an actor flush, a learner step), held against its plain
+    version: attention within ATTN_TOL, the scatter bit-equal to
+    ``scatter_add_plain``. Returns the max abs error per kernel and the
+    shapes."""
+    import torch
+
+    errs, shapes = {}, {}
+    for (side, name), args in sorted(captured.items()):
+        if name == "masked_attention":
+            err = attention_check(K, f"replay {side}", *args)
+        else:
+            emb, idx, hw = args
+            got, want = K.scatter_add_connection(emb, idx, hw), K.scatter_add_plain(emb, idx, hw)
+            check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                  f"replay {side}: scatter_add_connection differs from scatter_add_plain")
+            err = float((got - want).abs().max())
+        errs[name] = max(errs.get(name, 0.0), err)
+        shapes[f"{side} {name}"] = list(args[0].shape)
+    print(f"replay: the path's kernels on inputs captured from each side, against their plain versions: "
+          f"max abs err {json.dumps(errs)}, shapes {json.dumps(shapes)}")
+    return errs
+
+
+def replay_recovery(args, store, spill_dir, mp):
+    """A new store on the loop's spill directory: what it recovers is what
+    the loop's store holds acknowledged and unsampled (the spill's live
+    blobs). Returns (count, seconds)."""
+    from distar_tpu_torch.bin import rl_train
+    from distar_tpu_torch.replay import ReplayStore, SpillRing
+
+    live = store._spill.live_count()
+    unsampled = sum(1 for it in store.table(mp)._items.values() if it.sample_count == 0)
+    t0 = time.perf_counter()
+    back = ReplayStore(table_factory=lambda name: rl_train._table_config(args), spill=SpillRing(spill_dir),
+                       recover_encoded=True)
+    recovered = back.recover()
+    seconds = time.perf_counter() - t0
+    check(recovered == live == unsampled, f"replay: recovered {recovered}, spill live {live}, unsampled {unsampled}")
+    return recovered, seconds
+
+
+def replay_smoke_runs(device, tmp):
+    """The replay phase's runs on the smoke model in process: the other two
+    layouts, then ``sl_train --remote`` and ``play.py``."""
+    return replay_small_runs(device, tmp), remote_sl_and_play(device, tmp)
+
+
+def phase_replay(device, smi, tmp, rl_loop, background=None):
+    """The replay store between actors and learner (module docstring,
+    phase 11). ``background``: its ``replay_processes`` and
+    ``replay_smoke_runs`` as ``Background`` jobs, started during phase 10's
+    untimed part (``main``), else started here; either way they end before
+    this phase's loop, which they would disturb. Returns the launch counts
+    of its flagship loop (actor and learner) and the measurements."""
+    import shutil
+    import threading
+
+    import torch
+
+    from distar_tpu_torch.actor import BatchedInference
+    from distar_tpu_torch.bin import rl_train
+    from distar_tpu_torch.comm.serializer import dumps
+    from distar_tpu_torch.learner.data import as_float32
+    from distar_tpu_torch.learner.rl_dataloader import ReplayDataLoader
+    from distar_tpu_torch.ops import build
+    from distar_tpu_torch.ops import kernels as K
+    from distar_tpu_torch.replay import SampleClient
+
+    t_phase = time.perf_counter()
+    jobs = background or [Background(lambda: replay_processes(tmp, smi, device)),
+                          Background(lambda: replay_smoke_runs(device, tmp))]
+    for job in jobs:
+        if not job.started:
+            job.start()
+    roles, (small, remote) = (job.result() for job in jobs)
+    waited_s = time.perf_counter() - t_phase
+    spill_dir = os.path.join(tmp, "replay_spill")
+    args = rl_train.parser().parse_args([
+        "--type", "all", "--full-model", "--iters", str(REPLAY_ITERS), "--batch-size", str(RL_B),
+        "--traj-len", str(RL_T), "--env-num", str(LOOP_ENV_NUM), "--episode-game-loops", str(LOOP_EPISODE_LOOPS),
+        "--save-path", os.path.join(tmp, "replay_loop"), "--device", device.type, "--replay",
+        "--replay-sampler", "uniform", "--replay-spi", str(REPLAY_SPI), "--replay-spill-dir", spill_dir,
+        "--config", json.dumps({"model": overlay("pallas", "pallas"), "league": LOOP_LEAGUE,
+                                "learner": {"log_freq": 1}})])
+    rl_train._resolve_args(args)
+    loop = rl_train.build_all(args)
+    actor, learner = loop.actor, loop.learner
+    server, = loop.replay_servers
+    store = server.store
+    mp = loop.player_id
+    eb = max(REPLAY_SPI, 1.0) * RL_B
+    try:
+        shm_free = shutil.disk_usage("/dev/shm").free
+    except OSError:
+        shm_free = 0
+    if shm_free >= 5 * REPLAY_RING_BYTES:  # two connections, a ring each way
+        server.ring_bytes = REPLAY_RING_BYTES
+    print(f"replay: /dev/shm free {shm_free} bytes, the store's rings {server.ring_bytes} bytes")
+    print(f"replay: --type all --replay, one ReplayServer on {server.host}:{server.port} (transport auto), "
+          f"sampler uniform, spi {REPLAY_SPI}, error_buffer {eb}, min size {RL_B}, spill on; actor on "
+          f"{LOOP_ENV_NUM} MockEnv({LOOP_EPISODE_LOOPS}), learner {RL_B} x {RL_T} x {REPLAY_ITERS}, prefetch "
+          f"depth {learner.cfg.learner.get('prefetch_depth', 2)}, kernel overlay, f32")
+
+    # instruments, outside the port: the actor's inserts (ms, a digest each),
+    # the learner's samples (ms, each item's digest looked up), the spill's
+    # appends, the flushes and steps, each kernel's first call per side
+    digests, inserts, samples, spill_ms, flush_ms, steps = set(), [], [], [], [], []
+    problems, captured, sizes = [], {}, {}
+    client = actor._get_replay_client()
+    real = {"insert": client.insert, "append": store._spill.append, "sample": BatchedInference.sample,
+            "attention": K.masked_attention, "scatter": K.scatter_add_connection}
+
+    def insert(table, traj, **kw):
+        digests.add(traj_digest(traj))  # before the store can serve it
+        if "pickle_bytes" not in sizes:
+            sizes["pickle_bytes"] = len(dumps(traj, compress=False))
+        t0 = time.perf_counter()
+        seq = real["insert"](table, traj, **kw)
+        inserts.append((time.perf_counter() - t0) * 1e3)
+        limiter_holds(store.table(mp).limiter.state(), "replay insert")
+        return seq
+
+    def append(key, table, item, priority):
+        t0 = time.perf_counter()
+        real["append"](key, table, item, priority)
+        spill_ms.append((time.perf_counter() - t0) * 1e3)
+        sizes.setdefault("spill_blob_bytes", os.path.getsize(store._spill._path(key)))
+
+    def sample_flush(self, prepared, active=None, noise=None):
+        t0 = time.perf_counter()
+        out = real["sample"](self, prepared, active, noise)
+        flush_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def side():
+        return "learner" if threading.current_thread() is threading.main_thread() else "actor"
+
+    def attention(q, k, v, mask):
+        key = (side(), "masked_attention")
+        if key not in captured:
+            captured[key] = [t.detach().clone() for t in (q, k, v, mask)]
+        return real["attention"](q, k, v, mask)
+
+    def scatter(emb, idx, hw):
+        key = (side(), "scatter_add_connection")
+        if key not in captured:
+            captured[key] = (emb.detach().clone(), idx.clone(), hw)
+        return real["scatter"](emb, idx, hw)
+
+    sampler = learner._dataloader._client
+    check(isinstance(sampler, SampleClient) and isinstance(learner._dataloader, ReplayDataLoader),
+          "replay: the learner does not sample the store")
+
+    def sample(table, batch_size=1, timeout_s=None):
+        t0 = time.perf_counter()
+        items, info = real_sample(table, batch_size=batch_size, timeout_s=timeout_s)
+        samples.append((time.perf_counter() - t0) * 1e3)
+        missing = [d["seq"] for it, d in zip(items, info) if traj_digest(it) not in digests]
+        if missing:
+            problems.append(f"sampled seqs {missing} match no pushed trajectory")
+        limiter_holds(store.table(mp).limiter.state(), "replay sample")
+        return items, info
+
+    real_sample = sampler.sample
+    sampler.sample = sample
+    client.insert, store._spill.append = insert, append
+    below = TimedBatches(learner._dataloader)  # the source: sampling and collation
+    learner.set_dataloader(below)
+    above = time_prefetched(learner)
+    real_train = learner._train
+
+    def train(data):
+        t0 = time.perf_counter()
+        log = real_train(data)
+        steps.append(((time.perf_counter() - t0) * 1e3, log))
+        return log
+
+    learner._train = train
+    counts = ThreadCounts(build.KERNELS)
+    real_counts, K.launch_counts = K.launch_counts, counts
+    BatchedInference.sample = sample_flush
+    K.masked_attention, K.scatter_add_connection = attention, scatter
+    pushed0 = counter_delta("distar_actor_replay_pushed_total", 0.0)
+    dropped0 = counter_delta("distar_actor_replay_push_failures_total", 0.0)
+    fallbacks0 = counter_delta("distar_shm_fallbacks_total", 0.0)
+    try:
+        K.reset_launch_counts()
+        counts.by_side = {s: {n: 0 for n in build.KERNELS} for s in ("learner", "actor")}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loop.supervisor.start()
+        rl_train._run_learner_supervised(args, learner, REPLAY_ITERS)
+        loop_s = time.perf_counter() - t0
+        launches = {"learner": dict(counts.by_side["learner"]), "actor": dict(counts.by_side["actor"])}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        state_loop = store.table(mp).limiter.state()  # before the close stops the pacing
+        transports = (client.transport_active, sampler.transport_active)
+        batch = below.first
+        K.masked_attention, K.scatter_add_connection = real["attention"], real["scatter"]
+        in_loop_profile = profile_call(lambda: real_train(batch))  # the actor still running
+    finally:
+        try:
+            rl_train.close_all(loop)  # the actor's job ends with its pushes timed
+        finally:
+            K.launch_counts = real_counts
+            K.masked_attention, K.scatter_add_connection = real["attention"], real["scatter"]
+            BatchedInference.sample = real["sample"]
+            learner._train = real_train
+            client.insert, store._spill.append, sampler.sample = real["insert"], real["append"], real_sample
+
+    # what the loop did; after the close the actor's job has ended, so every
+    # insert is acknowledged, and the prefetcher sampled at most its depth,
+    # the batch it was placing and the one it was sampling ahead
+    state = store.table(mp).limiter.state()
+    acked = counter_delta("distar_actor_replay_pushed_total", pushed0)
+    depth = int(learner.cfg.learner.get("prefetch_depth", 2))
+    consumed = REPLAY_ITERS * RL_B
+    check(not problems, f"replay: {problems[:3]}")
+    check(learner.last_iter.val == REPLAY_ITERS and len(steps) == REPLAY_ITERS,
+          f"replay: {learner.last_iter.val} iterations, {len(steps)} steps")
+    check(all(finite(lg) for _, lg in steps), "replay: a non-finite loss or grad_norm")
+    check(counter_delta("distar_actor_replay_push_failures_total", dropped0) == 0, "replay: the actor dropped pushes")
+    check(state["inserts"] == acked == len(inserts) > 0,
+          f"replay: store inserts {state['inserts']}, the actor's acknowledged pushes {acked} ({len(inserts)} timed)")
+    check(state["samples"] % RL_B == 0 and consumed <= state["samples"] <= consumed + (depth + 2) * RL_B,
+          f"replay: store samples {state['samples']}, the learner consumed {consumed}, prefetch depth {depth}")
+    limiter_holds(state_loop, "replay at the learner's end")
+    fallbacks = counter_delta("distar_shm_fallbacks_total", fallbacks0)
+    if server.ring_bytes == REPLAY_RING_BYTES:
+        check(transports == ("shm", "shm") and fallbacks == 0,
+              f"replay: transports {transports}, {fallbacks} shm fallbacks, want shm on one host")
+    for s in ("learner", "actor"):
+        for name in ("masked_attention", "scatter_add_connection"):
+            check(launches[s][name] > 0, f"replay: {name} never launched on the {s}'s side")
+    held = as_float32({k: v for k, v in batch.items() if k not in ("trace_span_ids", "trace_age_s")})
+    step_alone, _ = step_times({"pallas": learner}, held, rounds=5, warmup=1)
+    del learner, loop
+
+    errs = path_kernels_against_plain(K, captured)
+    del captured
+    recovered, recover_s = replay_recovery(args, store, spill_dir, mp)
+    learners = {impl: rl_learner(device, impl) for impl in STRINGS}
+    logs = steps_agree("replay: one RL step on a store-sampled batch", learners, held)
+    del learners
+
+    wait = above["it"].wait_ms
+    result = {
+        "seconds": time.perf_counter() - t_phase, "waited_for_background_s": waited_s, "loop_s": loop_s,
+        "inserts": state["inserts"], "samples": state["samples"], "consumed": consumed,
+        "reuse": state["samples"] / state["inserts"], "reuse_consumed": consumed / state["inserts"],
+        "spi": REPLAY_SPI, "limiter_at_learner_end": state_loop, "transports": transports,
+        "shm_fallbacks": fallbacks, "ring_bytes": server.ring_bytes,
+        "frames_made_per_s": state["inserts"] * RL_T / loop_s,
+        "frames_consumed_per_s": REPLAY_ITERS * RL_B * RL_T / loop_s,
+        "data_wait_ms": {"learner_median": statistics.median(wait), "learner_min": min(wait),
+                         "learner_max": max(wait), "source_median": statistics.median(below.wait_ms),
+                         "source_all": below.wait_ms,
+                         "rl_loop_learner": rl_loop["data_wait_ms"]["learner_median"],
+                         "rl_loop_learner_min": min(rl_loop["data_wait_ms"]["learner_all"]),
+                         "rl_loop_learner_max": max(rl_loop["data_wait_ms"]["learner_all"]),
+                         "rl_loop_source_median": rl_loop["data_wait_ms"]["median"]},
+        "step_ms": {"loop_median": statistics.median(ms for ms, _ in steps), "loop_all": [ms for ms, _ in steps],
+                    "alone_median": step_alone["pallas"]},
+        "flush_ms": {"loop_median": statistics.median(flush_ms), "loop_n": len(flush_ms),
+                     "alone_median": rl_loop["flush_ms"]["alone_median"]},
+        "insert_ms": {"median": statistics.median(inserts), "max": max(inserts)},
+        "sample_ms": {"median": statistics.median(samples), "max": max(samples)},
+        "spill_append_ms": {"median": statistics.median(spill_ms), "max": max(spill_ms)},
+        "bytes": sizes, "recovery": {"count": recovered, "seconds": recover_s},
+        "peak_memory_gb": peak_gb, "in_loop_step_profile": in_loop_profile,
+        "losses": [lg["total_loss"] for _, lg in steps], "launches": launches,
+        "kernel_max_abs_err": errs, "strings_total_loss": {k: lg["total_loss"] for k, lg in logs.items()},
+        "processes": roles, "smaller_runs": small, "remote_sl_and_play": remote,
+    }
+    print(f"replay ({smi}): " + json.dumps({k: v for k, v in result.items() if k != "in_loop_step_profile"}))
+    print(f"replay: a learner step profiled inside the loop (the actor running): {json.dumps(in_loop_profile)}")
     total = {n: launches["learner"][n] + launches["actor"][n] for n in build.KERNELS}
     return total, result
 
@@ -3636,6 +4256,13 @@ def main() -> int:
         return 2
 
     t_start = time.perf_counter()
+    phase_s, last = {}, [t_start]
+
+    def mark(name):  # the seconds since the previous mark, the script's budget by phase
+        now = time.perf_counter()
+        phase_s[name] = round(now - last[0], 1)
+        last[0] = now
+
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")  # the phases' checkpoints and datasets
     # the learners' default experiment directories, out of the checkout
     os.environ["DISTAR_EXPERIMENTS_ROOT"] = os.path.join(tmp, "experiments")
@@ -3658,6 +4285,8 @@ def main() -> int:
                 if "registers" in ln or "spill" in ln:
                     print(f"ptxas {name}: {ln.strip()}")
 
+        mark("build")
+
         # 3. kernels
         rng = np.random.default_rng(0)
         records = phase_kernels(device, rng)
@@ -3665,43 +4294,66 @@ def main() -> int:
             print(f"kernel {name}: ms {rec['ms']:.4f} plain_ms {rec['plain_ms']:.4f} "
                   f"library_ms {rec['library_ms']:.4f} bound_ms {rec['bound_ms']:.4f} ({rec['bound_by']})")
 
+        mark("kernels")
+
         # 4. serve
         launches, flush_ms = phase_serve(device, rng)
         for name in build.KERNELS:
             check(launches.get(name, 0) > 0, f"{name} never launched on the serve path")
+
+        mark("serve")
 
         # 5. the serving process
         # a generator of its own, so the phases after it draw what they drew
         # before it was added
         process_launches, process = phase_serve_process(device, np.random.default_rng(5), smi, tmp)
 
+        mark("serve_process")
+
         # 6. the serving fleet, on the checkpoints phase 5 wrote
         fleet_launches, fleet = phase_serve_fleet(device, np.random.default_rng(6), smi,
                                                   *process["checkpoints"])
 
+        mark("serve_fleet")
+
         # 7. train
         train_launches, train = phase_train(device, rng)
+        mark("train")
 
         # 8. the SL learner runtime, on a generator of its own
         runtime_launches, runtime = phase_sl_runtime(device, np.random.default_rng(8), smi, tmp)
+        mark("sl_runtime")
 
         # 9. RL and distillation
         rl_launches, rl = phase_rl(device, rng)
+        mark("rl")
 
-        # 10. the league-RL loop
-        loop_launches, rl_loop = phase_rl_loop(device, smi, tmp)
+        # 10. the league-RL loop; the replay phase's runs on the smoke model
+        # (its roles as processes, the other layouts, sl_train --remote and
+        # play.py) run during its untimed part
+        replay_jobs = [Background(lambda: replay_processes(tmp, smi, device)),
+                       Background(lambda: replay_smoke_runs(device, tmp))]
+        loop_launches, rl_loop = phase_rl_loop(device, smi, tmp, untimed=replay_jobs)
+        mark("rl_loop")
+
+        # 11. the replay store between actors and learner
+        replay_launches, replay = phase_replay(device, smi, tmp, rl_loop, replay_jobs)
+        mark("replay")
+        print(f"phase seconds: {json.dumps(phase_s)}")
         print(f"launches: serve {launches}, serve process {process_launches}, serve fleet (gateway A) "
               f"{fleet_launches}, train {train_launches}, sl runtime {runtime_launches}, rl and distill "
-              f"{rl_launches}, rl loop (actor and learner) {loop_launches}")
+              f"{rl_launches}, rl loop (actor and learner) {loop_launches}, replay loop (actor and learner) "
+              f"{replay_launches}")
         launches = {name: launches[name] + process_launches[name] + fleet_launches[name] + train_launches[name]
-                    + runtime_launches[name] + rl_launches[name] + loop_launches[name]
+                    + runtime_launches[name] + rl_launches[name] + loop_launches[name] + replay_launches[name]
                     for name in build.KERNELS}
 
         # 9. the kernels line; max_abs_err over the serve shapes and the f32
         # SL, RL and student training shapes
         errs = {**train["train_kernel_max_abs_err"],
                 **{f"rl {k}": v for k, v in rl["rl_kernel_max_abs_err"].items()},
-                **{f"student {k}": v for k, v in rl["student_kernel_max_abs_err"].items()}}
+                **{f"student {k}": v for k, v in rl["student_kernel_max_abs_err"].items()},
+                **{f"replay {k}": v for k, v in replay["kernel_max_abs_err"].items()}}
         for name, rec in records.items():
             rec["max_abs_err"] = max([rec["max_abs_err"]] + [
                 err for key, err in errs.items()
@@ -3725,7 +4377,11 @@ def main() -> int:
                               "flush_ms", "step_ms", "data_wait_ms", "env_steps_per_s", "frames_made_per_s",
                               "frames_consumed_per_s", "refresh_ms", "push", "peak_memory_gb", "seconds")},
                           "rl_loop_publish_ms": [p["ms"] for p in rl_loop["publish_ms"]],
-                          "seconds": time.perf_counter() - t_start}))
+                          "replay": {k: replay[k] for k in (
+                              "inserts", "samples", "reuse", "spi", "data_wait_ms", "frames_made_per_s",
+                              "frames_consumed_per_s", "step_ms", "flush_ms", "insert_ms", "sample_ms",
+                              "spill_append_ms", "bytes", "recovery", "peak_memory_gb", "seconds")},
+                          "phase_seconds": phase_s, "seconds": time.perf_counter() - t_start}))
         print(json.dumps(line))
     except Exception as e:  # every phase failure fails the run
         import traceback

@@ -5,9 +5,10 @@ Counterpart of ``distar_tpu.actor.actor``. Its weights are port
 learner's publication, a flax-layout numpy tree, loads through
 ``model.convert.policy_params_from_flax``; without one the actor draws its
 own seeded weights with ``model.init_params``. Its engines run on CUDA
-unless ``device`` says otherwise (``resolve_device``). The replay-store push
-waits for ``replay/`` (ROADMAP Queue 1 item 5): ``actor.replay.enabled``
-raises ``NotImplementedError``.
+unless ``device`` says otherwise (``resolve_device``). With
+``actor.replay.enabled`` trajectories go to a replay store (one
+``InsertClient``, a consistent-hash shard fleet, or the colocated
+``inproc`` store) instead of, or with ``mirror`` beside, the adapter.
 
 Role parity with the reference Actor (reference: distar/actor/actor.py:23-353
 and actor_comm.py): ask the league for a job, drive env<->agent loops, ship
@@ -46,9 +47,6 @@ from .agent import Agent, sample_fake_z
 from .inference import resolve_device
 from .rollout_plane import RolloutPlane
 
-REPLAY_NOT_PORTED = ("actor.replay: the replay-store push needs replay/, which is not ported yet "
-                     "(ROADMAP Queue 1 item 5, its replay step)")
-
 ACTOR_DEFAULTS = Config(
     {
         "actor": {
@@ -63,8 +61,25 @@ ACTOR_DEFAULTS = Config(
             # pad-to-bucket entity cap for inference obs (agents slice in
             # pre_process; matches the learner-side learner.max_entities)
             "max_entities": None,
-            # replay-store push (REPLAY_NOT_PORTED): enabled raises
-            "replay": {"enabled": False},
+            # replay-store push target (config-switched; default off so the
+            # point-to-point shuttle path is untouched). ``addr`` is
+            # "host:port" of a ReplayServer, a comma-separated shard list
+            # (trajectories route by consistent hash), or "inproc" for the
+            # zero-copy colocated store; ``mirror`` additionally keeps the
+            # adapter push; ``priority`` seeds the table priority of fresh
+            # trajectories; ``compress`` is this side's wire-compression
+            # preference (negotiated per connection); ``transport`` picks
+            # the data-plane leg (auto negotiates shm rings with colocated
+            # stores, tcp forces the socket).
+            "replay": {
+                "enabled": False,
+                "addr": "",
+                "mirror": False,
+                "priority": 1.0,
+                "timeout_s": 60.0,
+                "compress": True,
+                "transport": "auto",
+            },
             # rollout inference plane (docs/serving.md, Sebulba split):
             # ``inline`` is a per-actor BatchedInference; ``local``
             # shares ONE in-process gateway+engine per player across every
@@ -102,8 +117,12 @@ class Actor:
         policy-only model."""
         whole = deep_merge_dicts(ACTOR_DEFAULTS, cfg or {})
         self.cfg = whole.actor
-        if (self.cfg.get("replay") or {}).get("enabled", False):
-            raise NotImplementedError(REPLAY_NOT_PORTED)
+        self._replay_client = None  # lazily dialed from cfg.actor.replay
+        rcfg = self._replay_cfg()
+        if rcfg.get("enabled", False) and rcfg.get("addr", ""):
+            # fail fast on a malformed address here, at config time, not
+            # mid-episode at the first push
+            self._replay_target()
         self.device = resolve_device(device)
         self.league = league
         self.adapter = adapter
@@ -593,9 +612,102 @@ class Actor:
         self.results.extend(results)
         return results
 
-    # ------------------------------------------------------------------ push
+    # ----------------------------------------------------------- replay push
+    def _replay_cfg(self):
+        return self.cfg.get("replay", {}) or {}
+
+    def _replay_target(self):
+        """Validated target spec from ``cfg.actor.replay.addr``: the string
+        ``"inproc"`` (colocated store), or a list of ``(host, port)`` pairs
+        (one = single store, several = consistent-hash shard fleet). Raises
+        a clear config error instead of a bare ``int()`` ValueError."""
+        from ..replay import is_inproc_addr
+
+        addr = str(self._replay_cfg().get("addr", ""))
+        if is_inproc_addr(addr):
+            return addr
+        targets = []
+        for part in addr.split(","):
+            part = part.strip()
+            if not part:
+                continue
+            host, _, port = part.rpartition(":")
+            try:
+                targets.append((host or "127.0.0.1", int(port)))
+            except ValueError:
+                raise ValueError(
+                    f"actor.replay.addr must be 'host:port' (optionally "
+                    f"comma-separated for a shard fleet) or 'inproc', "
+                    f"got {addr!r}"
+                ) from None
+        if not targets:
+            raise ValueError(
+                f"actor.replay.addr must name at least one 'host:port', "
+                f"got {addr!r}"
+            )
+        return targets
+
+    def _get_replay_client(self):
+        """Dial the replay plane once per actor (clients reconnect + retry
+        internally; docs/data_plane.md store path): the in-process store
+        handle for ``inproc`` (zero serialization), one ``InsertClient``
+        for a single store, or a ``ShardedInsertClient`` routing across
+        the fleet by consistent hash."""
+        if self._replay_client is None:
+            target = self._replay_target()
+            compress = bool(self._replay_cfg().get("compress", True))
+            transport = str(self._replay_cfg().get("transport", "auto"))
+            if isinstance(target, str):  # inproc fast path
+                from ..replay import LocalReplayClient
+
+                self._replay_client = LocalReplayClient()
+            elif len(target) == 1:
+                from ..replay import InsertClient
+
+                self._replay_client = InsertClient(*target[0], compress=compress,
+                                                   transport=transport)
+            else:
+                from ..replay import ShardMap, ShardedInsertClient
+
+                self._replay_client = ShardedInsertClient(
+                    ShardMap([f"{h}:{p}" for h, p in target]), compress=compress,
+                    transport=transport)
+        return self._replay_client
+
     def push_trajectory(self, player_id: str, traj) -> None:
-        """Ship one finished trajectory to the learner over the adapter."""
+        """Ship one finished trajectory to the configured data plane(s):
+        the replay store when ``actor.replay.enabled``, the legacy shuttle
+        path otherwise (or additionally, with ``replay.mirror``)."""
+        rcfg = self._replay_cfg()
+        use_replay = bool(rcfg.get("enabled", False)) and rcfg.get("addr", "")
+        if use_replay:
+            try:
+                # inside the try: client construction failing (config rot
+                # after init) must count as a dropped push, not kill the
+                # job loop mid-episode
+                client = self._get_replay_client()
+                client.insert(
+                    player_id, traj,
+                    priority=float(rcfg.get("priority", 1.0)),
+                    timeout_s=float(rcfg.get("timeout_s", 60.0)),
+                )
+                get_registry().counter(
+                    "distar_actor_replay_pushed_total",
+                    "trajectories acked by the replay store", player=player_id,
+                ).inc()
+            except Exception as err:
+                # the client already retried under its policy/breaker; a
+                # store outage past that budget must not kill the job loop
+                # mid-episode (the trajectory is lost, counted, and the
+                # episode keeps rolling — exactly the legacy drop semantics)
+                logging.warning(f"actor: replay push dropped: {err!r}")
+                get_registry().counter(
+                    "distar_actor_replay_push_failures_total",
+                    "replay-store inserts dropped after retries",
+                    player=player_id,
+                ).inc()
+            if not rcfg.get("mirror", False):
+                return
         if self.adapter is not None:
             # mint the pipeline span here, where the trajectory is born: the
             # context rides the payload through shuttle/adapter into the

@@ -5,6 +5,8 @@
     python -m distar_tpu_torch.bin.rl_train --type league --port 8421
     python -m distar_tpu_torch.bin.rl_train --type learner --coordinator-addr H:8422 --league-addr H:8421
     python -m distar_tpu_torch.bin.rl_train --type actor --coordinator-addr H:8422 --league-addr H:8421
+    python -m distar_tpu_torch.bin.rl_train --type all --replay --smoke-model --device cpu --iters 2
+    python -m distar_tpu_torch.bin.rl_train --type replay --port 0 --replay-spill-dir D
 
 Counterpart of ``distar_tpu.bin.rl_train``, on CUDA unless ``--device``
 says otherwise. Roles:
@@ -14,7 +16,12 @@ says otherwise. Roles:
                thread, and the RL learner on the main thread training on
                the actors' trajectories (``RLDataLoader``) and publishing
                its weights back every 4 iterations (``attach_comm``). Ends
-               with ``rl_train done: ...``.
+               with ``rl_train done: ...``. With ``--replay`` the
+               trajectories go through a replay store instead: one
+               ``ReplayServer`` on loopback, ``--replay-shards N`` servers
+               (the actor routes by consistent hash, the learner fans in),
+               or with ``--replay-fast-path`` the colocated store with no
+               server, and the learner samples them (``ReplayDataLoader``).
   coordinator  the metadata broker (``comm.CoordinatorServer``) on ``--port``.
   league       the league's HTTP API (``league.LeagueAPIServer``) on ``--port``.
   learner      the learner against a remote coordinator and league: it
@@ -25,9 +32,18 @@ says otherwise. Roles:
                prints ``learner done: N iters``.
   actor        jobs from a remote league, trajectories to the coordinator's
                adapter plane, under crash-restart supervision.
+  replay       a replay store (``replay.ReplayServer``) on ``--port``, its
+               spill recovered before it serves (``--replay-spill-dir``),
+               the HTTP admin surface on ``--metrics-port`` and, with
+               ``--coordinator-addr``, registered under the
+               ``replay_shard`` token; under crash-restart supervision.
 
-The coordinator, the league and the actor exit on SIGTERM or SIGINT; the
-learner saves a checkpoint first.
+With ``--replay-addr`` (one ``host:port``, a comma-separated shard fleet,
+or ``discover``) the learner samples its batches from the store and the
+actor pushes its trajectories there.
+
+The coordinator, the league, the replay store and the actor exit on
+SIGTERM or SIGINT; the learner saves a checkpoint first.
 
 ``--config`` takes a YAML or JSON file or inline JSON: its ``model`` block
 replaces the smoke model over ``default_model_config()`` (as in the JAX
@@ -37,9 +53,10 @@ block cascades over the learner defaults (as ``bin/sl_train.py``'s does);
 stand where ``--batch-size``, ``--traj-len`` and ``--env-num`` are not given.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP Queue 1
-item (``NOT_PORTED``): the replay, arena, league-run and league-learner
-roles and their flags, the jaxenv and SC2 envs, Anakin, meshes and
-``jax.distributed``, the coordinator's HA, and fleet health and telemetry.
+item (``NOT_PORTED``): the arena, league-run and league-learner roles and
+their flags, the jaxenv and SC2 envs, Anakin, meshes and
+``jax.distributed``, the coordinator's HA, and fleet health and telemetry
+(``--metrics-port`` serves only the replay role's admin surface).
 """
 from __future__ import annotations
 
@@ -56,13 +73,12 @@ from ..actor import Actor
 from ..comm import Adapter, Coordinator, CoordinatorServer
 from ..envs import MockEnv
 from ..league import League, LeagueAPIServer, RemoteLeague
-from ..learner.rl_dataloader import RLDataLoader
+from ..learner.prefetch import DevicePrefetcher
+from ..learner.rl_dataloader import ReplayDataLoader, RLDataLoader
 from ..resilience import RestartPolicy, Supervisor, supervise_call
 from ..utils import read_config
 from .sl_train import SMOKE_MODEL
 
-_REPLAY = ("the replay store and its roles need replay/, not ported yet "
-           "(ROADMAP Queue 1 item 5, its replay step)")
 _LEAGUE_RUNTIME = ("the coordinator-hosted league runtime is not ported yet "
                    "(ROADMAP Queue 1 item 9, league/runtime/)")
 _MESH = "meshes, sharded checkpoints and jax.distributed are not ported yet (ROADMAP Queue 1 item 7)"
@@ -70,12 +86,9 @@ _HEALTH = "fleet health, telemetry and the metrics endpoint are not ported yet (
 
 # role or flag prefix of the JAX launcher -> why it raises here
 NOT_PORTED = {
-    "--type replay": _REPLAY,
     "--type arena": "the arena is not ported yet (ROADMAP Queue 1 item 9, arena/)",
     "--type league-run": _LEAGUE_RUNTIME,
     "--type league-learner": _LEAGUE_RUNTIME,
-    "--replay": _REPLAY,
-    "--replay-": _REPLAY,
     "--anakin": "Anakin is not ported yet (ROADMAP Queue 1 item 8, envs/jaxenv/)",
     "--jaxenv": "jaxenv is not ported yet (ROADMAP Queue 1 item 8, envs/jaxenv/)",
     "--env jaxenv": "jaxenv is not ported yet (ROADMAP Queue 1 item 8, envs/jaxenv/)",
@@ -90,14 +103,13 @@ NOT_PORTED = {
     "--arena-": "the arena is not ported yet (ROADMAP Queue 1 item 9, arena/)",
     "--league-": _LEAGUE_RUNTIME,
     "--telemetry-interval-s": _HEALTH,
-    "--metrics-port": _HEALTH,
     "--health-": _HEALTH,
     "--no-health": _HEALTH,
     "--dynamics-every": "the training-dynamics export is not ported yet (ROADMAP Queue 1 item 9)",
     "--platform": "the JAX backend switch; the port picks its device with --device",
 }
 
-ROLES = ("all", "coordinator", "league", "learner", "actor")
+ROLES = ("all", "coordinator", "league", "learner", "actor", "replay")
 
 
 def _user_cfg(args) -> dict:
@@ -195,15 +207,120 @@ def _run_learner_supervised(args, learner, iters: int) -> None:
                    policy=_restart_policy(args), on_restart=resume)
 
 
+def _table_config(args):
+    """Per-player replay-table settings from the flags (the store's table
+    factory: every player token gets one of these)."""
+    from ..replay import TableConfig
+
+    spi = args.replay_spi
+    batch = max(args.batch_size or 1, 1)
+    error_buffer = args.replay_error_buffer
+    if error_buffer is None and spi > 0:
+        # batch-aware slack: the limiter must be able to admit a whole
+        # learner batch, or sampler and inserter deadlock trading timeouts
+        # (RateLimiter.max_sample_batch)
+        error_buffer = max(spi, 1.0) * batch
+    return TableConfig(
+        max_size=args.replay_max_size,
+        sampler=args.replay_sampler,
+        samples_per_insert=None if spi <= 0 else spi,
+        # 0 = the learner batch size: sampling cannot start below one batch
+        min_size_to_sample=max(args.replay_min_size or batch, 1),
+        error_buffer=error_buffer,
+        max_staleness_s=args.replay_max_staleness_s or None,
+    )
+
+
+def _build_replay_store(args, shard_id: str = "", spill_dir: Optional[str] = None):
+    """Store and spill of a serving replay role; recovery runs before it
+    serves, so the acknowledged, unsampled trajectories of a crashed
+    generation are resident (as encoded payloads, re-served without
+    recompression) before the first sample. ``shard_id`` labels a fleet
+    member's metrics and stats."""
+    from ..replay import ReplayStore, SpillRing
+
+    _table_config(args)  # fail fast on invalid combinations (fifo with spi > 1)
+    spill = None
+    spill_dir = args.replay_spill_dir if spill_dir is None else spill_dir
+    if spill_dir:
+        spill = SpillRing(spill_dir, max_items=args.replay_spill_max)
+    store = ReplayStore(table_factory=lambda name: _table_config(args),
+                        spill=spill, shard_id=shard_id, recover_encoded=True)
+    recovered = store.recover()
+    if recovered:
+        print(f"replay{f' shard {shard_id}' if shard_id else ''}: recovered "
+              f"{recovered} acked trajectories from spill", flush=True)
+    return store
+
+
+def _learner_replay_client(args, addrs: str):
+    """The learner's sample client: ``inproc`` -> the colocated store, one
+    address -> a ``SampleClient``, several -> the shard fleet's fan-in
+    (a breaker per shard, stalled shards skipped), ``discover`` -> the
+    coordinator's shard map."""
+    from ..replay import LocalReplayClient, SampleClient, ShardMap, ShardedSampleClient, is_inproc_addr
+
+    if is_inproc_addr(addrs):
+        return LocalReplayClient()
+    if addrs.strip().lower() == "discover":
+        shard_map = ShardMap.discover(_addr(args.coordinator_addr))
+    else:
+        shard_map = ShardMap.parse(addrs)
+    if len(shard_map) == 1:
+        return SampleClient(*_addr(shard_map.addrs[0]), compress=args.replay_compress,
+                            transport=args.transport)
+    return ShardedSampleClient(shard_map, mode=args.replay_fanin, compress=args.replay_compress,
+                               transport=args.transport)
+
+
+def _replay_loader(args, addrs: str, player_id: str) -> ReplayDataLoader:
+    return ReplayDataLoader(_learner_replay_client(args, addrs), player_id, args.batch_size)
+
+
 @dataclasses.dataclass
 class Loop:
-    """The pieces of one in-process league-RL loop (``build_all``)."""
+    """The pieces of one in-process league-RL loop (``build_all``);
+    ``replay_stores`` and ``replay_servers`` are ``--replay``'s."""
 
     league: League
     actor: Actor
     learner: object
     player_id: str
     supervisor: Supervisor
+    replay_stores: list = dataclasses.field(default_factory=list)
+    replay_servers: list = dataclasses.field(default_factory=list)
+
+
+def _build_replay_layout(args):
+    """``--replay``'s stores between actor and learner, in one of three
+    layouts: one ``ReplayServer`` on loopback (default), ``--replay-shards
+    N`` servers (the actor routes by consistent hash, the learner fans in),
+    or ``--replay-fast-path``: no server, the colocated store handed to
+    both sides (no serialization on push or sample). Returns the stores,
+    the servers and the actor's ``replay`` block."""
+    from ..replay import ReplayServer, set_local_store
+
+    if args.replay_fast_path:
+        if args.replay_shards > 1:
+            raise SystemExit("--replay-fast-path is the single colocated store; it cannot combine "
+                             "with --replay-shards")
+        store = _build_replay_store(args)
+        set_local_store(store)
+        print("replay store (colocated zero-copy fast path)", flush=True)
+        return [store], [], {"enabled": True, "addr": "inproc"}
+    stores, servers = [], []
+    for i in range(max(args.replay_shards, 1)):
+        shard_id = f"s{i}" if args.replay_shards > 1 else ""
+        spill_dir = args.replay_spill_dir
+        if spill_dir and shard_id:
+            spill_dir = os.path.join(spill_dir, shard_id)
+        stores.append(_build_replay_store(args, shard_id=shard_id, spill_dir=spill_dir))
+        servers.append(ReplayServer(stores[-1], port=0, compress=args.replay_compress,
+                                    transport=args.transport).start())
+    addrs = ",".join(f"{s.host}:{s.port}" for s in servers)
+    print(f"replay store{'s' if len(servers) > 1 else ''} (in-process) on {addrs}", flush=True)
+    return stores, servers, {"enabled": True, "addr": addrs, "compress": args.replay_compress,
+                             "transport": args.transport}
 
 
 def build_all(args) -> Loop:
@@ -215,9 +332,10 @@ def build_all(args) -> Loop:
     co = Coordinator()
     actor_adapter, learner_adapter = Adapter(coordinator=co), Adapter(coordinator=co)
     player_id = list(league.active_players.keys())[0]
+    stores, servers, replay_cfg = _build_replay_layout(args) if args.replay else ([], [], {})
     actor = Actor(
         cfg={"actor": {"env_num": args.env_num, "traj_len": args.traj_len,
-                       "plane": _plane_cfg(args)}},
+                       "plane": _plane_cfg(args), **({"replay": replay_cfg} if replay_cfg else {})}},
         league=league, adapter=actor_adapter, model_cfg=model_cfg, env_fn=_env_fn(args),
         device=args.device)
     supervisor = Supervisor(policy=_restart_policy(args))
@@ -228,12 +346,35 @@ def build_all(args) -> Loop:
 
     supervisor.add("actor", actor_loop)
     learner = _make_learner(args, model_cfg)
-    learner.set_dataloader(RLDataLoader(learner_adapter, player_id, args.batch_size))
+    if replay_cfg:
+        learner.set_dataloader(_replay_loader(args, replay_cfg["addr"], player_id))
+    else:
+        learner.set_dataloader(RLDataLoader(learner_adapter, player_id, args.batch_size))
     if not args.distill:
         # the student tier publishes through checkpoints, not the weight plane
         learner.attach_comm(learner_adapter, player_id, league=league,
                             send_model_freq=4, send_train_info_freq=4)
-    return Loop(league, actor, learner, player_id, supervisor)
+    return Loop(league, actor, learner, player_id, supervisor, stores, servers)
+
+
+def close_all(loop: Loop) -> None:
+    """Stop what ``build_all`` started: the actor's job loop (after its
+    job: its thread is in the middle of a flush, and the stores stop pacing
+    so a push the limiter holds for a learner that has finished goes
+    through), the learner's prefetcher, the replay servers and the
+    colocated store's registration."""
+    for store in loop.replay_stores:
+        for name in store.tables():
+            store.table(name).limiter.release_pacing()
+    loop.supervisor.stop(timeout=120)
+    if isinstance(loop.learner._dataloader, DevicePrefetcher):
+        loop.learner._dataloader.close()
+    for server in loop.replay_servers:
+        server.stop()
+    if loop.replay_stores and not loop.replay_servers:
+        from ..replay import set_local_store
+
+        set_local_store(None)
 
 
 def run_all(args) -> Loop:
@@ -242,8 +383,7 @@ def run_all(args) -> Loop:
     try:
         _run_learner_supervised(args, loop.learner, args.iters)
     finally:
-        # let the actor finish its job: its thread is in the middle of a flush
-        loop.supervisor.stop(timeout=120)
+        close_all(loop)
     learner = loop.learner
     print(f"rl_train done: {learner.last_iter.val} iters, "
           f"loss={learner.variable_record.get('total_loss').avg:.4f}, "
@@ -276,7 +416,11 @@ def run_learner(args):
         # a restarted learner process picks up its own latest pointer
         path = learner.resume_latest()
         print(f"rl_train resume: {path or 'cold'} iter {learner.last_iter.val}", flush=True)
-    learner.set_dataloader(RLDataLoader(adapter, args.player_id, args.batch_size))
+    if args.replay_addr:
+        # batches from the replay table(s) instead of the pull cache
+        learner.set_dataloader(_replay_loader(args, args.replay_addr, args.player_id))
+    else:
+        learner.set_dataloader(RLDataLoader(adapter, args.player_id, args.batch_size))
     if not args.distill:
         learner.attach_comm(adapter, args.player_id, league=league)
     _run_learner_supervised(args, learner, args.iters)
@@ -287,11 +431,20 @@ def run_learner(args):
 def run_actor(args) -> None:
     league = RemoteLeague(*_addr(args.league_addr))
     adapter = Adapter(coordinator_addr=_addr(args.coordinator_addr))
-    actor = Actor(
-        cfg={"actor": {"env_num": args.env_num, "traj_len": args.traj_len,
-                       "plane": _plane_cfg(args)}},
-        league=league, adapter=adapter, model_cfg=_model_cfg(args), env_fn=_env_fn(args),
-        device=args.device)
+    actor_cfg = {"env_num": args.env_num, "traj_len": args.traj_len, "plane": _plane_cfg(args)}
+    if args.replay_addr:
+        replay_addr = args.replay_addr
+        if replay_addr.strip().lower() == "discover":
+            # the fleet read once at launch from the coordinator's shard
+            # registrations (the actor's config carries plain addresses)
+            from ..replay import ShardMap
+
+            replay_addr = ",".join(ShardMap.discover(_addr(args.coordinator_addr)).addrs)
+            print(f"replay: discovered shard fleet {replay_addr}", flush=True)
+        actor_cfg["replay"] = {"enabled": True, "addr": replay_addr, "compress": args.replay_compress,
+                               "transport": args.transport}
+    actor = Actor(cfg={"actor": actor_cfg}, league=league, adapter=adapter, model_cfg=_model_cfg(args),
+                  env_fn=_env_fn(args), device=args.device)
     print(f"actor ready: env_num={args.env_num} traj_len={args.traj_len}", flush=True)
 
     def job_loop():
@@ -327,6 +480,62 @@ def _serve_until_signal(server, what: str) -> None:
         server.stop()
 
 
+def run_replay(args) -> None:
+    """The replay-store role: the framed-TCP data plane on ``--port``, the
+    HTTP admin surface (``/replay/stats``, ``/metrics``, ``POST /drain``) on
+    ``--metrics-port``, spill recovery on every (re)start under crash-restart
+    supervision; with ``--coordinator-addr`` the shard registers under the
+    ``replay_shard`` token (lease and heartbeat), so roles started with
+    ``--replay-addr discover`` find the fleet. SIGTERM or SIGINT stops it,
+    the spill's manifest flushed."""
+    from ..replay import ReplayAdminServer, ReplayServer, register_shard
+    from ..resilience import TaskContext
+
+    shard_id = args.replay_shard_id or (f":{args.port}" if args.port else "")
+
+    def serve_loop(ctx):
+        store = _build_replay_store(args, shard_id=shard_id)
+        server = ReplayServer(store, port=args.port, compress=args.replay_compress,
+                              transport=args.transport).start()
+        admin = heartbeat = None
+        try:
+            if args.metrics_port is not None:
+                admin = ReplayAdminServer(store, port=args.metrics_port, server=server).start()
+                print(f"replay admin on http://{admin.host}:{admin.port}/replay/stats", flush=True)
+            if args.coordinator_addr:
+                heartbeat = register_shard(
+                    _addr(args.coordinator_addr), server.host, server.port,
+                    meta={"admin_port": args.metrics_port},  # as given (0: ephemeral), as in JAX
+                    lease_s=args.lease_s or None)
+            print(f"replay store serving on {server.host}:{server.port}", flush=True)
+            while not ctx.should_exit:
+                ctx.sleep(0.5)
+        finally:
+            if heartbeat is not None:
+                heartbeat.stop_event.set()
+            server.stop()
+            if admin is not None:
+                admin.stop()
+            if store._spill is not None:
+                store._spill.flush()
+
+    stop = TaskContext()  # set by SIGTERM or SIGINT
+    previous = {s: signal.signal(s, lambda *_: stop.request_stop()) for s in (signal.SIGTERM, signal.SIGINT)}
+    try:
+        if args.no_supervise:
+            serve_loop(stop)
+            return
+        supervisor = Supervisor(policy=_restart_policy(args))
+        supervisor.add("replay", serve_loop)
+        supervisor.start()
+        while not stop.sleep(0.5):
+            pass
+        supervisor.stop(timeout=30)
+    finally:
+        for s, handler in previous.items():
+            signal.signal(s, handler)
+
+
 def run_coordinator(args) -> None:
     co = Coordinator(default_lease_s=args.lease_s or None)
     _serve_until_signal(CoordinatorServer(coordinator=co, port=args.port), "coordinator")
@@ -339,7 +548,7 @@ def run_league(args) -> None:
 def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--type", default="all",
-                   help=f"one of {', '.join(ROLES)} (the JAX launcher's replay, arena, league-run "
+                   help=f"one of {', '.join(ROLES)} (the JAX launcher's arena, league-run "
                         "and league-learner raise NotImplementedError)")
     p.add_argument("--config", default="",
                    help="YAML or JSON file, or inline JSON: 'model', 'league', 'learner', 'actor', 'env'")
@@ -374,8 +583,44 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--plane-slots", type=int, default=0,
                    help="--plane local: slots of the shared engine (0: two sides of env_num)")
     p.add_argument("--transport", default="auto", choices=("auto", "tcp", "shm"),
-                   help="--plane remote: shared-memory rings to a gateway on this host (auto), "
-                        "or the socket only (tcp)")
+                   help="every colocated hop (replay push and sample, --plane remote): shared-memory "
+                        "rings to a server on this host (auto, shm), or the socket only (tcp)")
+    p.add_argument("--replay", action="store_true",
+                   help="--type all: trajectories through an in-process replay store instead of the "
+                        "adapter")
+    p.add_argument("--replay-addr", default="",
+                   help="learner and actor: the replay store's 'host:port', a comma-separated shard "
+                        "fleet, or 'discover' (the coordinator's replay_shard registrations)")
+    p.add_argument("--replay-shards", type=int, default=1,
+                   help="--type all: this many in-process replay shards (consistent-hash routing, "
+                        "learner fan-in)")
+    p.add_argument("--replay-fast-path", action="store_true",
+                   help="--type all: the colocated store handed to actor and learner, no server")
+    p.add_argument("--no-replay-compress", dest="replay_compress", action="store_false", default=True,
+                   help="no wire compression on replay connections (negotiated per connection)")
+    p.add_argument("--replay-fanin", default="round_robin", choices=("round_robin", "weighted"),
+                   help="learner fan-in order over a shard fleet: rotation, or fullest shard first")
+    p.add_argument("--replay-shard-id", default="",
+                   help="--type replay: metrics and stats label of this fleet member (default ':<port>')")
+    p.add_argument("--replay-max-size", type=int, default=1024,
+                   help="replay: items a table holds (FIFO eviction past it)")
+    p.add_argument("--replay-spi", type=float, default=1.0,
+                   help="replay: samples-per-insert ratio the rate limiter keeps (<= 0: none)")
+    p.add_argument("--replay-min-size", type=int, default=0,
+                   help="replay: inserts before sampling starts (0: the learner batch size)")
+    p.add_argument("--replay-error-buffer", type=float, default=None,
+                   help="replay: the limiter's slack in samples (default max(1, spi) * batch size)")
+    p.add_argument("--replay-sampler", default="fifo", choices=("fifo", "uniform", "prioritized"),
+                   help="replay: fifo (consume once), uniform, or prioritized (sum tree)")
+    p.add_argument("--replay-spill-dir", default="",
+                   help="replay: disk-spill directory; acknowledged inserts survive a crash of the store")
+    p.add_argument("--replay-spill-max", type=int, default=4096,
+                   help="replay: spill ring bound (the oldest dropped past it)")
+    p.add_argument("--replay-max-staleness-s", type=float, default=0.0,
+                   help="replay: evict items older than this (0: never)")
+    p.add_argument("--metrics-port", type=int, default=None,
+                   help="--type replay: the admin surface (/replay/stats, /metrics, POST /drain); "
+                        "other roles: " + _HEALTH)
     p.add_argument("--distill", action="store_true",
                    help="train the student tier (DistillLearner) on the same batches")
     p.add_argument("--admin-port", type=int, default=None,
@@ -402,9 +647,13 @@ def main(argv: Optional[Sequence[str]] = None):
     _refuse_not_ported(args, unknown)
     if args.type not in ROLES:
         raise SystemExit(f"rl_train: --type must be one of {', '.join(ROLES)}, got {args.type!r}")
+    if args.metrics_port is not None and args.type != "replay":
+        raise NotImplementedError(f"--metrics-port: {_HEALTH}")
     _resolve_args(args)
     if args.type == "all":
         return run_all(args)
+    if args.type == "replay":
+        return run_replay(args)
     if args.type == "coordinator":
         return run_coordinator(args)
     if args.type == "league":

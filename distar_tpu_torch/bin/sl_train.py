@@ -6,9 +6,11 @@
 Counterpart of ``distar_tpu.bin.sl_train``, on CUDA unless ``--device``
 says otherwise. Roles:
 
-  learner      train on a local ``ReplayDataset`` directory (``--data``) or,
-               without one, on the fake dataloader (schema-complete random
-               batches); with ``--eval-data`` an ``EVAL {json}`` line of
+  learner      train on a local ``ReplayDataset`` directory (``--data``), on
+               trajectories pulled off the coordinator's adapter plane from
+               remote replay actors (``--remote``: ``RemoteSLDataloader``
+               on the ``sltraj`` token), or, with neither, on the fake
+               dataloader (schema-complete random batches); with ``--eval-data`` an ``EVAL {json}`` line of
                held-out metrics every ``--eval-freq`` steps. Unless
                ``--no-supervise``, it first resumes from the experiment's
                ``latest`` checkpoint pointer, and a crash resumes from it
@@ -18,7 +20,7 @@ says otherwise. Roles:
   coordinator  the metadata broker (``comm.CoordinatorServer``).
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP Queue
-1 item: the replay actor role and remote data (``--remote``), meshes and
+1 item: the replay actor role (it needs the SC2 replay decoder), meshes and
 sharded checkpoints (``--mesh``), and the training-dynamics export
 (``--dynamics-every``).
 
@@ -46,10 +48,8 @@ from ..resilience import RestartPolicy, supervise_call
 from ..utils import read_config
 
 NOT_PORTED = {
-    "--remote": "remote data needs learner/replay_actor.py (RemoteSLDataloader over comm/adapter.py), "
-                "not ported yet (ROADMAP Queue 1 item 5, and item 10 for the replay decoder)",
-    "--type replay_actor": "the replay actor needs the replay decoder and learner/replay_actor.py, not "
-                           "ported yet (ROADMAP Queue 1 items 10 and 5)",
+    "--type replay_actor": "the replay actor role needs the SC2 replay decoder, not ported yet "
+                           "(ROADMAP Queue 1 item 10)",
     "--mesh": "meshes and sharded checkpoints are not ported yet (ROADMAP Queue 1 item 7)",
     "--dynamics-every": "the training-dynamics export is not ported yet (ROADMAP Queue 1 item 9)",
 }
@@ -101,6 +101,13 @@ def build_learner(args, dataloader: Optional[Iterable] = None) -> SLLearner:
         lrn.set_dataloader(dataloader)
     elif args.data:
         lrn.set_dataloader(SLDataloader(ReplayDataset(args.data), batch_size, unroll_len))
+    elif args.remote:
+        from ..comm import Adapter
+        from ..learner.replay_actor import RemoteSLDataloader
+
+        host, _, port = args.coordinator_addr.rpartition(":")
+        adapter = Adapter(coordinator_addr=(host or "127.0.0.1", int(port)))
+        lrn.set_dataloader(RemoteSLDataloader(adapter, batch_size, unroll_len))
     if args.eval_data:
         eval_freq = args.eval_freq or max(args.iters // 8, 1)
         eval_batches = max(args.eval_batches, 1)  # 0 would drain an endless sampler
@@ -204,7 +211,8 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--restart-window-s", type=float, default=300.0,
                    help="sliding window of the restart budget")
     p.add_argument("--coordinator-addr", default="127.0.0.1:8422")
-    p.add_argument("--remote", action="store_true", help=NOT_PORTED["--remote"])
+    p.add_argument("--remote", action="store_true",
+                   help="train on trajectories replay actors push to the coordinator at --coordinator-addr")
     p.add_argument("--mesh", default="", help=NOT_PORTED["--mesh"])
     p.add_argument("--dynamics-every", type=int, default=None,
                    help="0 or less: no training-dynamics tree, as always here; above 0: "
@@ -212,17 +220,16 @@ def parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
+def main(argv: Optional[Sequence[str]] = None) -> Optional[SLLearner]:
     args = parser().parse_args(argv)
-    for flag, given in (("--type replay_actor", args.type == "replay_actor"), ("--remote", args.remote),
-                        ("--mesh", args.mesh),
+    for flag, given in (("--type replay_actor", args.type == "replay_actor"), ("--mesh", args.mesh),
                         ("--dynamics-every", (args.dynamics_every or 0) > 0)):  # <= 0: off, as here
         if given:
             raise NotImplementedError(f"{flag}: {NOT_PORTED[flag]}")
     if args.type == "coordinator":
         coordinator(args)
-    else:
-        learner(args)
+        return None
+    return learner(args)
 
 
 if __name__ == "__main__":

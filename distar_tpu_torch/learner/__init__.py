@@ -16,7 +16,7 @@ from .distill_learner import (
     distill_loss,
     make_distill_train_step,
 )
-from .rl_dataloader import CollationError, RLDataLoader, collate_trajectories
+from .rl_dataloader import CollationError, RLDataLoader, ReplayDataLoader, collate_trajectories
 from .rl_learner import RL_LEARNER_DEFAULTS, RLLearner, make_rl_train_step, rl_loss
 from .sl_learner import SL_LEARNER_DEFAULTS, SLLearner, make_sl_train_step, sl_loss
 
@@ -28,6 +28,7 @@ __all__ = [
     "FakeRLDataloader",
     "FakeSLDataloader",
     "RLDataLoader",
+    "ReplayDataLoader",
     "RLLearner",
     "RL_LEARNER_DEFAULTS",
     "RL_REWARD_FIELDS",

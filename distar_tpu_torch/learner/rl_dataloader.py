@@ -1,8 +1,7 @@
 """RL dataloader: trajectory collation + adapter-fed batching.
 
-Counterpart of ``distar_tpu.learner.rl_dataloader``'s
-``collate_trajectories`` and ``RLDataLoader``; the store-backed
-``ReplayDataLoader`` comes with ``replay/`` (ROADMAP Queue 1 item 5).
+Counterpart of ``distar_tpu.learner.rl_dataloader``: ``collate_trajectories``,
+the adapter-fed ``RLDataLoader`` and the store-backed ``ReplayDataLoader``.
 Role parity with the reference RLDataLoader (reference: distar/agent/default/
 rl_training/rl_dataloader.py:45-167): worker pull-loops fetch trajectories
 over the Adapter, `collate_trajectories` assembles the time-major learner
@@ -190,3 +189,85 @@ class RLDataLoader:
         self._m_occupancy.set(self.occupancy())
         return batch
 
+
+class ReplayDataLoader:
+    """Store-backed sampling mode: batches come from a replay-store table
+    (``replay.SampleClient``) instead of the point-to-point pull cache, then
+    flow through the SAME ``collate_trajectories`` — the learner cannot tell
+    which data plane fed it.
+
+    What changes operationally: trajectories may be sampled more than once
+    (the table's samples-per-insert ratio governs reuse), the last batch's
+    per-item store metadata (seq/priority/sample_count/staleness) is kept on
+    ``last_sample_info`` for priority updates and logging, and starvation
+    blocks server-side in the store's rate limiter (the client retries
+    rate-limit timeouts under its policy). Staleness/reuse histograms are
+    recorded store-side (``distar_replay_sampled_*``).
+
+    The client can be a single-store ``SampleClient``, the zero-copy
+    ``LocalReplayClient`` (colocated fast path), or a
+    ``ShardedSampleClient`` fanning in across a shard fleet — the loader is
+    agnostic: all three speak the same ``sample``/``update_priorities``
+    surface, and for the sharded one the per-item ``shard`` field on
+    ``last_sample_info`` routes priority updates back to exactly the shard
+    each item came from."""
+
+    def __init__(self, sample_client, player_id: str, batch_size: int,
+                 table: Optional[str] = None, sample_timeout_s: float = 30.0):
+        self._client = sample_client
+        self._table = table or player_id
+        self._batch_size = batch_size
+        self._sample_timeout_s = sample_timeout_s
+        self.last_sample_info: List[dict] = []
+        reg = get_registry()
+        self._m_batches = reg.counter(
+            "distar_dataloader_batches_total", "collated batches yielded",
+            token=self._table,
+        )
+        self._m_wait = reg.histogram(
+            "distar_dataloader_wait_s",
+            "wall-clock the learner starved waiting for trajectories, per batch",
+            token=self._table,
+        )
+
+    @property
+    def token(self) -> str:
+        """The replay table this loader samples (telemetry parity with the
+        adapter loader's token)."""
+        return self._table
+
+    def __iter__(self) -> "ReplayDataLoader":
+        return self
+
+    def __next__(self) -> Dict:
+        t0 = time.monotonic()
+        items, info = self._client.sample(
+            self._table, batch_size=self._batch_size,
+            timeout_s=self._sample_timeout_s,
+        )
+        self._m_wait.observe(time.monotonic() - t0)
+        span_ids, ages = [], []
+        for traj in items:
+            if traj and isinstance(traj[0], dict):
+                ctx = traj[0].pop("trace", None)
+                if is_trace(ctx):
+                    ages.append(finish_trace(ctx, hop="learner_collate"))
+                    span_ids.append(ctx["span_id"])
+        batch = collate_trajectories(items)
+        if span_ids:
+            batch["trace_span_ids"] = span_ids
+            batch["trace_age_s"] = np.asarray(ages, np.float32)
+        self.last_sample_info = info
+        self._m_batches.inc()
+        return batch
+
+    def update_priorities(self, updates: Dict[int, float]) -> int:
+        """PER hook: push learner-side priorities (e.g. TD error magnitudes)
+        back to the table; unknown seqs (already evicted) are ignored. On a
+        sharded fleet the last batch's sample info routes each update to
+        the shard that served the item (seqs are per-shard counters, so a
+        broadcast could re-prioritize a stranger's seq)."""
+        if getattr(self._client, "sharded", False):
+            return self._client.update_priorities(
+                self._table, updates, info=self.last_sample_info)
+        return self._client.update_priorities(self._table, updates)

@@ -8,7 +8,10 @@ value-reset admin requests, and ``attach_comm``: the weight publication to
 the actors (the JAX package's payload, a flax-layout numpy tree) and the
 league's train-info with its reset. One step is forward, loss, backward and
 the optimizer's update in place; the batch is time-major and its
-observations are flattened to rows t*B + b.
+observations are flattened to rows t*B + b. ``_place_batch`` is the
+prefetcher's placing (``learner.prefetch_depth``, default 2; 0 turns it
+off): the capped, float32 batch on the device from pinned memory on a side
+stream, ``model_last_iter`` and the trace fields left on the host.
 
 Not ported yet, each raising ``NotImplementedError``: ``shard_batch`` and
 meshes (ROADMAP Queue 1 item 7) and the training-dynamics tree (item 9).
@@ -31,6 +34,7 @@ from ..utils import deep_merge_dicts
 from .base_learner import DEFAULT_LEARNER_CONFIG, BaseLearner, host_scalars
 from .hooks import LambdaHook
 from .data import FakeRLDataloader, as_float32, cap_entities_rl
+from .prefetch import place_on
 
 RL_LEARNER_DEFAULTS = deep_merge_dicts(
     DEFAULT_LEARNER_CONFIG,
@@ -173,6 +177,20 @@ class RLLearner(BaseLearner):
                                               lc.batch_size, lc.unroll_len,
                                               save_grad=lc.get("save_grad", False))
 
+    def _place_batch(self, batch):
+        """The prefetcher's placing: the capped batch, cast as the step
+        casts it, on the device (from pinned memory on CUDA), with
+        ``model_last_iter`` and the trace fields kept on the host."""
+        batch = dict(batch)
+        host = {"model_last_iter": np.asarray(batch.pop("model_last_iter"))}
+        for k in ("trace_span_ids", "trace_age_s"):
+            if k in batch:
+                host[k] = batch.pop(k)
+        out = place_on(as_float32(self._cap(batch)), self.device)
+        out.update(host)
+        out["_on_device"] = True
+        return out
+
     def shard_batch(self, batch):
         raise NotImplementedError("shard_batch: meshes and sharded batches are not ported yet "
                                   "(ROADMAP Queue 1 item 7, parallel/)")
@@ -258,12 +276,15 @@ class RLLearner(BaseLearner):
     def _train(self, data) -> Dict[str, Any]:
         only_value = self.step_value_pretrain()
         data = dict(data)  # callers may reuse the batch dict
+        on_device = data.pop("_on_device", False)
         model_last_iter = np.asarray(data.pop("model_last_iter"))
         staleness = self.last_iter.val - model_last_iter
         # pipeline-span fields minted in the actor (host side)
         span_ids = data.pop("trace_span_ids", None)
         trace_age = data.pop("trace_age_s", None)
-        info = self._train_step(to_device(as_float32(self._cap(data)), self.device), only_value)
+        if not on_device:
+            data = to_device(as_float32(self._cap(data)), self.device)
+        info = self._train_step(data, only_value)
         log = host_scalars(info)
         log["staleness/mean"] = float(staleness.mean())
         log["staleness/max"] = float(staleness.max())

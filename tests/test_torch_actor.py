@@ -4,7 +4,10 @@ post-processing, pseudo-rewards and trajectories bit-equal when fed the
 same model outputs), the env worker pool, the rollout plane's three
 backends (``remote`` against ``bin.serve`` as a process), a weight refresh
 in the middle of a job, and one ``Actor.run_job`` against the JAX actor's
-under the same weights and Gumbel draws.
+under the same weights and Gumbel draws; the replay-store push in both
+directions (a port actor into a JAX store, a JAX actor into a port store,
+each trajectory sampled back bit-equal, dtypes included), and
+``bin/play.py --game_type mock``.
 
 Actions equal; logits and log-probabilities within atol 2e-4 / rtol 1e-3
 (tests/test_golden_parity.py:132); observations, rewards and Z bit-equal."""
@@ -501,10 +504,131 @@ def test_actor_without_cuda_raises_unless_asked_for_the_cpu(monkeypatch):
         Actor(model_cfg=SMALL_MODEL)
 
 
-def test_actor_replay_push_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        Actor(cfg={"actor": {"replay": {"enabled": True, "addr": "inproc"}}}, model_cfg=SMALL_MODEL,
-              device="cpu")
+def assert_bits_equal(got, want):
+    """Leaf for leaf the same dtype and the same values."""
+    g, w = leaves(got), leaves(want)
+    assert set(g) == set(w), sorted(set(g) ^ set(w))[:8]
+    for k in w:
+        a, b = np.asarray(g[k]), np.asarray(w[k])
+        assert a.dtype == b.dtype, (k, a.dtype, b.dtype)
+        np.testing.assert_array_equal(a, b, err_msg=k)
+
+
+def test_actor_pushes_into_a_jax_store_bit_equal(policy_weights):
+    """``actor.replay.enabled``: a port actor's job pushes every trajectory
+    into a JAX ``ReplayServer`` (shared-memory rings where available) and no
+    longer to the adapter; sampled back, each equals the one pushed."""
+    import copy
+
+    import distar_tpu.replay as jr
+
+    store = jr.ReplayStore(table_factory=lambda n: jr.TableConfig(sampler="fifo", samples_per_insert=None))
+    server = jr.ReplayServer(store, port=0).start()
+    adapter = Capture()
+    actor = Actor(cfg={"actor": {"env_num": 1, "traj_len": 2,
+                                 "replay": {"enabled": True, "addr": f"{server.host}:{server.port}"}}},
+                  adapter=adapter, model_cfg=SMALL_MODEL, device="cpu", init_params=policy_weights[0],
+                  env_fn=lambda: MockEnv(episode_game_loops=60, seed=2))
+    client = actor._get_replay_client()
+    pushed, real_insert = [], client.insert
+    client.insert = lambda table, traj, **kw: (pushed.append((table, copy.deepcopy(traj))),
+                                               real_insert(table, traj, **kw))[1]
+    try:
+        actor.run_job(episodes=1, job=dict(JOB))
+        assert pushed and not adapter.pushed and all(t == "MP0" for t, _ in pushed)
+        items = store.sample("MP0", batch_size=len(pushed), timeout_s=10.0)
+        for item, (_, traj) in zip(items, pushed):
+            assert_bits_equal(item.data, traj)
+    finally:
+        client.close()
+        server.stop()
+
+
+def test_jax_actor_pushes_into_a_port_store_bit_equal():
+    """The JAX actor's replay push into the port's ``ReplayServer``; with
+    ``mirror`` the adapter gets the trajectory too."""
+    import copy
+
+    from distar_tpu_torch import replay as pr
+    from test_rl_dataloader import tiny_traj
+
+    store = pr.ReplayStore(table_factory=lambda n: pr.TableConfig(sampler="fifo", samples_per_insert=None))
+    server = pr.ReplayServer(store, port=0).start()
+    adapter = Capture()
+    actor = JaxActor(cfg={"actor": {"replay": {"enabled": True, "mirror": True,
+                                               "addr": f"{server.host}:{server.port}"}}},
+                     adapter=adapter, model_cfg=SMALL_MODEL)
+    rng = np.random.default_rng(5)
+    trajs = [tiny_traj(sun=int(rng.integers(0, 4))) for _ in range(3)]
+    try:
+        for traj in copy.deepcopy(trajs):  # the mirror's push stamps a trace into its copy
+            actor.push_trajectory("MP0", traj)
+        assert len(adapter.pushed) == 3
+        items, info = pr.SampleClient(server.host, server.port).sample("MP0", batch_size=3, timeout_s=10.0)
+        assert [d["seq"] for d in info] == [0, 1, 2]
+        for item, traj in zip(items, trajs):
+            assert_bits_equal(item, traj)
+    finally:
+        actor._replay_client.close()
+        server.stop()
+
+
+@pytest.mark.parametrize("addr", ["h1:x", ",", "nohost"])
+def test_malformed_replay_addr_fails_at_config_time_with_the_jax_message(addr):
+    cfg = {"actor": {"replay": {"enabled": True, "addr": addr}}}
+    with pytest.raises(ValueError) as mine:
+        Actor(cfg=cfg, model_cfg=SMALL_MODEL, device="cpu")
+    with pytest.raises(ValueError) as theirs:
+        JaxActor(cfg=cfg, model_cfg=SMALL_MODEL)
+    assert str(mine.value) == str(theirs.value) and "actor.replay.addr" in str(mine.value)
+
+
+def test_replay_push_to_an_unreachable_store_is_dropped_and_counted(policy_weights):
+    from distar_tpu_torch.obs import get_registry
+    from distar_tpu_torch.resilience import NO_RETRY
+
+    failures = lambda: sum(v for k, v in get_registry().snapshot().items()  # noqa: E731
+                           if k.startswith("distar_actor_replay_push_failures_total"))
+    actor = Actor(cfg={"actor": {"replay": {"enabled": True, "addr": "127.0.0.1:1"}}}, model_cfg=SMALL_MODEL,
+                  device="cpu")
+    from distar_tpu_torch.replay import InsertClient
+
+    actor._replay_client = InsertClient("127.0.0.1", 1, retry_policy=NO_RETRY)
+    before = failures()
+    actor.push_trajectory("MP0", [{"x": np.zeros(2)}])
+    assert failures() == before + 1
+
+
+def test_play_mock_games_print_the_jax_report(tmp_path, capsys, policy_weights):
+    """``bin/play.py --game_type mock``: two games between a checkpoint the
+    port wrote (``--model1``, a learner's tree with value towers) and the
+    seeded weights, the JAX launcher's report line; the SC2 game types and
+    LAN games raise naming item 10."""
+    import re
+
+    from distar_tpu_torch.bin import play
+    from distar_tpu_torch.model import init_params
+
+    cfg = deep_merge_dicts(default_model_config(), SMALL_MODEL)
+    cfg.use_value_network = True
+    learner_model = Model(cfg)
+    init_params(learner_model, 6)
+    ckpt = str(tmp_path / "mp.ckpt")
+    save_checkpoint(ckpt, {"params": params_to_flax(learner_model), "opt_state": ()})
+    loaded = play.load_params(ckpt, deep_merge_dicts(default_model_config(), SMALL_MODEL))
+    want = {k: v for k, v in learner_model.state_dict().items() if not k.startswith("value_")}
+    assert set(loaded) == set(want) and all(torch.equal(loaded[k], want[k]) for k in want)
+    results = play.main(["--game_type", "mock", "--device", "cpu", "--game-count", "2", "--model1", ckpt,
+                         "--smoke-model", "--episode-game-loops", "60"])
+    assert len(results) == 2
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    assert re.fullmatch(r"games=2 side0_winrate=\d\.\d\d side1_winrate=\d\.\d\d ties=\d", last), last
+    for argv in (["--game_type", "agent_vs_bot"], ["--game_type", "mock", "--lan", "h:1"], ["--lan-host"],
+                 ["--game_type", "mock", "--map", "KairosJunction"]):
+        with pytest.raises(NotImplementedError, match="item 10"):
+            play.main(argv + ["--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="item 10"):
+        play.load_params("ref.pth", cfg)
 
 
 def test_scripted_side_against_a_model_side(policy_weights):

@@ -70,7 +70,10 @@ def test_port_has_modules():
                    "actor/scripted.py", "actor/actor.py", "comm/adapter.py", "league/algorithms.py",
                    "league/stats.py", "league/payoff.py", "league/elo.py", "league/trueskill.py",
                    "league/stat_meters.py", "league/player.py", "league/league.py", "league/api.py",
-                   "league/remote.py", "plugins.py", "learner/rl_dataloader.py", "bin/rl_train.py"):
+                   "league/remote.py", "plugins.py", "learner/rl_dataloader.py", "bin/rl_train.py",
+                   "replay/__init__.py", "replay/errors.py", "replay/store.py", "replay/spill.py",
+                   "replay/local.py", "replay/client.py", "replay/server.py", "learner/replay_actor.py",
+                   "bin/play.py"):
         assert os.path.join("distar_tpu_torch", module) in files
     # the data plane's native library is the port's own copy of the source
     assert os.path.exists(os.path.join(REPO, "distar_tpu_torch", "comm", "native", "shuttle.cpp"))

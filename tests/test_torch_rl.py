@@ -553,6 +553,30 @@ def test_rl_step_new_params_match_jax_where_the_gradient_is_clear(rl_run, port_r
     assert compared > 0.1 * sum(g.size for g in grads.values())
 
 
+def test_rl_step_through_the_prefetcher_matches_jax(rl_run, tmp_path, monkeypatch):
+    """``run()`` with the prefetcher on (``learner.prefetch_depth`` 2: the
+    batch capped, cast and placed by ``_place_batch`` on its thread) takes
+    the JAX step: loss, info and grad_norm, and the new parameters where the
+    gradient is clear, at the tolerances above."""
+    from distar_tpu_torch.learner.prefetch import DevicePrefetcher
+
+    monkeypatch.setenv("DISTAR_EXPERIMENTS_ROOT", str(tmp_path))
+    learner = RLLearner({"learner": {"batch_size": B, "unroll_len": T, "learning_rate": LR, "prefetch_depth": 2},
+                         "model": deep_merge_dicts(SMALL_MODEL, KERNEL_OVERLAY)}, device="cpu")
+    learner.set_dataloader(iter([rl_run["batch"]]))
+    learner.run(1)
+    assert isinstance(learner._dataloader, DevicePrefetcher)
+    want, got = rl_run["runs"][False]["info"], learner.last_log
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-6, err_msg=k)
+    new = _flat(params_to_flax(learner.model)["params"])
+    grads = _flat(rl_run["runs"][False]["grads"]["params"])
+    norm = want["grad_norm"]
+    for k, w in _flat(rl_run["runs"][False]["params"]["params"]).items():
+        clear = (np.abs(grads[k]) > 1e-2 * np.abs(grads[k]).max()) & (np.abs(grads[k]) > 1e-5 * norm)
+        np.testing.assert_allclose(new[k][clear], w[clear], rtol=1e-5, atol=1e-6, err_msg=k)
+
+
 def test_value_pretrain_gate_moves_only_the_critic(rl_run, port_rl_steps):
     """With the gate on only ``td/total``'s gradient flows: the policy heads
     stay bit-equal in both packages, the winloss tower (weight 10) moves, the

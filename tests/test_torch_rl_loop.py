@@ -3,7 +3,9 @@ read across packages on one coordinator, ``collate_trajectories``
 bit-equal on JAX-made trajectories (and the RL step's batch layout),
 weight publication across packages (``attach_comm``), the whole loop in
 one process and with the league and coordinator over HTTP, the launcher
-``bin/rl_train.py`` as a process, and its unported flags.
+``bin/rl_train.py`` as a process, its replay flags' wiring (the replay
+layouts and roles are tests/test_torch_replay_fleet.py's), and its
+unported flags.
 
 Published weights loaded into the other package's inference agree within
 atol 2e-4 / rtol 1e-3 (tests/test_golden_parity.py:132)."""
@@ -427,15 +429,61 @@ def test_rl_train_all_distills_in_process(tmp_path, monkeypatch):
     assert np.isfinite(loop.learner.variable_record.get("total_loss").avg)
 
 
+@pytest.mark.parametrize("argv", [["--type", "replay"], ["--replay"], ["--replay-addr", "h:1"]],
+                         ids=["type_replay", "replay", "replay_addr"])
+def test_replay_flags_take_their_working_path(argv, tmp_path, monkeypatch, capsys):
+    """The replay role serves until SIGTERM (exit through the handler, the
+    handler restored); ``--replay`` wires ``--type all`` through one
+    loopback ``ReplayServer`` (the actor's target, the learner's
+    ``ReplayDataLoader``); ``--replay-addr`` gives the learner a
+    ``SampleClient`` at that address and the actor its push target."""
+    import signal
+    import threading
+    import time
+
+    from distar_tpu_torch.learner.rl_dataloader import ReplayDataLoader
+    from distar_tpu_torch.replay import SampleClient
+
+    monkeypatch.setenv("DISTAR_EXPERIMENTS_ROOT", str(tmp_path))
+    if argv == ["--type", "replay"]:
+        before = signal.getsignal(signal.SIGTERM)
+
+        def stop_once_serving():
+            deadline = time.time() + 60
+            while "replay store serving on" not in capsys.readouterr().out and time.time() < deadline:
+                time.sleep(0.05)
+            os.kill(os.getpid(), signal.SIGTERM)
+
+        stopper = threading.Thread(target=stop_once_serving, daemon=True)
+        stopper.start()
+        rl_train.main(argv + ["--port", "0", "--replay-spill-dir", str(tmp_path / "spill"), "--device", "cpu"])
+        stopper.join(timeout=10)
+        assert not stopper.is_alive() and signal.getsignal(signal.SIGTERM) is before
+        assert (tmp_path / "spill" / "MANIFEST").exists()  # flushed on the way out
+    elif argv == ["--replay"]:
+        loop = rl_train.build_all(_resolved(argv + ["--env-num", "1", "--device", "cpu"]))
+        try:
+            server, = loop.replay_servers
+            assert loop.actor.cfg.replay.addr == f"{server.host}:{server.port}"
+            assert isinstance(loop.learner._dataloader, ReplayDataLoader)
+            assert loop.replay_stores == [server.store]
+        finally:
+            rl_train.close_all(loop)
+    else:
+        args = _resolved(argv + ["--device", "cpu"])
+        client = rl_train._learner_replay_client(args, args.replay_addr)
+        assert isinstance(client, SampleClient) and client._addr == ("h", 1)
+        assert rl_train._replay_loader(args, args.replay_addr, "MP0").token == "MP0"
+
+
 @pytest.mark.parametrize("argv,item", [
-    (["--type", "replay"], "item 5"), (["--replay"], "item 5"), (["--replay-addr", "h:1"], "item 5"),
     (["--type", "arena"], "item 9"), (["--type", "league-run"], "item 9"),
     (["--type", "league-learner"], "item 9"), (["--anakin"], "item 8"), (["--env", "jaxenv"], "item 8"),
     (["--env", "sc2"], "item 10"), (["--mesh", "dp=2"], "item 7"), (["--dist-method", "auto"], "item 7"),
     (["--journal-dir", "j"], "item 11"), (["--ha-peers", "a:1"], "item 11"),
     (["--telemetry-interval-s", "5"], "item 9"), (["--no-health"], "item 9"),
     (["--dynamics-every", "2"], "item 9"), (["--league-resume", "x"], "item 9"),
-    (["--platform", "cpu"], "--device"),
+    (["--platform", "cpu"], "--device"), (["--metrics-port", "9"], "item 9"),
 ])
 def test_unported_flags_raise_naming_their_item(argv, item):
     with pytest.raises(NotImplementedError, match=item):

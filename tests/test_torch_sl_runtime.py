@@ -13,7 +13,9 @@ new Adam moments, within 1e-4 of its global norm; each package's new
 parameters are the adamw update of its own moments (``assert_steps_agree``).
 ``evaluate`` is held at the step's tolerance on the same parameters.
 The JAX and port dataloaders give identical batches from one dataset, and
-the two packages write identical dataset files.
+the two packages write identical dataset files. Either package's
+``ReplayActor`` feeds the other's ``RemoteSLDataloader`` bit-equal, and
+``bin/sl_train.py --remote`` trains on such a feed.
 """
 import glob
 import json
@@ -390,8 +392,111 @@ def test_bin_coordinator_role_serves_until_sigterm(capsys):
     assert signal.getsignal(signal.SIGTERM) is before
 
 
+class StubDecoder:
+    """The replay decoder's surface: ``run(path, player_idx)`` gives a
+    trajectory of SL steps (``fake_step_data`` with its action fields, from
+    a seeded generator) whatever the path."""
+
+    def __init__(self, seed=0, steps=8):
+        self.rng, self.steps, self.calls = np.random.default_rng(seed), steps, []
+
+    def run(self, path, player_idx):
+        from distar_tpu.lib import features as JF
+
+        self.calls.append((path, player_idx))
+        return [JF.fake_step_data(train=True, rng=self.rng) for _ in range(self.steps)]
+
+
+class ListLoader(psl.SLDataloader):
+    """``SLDataloader``'s batching over trajectories from a list."""
+
+    def __init__(self, trajs, batch_size, unroll_len):
+        self.batch_size, self.unroll_len, self._trajs = batch_size, unroll_len, list(trajs)
+        self._slots = [[] for _ in range(batch_size)]
+        self._fresh = [True] * batch_size
+
+    def _refill(self, slot):
+        self._slots[slot], self._fresh[slot] = list(self._trajs.pop(0)), True
+
+
+@pytest.mark.parametrize("actor_pkg,loader_pkg", [("port", "jax"), ("jax", "port")])
+def test_replay_actor_feeds_the_other_packages_remote_loader(actor_pkg, loader_pkg):
+    """A ``ReplayActor`` with a stub decoder pushes both players of two
+    replays on one coordinator; the other package's ``RemoteSLDataloader``
+    pulls them into batches bit-equal to ``SLDataloader``'s batching of
+    the decoder's trajectories in push order."""
+    import importlib
+
+    from distar_tpu_torch.comm import CoordinatorServer
+
+    actor_mod = importlib.import_module(("distar_tpu_torch" if actor_pkg == "port" else "distar_tpu")
+                                        + ".learner.replay_actor")
+    loader_mod = importlib.import_module(("distar_tpu_torch" if loader_pkg == "port" else "distar_tpu")
+                                         + ".learner.replay_actor")
+    adapter_cls = {p: importlib.import_module(("distar_tpu_torch" if p == "port" else "distar_tpu")
+                                              + ".comm").Adapter for p in ("port", "jax")}
+    assert actor_mod.expand_replay_list(["a", "b", "c"], epochs=2, ntasks=2, proc_id=1) == \
+        __import__("distar_tpu.learner.replay_actor", fromlist=["x"]).expand_replay_list(
+            ["a", "b", "c"], epochs=2, ntasks=2, proc_id=1)
+    co = CoordinatorServer()
+    co.start()
+    try:
+        addr = (co.host, co.port)
+        decoder = StubDecoder(seed=3)
+        made = []
+        real_run = decoder.run
+        decoder.run = lambda path, idx: made.append(real_run(path, idx)) or made[-1]
+        actor = actor_mod.ReplayActor(["a.SC2Replay", "b.SC2Replay"],
+                                      adapter_factory=lambda: adapter_cls[actor_pkg](coordinator_addr=addr),
+                                      decoder_factory=lambda: decoder, num_workers=1, ntasks=1, proc_id=0)
+        actor.run()
+        assert actor.pushed == 4 and actor.failed == actor.empty == 0
+        assert sorted(decoder.calls) == [("a.SC2Replay", 0), ("a.SC2Replay", 1), ("b.SC2Replay", 0),
+                                         ("b.SC2Replay", 1)]
+        loader = loader_mod.RemoteSLDataloader(adapter_cls[loader_pkg](coordinator_addr=addr), batch_size=2,
+                                               unroll_len=4, pull_timeout=30.0)
+        want = ListLoader(made, batch_size=2, unroll_len=4)
+        for _ in range(4):  # both windows of the four trajectories
+            assert_tree_equal_np(next(loader), next(want))
+    finally:
+        co.stop()
+
+
+def assert_tree_equal_np(got, want):
+    g, w = _flat(got), _flat(want)
+    assert set(g) == set(w)
+    for k in w:
+        assert np.asarray(g[k]).dtype == np.asarray(w[k]).dtype, k
+        np.testing.assert_array_equal(np.asarray(g[k]), np.asarray(w[k]), err_msg=k)
+
+
+def test_bin_trains_on_a_remote_feed(tmp_path, capsys, monkeypatch):
+    """``sl_train --remote``: the learner pulls, over the coordinator at
+    ``--coordinator-addr``, the trajectories a ``ReplayActor`` pushes, and
+    trains 2 steps."""
+    from distar_tpu_torch.comm import Adapter, CoordinatorServer
+    from distar_tpu_torch.learner.replay_actor import ReplayActor, RemoteSLDataloader
+
+    monkeypatch.setenv("DISTAR_EXPERIMENTS_ROOT", str(tmp_path))
+    co = CoordinatorServer()
+    co.start()
+    try:
+        addr = (co.host, co.port)
+        ReplayActor(["a.SC2Replay", "b.SC2Replay"], adapter_factory=lambda: Adapter(coordinator_addr=addr),
+                    decoder_factory=lambda: StubDecoder(seed=4), ntasks=1, proc_id=0).run()
+        lrn = sl_train.main(["--remote", "--coordinator-addr", f"{co.host}:{co.port}", "--device", "cpu",
+                             "--iters", "2", "--batch-size", "2", "--traj-len", "4", "--no-supervise"])
+        out = capsys.readouterr().out
+        assert "sl_train done: 2 iters" in out, out[-2000:]
+        assert isinstance(lrn._dataloader.source if hasattr(lrn._dataloader, "source") else lrn._dataloader,
+                          RemoteSLDataloader)
+        assert np.isfinite(lrn.last_log["total_loss"])
+    finally:
+        co.stop()
+
+
 @pytest.mark.parametrize("argv,item", [
-    (["--type", "replay_actor"], "items 10 and 5"), (["--remote"], "item 5"),
+    (["--type", "replay_actor"], "item 10"),
     (["--mesh", "dp=2"], "item 7"), (["--dynamics-every", "10"], "item 9")])
 def test_bin_parts_not_ported_name_their_item(argv, item):
     with pytest.raises(NotImplementedError, match=item):
