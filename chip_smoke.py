@@ -197,10 +197,36 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              trajectory, recovery count and seconds, the in-loop step's idle
              share and peak memory.
 
+12. anakin — ``bin/rl_train.py --anakin --env jaxenv`` at the flagship
+             (kernel overlay, f32), through ``rl_train.build_anakin``: the
+             micro-battle world (4 units a squad, episodes of 32 steps) on
+             16 lanes x 16 steps a window, the learner (256 acted frames a
+             step, no prefetch) on 3 windows; the first window under the
+             purity report (no host read, no synchronizing call). Checked:
+             3 finite steps; each kernel's launches per window (a forward a
+             step: one attention per transformer layer and one scatter) and
+             per learner step, all on the main thread; one call's inputs
+             captured in a window and in a learner step against the plain
+             versions; a steady-state window under
+             ``torch.cuda.set_sync_debug_mode("error")`` with no
+             ``Memcpy HtoD``/``DtoH`` activity in its profile, the finished
+             lanes read after it; the away seat (a frozen copy of the
+             initial policy) for 2 windows, every lane's episode drained into
+             results, its batches of the single-policy layout;
+             ``head_to_head`` of the flagship ``ModelPolicy`` against
+             ``attack_nearest_policy`` and of that against ``idle_policy``
+             over 16 episodes, each the full dict. On a thread during phase
+             10's untimed part, ``--type all --env jaxenv`` on the smoke
+             model (the host env on the card) for 2 iterations. Printed:
+             window s and env steps/s, ms a step in the window and a
+             16-lane forward alone beside rl_loop's flush, learner step ms,
+             the idle share of a window and of a step, peak memory,
+             head-to-head s, the phase's s.
+
 The line before the last is the ``kernels`` JSON (launches: the serve,
 serve-process, fleet (gateway A), SL, SL runtime, RL and distillation
-paths, the RL loop's and the replay loop's actor and learner together,
-each read from zero around its run);
+paths, the RL loop's and the replay loop's actor and learner together, the
+Anakin windows and learner steps, each read from zero around its run);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -738,7 +764,7 @@ def profile_call(fn):
 
     fn()
     torch.cuda.synchronize()
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof = profile(activities=[ProfilerActivity.CUDA])  # the device's activities are all it reads
     try:
         prof.start()
     except Exception as e:  # noqa: BLE001 - the profiler's own setup
@@ -3946,27 +3972,27 @@ def remote_sl_and_play(device, tmp):
     return out
 
 
-def path_kernels_against_plain(K, captured):
+def path_kernels_against_plain(K, captured, what="replay"):
     """Each kernel's wrapper on one call's inputs captured from each side of
-    the replay loop (an actor flush, a learner step), held against its plain
-    version: attention within ATTN_TOL, the scatter bit-equal to
-    ``scatter_add_plain``. Returns the max abs error per kernel and the
-    shapes."""
+    a loop (the replay loop's actor flush and learner step; an Anakin window
+    and its learner step), held against its plain version: attention within
+    ATTN_TOL, the scatter bit-equal to ``scatter_add_plain``. Returns the max
+    abs error per kernel and the shapes."""
     import torch
 
     errs, shapes = {}, {}
     for (side, name), args in sorted(captured.items()):
         if name == "masked_attention":
-            err = attention_check(K, f"replay {side}", *args)
+            err = attention_check(K, f"{what} {side}", *args)
         else:
             emb, idx, hw = args
             got, want = K.scatter_add_connection(emb, idx, hw), K.scatter_add_plain(emb, idx, hw)
             check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
-                  f"replay {side}: scatter_add_connection differs from scatter_add_plain")
+                  f"{what} {side}: scatter_add_connection differs from scatter_add_plain")
             err = float((got - want).abs().max())
         errs[name] = max(errs.get(name, 0.0), err)
         shapes[f"{side} {name}"] = list(args[0].shape)
-    print(f"replay: the path's kernels on inputs captured from each side, against their plain versions: "
+    print(f"{what}: the path's kernels on inputs captured from each side, against their plain versions: "
           f"max abs err {json.dumps(errs)}, shapes {json.dumps(shapes)}")
     return errs
 
@@ -4229,6 +4255,264 @@ def phase_replay(device, smi, tmp, rl_loop, background=None):
     return total, result
 
 
+# ------------------------------------------------------------------ anakin
+ANAKIN_B, ANAKIN_T = 16, 16  # lanes x steps a window: 256 acted frames a learner step (272 observed)
+ANAKIN_ITERS = 3
+ANAKIN_UNITS, ANAKIN_EPISODE_LEN = 4, 32  # the JAX launcher's --jaxenv-units / --jaxenv-episode-len
+H2H_EPISODES = 16
+JAXENV_ITERS = 2  # --type all --env jaxenv on the smoke model
+
+
+def jaxenv_smoke_run(device, tmp):
+    """``bin/rl_train.py --type all --env jaxenv`` on the smoke model: the
+    actor on the micro-battle world's host env (on the card), the learner
+    on its trajectories, JAXENV_ITERS iterations. Runs on a thread beside
+    other work, so it reads what the run returns, not what it prints."""
+    from distar_tpu_torch.bin import rl_train
+
+    t0 = time.perf_counter()
+    loop = rl_train.main(["--type", "all", "--env", "jaxenv", "--smoke-model", "--device", device.type,
+                          "--iters", str(JAXENV_ITERS), "--env-num", "2", "--traj-len", "4", "--batch-size", "2",
+                          "--jaxenv-episode-len", "8", "--save-path", os.path.join(tmp, "jaxenv_all")])
+    seconds = time.perf_counter() - t0
+    lrn = loop.learner
+    check(lrn.last_iter.val == JAXENV_ITERS and finite(lrn.last_log),
+          f"--env jaxenv: {lrn.last_iter.val} iterations, {lrn.last_log}")
+    out = {"seconds": seconds, "iters": lrn.last_iter.val, "total_loss": lrn.last_log["total_loss"],
+           "games": loop.league.all_players[loop.player_id].total_game_count}
+    print(f"anakin: bin/rl_train.py --type all --env jaxenv (smoke model, {JAXENV_ITERS} iterations): "
+          f"{json.dumps(out)}")
+    return out
+
+
+def flat_shapes(tree, prefix=""):
+    """{path: shape} of a tree of dicts and tuples."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (tuple, list)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tuple(tree.shape)}
+    return {k: v for key, sub in items for k, v in flat_shapes(sub, f"{prefix}/{key}").items()}
+
+
+def phase_anakin(device, smi, tmp, rl_loop, jaxenv_run):
+    """The Anakin loop at the flagship (module docstring, phase 12).
+    ``jaxenv_run``: what ``jaxenv_smoke_run`` returned (started during phase
+    10's untimed part). Returns the launch counts of its path (the windows'
+    and the learner steps') and the measurements."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from distar_tpu_torch.bin import rl_train
+    from distar_tpu_torch.envs.jaxenv import (AnakinDataLoader, AnakinRunner, attack_nearest_policy,
+                                              head_to_head, idle_policy, model_policy, observe)
+    from distar_tpu_torch.ops import build
+    from distar_tpu_torch.ops import kernels as K
+
+    t_phase = time.perf_counter()
+    args = rl_train.parser().parse_args([
+        "--anakin", "--env", "jaxenv", "--full-model", "--iters", str(ANAKIN_ITERS),
+        "--batch-size", str(ANAKIN_B), "--traj-len", str(ANAKIN_T), "--jaxenv-units", str(ANAKIN_UNITS),
+        "--jaxenv-episode-len", str(ANAKIN_EPISODE_LEN), "--save-path", os.path.join(tmp, "anakin"),
+        "--device", device.type, "--config", json.dumps({"model": overlay("pallas", "pallas"),
+                                                          "learner": {"log_freq": 1}})])
+    rl_train._resolve_args(args)
+    t0 = time.perf_counter()
+    learner, loader, first = rl_train.build_anakin(args)  # its first window under the purity report
+    build_s = time.perf_counter() - t0
+    check(first == {"pure": True, "offending": []}, f"anakin: the first window is not device-pure: {first}")
+    runner = loader.runner
+    jcfg, scfg = runner.env_cfg, runner.gen.cfg
+    layers = int(learner.model_cfg.encoder.entity.layer_num)
+    n_params = sum(p.numel() for p in learner.model.parameters())
+    print(f"anakin: bin/rl_train.py --anakin --env jaxenv, the flagship with value towers ({n_params} "
+          f"parameters), kernel overlay, f32; {ANAKIN_B} lanes x {ANAKIN_T} steps, {ANAKIN_UNITS} units a "
+          f"squad, episodes of {ANAKIN_EPISODE_LEN} steps; {ANAKIN_ITERS} learner iterations, no prefetch")
+
+    # instruments, outside the port: each window's and each step's time and
+    # launches, each kernel's first call in a window and in a step
+    side, windows, steps, captured = {"now": None}, [], [], {}
+    real = {"train": learner._train, "attention": K.masked_attention, "scatter": K.scatter_add_connection}
+
+    class Windows:
+        def __iter__(self):
+            return self
+
+        def __next__(self):
+            before = dict(K.launch_counts)
+            side["now"] = "window"
+            t0 = time.perf_counter()
+            batch = next(loader)  # it reads done back after the window: the device has finished
+            windows.append((time.perf_counter() - t0, {n: K.launch_counts[n] - before[n] for n in build.KERNELS}))
+            side["now"] = None
+            return batch
+
+    def train(data):
+        before = dict(K.launch_counts)
+        side["now"] = "learner step"
+        t0 = time.perf_counter()
+        log = real["train"](data)  # ends in the copy of its scalars to the host
+        steps.append(((time.perf_counter() - t0) * 1e3, log, {n: K.launch_counts[n] - before[n]
+                                                               for n in build.KERNELS}))
+        side["now"] = None
+        return log
+
+    def attention(q, k, v, mask):
+        key = (side["now"], "masked_attention")
+        if side["now"] and key not in captured:
+            captured[key] = [t.detach().clone() for t in (q, k, v, mask)]
+        return real["attention"](q, k, v, mask)
+
+    def scatter(emb, idx, hw):
+        key = (side["now"], "scatter_add_connection")
+        if side["now"] and key not in captured:
+            captured[key] = (emb.detach().clone(), idx.clone(), hw)
+        return real["scatter"](emb, idx, hw)
+
+    counts = ThreadCounts(build.KERNELS)
+    real_counts, K.launch_counts = K.launch_counts, counts
+    learner.set_dataloader(Windows())
+    learner._train = train
+    K.masked_attention, K.scatter_add_connection = attention, scatter
+    try:
+        K.reset_launch_counts()
+        counts.by_side = {s: {n: 0 for n in build.KERNELS} for s in ("learner", "actor")}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rl_train._run_learner_supervised(args, learner, ANAKIN_ITERS)
+        run_s = time.perf_counter() - t0
+        launches = dict(counts)
+        other_threads = dict(counts.by_side["actor"])
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        K.launch_counts = real_counts
+        K.masked_attention, K.scatter_add_connection = real["attention"], real["scatter"]
+        learner._train = real["train"]
+    check(learner.last_iter.val == ANAKIN_ITERS and len(steps) == ANAKIN_ITERS == len(windows),
+          f"anakin: {learner.last_iter.val} iterations, {len(steps)} steps, {len(windows)} windows")
+    check(all(finite(lg) for _, lg, _ in steps), "anakin: a non-finite loss or grad_norm")
+    check(not any(other_threads.values()), f"anakin: launches from another thread {other_threads}")
+    want_window = {"masked_attention": layers * ANAKIN_T, "scatter_add_connection": ANAKIN_T, "scatter_add_onehot": 0}
+    want_step = {"masked_attention": layers, "scatter_add_connection": 1, "scatter_add_onehot": 0}
+    check(all(n == want_window for _, n in windows), f"anakin: launches per window {[n for _, n in windows]}, "
+          f"want {want_window}")
+    check(all(n == want_step for _, _, n in steps), f"anakin: launches per learner step {[n for _, _, n in steps]}")
+
+    # a steady-state window: no synchronizing call (sync debug mode
+    # "error") and no host<->device copy (the profiler, device activities
+    # only) inside it; the one deliberate read (the finished lanes) after it
+    carry = mid = loader._carry
+    torch.cuda.synchronize()
+    t_sub = {"run": run_s}
+    t1 = time.perf_counter()
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    prof.start()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        carry, batch = runner.rollout(learner.model, carry)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    pure_ms = (time.perf_counter() - t0) * 1e3
+    prof.stop()
+    acts = device_activities(prof)
+    t_sub["steady_window"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    memcpy = {k: v for k, v in acts.items() if "Memcpy" in k and ("HtoD" in k or "DtoH" in k)}
+    check(not memcpy, f"anakin: host<->device copies inside a steady-state window: {memcpy}")
+    busy = sum(ms for ms, _ in acts.values())
+    ended = int(batch["done"][-1].sum())
+    loader._carry = carry
+    window_profile = {"wall_ms": pure_ms, "device_busy_ms": busy, "idle_share": 1 - busy / pure_ms,
+                      "device_activities": sum(n for _, n in acts.values()), "memcpy_htod_dtoh": 0,
+                      "lanes_finished": ended,
+                      "top": [{"name": k[:80], "ms": ms, "count": n}
+                              for k, (ms, n) in sorted(acts.items(), key=lambda kv: -kv[1][0])[:8]]}
+
+    # one forward at the window's width alone, beside rl_loop's 8-lane flush
+    obs = observe(jcfg, carry[0], 0)
+    fwd_ms = []
+    with torch.no_grad():
+        for i in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runner._sample(learner.model, obs, carry[1], None)
+            torch.cuda.synchronize()
+            if i:
+                fwd_ms.append((time.perf_counter() - t0) * 1e3)
+    t_sub["forward_alone"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    step_profile = profile_call(lambda: learner._train(batch))
+    t_sub["step_profile"] = time.perf_counter() - t1
+    layout = flat_shapes(batch)
+
+    # the away seat: a frozen copy of the initial policy on the away team,
+    # one window from the lanes the steady window began from, most of them
+    # halfway through their episodes: those episodes end in it
+    opp_runner = AnakinRunner(learner.model, ANAKIN_B, ANAKIN_T, jcfg, scfg, seed=1, opponent_seat=True,
+                              device=device)
+    opp = AnakinDataLoader(opp_runner, model_provider=lambda: learner.model)
+    opp._carry = (mid[0], mid[1], opp_runner._zero_hidden())
+    ending = int(((~mid[0].done) & (mid[0].t + ANAKIN_T >= ANAKIN_EPISODE_LEN)).sum())
+    t0 = time.perf_counter()
+    opp_batch = next(opp)
+    opp_s = time.perf_counter() - t0
+    results = opp.drain_results()
+    check(flat_shapes(opp_batch) == layout, "anakin: the away-seat batch has another layout")
+    check(ending > 0 and len(results) >= ending and {r["winner"] for r in results} <= {"home", "away", "draw"}
+          and opp.drain_results() == [], f"anakin: away-seat results {results[:4]} ({len(results)}, "
+          f"{ending} lanes due to end)")
+    tally = {w: sum(r["winner"] == w for r in results) for w in ("home", "away", "draw")}
+    del opp, opp_runner, opp_batch
+
+    # win rates: the flagship policy against the scripted attacker, and the
+    # scripted attacker against the idle one
+    h2h = {}
+    for name, (a, b) in {"model_vs_attack_nearest": (model_policy(learner.model), attack_nearest_policy()),
+                         "attack_nearest_vs_idle": (attack_nearest_policy(), idle_policy())}.items():
+        t0 = time.perf_counter()
+        res = head_to_head(a, b, episodes=H2H_EPISODES, seed=0, env_cfg=jcfg, scenario_cfg=scfg, device=device)
+        seconds = time.perf_counter() - t0
+        check(set(res) == {"win_rate", "wins", "losses", "draws", "episodes", "matches", "mean_game_steps",
+                           "duration_s"} and res["episodes"] == len(res["matches"]) == H2H_EPISODES
+              and res["wins"] + res["losses"] + res["draws"] == H2H_EPISODES, f"anakin: head-to-head {res}")
+        h2h[name] = {"seconds": seconds, **{k: v for k, v in res.items() if k != "matches"}}
+
+    t1 = time.perf_counter()
+    errs = path_kernels_against_plain(K, captured, "anakin")
+    t_sub["kernels_vs_plain"] = time.perf_counter() - t1
+    check(set(captured) == {(s, n) for s in ("window", "learner step")
+                            for n in ("masked_attention", "scatter_add_connection")},
+          f"anakin: captured {sorted(captured)}")
+    del learner, loader, runner, captured, batch
+
+    window_s = [s for s, _ in windows]
+    step_ms = [ms for ms, _, _ in steps]
+    result = {
+        "seconds": time.perf_counter() - t_phase, "build_s": build_s, "run_s": run_s,
+        "first_window_purity": first, "window_s": window_s,
+        "env_steps_per_s": [ANAKIN_B * ANAKIN_T / s for s in window_s],
+        "step_ms_in_window": [s * 1e3 / ANAKIN_T for s in window_s],
+        "forward_ms_alone": {"median": statistics.median(fwd_ms), "all": fwd_ms, "lanes": ANAKIN_B,
+                             "rl_loop_flush_alone_median": rl_loop["flush_ms"]["alone_median"]},
+        "learner_step_ms": {"loop": step_ms, "median": statistics.median(step_ms)},
+        "steady_window": window_profile, "step_profile_idle_share": step_profile.get("idle_share"),
+        "peak_memory_gb": peak_gb, "losses": [lg["total_loss"] for _, lg, _ in steps],
+        "launches": {"run": launches, "per_window": want_window, "per_learner_step": want_step},
+        "kernel_max_abs_err": errs, "away_seat": {"seconds": opp_s, "results": len(results), "winners": tally},
+        "parts_s": t_sub,
+        "head_to_head": h2h, "jaxenv_all": jaxenv_run,
+    }
+    print(f"anakin ({smi}): " + json.dumps({k: v for k, v in result.items() if k != "steady_window"}))
+    print(f"anakin: a steady-state window under sync debug mode 'error' and the profiler ({smi}): "
+          f"{json.dumps(window_profile)}")
+    print(f"anakin: a learner step on an Anakin batch profiled ({smi}): {json.dumps(step_profile)}")
+    return launches, result
+
+
 def smi_line():
     try:
         return subprocess.run(
@@ -4333,27 +4617,35 @@ def main() -> int:
         # play.py) run during its untimed part
         replay_jobs = [Background(lambda: replay_processes(tmp, smi, device)),
                        Background(lambda: replay_smoke_runs(device, tmp))]
-        loop_launches, rl_loop = phase_rl_loop(device, smi, tmp, untimed=replay_jobs)
+        # and the anakin phase's --type all --env jaxenv run on the smoke model
+        jaxenv_job = Background(lambda: jaxenv_smoke_run(device, tmp))
+        loop_launches, rl_loop = phase_rl_loop(device, smi, tmp, untimed=replay_jobs + [jaxenv_job])
+        jaxenv_run = jaxenv_job.result()  # ended before the replay loop, which it would disturb
         mark("rl_loop")
 
         # 11. the replay store between actors and learner
         replay_launches, replay = phase_replay(device, smi, tmp, rl_loop, replay_jobs)
         mark("replay")
+
+        # 12. the Anakin loop: the micro-battle world and the flagship on the card
+        anakin_launches, anakin = phase_anakin(device, smi, tmp, rl_loop, jaxenv_run)
+        mark("anakin")
         print(f"phase seconds: {json.dumps(phase_s)}")
         print(f"launches: serve {launches}, serve process {process_launches}, serve fleet (gateway A) "
               f"{fleet_launches}, train {train_launches}, sl runtime {runtime_launches}, rl and distill "
               f"{rl_launches}, rl loop (actor and learner) {loop_launches}, replay loop (actor and learner) "
-              f"{replay_launches}")
+              f"{replay_launches}, anakin (windows and learner steps) {anakin_launches}")
         launches = {name: launches[name] + process_launches[name] + fleet_launches[name] + train_launches[name]
                     + runtime_launches[name] + rl_launches[name] + loop_launches[name] + replay_launches[name]
-                    for name in build.KERNELS}
+                    + anakin_launches[name] for name in build.KERNELS}
 
         # 9. the kernels line; max_abs_err over the serve shapes and the f32
         # SL, RL and student training shapes
         errs = {**train["train_kernel_max_abs_err"],
                 **{f"rl {k}": v for k, v in rl["rl_kernel_max_abs_err"].items()},
                 **{f"student {k}": v for k, v in rl["student_kernel_max_abs_err"].items()},
-                **{f"replay {k}": v for k, v in replay["kernel_max_abs_err"].items()}}
+                **{f"replay {k}": v for k, v in replay["kernel_max_abs_err"].items()},
+                **{f"anakin {k}": v for k, v in anakin["kernel_max_abs_err"].items()}}
         for name, rec in records.items():
             rec["max_abs_err"] = max([rec["max_abs_err"]] + [
                 err for key, err in errs.items()
@@ -4381,6 +4673,11 @@ def main() -> int:
                               "inserts", "samples", "reuse", "spi", "data_wait_ms", "frames_made_per_s",
                               "frames_consumed_per_s", "step_ms", "flush_ms", "insert_ms", "sample_ms",
                               "spill_append_ms", "bytes", "recovery", "peak_memory_gb", "seconds")},
+                          "anakin": {k: anakin[k] for k in (
+                              "window_s", "env_steps_per_s", "step_ms_in_window", "forward_ms_alone",
+                              "learner_step_ms", "step_profile_idle_share", "peak_memory_gb", "seconds")},
+                          "anakin_window_idle_share": anakin["steady_window"]["idle_share"],
+                          "anakin_head_to_head_s": {k: v["seconds"] for k, v in anakin["head_to_head"].items()},
                           "phase_seconds": phase_s, "seconds": time.perf_counter() - t_start}))
         print(json.dumps(line))
     except Exception as e:  # every phase failure fails the run

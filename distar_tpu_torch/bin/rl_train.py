@@ -7,6 +7,7 @@
     python -m distar_tpu_torch.bin.rl_train --type actor --coordinator-addr H:8422 --league-addr H:8421
     python -m distar_tpu_torch.bin.rl_train --type all --replay --smoke-model --device cpu --iters 2
     python -m distar_tpu_torch.bin.rl_train --type replay --port 0 --replay-spill-dir D
+    python -m distar_tpu_torch.bin.rl_train --anakin --env jaxenv --smoke-model --device cpu --iters 2
 
 Counterpart of ``distar_tpu.bin.rl_train``, on CUDA unless ``--device``
 says otherwise. Roles:
@@ -42,6 +43,14 @@ With ``--replay-addr`` (one ``host:port``, a comma-separated shard fleet,
 or ``discover``) the learner samples its batches from the store and the
 actor pushes its trajectories there.
 
+``--env jaxenv`` puts the actors on the micro-battle world's host env
+(``envs.jaxenv.JaxMicroBattleEnv``, ``--jaxenv-units`` a squad,
+``--jaxenv-episode-len`` steps an episode). ``--anakin`` (with ``--env
+jaxenv`` or no ``--env``) replaces the actor plane: the learner trains on
+``--batch-size`` lanes x ``--traj-len`` steps of the world and the policy
+stepped together on the device (``envs.jaxenv.AnakinRunner``), and refuses
+to start when its first window is not device-pure.
+
 The coordinator, the league, the replay store and the actor exit on
 SIGTERM or SIGINT; the learner saves a checkpoint first.
 
@@ -54,9 +63,9 @@ stand where ``--batch-size``, ``--traj-len`` and ``--env-num`` are not given.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP Queue 1
 item (``NOT_PORTED``): the arena, league-run and league-learner roles and
-their flags, the jaxenv and SC2 envs, Anakin, meshes and
-``jax.distributed``, the coordinator's HA, and fleet health and telemetry
-(``--metrics-port`` serves only the replay role's admin surface).
+their flags, the SC2 env, meshes and ``jax.distributed``, the coordinator's
+HA, and fleet health and telemetry (``--metrics-port`` serves only the
+replay role's admin surface).
 """
 from __future__ import annotations
 
@@ -89,9 +98,6 @@ NOT_PORTED = {
     "--type arena": "the arena is not ported yet (ROADMAP Queue 1 item 9, arena/)",
     "--type league-run": _LEAGUE_RUNTIME,
     "--type league-learner": _LEAGUE_RUNTIME,
-    "--anakin": "Anakin is not ported yet (ROADMAP Queue 1 item 8, envs/jaxenv/)",
-    "--jaxenv": "jaxenv is not ported yet (ROADMAP Queue 1 item 8, envs/jaxenv/)",
-    "--env jaxenv": "jaxenv is not ported yet (ROADMAP Queue 1 item 8, envs/jaxenv/)",
     "--env sc2": "the SC2 env is not ported yet (ROADMAP Queue 1 item 10, envs/sc2/)",
     "--mesh": _MESH,
     "--host-devices": _MESH,
@@ -133,13 +139,28 @@ def _resolve_args(args) -> None:
         args.env_num = int(actor_cfg.get("env_num", 2))
 
 
+def _jaxenv_cfgs(args):
+    """(EnvConfig, ScenarioConfig) from the --jaxenv-* knobs."""
+    from ..envs.jaxenv import EnvConfig, ScenarioConfig
+
+    u = args.jaxenv_units
+    return (EnvConfig(units_per_squad=u),
+            ScenarioConfig(units_per_squad=u, max_units=u, episode_len=args.jaxenv_episode_len))
+
+
 def _env_fn(args):
-    """The env factory: the mock env (``--env`` or the config's ``env.type``
-    may name only it here)."""
+    """The env factory: ``--env`` wins, then the config's ``env.type``: the
+    mock env (default) or ``jaxenv``, the micro-battle world through its
+    host env on ``--device``."""
     env_type = args.env or dict(_user_cfg(args).get("env", {})).get("type", "mock")
+    if env_type == "jaxenv":
+        from ..envs.jaxenv import JaxMicroBattleEnv
+
+        jcfg, scfg = _jaxenv_cfgs(args)
+        return lambda: JaxMicroBattleEnv(jcfg, scfg, device=args.device)
     if env_type != "mock":
         raise NotImplementedError(f"--env {env_type}: " + NOT_PORTED.get(
-            f"--env {env_type}", "only the mock env is ported"))
+            f"--env {env_type}", "only the mock and jaxenv envs are ported"))
     return lambda: MockEnv(episode_game_loops=args.episode_game_loops)
 
 
@@ -391,6 +412,40 @@ def run_all(args) -> Loop:
     return loop
 
 
+def build_anakin(args):
+    """The learner of ``--anakin`` and its dataloader, wired: an
+    ``AnakinRunner`` of ``--batch-size`` lanes x ``--traj-len`` steps on the
+    learner's device, fed by the learner's live model. No prefetch: the
+    batches are made on the device, and a prefetch thread would run the
+    next window with the model the step is updating. Refuses to train when
+    the first window is not device-pure (``purity_report``: no host read or
+    synchronizing call inside it). Returns (learner, loader, the report)."""
+    from ..envs.jaxenv import AnakinDataLoader, AnakinRunner
+
+    learner = _make_learner(args, _model_cfg(args))
+    learner.cfg.learner["prefetch_depth"] = 0
+    jcfg, scfg = _jaxenv_cfgs(args)
+    runner = AnakinRunner(learner.model, batch_size=args.batch_size, unroll_len=args.traj_len,
+                          env_cfg=jcfg, scenario_cfg=scfg, device=learner.device)
+    loader = AnakinDataLoader(runner, model_provider=lambda: learner.model)
+    report = runner.purity_report(learner.model, runner.init_carry())
+    print(f"anakin device purity: {report}", flush=True)
+    if not report["pure"]:
+        raise SystemExit(f"anakin loop is not device-pure: {report['offending']}")
+    print(f"anakin: B={runner.B} lanes x T={runner.T} steps ({runner.B * runner.T} env steps/window), "
+          f"units_per_squad={jcfg.units_per_squad}, device {runner.device}", flush=True)
+    learner.set_dataloader(loader)
+    return learner, loader, report
+
+
+def run_anakin(args):
+    learner, _, _ = build_anakin(args)
+    _run_learner_supervised(args, learner, args.iters)
+    print(f"learner done: {learner.last_iter.val} iters, "
+          f"loss={learner.variable_record.get('total_loss').avg:.4f}", flush=True)
+    return learner
+
+
 def _addr(s: str):
     """``"host:port"`` -> ``(host, port)``."""
     if "," in s:
@@ -557,7 +612,14 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--traj-len", type=int, default=None, help="default: the config's, else 4")
     p.add_argument("--env-num", type=int, default=None, help="default: the config's, else 2")
     p.add_argument("--episode-game-loops", type=int, default=300)
-    p.add_argument("--env", default="", help="mock (the only env ported)")
+    p.add_argument("--env", default="",
+                   help="mock (default) or jaxenv (the micro-battle world's host env); overrides the "
+                        "config's env.type")
+    p.add_argument("--anakin", action="store_true",
+                   help="train the learner from the jaxenv Anakin loop on the device (implies --env "
+                        "jaxenv; replaces the actor plane)")
+    p.add_argument("--jaxenv-units", type=int, default=4, help="jaxenv units a squad")
+    p.add_argument("--jaxenv-episode-len", type=int, default=32, help="jaxenv env steps until timeout")
     p.add_argument("--experiment-name", default="rl_train")
     p.add_argument("--save-path", default="",
                    help="experiment root (default $DISTAR_EXPERIMENTS_ROOT or ./experiments, "
@@ -650,6 +712,10 @@ def main(argv: Optional[Sequence[str]] = None):
     if args.metrics_port is not None and args.type != "replay":
         raise NotImplementedError(f"--metrics-port: {_HEALTH}")
     _resolve_args(args)
+    if args.anakin:
+        if args.env and args.env != "jaxenv":
+            raise SystemExit("--anakin requires --env jaxenv")
+        return run_anakin(args)
     if args.type == "all":
         return run_all(args)
     if args.type == "replay":

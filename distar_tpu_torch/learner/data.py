@@ -33,6 +33,7 @@ from __future__ import annotations
 from typing import Dict, Iterator, Optional
 
 import numpy as np
+import torch
 
 from ..lib import actions as A
 from ..lib import features as F
@@ -250,11 +251,14 @@ def random_rl_batch(batch_size: int, unroll_len: int, rng: np.random.Generator,
 def as_float32(tree):
     """float64 leaves as float32: a collated trajectory batch stacks Python
     floats (rewards, steps, masks) as float64, which the JAX learner's
-    ``jnp.asarray`` takes to float32 as well."""
+    ``jnp.asarray`` takes to float32 as well. Tensor leaves (a batch made
+    on the device) stay tensors, where they lie."""
     if isinstance(tree, dict):
         return {k: as_float32(v) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
         return type(tree)(as_float32(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.float() if tree.dtype == torch.float64 else tree
     a = np.asarray(tree)
     return a.astype(np.float32) if a.dtype == np.float64 else a
 
@@ -283,35 +287,43 @@ def cap_entities_rl(batch: Dict, n: int) -> Dict:
     zeroes its selected_units and target_unit action masks entirely (the
     teacher's sliced distribution would renormalise over a truncated
     candidate set), clamps its end tokens to the new end slot and every
-    out-of-range lane to it, and zeroes out-of-range target units.
+    out-of-range lane to it, and zeroes out-of-range target units. A batch
+    of tensors (made on the device) is capped where it lies.
     """
+    on_device = isinstance(batch["entity_num"], torch.Tensor)
+    asarray = (lambda x: x) if on_device else np.asarray
+    where = torch.where if on_device else np.where
+
+    def cast(x, like):
+        return x.to(like.dtype) if on_device else x.astype(like.dtype)
+
     entity_info = {k: v[:, :, :n] for k, v in batch["entity_info"].items()}
-    old_num = np.asarray(batch["entity_num"])  # [T+1, B]
-    new_num = np.minimum(old_num, n)
+    old_num = asarray(batch["entity_num"])  # [T+1, B]
+    new_num = old_num.clamp_max(n) if on_device else np.minimum(old_num, n)
     act_num_old = old_num[:-1]  # the acted steps
     act_num_new = new_num[:-1]
     overflow = act_num_old > n  # [T, B]
 
     ai = dict(batch["action_info"])
-    su = np.asarray(ai["selected_units"])  # [T, B, S]
+    su = asarray(ai["selected_units"])  # [T, B, S]
     was_end = su == act_num_old[..., None]
     oob = (su >= act_num_new[..., None]) & ~was_end
-    ai["selected_units"] = np.where(was_end | oob, act_num_new[..., None], su)
-    tu = np.asarray(ai["target_unit"])  # [T, B]
+    ai["selected_units"] = where(was_end | oob, act_num_new[..., None], su)
+    tu = asarray(ai["target_unit"])  # [T, B]
     tu_bad = tu >= act_num_new
-    ai["target_unit"] = np.where(tu_bad, 0, tu)
+    ai["target_unit"] = where(tu_bad, 0, tu)
 
     mask = {k: (dict(v) if isinstance(v, dict) else v) for k, v in batch["mask"].items()}
     am = mask["actions_mask"]
-    su_mask = np.asarray(am["selected_units"])
-    am["selected_units"] = np.where(overflow, 0.0, su_mask).astype(su_mask.dtype)
-    tu_mask = np.asarray(am["target_unit"])
-    am["target_unit"] = np.where(overflow | tu_bad, 0.0, tu_mask).astype(tu_mask.dtype)
+    su_mask = asarray(am["selected_units"])
+    am["selected_units"] = cast(where(overflow, 0.0, su_mask), su_mask)
+    tu_mask = asarray(am["target_unit"])
+    am["target_unit"] = cast(where(overflow | tu_bad, 0.0, tu_mask), tu_mask)
 
     def cap_logits(logits):
         out = dict(logits)
-        out["selected_units"] = np.asarray(out["selected_units"])[..., : n + 1]
-        out["target_unit"] = np.asarray(out["target_unit"])[..., :n]
+        out["selected_units"] = asarray(out["selected_units"])[..., : n + 1]
+        out["target_unit"] = asarray(out["target_unit"])[..., :n]
         return out
 
     out = dict(batch, entity_info=entity_info, entity_num=new_num, action_info=ai, mask=mask,

@@ -27,13 +27,16 @@ from ..actor.inference import to_device
 
 def place_on(tree, device: torch.device):
     """``tree`` (dicts, lists, tuples of numpy arrays) on ``device``: from
-    pinned memory and without blocking on CUDA, ``to_device`` otherwise."""
+    pinned memory and without blocking on CUDA, ``to_device`` otherwise. A
+    tensor already on ``device`` (an Anakin batch) stays where it is."""
     if device.type != "cuda":
         return to_device(tree, device)
     if isinstance(tree, dict):
         return {k: place_on(v, device) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
         return type(tree)(place_on(v, device) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device, non_blocking=True)
     host = torch.from_numpy(np.ascontiguousarray(tree)).pin_memory()
     return host.to(device, non_blocking=True)
 

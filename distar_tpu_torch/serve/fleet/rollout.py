@@ -257,9 +257,8 @@ class FleetRollout:
         else the freshest ``distar_distill_kl`` from the coordinator).
 
         The third distillation axis is **win_rate**: head-to-head episodes
-        of the canary (home) vs the stable policy (in the JAX package,
-        ``envs.jaxenv.head_to_head``; the port's env is ROADMAP Queue 1
-        item 8). Pass a ready-made summary via ``win_rate=`` or a zero-arg
+        of the canary (home) vs the stable policy
+        (``envs.jaxenv.head_to_head``). Pass a ready-made summary via ``win_rate=`` or a zero-arg
         callable via ``win_rate_fn=`` (evaluated here, so the episode cost lands inside
         the compare step that reports it); ``min_win_rate`` turns the
         column into a gate — a canary that loses the head-to-head cannot

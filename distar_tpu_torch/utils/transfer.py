@@ -1,6 +1,7 @@
 """Moving nested dicts of arrays between the host and a device.
 
-``to_device`` puts a tree of numpy arrays on a device; ``to_host`` brings
+``to_device`` puts a tree of numpy arrays on a device (a tensor leaf moves
+device to device, and stays as it is where it already lies); ``to_host`` brings
 a tree of tensors back in ONE device -> host transfer (a flush's outputs,
 a learner's batch, a weight publication).
 """
@@ -17,6 +18,8 @@ def to_device(tree, device):
         return {k: to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
         return type(tree)(to_device(v, device) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device, non_blocking=True)
     return torch.from_numpy(np.ascontiguousarray(tree)).to(device, non_blocking=True)
 
 

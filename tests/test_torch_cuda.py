@@ -421,3 +421,96 @@ def test_rl_train_all_runs_on_the_card(cuda, tmp_path, monkeypatch):
     assert np.isfinite(loop.learner.variable_record.get("total_loss").avg)
     assert kernels.launch_counts["masked_attention"] > 0
     assert kernels.launch_counts["scatter_add_connection"] > 0
+
+
+def _jaxenv_actions(rng, B, N, device):
+    """Seeded actions in the contract layout, junk included (as
+    tests/test_torch_jaxenv.py draws them)."""
+    from distar_tpu_torch.envs.jaxenv.core import MICRO_ACTION_TYPES
+    from distar_tpu_torch.lib import actions as ACT
+    from distar_tpu_torch.lib import features as F
+
+    micro = np.asarray(MICRO_ACTION_TYPES)
+    action = {
+        "action_type": np.where(rng.random(B) < 0.5, micro[rng.integers(0, len(micro), B)],
+                                rng.integers(-2, ACT.NUM_ACTIONS + 2, B)),
+        "delay": rng.integers(0, 128, B),
+        "queued": rng.integers(0, 2, B),
+        "selected_units": rng.integers(-1, N + 2, (B, F.MAX_SELECTED_UNITS_NUM)),
+        "target_unit": rng.integers(-1, N + 2, B),
+        "target_location": rng.integers(-5, F.SPATIAL_SIZE[0] * F.SPATIAL_SIZE[1] + 5, B),
+    }
+    sun = rng.integers(0, N + 3, B)
+    return ({k: torch.from_numpy(v).to(device) for k, v in action.items()},
+            torch.from_numpy(sun).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("away", ["scripted", "explicit"])
+def test_jaxenv_step_on_the_card_matches_the_cpu(cuda, away):
+    """The micro-battle world on CUDA against the same world on the CPU:
+    one scenario batch (drawn on the CPU, copied over), 48 steps of 16
+    lanes with seeded actions; every state leaf, reward, done, winner and
+    observation leaf of both teams bit-equal at every step (the env's
+    float32 operations are IEEE on both devices; its square roots and fused
+    multiply-adds are taken in float64 and rounded once)."""
+    from distar_tpu_torch.envs import jaxenv as P
+
+    env, B = P.EnvConfig(units_per_squad=8), 16
+    scn = P.ScenarioGenerator(P.ScenarioConfig(episode_len=48)).batch(B, torch.Generator().manual_seed(2))
+    states = {"cpu": P.reset(env, scn), "cuda": P.reset(env, P.Scenario(*(x.to(cuda) for x in scn)))}
+    rng = np.random.default_rng(3)
+    for t in range(48):
+        acts = [_jaxenv_actions(rng, B, env.num_units, "cpu") for _ in range(1 if away == "scripted" else 2)]
+        out = {}
+        for dev, st in states.items():
+            args = [x for a, s in acts for x in ({k: v.to(dev) for k, v in a.items()}, s.to(dev))]
+            out[dev] = P.step(env, st, *args)
+            states[dev] = out[dev][0]
+        for f in P.EnvState._fields[1:]:
+            a, b = getattr(states["cpu"], f), getattr(states["cuda"], f).cpu()
+            assert torch.equal(a, b), (t, f)
+        for k in ("battle", "winloss"):
+            assert torch.equal(out["cpu"][1][k], out["cuda"][1][k].cpu()), (t, k)
+        assert torch.equal(out["cpu"][3], out["cuda"][3].cpu())
+        for team in (0, 1):
+            want, got = P.observe(env, states["cpu"], team), P.observe(env, states["cuda"], team)
+            for section in ("spatial_info", "scalar_info", "entity_info"):
+                for k, v in want[section].items():
+                    assert torch.equal(v, got[section][k].cpu()), (t, team, section, k)
+    assert bool(states["cuda"].done.all())
+
+
+@pytest.mark.cuda
+def test_anakin_window_on_the_card_is_device_pure(cuda):
+    """A steady-state window of the smoke model with the kernel overlay
+    runs under ``set_sync_debug_mode("error")`` and launches both kernels;
+    ``purity_report`` finds it pure and finds a planted ``nonzero``; the
+    learner steps on its batch."""
+    from distar_tpu_torch.bin.sl_train import SMOKE_MODEL
+    from distar_tpu_torch.envs import jaxenv as P
+    from distar_tpu_torch.learner import RLLearner
+    from distar_tpu_torch.utils import deep_merge_dicts
+
+    model_cfg = deep_merge_dicts(SMOKE_MODEL, {"encoder": {"entity": {"attention_impl": "pallas"},
+                                                           "scatter": {"impl": "pallas"}}})
+    learner = RLLearner({"learner": {"batch_size": 4, "unroll_len": 4, "prefetch_depth": 0},
+                         "model": model_cfg}, device=cuda)
+    runner = P.AnakinRunner(learner.model, 4, 4, P.EnvConfig(units_per_squad=4),
+                            P.ScenarioConfig(units_per_squad=4, max_units=4, episode_len=6))
+    loader = P.AnakinDataLoader(runner, model_provider=lambda: learner.model)
+    next(loader)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        carry, batch = runner.rollout(learner.model, loader._carry)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert kernels.launch_counts["masked_attention"] > 0 and kernels.launch_counts["scatter_add_connection"] > 0
+    assert batch["spatial_info"]["height_map"].is_cuda
+    assert runner.purity_report(learner.model, carry) == {"pure": True, "offending": []}
+    planted = P.device_pure_report(lambda: torch.ones(3, device=cuda).nonzero())
+    assert not planted["pure"] and planted["offending"][0].startswith("sync at "), planted
+    log = learner._train(batch)
+    assert np.isfinite(log["total_loss"])

@@ -73,7 +73,9 @@ def test_port_has_modules():
                    "league/remote.py", "plugins.py", "learner/rl_dataloader.py", "bin/rl_train.py",
                    "replay/__init__.py", "replay/errors.py", "replay/store.py", "replay/spill.py",
                    "replay/local.py", "replay/client.py", "replay/server.py", "learner/replay_actor.py",
-                   "bin/play.py"):
+                   "bin/play.py", "envs/jaxenv/__init__.py", "envs/jaxenv/scenario.py",
+                   "envs/jaxenv/core.py", "envs/jaxenv/obs.py", "envs/jaxenv/host.py",
+                   "envs/jaxenv/winrate.py", "envs/jaxenv/anakin.py"):
         assert os.path.join("distar_tpu_torch", module) in files
     # the data plane's native library is the port's own copy of the source
     assert os.path.exists(os.path.join(REPO, "distar_tpu_torch", "comm", "native", "shuttle.cpp"))

@@ -478,7 +478,7 @@ def test_replay_flags_take_their_working_path(argv, tmp_path, monkeypatch, capsy
 
 @pytest.mark.parametrize("argv,item", [
     (["--type", "arena"], "item 9"), (["--type", "league-run"], "item 9"),
-    (["--type", "league-learner"], "item 9"), (["--anakin"], "item 8"), (["--env", "jaxenv"], "item 8"),
+    (["--type", "league-learner"], "item 9"),
     (["--env", "sc2"], "item 10"), (["--mesh", "dp=2"], "item 7"), (["--dist-method", "auto"], "item 7"),
     (["--journal-dir", "j"], "item 11"), (["--ha-peers", "a:1"], "item 11"),
     (["--telemetry-interval-s", "5"], "item 9"), (["--no-health"], "item 9"),
@@ -488,6 +488,36 @@ def test_replay_flags_take_their_working_path(argv, tmp_path, monkeypatch, capsy
 def test_unported_flags_raise_naming_their_item(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         rl_train.main(argv + ["--device", "cpu"])
+
+
+JAXENV_SMALL = ["--smoke-model", "--device", "cpu", "--iters", "2", "--batch-size", "2", "--traj-len", "3",
+                "--jaxenv-units", "2", "--jaxenv-episode-len", "8"]
+
+
+def test_anakin_trains_on_the_cpu(tmp_path, capsys):
+    """``--anakin --env jaxenv``: the learner on windows of the micro-battle
+    world, device-pure from the first window, for 2 iterations."""
+    learner = rl_train.main(["--anakin", "--env", "jaxenv", "--save-path", str(tmp_path)] + JAXENV_SMALL)
+    out = capsys.readouterr().out
+    assert "anakin device purity: {'pure': True, 'offending': []}" in out
+    assert "learner done: 2 iters" in out and learner.last_iter.val == 2
+    assert np.isfinite(learner.last_log["total_loss"])
+    assert learner.cfg.learner.prefetch_depth == 0
+
+
+def test_type_all_plays_the_jaxenv_host_env(tmp_path, capsys):
+    """``--type all --env jaxenv``: the actor on the micro-battle world's
+    host env, the learner on its trajectories, 2 iterations."""
+    rl_train.main(["--type", "all", "--env", "jaxenv", "--env-num", "1", "--save-path", str(tmp_path)]
+                  + JAXENV_SMALL)
+    out = capsys.readouterr().out
+    assert "rl_train done: 2 iters" in out
+
+
+def test_anakin_refuses_another_env():
+    """As the JAX launcher: ``--anakin`` with any env but jaxenv exits."""
+    with pytest.raises(SystemExit, match="--anakin requires --env jaxenv"):
+        rl_train.main(["--anakin", "--env", "mock", "--device", "cpu"])
 
 
 def test_the_launcher_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
