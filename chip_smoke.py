@@ -154,7 +154,10 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              every kernel launched on both sides. d. one captured loop flush
              (half its lanes or more acting) re-run on the 'xla' strings
              (SERVE_TOL), and the RL loss on an actor-made batch held across
-             the strings (``hold_strings``). e. on a thread while d. runs,
+             the strings (``hold_strings``; where the unpinned gradient reads
+             above GRAD_TOL, the batch is saved under ``chiprun_out/`` and
+             held by the probe instead: ``hold_loop_batch``, ``rl_gap`` with
+             every kink pinned, GAP_TOL). e. on a thread while d. runs,
              ``bin/rl_train.py`` as four processes: coordinator, league,
              a learner of 4 steps (exit 0, ``learner done``) and an actor
              (SIGTERM: exit 0; no traceback in the actor's log, while the
@@ -223,11 +226,48 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              the idle share of a window and of a step, peak memory,
              head-to-head s, the phase's s.
 
+13. league — the league economy at the flagship with value towers (kernel
+             overlay, f32) at docs/league.md's quickstart sizes (2 lanes x 3
+             steps, 2 units a squad, episodes of 8 steps). a. ``rl_train
+             --type league-run --league-players MP0,EP0,ME0 --league-rounds
+             1 --journal-dir none`` as a process (the quickstart's 2 rounds
+             cut to 1 to keep the script in its time): three learner
+             processes on the card; exit 0, ``LEAGUE-RUN-DONE`` with
+             ``ok``, every learner at rc 0, a snapshot minted, an
+             off-diagonal payoff cell with games, no orphaned job, each
+             learner's first window pure and its round shown. b. ``--type coordinator --arena-store``
+             and ``--type arena`` (MP0's lineage of a., 3 batches of 8
+             episodes) as processes: exit 0, both anchors and an MP0
+             generation rated, the artifact written, the last batch resent
+             (all duplicates), and a restarted coordinator serving the same
+             ratings from its store. a. and b. run on a thread during
+             phase 10's untimed part (``league_processes``), joined before
+             phase 11: their seconds and the used memory are read beside
+             rl_loop's processes and checks, not on an idle card. c. in
+             this process, against a control
+             plane of the phase whose one historical player is MP0's newest
+             generation of a.: one league learner (``build_league_learner``,
+             EP0, its away seat that generation loaded with
+             ``load_params``) for one round, then one
+             ``ArenaEvaluator.evaluate_once`` of MP0's generations against
+             ``attack_nearest``. Checked: launches per window (home and
+             away seat), per learner step and per arena batch, all on the
+             main thread; one call's inputs captured from the home seat,
+             the away seat, the learner step and the arena batch against
+             the plain versions. Printed: league-run s and each learner's
+             s from spawn to exit, the card's used memory during it, window
+             and step ms beside the anakin phase's, ask, report and
+             train-info ms, save s, peak memory, arena s a batch and
+             matches/s, the phase's s. ``python3 chip_smoke.py --only
+             league`` runs this phase alone (after the build), a. and b.
+             first.
+
 The line before the last is the ``kernels`` JSON (launches: the serve,
 serve-process, fleet (gateway A), SL, SL runtime, RL and distillation
 paths, the RL loop's and the replay loop's actor and learner together, the
-Anakin windows and learner steps, each read from zero around its run);
-the last line is ``{"ok": true, "device": {...}}``.
+Anakin windows and learner steps, the league learner's windows and step and
+its arena batch, each read from zero around its run); the last line is
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1222,12 +1262,14 @@ def counter_sum(prefix):
 
 def split_sessions(ring, addrs):
     """SERVE_SESSIONS session ids that the ring spreads over every gateway
-    of ``addrs``, two at least on each: those of the first prefix that
-    does, so the choice depends on the addresses alone."""
-    for prefix in "stuvwxyz":
+    of ``addrs``, two at least on each and one of the even ones (those that
+    ask for the teacher in ``serve_script``) on each, so every gateway
+    serves teacher flushes: those of the first prefix that does, so the
+    choice depends on the addresses alone."""
+    for prefix in "stuvwxyzabcdefgh":
         sids = [f"{prefix}{i}" for i in range(SERVE_SESSIONS)]
         owners = [ring.lookup(s) for s in sids]
-        if all(owners.count(a) >= 2 for a in addrs):
+        if all(owners.count(a) >= 2 and a in owners[::2] for a in addrs):
             return sids
     raise SmokeFailure(f"no session prefix spreads over {addrs}")
 
@@ -2531,10 +2573,11 @@ def rl_faults(batch):
             "no kl": (with_cfg(kl_weight=0.0, action_type_kl_weight=0.0), batch, False)}
 
 
-def hold_strings(what, learners, batch, loss_fn, faults=None):
+def hold_strings(what, learners, batch, loss_fn, faults=None, hold_gradient=True):
     """The loss and every info scalar of each config string within STEP_TOL
     of the 'xla' string's (``strings_agree``), each kernel string's whole
-    gradient within GRAD_TOL of the 'xla' gradient's norm, and each planted
+    gradient within GRAD_TOL of the 'xla' gradient's norm (printed only
+    with ``hold_gradient=False``: the caller holds it), and each planted
     fault of ``faults`` marked held moving the 'xla' gradient by more than
     GRAD_TOL, so that the tolerance is shown to catch it. Printed beside
     them, as the scale of what is held: the 'xla' string's distance from its
@@ -2572,7 +2615,7 @@ def hold_strings(what, learners, batch, loss_fn, faults=None):
           f"group's |a - b| / |b|]) "
           f"{json.dumps(carry)}; planted faults {json.dumps(planted)}")
     for impl, d in dist.items():
-        check(d <= GRAD_TOL, f"{what} {impl}: gradient {d:.4g} of its norm from 'xla'")
+        check(not hold_gradient or d <= GRAD_TOL, f"{what} {impl}: gradient {d:.4g} of its norm from 'xla'")
     for name, p in planted.items():
         check(not p["held"] or p["moves_xla"] > GRAD_TOL, f"{what}: fault '{name}' moves the gradient only "
               f"{p['moves_xla']:.4g}, within GRAD_TOL")
@@ -3678,8 +3721,10 @@ def phase_rl_loop(device, smi, tmp, untimed=()):
         check("flush" in captured, "rl loop: no flush captured")
         flush_err = flush_against_xla(device, captured.pop("flush"))
         learners = {impl: rl_learner(device, impl) for impl in STRINGS}
-        strings = hold_strings("rl loop: the RL loss on an actor-made batch", learners, held, rl_fn)
+        strings = hold_strings("rl loop: the RL loss on an actor-made batch", learners, held, rl_fn,
+                               hold_gradient=False)
         del learners
+        strings["probe"] = hold_loop_batch(device, held, rl_fn, strings["strings"])
     finally:
         processes = runner.result()
 
@@ -3706,13 +3751,41 @@ def phase_rl_loop(device, smi, tmp, untimed=()):
         "weights_checked": [(where, it) for where, it, _ in equal],
         "league": {"games": mp0.total_game_count, "elo": elo, "train_steps": mp0.total_agent_step},
         "launches": launches, "actor_job_alone_launches": actor_alone,
-        "flush_vs_xla_worst_logp": flush_err, "strings": strings["strings"], "processes": processes,
+        "flush_vs_xla_worst_logp": flush_err, "strings": strings["strings"],
+        "strings_probe": strings["probe"], "processes": processes,
     }
     print(f"rl loop ({smi}): " + json.dumps({k: v for k, v in result.items() if k != "in_loop_step_profile"}))
     print(f"rl loop: a learner step profiled inside the loop (the actor running): "
           f"{json.dumps(in_loop_profile)}")
     total = {n: launches["learner"][n] + launches["actor"][n] for n in build.KERNELS}
     return total, result
+
+
+def hold_loop_batch(device, batch, loss_fn, dist, what="rl loop batch"):
+    """ROADMAP Queue 3 item 1 on an actor-made batch, which differs in every
+    run: the kernel strings' whole gradients, read unpinned (``dist``,
+    printed by ``hold_strings``), are held within GRAD_TOL; where one reads
+    above it, the batch is saved (``torch.save``, under ``chiprun_out/``,
+    the path printed) and held by the probe instead (``rl_gap``, held): the
+    strings within GAP_TOL of each other with every ReLU, max-pool and UPGO
+    decision pinned to an f64 run's, and in the smooth copy. A batch that
+    pinning does not close fails the run: a fault of the port, with the
+    saved batch as its witness. Returns the probe's readings, or None."""
+    import torch
+
+    if all(d <= GRAD_TOL for d in dist.values()):
+        return None
+    out_dir = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"rl_loop_batch_{time.strftime('%Y%m%dT%H%M%S')}.pt")
+    torch.save(batch, path)
+    print(f"{what}: unpinned gradient {json.dumps(dist)} above GRAD_TOL {GRAD_TOL}; the batch saved to {path}; "
+          f"held by the probe at GAP_TOL {GAP_TOL} instead")
+    res = rl_gap(device, batch, loss_fn, what, held=True)
+    return {"unpinned": dist, "batch": path, "pinned": res["k"]["pinned"],
+            "smooth_pallas_vs_xla": res["k"]["smooth_pallas_vs_xla"],
+            "flips": {name: sum(v[0] for v in c["flips"].values()) for name, c in res["k"]["census"].items()},
+            "flipped_sites": {name: sorted(c["flips"]) for name, c in res["k"]["census"].items()}}
 
 
 # ------------------------------------------------------------------ replay
@@ -4513,6 +4586,429 @@ def phase_anakin(device, smi, tmp, rl_loop, jaxenv_run):
     return launches, result
 
 
+
+# ------------------------------------------------------------------ league
+LEAGUE_PLAYERS = ("MP0", "EP0", "ME0")  # docs/league.md's quickstart roster
+# the quickstart's 2 rounds cut to 1: with 2 the whole script ran 611.7 s
+# on an NVIDIA H100 80GB HBM3 at 700 W, over its 600 s aim
+LEAGUE_ROUNDS = 1
+# the quickstart's sizes: 2 lanes x 3 steps a window, 2 units a squad,
+# episodes of 8 steps
+LEAGUE_SIZES = ("--batch-size", "2", "--traj-len", "3", "--jaxenv-units", "2", "--jaxenv-episode-len", "8")
+LEAGUE_T, LEAGUE_EPISODE_LEN = 3, 8
+ARENA_EPISODES, ARENA_BATCHES = 8, 3
+LEAGUE_TIMEOUT_S = 420
+
+
+def league_model():
+    """The model block of the phase: the flagship (the learners add value
+    towers), the kernel overlay, f32."""
+    return overlay("pallas", "pallas")
+
+
+def league_model_flags():
+    return ["--full-model", "--config", json.dumps({"model": league_model()})]
+
+
+def used_memory_mib():
+    """The card's used memory as ``nvidia-smi`` reads it (MiB), or None."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True, timeout=10).stdout.strip()
+        return int(out.splitlines()[0])
+    except (OSError, subprocess.SubprocessError, ValueError, IndexError):
+        return None
+
+
+def rl_train_process(tmp, name, argv):
+    """``python -m distar_tpu_torch.bin.rl_train`` with ``argv`` from the
+    checkout, its output to ``<tmp>/<name>.log``. Returns (Popen, log path)."""
+    log = os.path.join(tmp, f"{name}.log")
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    with open(log, "w") as out:
+        proc = subprocess.Popen([sys.executable, "-u", "-m", "distar_tpu_torch.bin.rl_train", *argv], cwd=REPO,
+                                stdout=out, stderr=subprocess.STDOUT, env=env)
+    return proc, log
+
+
+def wait_for_line(proc, log, text, timeout=120):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        with open(log) as f:
+            for ln in f:
+                if text in ln:
+                    return ln.strip()
+        check(proc.poll() is None, f"{log}: exited {proc.returncode} before '{text}': {open(log).read()[-2000:]}")
+        time.sleep(0.1)
+    raise SmokeFailure(f"{log}: no '{text}' within {timeout} s")
+
+
+def league_run_process(tmp):
+    """a. ``rl_train --type league-run`` on the card: the control plane in
+    its process, a learner process per player. Returns (the run's numbers,
+    the save path)."""
+    save = os.path.join(tmp, "league")
+    t0 = time.perf_counter()
+    proc, log = rl_train_process(tmp, "league_run", [
+        "--type", "league-run", *league_model_flags(), "--league-players", ",".join(LEAGUE_PLAYERS),
+        "--league-rounds", str(LEAGUE_ROUNDS), *LEAGUE_SIZES, "--journal-dir", "none", "--save-path", save])
+    used = []
+    try:
+        while proc.poll() is None and time.perf_counter() - t0 < LEAGUE_TIMEOUT_S:
+            mib = used_memory_mib()
+            if mib is not None:
+                used.append(mib)
+            time.sleep(1.0)
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+            raise SmokeFailure(f"league-run: no exit within {LEAGUE_TIMEOUT_S} s: {open(log).read()[-3000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    wall_s = time.perf_counter() - t0
+    text = open(log).read()
+    check(proc.returncode == 0, f"league-run: exit {proc.returncode}: {text[-3000:]}")
+    done = [ln for ln in text.splitlines() if ln.startswith("LEAGUE-RUN-DONE ")]
+    check(len(done) == 1, f"league-run: no LEAGUE-RUN-DONE line: {text[-3000:]}")
+    digest = json.loads(done[0][len("LEAGUE-RUN-DONE "):])
+    check(digest["ok"] and digest["learner_rc"] == {p: 0 for p in LEAGUE_PLAYERS}
+          and digest["snapshot_mints"] >= 1 and digest["off_diagonal_pairs"] >= 1 and digest["orphaned_jobs"] == 0,
+          f"league-run: {digest}")
+    for pid in LEAGUE_PLAYERS:
+        check(f"league-learner {pid} device purity: {{'pure': True, 'offending': []}}" in text,
+              f"league-run: {pid}'s first window not shown pure")
+        for r in range(1, LEAGUE_ROUNDS + 1):
+            check(f"league-learner {pid}: round {r}/{LEAGUE_ROUNDS}" in text, f"league-run: {pid} round {r} missing")
+    spawn = next(ln for ln in text.splitlines() if ln.startswith("league-run: seconds from spawn to exit "))
+    out = {"wall_s": wall_s, "learner_s": json.loads(spawn.split("exit ", 1)[1]), "digest": digest,
+           "used_memory_mib": {"max": max(used) if used else None, "samples": len(used)}}
+    print(f"league: a. rl_train --type league-run, {len(LEAGUE_PLAYERS)} learner processes on the card: "
+          f"{json.dumps(out)}")
+    return out, save
+
+
+def arena_coordinator(tmp):
+    """``--type coordinator --arena-store`` as a process, started (it needs
+    nothing of a.) while a. runs. Returns (its argv, Popen, log path, port)."""
+    port = free_port()
+    argv = ["--type", "coordinator", "--port", str(port), "--arena-store", os.path.join(tmp, "arena_store.pkl")]
+    return (argv, *rl_train_process(tmp, "arena_coordinator", argv), port)
+
+
+def arena_processes(tmp, save, device, coordinator):
+    """b. ``--type arena`` as a process on the MP0 lineage of a., against
+    ``coordinator`` (``arena_coordinator``); the resent last batch dedups,
+    and a restarted coordinator serves the same ratings from the store."""
+    import urllib.request
+
+    from distar_tpu_torch.arena import match_key
+    from distar_tpu_torch.comm.coordinator import coordinator_request
+
+    artifact = os.path.join(tmp, "arena.json")
+    co_argv, co, co_log, port = coordinator
+    store_path = co_argv[-1]
+
+    def ratings():
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/arena/ratings", timeout=10) as r:
+            return json.loads(r.read())
+
+    def stop(proc, log, what):
+        proc.terminate()
+        check(proc.wait(timeout=60) == 0, f"{what}: exit {proc.returncode} on SIGTERM: {open(log).read()[-2000:]}")
+
+    t0 = time.perf_counter()
+    procs = [co]
+    try:
+        wait_for_line(co, co_log, "coordinator serving on")
+        t1 = time.perf_counter()
+        arena, arena_log = rl_train_process(tmp, "arena", [
+            "--type", "arena", "--coordinator-addr", f"127.0.0.1:{port}",
+            "--arena-ckpt-dir", os.path.join(save, "MP0", "checkpoints"), "--arena-roles", "MP0",
+            "--arena-episodes", str(ARENA_EPISODES), "--arena-batches", str(ARENA_BATCHES),
+            "--arena-artifact", artifact, *league_model_flags(), *LEAGUE_SIZES[4:]])
+        procs.append(arena)
+        check(arena.wait(timeout=300) == 0, f"arena: exit {arena.returncode}: {open(arena_log).read()[-3000:]}")
+        arena_s = time.perf_counter() - t1
+        batches = [ln for ln in open(arena_log).read().splitlines() if ln.startswith("arena: ")]
+        check(len(batches) == ARENA_BATCHES, f"arena: {len(batches)} batches: {batches}")
+        doc = json.load(open(artifact))
+        got = ratings()
+        gens = [p for p, i in got["players"].items() if p.startswith("MP0:") and i["games"] > 0]
+        check(all(got["players"].get(a, {}).get("anchor") for a in ("attack_nearest", "idle")) and gens
+              and got["matches_total"] == ARENA_BATCHES * ARENA_EPISODES,
+              f"arena: ratings {got}")
+        check(doc["batches"] == ARENA_BATCHES and doc["device"] == device.type and doc.get("ratings") == got,
+              f"arena: artifact {dict((k, doc.get(k)) for k in ('batches', 'device', 'matches_per_s'))}")
+        last = doc["ledger"][-1]
+        resend = [{"key": match_key(last["home"], last["away"], last["round"], i), "home": last["home"],
+                   "away": last["away"], "round": last["round"], "winner": "draw", "game_steps": 1,
+                   "duration_s": 0.0} for i in range(last["episodes"])]
+        ack = coordinator_request("127.0.0.1", port, "arena_report", {"matches": resend})["info"]
+        check(ack == {"applied": 0, "duplicates": last["episodes"]}, f"arena: the resent batch {ack}")
+        before = ratings()
+        check(before["duplicates_total"] == got["duplicates_total"] + last["episodes"]
+              and before["matches_total"] == got["matches_total"], f"arena: after the resend {before}")
+        stop(co, co_log, "arena coordinator")
+        check("arena store journaled on shutdown" in open(co_log).read(), "arena: no journal on shutdown")
+        t2 = time.perf_counter()
+        co, co_log = rl_train_process(tmp, "arena_coordinator_again", co_argv)
+        procs.append(co)
+        wait_for_line(co, co_log, "coordinator serving on")
+        restart_s = time.perf_counter() - t2
+        check(f"arena store resumed from {store_path}" in open(co_log).read(), "arena: the store did not resume")
+        check(ratings() == before, "arena: the restarted coordinator serves other ratings")
+        stop(co, co_log, "arena coordinator (restarted)")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out = {"seconds": time.perf_counter() - t0, "arena_process_s": arena_s, "coordinator_restart_s": restart_s,
+           "batch_s": [e["duration_s"] for e in doc["ledger"]], "matches_per_s": doc["matches_per_s"],
+           "pairs": [(e["home"], e["away"]) for e in doc["ledger"]], "rated_generations": sorted(gens),
+           "resend": ack, "skill": doc.get("arena")}
+    print(f"league: b. rl_train --type coordinator --arena-store and --type arena as processes: {json.dumps(out)}")
+    return out
+
+
+def league_processes(tmp, device):
+    """a. and b. of the league phase: the economy and the arena as
+    processes (b.'s coordinator starting while a. runs). In the whole
+    script they run on a thread during rl_loop's untimed part. Returns (a.'s
+    numbers, b.'s, a.'s save path)."""
+    import torch
+
+    reserved_mib = torch.cuda.memory_reserved() / 2 ** 20
+    coordinator = arena_coordinator(tmp)
+    try:
+        run, save_dir = league_run_process(tmp)
+    except BaseException:
+        coordinator[1].kill()
+        coordinator[1].wait()
+        raise
+    run["script_reserved_mib"] = reserved_mib
+    return run, arena_processes(tmp, save_dir, device, coordinator), save_dir
+
+
+def phase_league(device, smi, tmp, anakin=None, processes=None):
+    """The league economy on the card (module docstring, phase 13).
+    ``anakin``: what phase_anakin returned (its window and step ms are
+    printed beside this phase's), or None when the phase runs alone;
+    ``processes``: what ``league_processes`` returned on its thread, or None
+    to run it here first. Returns the launch counts of c. (its windows,
+    learner steps and arena batch) and the measurements."""
+    import torch
+
+    from distar_tpu_torch.arena import ArenaEvaluator, ArenaStore, set_arena_store
+    from distar_tpu_torch.bin import rl_train
+    from distar_tpu_torch.comm import Coordinator, CoordinatorServer
+    from distar_tpu_torch.league.runtime import LeagueService, set_league_service
+    from distar_tpu_torch.league.runtime.runner import league_cfg
+    from distar_tpu_torch.ops import build
+    from distar_tpu_torch.ops import kernels as K
+    from distar_tpu_torch.utils.checkpoint import CheckpointManager
+
+    t_phase = time.perf_counter()
+    run, arena, save_dir = processes if processes is not None else league_processes(tmp, device)
+
+    # c. one learner in this process against a control plane of the phase:
+    # EP0, whose one historical opponent is MP0's newest generation of a.
+    gen = CheckpointManager(os.path.join(save_dir, "MP0", "checkpoints"), role="MP0").generations()[0]
+    store = ArenaStore()
+    set_arena_store(store)
+    cfg = league_cfg(LEAGUE_PLAYERS)
+    cfg["league"]["save_initial_snapshot"] = False
+    service = LeagueService(cfg, seed=0)
+    set_league_service(service)
+    minted = service.train_info({"player_id": "MP0", "seq": 0, "generation_path": gen["path"]})
+    server = CoordinatorServer(coordinator=Coordinator(), port=0)
+    server.start()
+    try:
+        args = rl_train.parser().parse_args([
+            "--type", "league-learner", "--player-id", "EP0", "--coordinator-addr", f"127.0.0.1:{server.port}",
+            "--league-rounds", "1", *league_model_flags(), *LEAGUE_SIZES, "--save-path",
+            os.path.join(tmp, "league_in_process"), "--device", device.type, "--no-supervise"])
+        rl_train._resolve_args(args)
+        t0 = time.perf_counter()
+        learner, loader, loop, first = rl_train.build_league_learner(args)
+        build_s = time.perf_counter() - t0
+        check(first == {"pure": True, "offending": []}, f"league: the first window is not device-pure: {first}")
+        layers = int(learner.model_cfg.encoder.entity.layer_num)
+        runner = loader.runner
+
+        # instruments, outside the port: each window's and step's time and
+        # launches, each kernel's first call on each side, the control
+        # plane's round trips, the saves
+        side, windows, steps, captured, calls, saves = {"now": None}, [], [], {}, {}, []
+        real = {"train": learner._train, "attention": K.masked_attention, "scatter": K.scatter_add_connection,
+                "sample": runner._sample, "save": learner.save}
+
+        class Windows:
+            def __iter__(self):
+                return self
+
+            def __next__(self):
+                before = dict(K.launch_counts)
+                side["now"] = "window"
+                t0 = time.perf_counter()
+                batch = next(loader)  # the away seat's outcomes are read back after the window
+                windows.append((time.perf_counter() - t0, {n: K.launch_counts[n] - before[n]
+                                                           for n in build.KERNELS}))
+                side["now"] = None
+                return batch
+
+            def drain_results(self):
+                return loader.drain_results()
+
+        def train(data):
+            before = dict(K.launch_counts)
+            side["now"] = "learner step"
+            t0 = time.perf_counter()
+            log = real["train"](data)
+            steps.append(((time.perf_counter() - t0) * 1e3, log, {n: K.launch_counts[n] - before[n]
+                                                                   for n in build.KERNELS}))
+            side["now"] = None
+            return log
+
+        def sample(model, obs, hidden, noise):
+            outer = side["now"]
+            if outer == "window" and model is not learner.model:
+                side["now"] = "away seat"
+            try:
+                return real["sample"](model, obs, hidden, noise)
+            finally:
+                side["now"] = outer
+
+        def attention(q, k, v, mask):
+            key = (side["now"], "masked_attention")
+            if side["now"] and key not in captured:
+                captured[key] = [t.detach().clone() for t in (q, k, v, mask)]
+            return real["attention"](q, k, v, mask)
+
+        def scatter(emb, idx, hw):
+            key = (side["now"], "scatter_add_connection")
+            if side["now"] and key not in captured:
+                captured[key] = (emb.detach().clone(), idx.clone(), hw)
+            return real["scatter"](emb, idx, hw)
+
+        def timed_save(path, sync=False):
+            t0 = time.perf_counter()
+            real["save"](path, sync=sync)
+            saves.append({"sync": sync, "s": time.perf_counter() - t0})
+
+        def timed_call(name, fn):
+            def call(*a, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                calls.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+                return out
+            return call
+
+        remote = loop.remote
+        for name in ("register_learner", "ask_job", "report", "train_info"):
+            setattr(remote, name, timed_call(name, getattr(remote, name)))
+        counts = ThreadCounts(build.KERNELS)
+        real_counts, K.launch_counts = K.launch_counts, counts
+        wrapped = Windows()
+        learner.set_dataloader(wrapped)
+        loop.loader = wrapped
+        learner._train, learner.save, runner._sample = train, timed_save, sample
+        K.masked_attention, K.scatter_add_connection = attention, scatter
+        try:
+            K.reset_launch_counts()
+            counts.by_side = {s: {n: 0 for n in build.KERNELS} for s in ("learner", "actor")}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = loop.run()
+            loop_s = time.perf_counter() - t0
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            loop_launches = dict(counts)
+            # the arena: one evaluate_once of a.'s MP0 generations against the anchors
+            evaluator = ArenaEvaluator(os.path.join(save_dir, "MP0", "checkpoints"), league_model(),
+                                       store=ArenaStore(), roles=("MP0",), episodes=ARENA_EPISODES,
+                                       env_cfg=runner.env_cfg, scenario_cfg=runner.gen.cfg, device=device)
+            before = dict(K.launch_counts)
+            side["now"] = "arena batch"
+            t0 = time.perf_counter()
+            ev = evaluator.evaluate_once()
+            arena_batch_s = time.perf_counter() - t0
+            side["now"] = None
+            arena_launches = {n: K.launch_counts[n] - before[n] for n in build.KERNELS}
+            launches = dict(counts)
+            other_threads = dict(counts.by_side["actor"])
+        finally:
+            K.launch_counts = real_counts
+            K.masked_attention, K.scatter_add_connection = real["attention"], real["scatter"]
+            learner._train, learner.save = real["train"], real["save"]
+            del runner._sample
+        status = service.status()
+    finally:
+        server.stop()
+        set_arena_store(None)
+        set_league_service(None)
+
+    # what the learner did: one round against the frozen generation
+    rnd = out["rounds"][0]
+    check(out["jobs"] == 1 and out["mints"] == 1 and rnd["away"] == minted["snapshot_id"]
+          and rnd["branch"] == "pfsp" and rnd["matches"] >= 1, f"league: the in-process round {out}")
+    check(status["snapshot_mints"] == 2 and status["assignments_pending"] == 0 and store.matches_total == rnd["matches"],
+          f"league: the control plane after the round {status['snapshot_mints']} {store.matches_total}")
+    check(len(steps) == 1 and all(finite(lg) for _, lg, _ in steps), f"league: learner steps {steps}")
+    check(not any(other_threads.values()), f"league: launches from another thread {other_threads}")
+    want_window = {"masked_attention": 2 * layers * LEAGUE_T, "scatter_add_connection": 2 * LEAGUE_T,
+                   "scatter_add_onehot": 0}
+    want_step = {"masked_attention": layers, "scatter_add_connection": 1, "scatter_add_onehot": 0}
+    want_arena = {"masked_attention": layers * LEAGUE_EPISODE_LEN, "scatter_add_connection": LEAGUE_EPISODE_LEN,
+                  "scatter_add_onehot": 0}
+    check(windows and all(n == want_window for _, n in windows),
+          f"league: launches per window {[n for _, n in windows]}, want {want_window}")
+    check(all(n == want_step for _, _, n in steps), f"league: launches per learner step {[n for _, _, n in steps]}")
+    a = ev["assignment"]
+    check({a["home"], a["away"]} == {f"MP0:{gen['step']}", "attack_nearest"} and ev["ack"]["applied"] == ARENA_EPISODES
+          and arena_launches == want_arena, f"league: the arena batch {a} {ev['ack']} launches {arena_launches}")
+    check(loop_launches["masked_attention"] == len(windows) * want_window["masked_attention"] + layers,
+          f"league: the loop launched {loop_launches}")
+    errs = path_kernels_against_plain(K, captured, "league")
+    check(set(captured) == {(s, n) for s in ("window", "away seat", "learner step", "arena batch")
+                            for n in ("masked_attention", "scatter_add_connection")},
+          f"league: captured {sorted(captured)}")
+    del learner, loader, loop, runner, evaluator, captured
+
+    window_ms = [s * 1e3 for s, _ in windows]
+    result = {
+        "seconds": time.perf_counter() - t_phase, "league_run": run, "arena": arena,
+        "in_process": {
+            "build_s": build_s, "loop_s": loop_s, "first_window_purity": first, "round": rnd,
+            "window_ms": window_ms, "step_ms": [ms for ms, _, _ in steps],
+            "anakin_window_ms_per_step": None if anakin is None else anakin["step_ms_in_window"],
+            "anakin_learner_step_ms": None if anakin is None else anakin["learner_step_ms"]["median"],
+            "control_plane_ms": calls, "saves": saves, "peak_memory_gb": peak_gb,
+            "arena_batch_s": arena_batch_s, "arena_matches_per_s": ARENA_EPISODES / arena_batch_s,
+            "arena_winners": {w: sum(m["winner"] == w for m in ev["result"]["matches"])
+                              for w in ("home", "away", "draw")}},
+        "launches": {"run": launches, "per_window": want_window, "per_learner_step": want_step,
+                     "per_arena_batch": want_arena},
+        "kernel_max_abs_err": errs,
+    }
+    print(f"league ({smi}): " + json.dumps(result))
+    return launches, result
+
+
+def league_summary(league):
+    """The league phase's headline numbers."""
+    ip = league["in_process"]
+    return {"league_run_wall_s": league["league_run"]["wall_s"], "learner_s": league["league_run"]["learner_s"],
+            "used_memory_mib": league["league_run"]["used_memory_mib"]["max"],
+            "script_reserved_mib": league["league_run"]["script_reserved_mib"],
+            "window_ms": ip["window_ms"], "step_ms": ip["step_ms"],
+            "control_plane_ms": {k: statistics.median(v) for k, v in ip["control_plane_ms"].items()},
+            "sync_save_s": [x["s"] for x in ip["saves"] if x["sync"]], "peak_memory_gb": ip["peak_memory_gb"],
+            "arena_batch_s": league["arena"]["batch_s"], "arena_matches_per_s": league["arena"]["matches_per_s"],
+            "in_process_arena_batch_s": ip["arena_batch_s"], "seconds": league["seconds"]}
+
+
 def smi_line():
     try:
         return subprocess.run(
@@ -4522,7 +5018,14 @@ def smi_line():
         return f"nvidia-smi unavailable: {e!r}"
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    only = None
+    argv = sys.argv[1:] if argv is None else argv
+    if argv:
+        if argv[:1] != ["--only"] or argv[1:] != ["league"]:
+            print("usage: python3 chip_smoke.py [--only league]", file=sys.stderr)
+            return 2
+        only = "league"
     try:
         import numpy as np
         import torch
@@ -4571,6 +5074,16 @@ def main() -> int:
 
         mark("build")
 
+        if only == "league":  # the league phase alone (its launches and checks, no kernels line)
+            league_launches, league = phase_league(device, smi, tmp)
+            mark("league")
+            print(f"phase seconds: {json.dumps(phase_s)}")
+            print(f"launches: league {league_launches}")
+            print(json.dumps({"league": league_summary(league), "kernel_max_abs_err": league["kernel_max_abs_err"]}))
+            print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                      "count": torch.cuda.device_count()}}))
+            return 0
+
         # 3. kernels
         rng = np.random.default_rng(0)
         records = phase_kernels(device, rng)
@@ -4617,10 +5130,14 @@ def main() -> int:
         # play.py) run during its untimed part
         replay_jobs = [Background(lambda: replay_processes(tmp, smi, device)),
                        Background(lambda: replay_smoke_runs(device, tmp))]
-        # and the anakin phase's --type all --env jaxenv run on the smoke model
+        # and the anakin phase's --type all --env jaxenv run on the smoke
+        # model, and the league phase's processes (league-run, the arena)
         jaxenv_job = Background(lambda: jaxenv_smoke_run(device, tmp))
-        loop_launches, rl_loop = phase_rl_loop(device, smi, tmp, untimed=replay_jobs + [jaxenv_job])
-        jaxenv_run = jaxenv_job.result()  # ended before the replay loop, which it would disturb
+        league_job = Background(lambda: league_processes(tmp, device))
+        loop_launches, rl_loop = phase_rl_loop(device, smi, tmp,
+                                               untimed=replay_jobs + [jaxenv_job, league_job])
+        # ended before the replay loop, which they would disturb
+        jaxenv_run, league_procs = jaxenv_job.result(), league_job.result()
         mark("rl_loop")
 
         # 11. the replay store between actors and learner
@@ -4630,14 +5147,20 @@ def main() -> int:
         # 12. the Anakin loop: the micro-battle world and the flagship on the card
         anakin_launches, anakin = phase_anakin(device, smi, tmp, rl_loop, jaxenv_run)
         mark("anakin")
+
+        # 13. the league economy: league-run and the arena as processes, a
+        # league learner and an arena batch in process
+        league_launches, league = phase_league(device, smi, tmp, anakin, league_procs)
+        mark("league")
         print(f"phase seconds: {json.dumps(phase_s)}")
         print(f"launches: serve {launches}, serve process {process_launches}, serve fleet (gateway A) "
               f"{fleet_launches}, train {train_launches}, sl runtime {runtime_launches}, rl and distill "
               f"{rl_launches}, rl loop (actor and learner) {loop_launches}, replay loop (actor and learner) "
-              f"{replay_launches}, anakin (windows and learner steps) {anakin_launches}")
+              f"{replay_launches}, anakin (windows and learner steps) {anakin_launches}, league (a learner's "
+              f"windows with the away seat, its step and an arena batch) {league_launches}")
         launches = {name: launches[name] + process_launches[name] + fleet_launches[name] + train_launches[name]
                     + runtime_launches[name] + rl_launches[name] + loop_launches[name] + replay_launches[name]
-                    + anakin_launches[name] for name in build.KERNELS}
+                    + anakin_launches[name] + league_launches[name] for name in build.KERNELS}
 
         # 9. the kernels line; max_abs_err over the serve shapes and the f32
         # SL, RL and student training shapes
@@ -4645,7 +5168,8 @@ def main() -> int:
                 **{f"rl {k}": v for k, v in rl["rl_kernel_max_abs_err"].items()},
                 **{f"student {k}": v for k, v in rl["student_kernel_max_abs_err"].items()},
                 **{f"replay {k}": v for k, v in replay["kernel_max_abs_err"].items()},
-                **{f"anakin {k}": v for k, v in anakin["kernel_max_abs_err"].items()}}
+                **{f"anakin {k}": v for k, v in anakin["kernel_max_abs_err"].items()},
+                **{f"league {k}": v for k, v in league["kernel_max_abs_err"].items()}}
         for name, rec in records.items():
             rec["max_abs_err"] = max([rec["max_abs_err"]] + [
                 err for key, err in errs.items()
@@ -4678,6 +5202,7 @@ def main() -> int:
                               "learner_step_ms", "step_profile_idle_share", "peak_memory_gb", "seconds")},
                           "anakin_window_idle_share": anakin["steady_window"]["idle_share"],
                           "anakin_head_to_head_s": {k: v["seconds"] for k, v in anakin["head_to_head"].items()},
+                          "league": league_summary(league),
                           "phase_seconds": phase_s, "seconds": time.perf_counter() - t_start}))
         print(json.dumps(line))
     except Exception as e:  # every phase failure fails the run

@@ -8,6 +8,9 @@
     python -m distar_tpu_torch.bin.rl_train --type all --replay --smoke-model --device cpu --iters 2
     python -m distar_tpu_torch.bin.rl_train --type replay --port 0 --replay-spill-dir D
     python -m distar_tpu_torch.bin.rl_train --anakin --env jaxenv --smoke-model --device cpu --iters 2
+    python -m distar_tpu_torch.bin.rl_train --type league-run --smoke-model --device cpu --journal-dir none
+    python -m distar_tpu_torch.bin.rl_train --type coordinator --port 8422 --arena-store S
+    python -m distar_tpu_torch.bin.rl_train --type arena --coordinator-addr H:8422 --arena-ckpt-dir D
 
 Counterpart of ``distar_tpu.bin.rl_train``, on CUDA unless ``--device``
 says otherwise. Roles:
@@ -38,6 +41,26 @@ says otherwise. Roles:
                the HTTP admin surface on ``--metrics-port`` and, with
                ``--coordinator-addr``, registered under the
                ``replay_shard`` token; under crash-restart supervision.
+  league-run   the league economy: the control plane (a coordinator hosting
+               the ``LeagueService`` and an ``ArenaStore``) in this
+               process and one ``league-learner`` subprocess per player of
+               ``--league-players``; ends with ``LEAGUE-RUN-DONE {digest}``
+               and exits 1 unless every learner exited 0, a snapshot was
+               minted and an off-diagonal payoff cell holds games. The JAX
+               launcher journals it by default (the coordinator's HA, ROADMAP
+               Queue 1 item 11): here it runs only with ``--journal-dir
+               none``, its un-journaled switch.
+  league-learner  one league player's learner against ``--coordinator-addr``:
+               ``--league-rounds`` matchmade rounds of the fused Anakin
+               rollout with the opponent on the away seat, the RL step,
+               match reports and checkpoint generations (snapshots are
+               minted server-side); refuses an impure first window.
+  arena        the arena evaluator: checkpoint generations of
+               ``--arena-ckpt-dir`` (role keys ``--arena-roles``) against
+               the scripted anchors in jaxenv head-to-heads, scheduled and
+               rated by the coordinator's ``ArenaStore`` (``--type
+               coordinator --arena-store PATH``, journaled there and
+               autosaved every ``--league-autosave-s``).
 
 With ``--replay-addr`` (one ``host:port``, a comma-separated shard fleet,
 or ``discover``) the learner samples its batches from the store and the
@@ -51,8 +74,11 @@ jaxenv`` or no ``--env``) replaces the actor plane: the learner trains on
 stepped together on the device (``envs.jaxenv.AnakinRunner``), and refuses
 to start when its first window is not device-pure.
 
-The coordinator, the league, the replay store and the actor exit on
-SIGTERM or SIGINT; the learner saves a checkpoint first.
+The coordinator, the league, the replay store, the arena and the actor
+exit on SIGTERM or SIGINT; the learner saves a checkpoint first.
+``--type league --league-resume PATH`` loads the league's resume file
+(either package's) when present and autosaves it every
+``--league-autosave-s``.
 
 ``--config`` takes a YAML or JSON file or inline JSON: its ``model`` block
 replaces the smoke model over ``default_model_config()`` (as in the JAX
@@ -62,15 +88,16 @@ block cascades over the learner defaults (as ``bin/sl_train.py``'s does);
 stand where ``--batch-size``, ``--traj-len`` and ``--env-num`` are not given.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP Queue 1
-item (``NOT_PORTED``): the arena, league-run and league-learner roles and
-their flags, the SC2 env, meshes and ``jax.distributed``, the coordinator's
-HA, and fleet health and telemetry (``--metrics-port`` serves only the
-replay role's admin surface).
+item (``NOT_PORTED``): the SC2 env, meshes and ``jax.distributed``, the
+coordinator's HA (``--journal-dir``, ``--ha-*``), the league-run's actor-slot
+fleets (``--league-actors-per-player`` above 0), and fleet health and
+telemetry (``--metrics-port`` serves only the replay role's admin surface).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import signal
 import sys
@@ -78,36 +105,25 @@ import threading
 from typing import Optional, Sequence
 
 from .. import plugins
-from ..actor import Actor
 from ..comm import Adapter, Coordinator, CoordinatorServer
-from ..envs import MockEnv
 from ..league import League, LeagueAPIServer, RemoteLeague
-from ..learner.prefetch import DevicePrefetcher
-from ..learner.rl_dataloader import ReplayDataLoader, RLDataLoader
 from ..resilience import RestartPolicy, Supervisor, supervise_call
 from ..utils import read_config
-from .sl_train import SMOKE_MODEL
 
-_LEAGUE_RUNTIME = ("the coordinator-hosted league runtime is not ported yet "
-                   "(ROADMAP Queue 1 item 9, league/runtime/)")
 _MESH = "meshes, sharded checkpoints and jax.distributed are not ported yet (ROADMAP Queue 1 item 7)"
 _HEALTH = "fleet health, telemetry and the metrics endpoint are not ported yet (ROADMAP Queue 1 item 9)"
+_HA = "the coordinator's HA is not ported yet (ROADMAP Queue 1 item 11, comm/ha.py)"
+_FLEET = "the league-run's actor-slot fleets are not ported yet (ROADMAP Queue 1 item 10, fleet/)"
 
 # role or flag prefix of the JAX launcher -> why it raises here
 NOT_PORTED = {
-    "--type arena": "the arena is not ported yet (ROADMAP Queue 1 item 9, arena/)",
-    "--type league-run": _LEAGUE_RUNTIME,
-    "--type league-learner": _LEAGUE_RUNTIME,
     "--env sc2": "the SC2 env is not ported yet (ROADMAP Queue 1 item 10, envs/sc2/)",
     "--mesh": _MESH,
     "--host-devices": _MESH,
     "--sharded-ckpt": _MESH,
     "--no-sharded-ckpt": _MESH,
     "--dist-": _MESH,
-    "--journal-dir": "the coordinator's HA is not ported yet (ROADMAP Queue 1 item 11, comm/ha.py)",
-    "--ha-": "the coordinator's HA is not ported yet (ROADMAP Queue 1 item 11, comm/ha.py)",
-    "--arena-": "the arena is not ported yet (ROADMAP Queue 1 item 9, arena/)",
-    "--league-": _LEAGUE_RUNTIME,
+    "--ha-": _HA,
     "--telemetry-interval-s": _HEALTH,
     "--health-": _HEALTH,
     "--no-health": _HEALTH,
@@ -115,7 +131,8 @@ NOT_PORTED = {
     "--platform": "the JAX backend switch; the port picks its device with --device",
 }
 
-ROLES = ("all", "coordinator", "league", "learner", "actor", "replay")
+ROLES = ("all", "coordinator", "league", "learner", "actor", "replay", "arena", "league-run",
+         "league-learner")
 
 
 def _user_cfg(args) -> dict:
@@ -123,6 +140,8 @@ def _user_cfg(args) -> dict:
 
 
 def _model_cfg(args) -> dict:
+    from .sl_train import SMOKE_MODEL
+
     return _user_cfg(args).get("model", SMOKE_MODEL if args.smoke_model else {})
 
 
@@ -152,6 +171,8 @@ def _env_fn(args):
     """The env factory: ``--env`` wins, then the config's ``env.type``: the
     mock env (default) or ``jaxenv``, the micro-battle world through its
     host env on ``--device``."""
+    from ..envs import MockEnv
+
     env_type = args.env or dict(_user_cfg(args).get("env", {})).get("type", "mock")
     if env_type == "jaxenv":
         from ..envs.jaxenv import JaxMicroBattleEnv
@@ -294,7 +315,9 @@ def _learner_replay_client(args, addrs: str):
                                transport=args.transport)
 
 
-def _replay_loader(args, addrs: str, player_id: str) -> ReplayDataLoader:
+def _replay_loader(args, addrs: str, player_id: str):
+    from ..learner.rl_dataloader import ReplayDataLoader
+
     return ReplayDataLoader(_learner_replay_client(args, addrs), player_id, args.batch_size)
 
 
@@ -304,7 +327,7 @@ class Loop:
     ``replay_stores`` and ``replay_servers`` are ``--replay``'s."""
 
     league: League
-    actor: Actor
+    actor: object
     learner: object
     player_id: str
     supervisor: Supervisor
@@ -348,6 +371,9 @@ def build_all(args) -> Loop:
     """League, coordinator, actor (its job loop not started) and learner of
     ``--type all``, wired: the actor pushes trajectories and pulls weights
     through one adapter, the learner reads them through another."""
+    from ..actor import Actor
+    from ..learner.rl_dataloader import RLDataLoader
+
     model_cfg = _model_cfg(args)
     league = League(_user_cfg(args))
     co = Coordinator()
@@ -384,6 +410,8 @@ def close_all(loop: Loop) -> None:
     so a push the limiter holds for a learner that has finished goes
     through), the learner's prefetcher, the replay servers and the
     colocated store's registration."""
+    from ..learner.prefetch import DevicePrefetcher
+
     for store in loop.replay_stores:
         for name in store.tables():
             store.table(name).limiter.release_pacing()
@@ -456,6 +484,8 @@ def _addr(s: str):
 
 
 def run_learner(args):
+    from ..learner.rl_dataloader import RLDataLoader
+
     league = RemoteLeague(*_addr(args.league_addr)) if args.league_addr else None
     adapter = Adapter(coordinator_addr=_addr(args.coordinator_addr))
     model_cfg = _model_cfg(args)
@@ -484,6 +514,8 @@ def run_learner(args):
 
 
 def run_actor(args) -> None:
+    from ..actor import Actor
+
     league = RemoteLeague(*_addr(args.league_addr))
     adapter = Adapter(coordinator_addr=_addr(args.coordinator_addr))
     actor_cfg = {"env_num": args.env_num, "traj_len": args.traj_len, "plane": _plane_cfg(args)}
@@ -592,19 +624,235 @@ def run_replay(args) -> None:
 
 
 def run_coordinator(args) -> None:
+    """The broker; with ``--arena-store PATH`` it hosts the durable
+    ``ArenaStore`` (the ``arena_*`` routes and ``/arena/*``): the journal at
+    PATH is reloaded first (ratings, payoff and the idempotency keys survive
+    a restart), autosaved every ``--league-autosave-s`` and saved once more
+    on the way out (SIGTERM or SIGINT)."""
+    store = None
+    if args.arena_store:
+        from ..arena import ArenaStore, set_arena_store
+
+        store = ArenaStore(path=args.arena_store)
+        if store.maybe_load():
+            print(f"arena store resumed from {args.arena_store}", flush=True)
+        store.start_autosave(interval_s=args.league_autosave_s or 30.0)
+        set_arena_store(store)
     co = Coordinator(default_lease_s=args.lease_s or None)
-    _serve_until_signal(CoordinatorServer(coordinator=co, port=args.port), "coordinator")
+    try:
+        _serve_until_signal(CoordinatorServer(coordinator=co, port=args.port), "coordinator")
+    finally:
+        if store is not None:
+            from ..arena import set_arena_store
+
+            store.stop_autosave()
+            store.save()
+            set_arena_store(None)
+            print("arena store journaled on shutdown", flush=True)
 
 
 def run_league(args) -> None:
-    _serve_until_signal(LeagueAPIServer(League(_user_cfg(args)), port=args.port), "league")
+    """The league's HTTP API; with ``--league-resume PATH`` the league is
+    picked up from the resume file there (the port's or the JAX
+    package's) and journaled to it every ``--league-autosave-s``."""
+    league = League(_user_cfg(args))
+    if args.league_resume:
+        if os.path.exists(args.league_resume):
+            league.load_resume(args.league_resume)
+            print(f"league resumed from {args.league_resume}", flush=True)
+        league.start_autosave(args.league_resume, interval_s=args.league_autosave_s or None)
+    try:
+        _serve_until_signal(LeagueAPIServer(league, port=args.port), "league")
+    finally:
+        league.stop_autosave()
+
+
+def run_arena(args):
+    """The arena evaluator: checkpoint generations of ``--arena-ckpt-dir``
+    (role keys ``--arena-roles``) play the coordinator-scheduled jaxenv
+    head-to-heads on ``--device`` and report under idempotent match keys,
+    under crash-restart supervision (the store re-issues an assignment
+    until its results are applied). Stops after ``--arena-batches`` (0:
+    never) or on SIGTERM or SIGINT, then writes ``--arena-artifact``.
+    Returns the evaluator."""
+    from ..arena import ArenaEvaluator
+    from ..resilience import TaskContext
+
+    roles = tuple(r.strip() for r in args.arena_roles.split(",")) if args.arena_roles else ("",)
+    env_cfg, scenario_cfg = _jaxenv_cfgs(args)
+    stop = TaskContext()  # set by SIGTERM or SIGINT
+
+    def serve_loop():
+        evaluator = ArenaEvaluator(
+            ckpt_dir=args.arena_ckpt_dir, model_cfg=_model_cfg(args),
+            coordinator_addr=_addr(args.coordinator_addr), roles=roles,
+            episodes=args.arena_episodes, env_cfg=env_cfg, scenario_cfg=scenario_cfg,
+            device=args.device)
+        print(f"arena evaluator on {args.arena_ckpt_dir} (roles={','.join(r or 'main' for r in roles)}, "
+              f"device {evaluator.device})", flush=True)
+        try:
+            while not stop.should_exit:
+                out = evaluator.evaluate_once()
+                if out is None:
+                    stop.sleep(args.arena_interval_s)
+                    continue
+                a = out["assignment"]
+                print(f"arena: {a['home']} vs {a['away']} r{a['round']} "
+                      f"win_rate={out['result']['win_rate']:.3f} applied={out['ack'].get('applied')} "
+                      f"duration_s={out['result']['duration_s']:.3f}", flush=True)
+                if args.arena_batches and evaluator.batches_done >= args.arena_batches:
+                    break
+        finally:
+            if args.arena_artifact:
+                evaluator.write_artifact(args.arena_artifact, ratings=_fetch_arena_ratings(args))
+                print(f"arena artifact written to {args.arena_artifact}", flush=True)
+        return evaluator
+
+    previous = {s: signal.signal(s, lambda *_: stop.request_stop()) for s in (signal.SIGTERM, signal.SIGINT)}
+    try:
+        if args.no_supervise:
+            return serve_loop()
+        return supervise_call(serve_loop, op="arena", policy=_restart_policy(args))
+    finally:
+        for s, handler in previous.items():
+            signal.signal(s, handler)
+
+
+def _fetch_arena_ratings(args) -> Optional[dict]:
+    """GET /arena/ratings from the coordinator for the artifact ledger;
+    None when the store isn't hosted there (artifact stays throughput-only)."""
+    import urllib.request
+
+    host, port = _addr(args.coordinator_addr)
+    try:
+        with urllib.request.urlopen(f"http://{host}:{port}/arena/ratings", timeout=10.0) as resp:
+            return json.loads(resp.read())
+    except Exception:  # noqa: BLE001 - the artifact is written without ratings
+        return None
+
+
+def build_league_learner(args):
+    """One league player's learner, its fused rollout and its loop, wired
+    (``league/runtime/runner.py``): an ``RLLearner`` saving under its own
+    subtree of the save path with ``ckpt_role = --player-id``, an
+    ``AnakinRunner(opponent_seat=True)`` on its device seeded from the
+    player id, the ``AnakinDataLoader`` whose away seat is the loop's
+    opponent slot, and a ``LeagueLearnerLoop`` against the coordinator at
+    ``--coordinator-addr``. No prefetch: the batches are made on the device.
+    Refuses to train when the first window is not device-pure, as
+    ``--anakin`` does. Returns (learner, loader, loop, the purity report)."""
+    import zlib
+
+    from ..envs.jaxenv import AnakinDataLoader, AnakinRunner
+    from ..league.remote import RemoteLeagueService
+    from ..league.runtime.runner import LeagueLearnerLoop
+    from ..learner.base_learner import experiments_root
+
+    player_id = args.player_id
+    cfg = _learner_cfg(args, _model_cfg(args))
+    # isolated checkpoint lineage per league player: a per-player save
+    # subtree keeps file names (and logs) collision-free across concurrent
+    # learners, and the role-keyed pointer file keeps generations from
+    # crossing on resume
+    cfg["common"]["save_path"] = os.path.join(
+        cfg["common"].get("save_path") or os.path.join(experiments_root(), args.experiment_name),
+        player_id)
+    cfg["learner"]["ckpt_role"] = player_id
+    learner = plugins.load_component(args.pipeline, "RLLearner")(cfg, device=args.device)
+    learner.cfg.learner["prefetch_depth"] = 0
+    jcfg, scfg = _jaxenv_cfgs(args)
+    runner = AnakinRunner(learner.model, batch_size=args.batch_size, unroll_len=args.traj_len,
+                          env_cfg=jcfg, scenario_cfg=scfg,
+                          seed=zlib.crc32(player_id.encode()) & 0x7FFFFFFF,
+                          opponent_seat=True, device=learner.device)
+    loop = LeagueLearnerLoop(player_id, RemoteLeagueService(args.coordinator_addr), learner, loader=None,
+                             rounds=args.league_rounds, iters_per_round=args.league_iters_per_round)
+    loader = AnakinDataLoader(runner, model_provider=lambda: learner.model,
+                              opponent_provider=loop.opponent_model)
+    loop.loader = loader
+    learner.set_dataloader(loader)
+    report = runner.purity_report(loader._model(), runner.init_carry(), loader._opponent_model())
+    print(f"league-learner {player_id} device purity: {report}", flush=True)
+    if not report["pure"]:
+        raise SystemExit(f"league-learner fused loop is not device-pure: {report['offending']}")
+    return learner, loader, loop, report
+
+
+def run_league_learner(args):
+    """One league learner process: register with the coordinator-hosted
+    matchmaker, then ``--league-rounds`` matchmade rounds — the fused Anakin
+    rollout on ``--device`` with the opponent on the away seat, the RL step,
+    match reports under idempotent keys, checkpoint generations in this
+    player's role-key lineage, and train-info (snapshot minting happens
+    server-side). Under supervision it resumes its lineage on start and on
+    a crash. Returns the loop's summary."""
+    learner, _, loop, _ = build_league_learner(args)
+    if not args.no_supervise:
+        learner.resume_latest()  # a supervised restart resumes the lineage
+
+    def run_loop():
+        out = loop.run()
+        print(f"league-learner {args.player_id} done: {json.dumps(out)}", flush=True)
+        return out
+
+    if args.no_supervise:
+        return run_loop()
+    return supervise_call(run_loop, op=f"league-learner:{args.player_id}", policy=_restart_policy(args),
+                          on_restart=lambda e: learner.resume_latest())
+
+
+def _model_flags(args) -> list:
+    """The flags that pick this process's model, for a child process."""
+    if args.config:
+        return ["--config", args.config]
+    return ["--smoke-model"] if args.smoke_model else ["--full-model"]
+
+
+def run_league_run(args) -> dict:
+    """The self-play economy launcher: the coordinator (``LeagueService`` +
+    ``ArenaStore``) in this process, one ``league-learner`` subprocess per
+    player of ``--league-players`` on ``--device`` with this process's
+    model flags (docs/league.md quickstart). Returns the digest; exits 1
+    unless every learner exited 0, at least one historical snapshot was
+    minted from a checkpoint generation, and the payoff matrix has real
+    off-diagonal entries. Only un-journaled (``--journal-dir none``): the
+    JAX launcher's default journal is the coordinator's HA."""
+    from ..league.runtime.runner import LeagueRunner
+    from ..learner.base_learner import experiments_root
+
+    if args.journal_dir.lower() != "none":
+        where = args.journal_dir or "<save-path>/league_journal, the default"
+        raise NotImplementedError(f"--type league-run journals to {where}: {_HA}; pass --journal-dir none "
+                                  "to run the economy un-journaled")
+    player_ids = [s.strip() for s in args.league_players.split(",") if s.strip()]
+    save_path = args.save_path or os.path.join(experiments_root(), args.experiment_name)
+    extra = ["--batch-size", str(args.batch_size), "--traj-len", str(args.traj_len),
+             "--jaxenv-units", str(args.jaxenv_units), "--jaxenv-episode-len", str(args.jaxenv_episode_len),
+             "--experiment-name", args.experiment_name, *_model_flags(args)]
+    if args.device:
+        extra += ["--device", args.device]
+    if args.no_supervise:
+        extra += ["--no-supervise"]
+    runner = LeagueRunner(
+        player_ids=player_ids, save_path=save_path,
+        arena_store_path=os.path.join(save_path, "arena_store.pkl"),
+        lease_s=args.lease_s or 30.0,
+        # first-round asks sit behind each learner's process start and
+        # model build; a short TTL would count those as orphans
+        job_ttl_s=600.0,
+        learner_argv_extra=extra, rounds=args.league_rounds,
+        iters_per_round=args.league_iters_per_round)
+    digest = runner.run(port=args.port)
+    print(f"league-run: seconds from spawn to exit {json.dumps(runner.learner_s)}", flush=True)
+    if not digest.get("ok"):
+        raise SystemExit(1)
+    return digest
 
 
 def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--type", default="all",
-                   help=f"one of {', '.join(ROLES)} (the JAX launcher's arena, league-run "
-                        "and league-learner raise NotImplementedError)")
+                   help=f"one of {', '.join(ROLES)}")
     p.add_argument("--config", default="",
                    help="YAML or JSON file, or inline JSON: 'model', 'league', 'learner', 'actor', 'env'")
     p.add_argument("--iters", type=int, default=4)
@@ -691,6 +939,42 @@ def parser() -> argparse.ArgumentParser:
                    help="no crash-restart supervision and no resume from the latest checkpoint")
     p.add_argument("--restart-max", type=int, default=5)
     p.add_argument("--restart-window-s", type=float, default=300.0)
+    p.add_argument("--journal-dir", default="",
+                   help="--type league-run: 'none' runs the economy un-journaled (the only value ported; "
+                        "the journal is the coordinator's HA, ROADMAP Queue 1 item 11)")
+    p.add_argument("--league-resume", default="",
+                   help="--type league: resume file, loaded on start when present (either package's), "
+                        "then autosaved")
+    p.add_argument("--league-autosave-s", type=float, default=30.0,
+                   help="--type league's resume and --type coordinator's arena-store autosave cadence "
+                        "(0: the league config's save_resume_freq_s, or 30 s for the arena store)")
+    p.add_argument("--league-players", default="MP0,EP0,ME0",
+                   help="--type league-run: comma list of active league player ids (prefix picks the "
+                        "class: MP main, EP exploiter, ME main exploiter); one learner process each")
+    p.add_argument("--league-rounds", type=int, default=2,
+                   help="league-run and league-learner: matchmade rounds per learner (each: ask -> train "
+                        "-> report -> checkpoint generation -> train-info)")
+    p.add_argument("--league-iters-per-round", type=int, default=1, help="optimizer steps per round")
+    p.add_argument("--league-actors-per-player", type=int, default=0,
+                   help="--type league-run: actor-slot fleets per player (above 0 raises: fleet/, "
+                        "ROADMAP Queue 1 item 10)")
+    p.add_argument("--arena-ckpt-dir", default="",
+                   help="--type arena: checkpoint directory whose CheckpointManager generations form "
+                        "the model roster")
+    p.add_argument("--arena-roles", default="",
+                   help="--type arena: comma-separated CheckpointManager role keys to rate ('' = the "
+                        "default lineage, shown as main)")
+    p.add_argument("--arena-episodes", type=int, default=8,
+                   help="--type arena: episodes per scheduled scenario batch")
+    p.add_argument("--arena-batches", type=int, default=0,
+                   help="--type arena: stop after N batches (0 = run until SIGTERM)")
+    p.add_argument("--arena-interval-s", type=float, default=5.0,
+                   help="--type arena: idle sleep when no assignment is available")
+    p.add_argument("--arena-artifact", default="",
+                   help="--type arena: write the ledger (matches/s and ratings) here on exit")
+    p.add_argument("--arena-store", default="",
+                   help="--type coordinator: host the durable ArenaStore, journaled at this path; "
+                        "enables the arena routes")
     return p
 
 
@@ -711,6 +995,10 @@ def main(argv: Optional[Sequence[str]] = None):
         raise SystemExit(f"rl_train: --type must be one of {', '.join(ROLES)}, got {args.type!r}")
     if args.metrics_port is not None and args.type != "replay":
         raise NotImplementedError(f"--metrics-port: {_HEALTH}")
+    if args.journal_dir and not (args.type == "league-run" and args.journal_dir.lower() == "none"):
+        raise NotImplementedError(f"--journal-dir: {_HA}")
+    if args.league_actors_per_player > 0:
+        raise NotImplementedError(f"--league-actors-per-player: {_FLEET}")
     _resolve_args(args)
     if args.anakin:
         if args.env and args.env != "jaxenv":
@@ -724,6 +1012,16 @@ def main(argv: Optional[Sequence[str]] = None):
         return run_coordinator(args)
     if args.type == "league":
         return run_league(args)
+    if args.type == "league-run":
+        return run_league_run(args)
+    if args.type == "league-learner":
+        if not args.coordinator_addr:
+            raise SystemExit("--type league-learner requires --coordinator-addr")
+        return run_league_learner(args)
+    if args.type == "arena":
+        if not (args.coordinator_addr and args.arena_ckpt_dir):
+            raise SystemExit("--type arena requires --coordinator-addr and --arena-ckpt-dir")
+        return run_arena(args)
     if args.type == "learner":
         if not args.coordinator_addr:
             raise SystemExit("--type learner requires --coordinator-addr (and usually --league-addr)")

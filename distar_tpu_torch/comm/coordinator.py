@@ -11,10 +11,13 @@ strikes.
 
 ``CoordinatorServer`` answers the same HTTP/JSON routes as the JAX
 package's (``POST /coordinator/<route>``, ``GET /metrics``), so either
-package's ``coordinator_request`` talks to either's server. Not ported
-yet, each answering a typed error that names its ROADMAP Queue 1 item:
-telemetry ingest (``telemetry``, with the shipper and fleet health) and
-the arena and league routes (``arena_*``, ``league_*``), item 9; the
+package's ``coordinator_request`` talks to either's server. The arena and
+league routes (``arena_*``, ``league_*``, ``GET /league/status``,
+``/arena/ratings``, ``/arena/payoff``) answer from the process-global
+``ArenaStore`` and ``LeagueService`` when this process hosts them, and as
+the JAX coordinator does when it does not. Not ported yet, answering a
+typed error that names its ROADMAP Queue 1 item: telemetry ingest
+(``telemetry``, with the shipper and fleet health), item 9; the
 fleet-health GET routes answer 404 (``obs.handle_health_get``). The
 coordinator's high availability (``comm/ha.py``: journaled state, leader
 failover, the multi-address client) is item 11: ``attach_ha`` and an
@@ -227,10 +230,52 @@ class CoordinatorServer:
             "depth": lambda b: (co.depth(b["token"], b["max_age_s"]) if "max_age_s" in b
                                 else co.depth(b["token"])),
             "telemetry": _not_ported("telemetry", f"the telemetry shipper and fleet health, {OBS_ITEM}"),
+            # the arena's wire plane (served when this process hosts the
+            # ArenaStore; its idempotent keys make arena_report exactly-once
+            # even when the retry policy replays a POST)
+            "arena_next": lambda b: _arena_call("next_match", b.get("players", []),
+                                                episodes=int(b.get("episodes", 8))),
+            "arena_report": lambda b: _arena_call("report_batch", b.get("matches", [])),
+            # the league runtime's (served when this process hosts the
+            # LeagueService; the body is passed whole, the service does its
+            # own explicit field extraction)
+            "league_register": lambda b: _league_call("register_learner", b),
+            "league_ask": lambda b: _league_call("ask_job", b),
+            "league_report": lambda b: _league_call("report", b),
+            "league_train_info": lambda b: _league_call("train_info", b),
+            "league_status": lambda b: _league_call("status", b),
         }
-        for name in ("arena_next", "arena_report", "league_register", "league_ask", "league_report",
-                     "league_train_info", "league_status"):
-            routes[name] = _not_ported(name, f"the arena and the league runtime, {OBS_ITEM}")
+
+        def _arena_call(method: str, *args, **kwargs):
+            from ..arena import get_arena_store
+
+            store = get_arena_store()
+            if store is None:
+                raise RuntimeError("no arena store hosted on this coordinator")
+            return getattr(store, method)(*args, **kwargs)
+
+        def _league_call(method: str, body: dict):
+            from ..league.runtime import get_league_service
+
+            service = get_league_service()
+            if service is None:
+                raise RuntimeError("no league service hosted on this coordinator")
+            return getattr(service, method)(body)
+
+        def _hosted_snapshot(path: str):
+            """The GET snapshot of the arena store or league service this
+            process hosts at ``path``; None when it hosts none (404)."""
+            if path == "/league/status":
+                from ..league.runtime import get_league_service
+
+                service = get_league_service()
+                return None if service is None else service.status()
+            from ..arena import get_arena_store
+
+            store = get_arena_store()
+            if store is None:
+                return None
+            return store.ratings_snapshot() if path.endswith("ratings") else store.payoff_snapshot()
 
         class Handler(BaseHTTPRequestHandler):
             def log_message(self, *args):
@@ -238,14 +283,23 @@ class CoordinatorServer:
 
             def do_GET(self):
                 """GET /metrics: the process registry in Prometheus text (the
-                queue-depth gauges refreshed at scrape time); the fleet-health
-                routes answer 404 until they are ported."""
-                from ..obs import handle_health_get, write_scrape_response
+                queue-depth gauges refreshed at scrape time); GET
+                /league/status, /arena/ratings and /arena/payoff: the hosted
+                league service's and arena store's snapshots (404 where none
+                is hosted); the fleet-health routes answer 404 until they are
+                ported."""
+                from ..obs import handle_health_get, write_json_response, write_scrape_response
 
-                if self.path.rstrip("/") == "/metrics":
+                path = self.path.rstrip("/")
+                if path == "/metrics":
                     write_scrape_response(self, refresh=co.publish_metrics)
                     return
-                if handle_health_get(self, self.path):
+                if path in ("/league/status", "/arena/ratings", "/arena/payoff"):
+                    snap = _hosted_snapshot(path)
+                    if snap is not None:
+                        write_json_response(self, snap)
+                        return
+                elif handle_health_get(self, self.path):
                     return
                 self.send_response(404)
                 self.send_header("Content-Length", "0")

@@ -164,10 +164,19 @@ def make_generator(seed: int, device) -> torch.Generator:
 _TABLES = {}
 
 
+def _device_key(device) -> str:
+    """``device`` with a CUDA index filled in: "cuda" and "cuda:0" (a
+    generator's or a tensor's device) name one cache entry."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return str(dev)
+
+
 def table(array: np.ndarray, device) -> torch.Tensor:
     """A module constant as a tensor on ``device``, copied there once: the
     env's lookup tables live on the device, so a step makes no host copy."""
-    key = (id(array), str(torch.device(device)))
+    key = (id(array), _device_key(device))
     if key not in _TABLES:
         _TABLES[key] = torch.from_numpy(np.ascontiguousarray(array)).to(device)
     return _TABLES[key]

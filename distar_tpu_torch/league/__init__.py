@@ -1,9 +1,10 @@
 """The league: players, matchmaking, payoff, ELO and TrueSkill, its HTTP API
 and the remote proxy.
 
-Counterpart of ``distar_tpu.league`` without ``league/runtime/`` (the
-coordinator-hosted league runtime, ROADMAP Queue 1 item 9). Host code only:
-no tensor crosses it.
+Counterpart of ``distar_tpu.league``; ``league/runtime/`` is the
+coordinator-hosted league runtime (matchmaking service, reassigner and the
+league-run launcher). Host code apart from the runner's learner loop, which
+drives the fused rollout on the device.
 """
 from .algorithms import pfsp
 from .api import LeagueAPIServer, league_request

@@ -1,9 +1,8 @@
 """League manager: player registry, matchmaking, payoff/ELO bookkeeping,
 snapshot/reset decisions, resume.
 
-Counterpart of ``distar_tpu.league.league``; the league runtime's hook
-into the resume journal (``attach_runtime``) comes with ROADMAP Queue 1
-item 9.
+Counterpart of ``distar_tpu.league.league``. ``load_resume`` also reads a
+resume file the JAX package wrote (``utils.pickles``).
 
 Role parity with the reference League (reference: distar/ctools/worker/
 league/league.py:30-556): learners register and stream train-info (driving
@@ -93,6 +92,11 @@ class League:
         self.trueskill = TrueSkill()
         self._lock = threading.RLock()
         self._learners: Dict[str, List[dict]] = {}
+        # runtime attachment (league/runtime/service.py): when a
+        # LeagueService hosts this league, its roster/assignment/mint state
+        # rides save_resume/load_resume so one journal carries everything
+        self._runtime_state_fn = None
+        self._runtime_load_fn = None
         if self.cfg.get("resume_path") and os.path.isfile(self.cfg.resume_path):
             self.load_resume(self.cfg.resume_path)
         else:
@@ -369,6 +373,13 @@ class League:
         return True
 
     # ---------------------------------------------------------------- resume
+    def attach_runtime(self, state_fn, load_fn) -> None:
+        """Hook a league-runtime service into resume journaling: its state
+        (learner roster, assignment map, snapshot lineage, RNG cursor) is
+        embedded in ``save_resume`` blobs and handed back on load."""
+        self._runtime_state_fn = state_fn
+        self._runtime_load_fn = load_fn
+
     def save_resume(self, path: str) -> str:
         """Journal the full league state (players, payoff, ratings) to
         ``path``. Atomic via the storage layer (tmp+fsync+rename): a
@@ -384,20 +395,28 @@ class League:
                     "elo": self.elo,
                     "trueskill": self.trueskill,
                     "learners": {k: list(v) for k, v in self._learners.items()},
+                    "runtime": (
+                        self._runtime_state_fn()
+                        if self._runtime_state_fn is not None else None
+                    ),
                 }
             )
         storage.write_bytes(path, blob)
         return path
 
     def load_resume(self, path: str) -> None:
-        from ..utils import storage
+        """Adopt the resume file at ``path``, the port's or the JAX package's."""
+        from ..utils import pickles, storage
 
-        data = pickle.loads(storage.read_bytes(path))
+        data = pickles.loads(storage.read_bytes(path))
         self.active_players = data["active_players"]
         self.historical_players = data["historical_players"]
         self.elo = data["elo"]
         self.trueskill = data.get("trueskill", TrueSkill())
         self._learners = {k: list(v) for k, v in (data.get("learners") or {}).items()}
+        runtime = data.get("runtime")
+        if runtime is not None and self._runtime_load_fn is not None:
+            self._runtime_load_fn(runtime)
         # backfill attributes absent from older resume pickles (unpickling
         # skips __init__)
         from .stat_meters import CumStat, DistStat, UnitNumStat

@@ -1,7 +1,7 @@
 """Remote league proxy: the League surface over HTTP.
 
-Counterpart of ``distar_tpu.league.remote``'s ``RemoteLeague``; the
-coordinator-hosted league runtime's proxy comes with ROADMAP Queue 1 item 9.
+Counterpart of ``distar_tpu.league.remote``: ``RemoteLeague`` for the league
+server, ``RemoteLeagueService`` for the coordinator-hosted league runtime.
 
 Learners and actors on other hosts construct a RemoteLeague with the league
 server's address and use it exactly like an in-process League (the subset of
@@ -74,3 +74,70 @@ class RemoteLeague:
     def actor_send_result(self, result: dict) -> bool:
         return bool(self._call("actor_send_result", result))
 
+
+class RemoteLeagueService:
+    """Proxy for the coordinator-hosted league runtime (league/runtime/).
+
+    The runtime routes live on the COORDINATOR, not the standalone league
+    server — this proxy therefore speaks ``comm.coordinator_request`` (the
+    resilience retry policy) rather than ``league_request``. The
+    method surface mirrors :class:`~.runtime.service.LeagueService` one to
+    one; bodies carry the idempotency handles (``learner_id``, ``seq``,
+    match ``key``) that make retries safe on the journaled side.
+
+    ``addr`` is a single ``host:port``; the JAX package's HA comma list
+    (``"h1:p1,h2:p2"``) raises ``NotImplementedError`` naming ROADMAP Queue 1
+    item 11, as ``coordinator_request`` does.
+    """
+
+    def __init__(self, addr: str, timeout: float = 30.0, policy=None):
+        self.addr = addr
+        self._timeout = timeout
+        self._policy = policy
+
+    def _call(self, route: str, body: dict):
+        from ..comm.coordinator import coordinator_request
+
+        out = coordinator_request(self.addr, None, route, body,
+                                  timeout=self._timeout, policy=self._policy)
+        if out.get("code") != 0:
+            raise FatalError(f"league runtime {route} error: {out}")
+        return out.get("info")
+
+    # --- the LeagueService surface, one proxy per journaled route ---
+    def register_learner(self, player_id: str, learner_id: str = "",
+                         ip: str = "", port: int = 0, rank: int = 0,
+                         world_size: int = 1) -> dict:
+        return self._call("league_register", {
+            "player_id": player_id,
+            "learner_id": learner_id or player_id,
+            "ip": ip, "port": port, "rank": rank, "world_size": world_size,
+        })
+
+    def ask_job(self, player_id: str, learner_id: str = "",
+                actor: str = "") -> Optional[dict]:
+        return self._call("league_ask", {
+            "player_id": player_id,
+            "learner_id": learner_id or player_id,
+            "actor": actor,
+        })
+
+    def report(self, job_id: str, matches: list, learner_id: str = "") -> dict:
+        return self._call("league_report", {
+            "job_id": job_id, "learner_id": learner_id, "matches": matches,
+        })
+
+    def train_info(self, player_id: str, seq: int, train_steps: int = 0,
+                   checkpoint_path: str = "", generation_path: str = "",
+                   learner_id: str = "") -> dict:
+        return self._call("league_train_info", {
+            "player_id": player_id,
+            "learner_id": learner_id or player_id,
+            "seq": int(seq),
+            "train_steps": int(train_steps),
+            **({"checkpoint_path": checkpoint_path} if checkpoint_path else {}),
+            **({"generation_path": generation_path} if generation_path else {}),
+        })
+
+    def status(self) -> dict:
+        return self._call("league_status", {})

@@ -145,6 +145,19 @@ def policy_params_from_flax(params: Mapping, model: torch.nn.Module) -> Dict[str
                              if k in mine or not k.startswith("value_")}, model)
 
 
+def frozen_model(cfg, path: str, device) -> torch.nn.Module:
+    """A ``Model`` of ``cfg`` on ``device`` holding the weights of the
+    checkpoint at ``path`` (either package's layout; a learner's value
+    towers dropped where ``cfg`` has none), its parameters frozen: a league
+    opponent or an arena player."""
+    from ..utils.checkpoint import load_params
+    from .core import Model
+
+    model = Model(cfg)
+    model.load_state_dict(policy_params_from_flax(load_params(path), model))
+    return model.to(device).requires_grad_(False)
+
+
 def _nest(leaves: Dict[str, np.ndarray]) -> dict:
     """``{"params/a/b": x}`` -> ``{"params": {"a": {"b": x}}}``."""
     out: dict = {}

@@ -12,6 +12,8 @@ import subprocess
 import sys
 import textwrap
 import time
+import urllib.error
+import urllib.request
 import zlib
 
 import numpy as np
@@ -295,9 +297,24 @@ def test_unported_coordinator_parts_name_their_roadmap_item():
         srv.attach_ha(object())
     srv.start()
     try:
-        for route in ("telemetry", "arena_next", "league_ask"):
-            reply = pcoord.coordinator_request(srv.host, srv.port, route, {})
-            assert reply["code"] == 1 and "item 9" in reply["info"], reply
+        reply = pcoord.coordinator_request(srv.host, srv.port, "telemetry", {})
+        assert reply["code"] == 1 and "item 9" in reply["info"], reply
+        # the arena and league routes answer as the JAX coordinator's do
+        # when the process hosts no store and no service
+        jsrv = jcoord.CoordinatorServer(port=0)
+        jsrv.start()
+        try:
+            for route in ("arena_next", "league_ask"):
+                reply = pcoord.coordinator_request(srv.host, srv.port, route, {})
+                assert reply == jcoord.coordinator_request(jsrv.host, jsrv.port, route, {}), reply
+                assert reply["code"] == 1 and "no " in reply["info"], reply
+            for route in ("/league/status", "/arena/ratings", "/arena/payoff"):
+                for s in (srv, jsrv):
+                    with pytest.raises(urllib.error.HTTPError) as err:
+                        urllib.request.urlopen(f"http://{s.host}:{s.port}{route}", timeout=10)
+                    assert err.value.code == 404
+        finally:
+            jsrv.stop()
         # a single address given in list form is one coordinator
         assert pcoord.coordinator_request(f"{srv.host}:{srv.port}", None, "peers",
                                           {"token": "t"})["info"] == []

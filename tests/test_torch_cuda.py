@@ -514,3 +514,120 @@ def test_anakin_window_on_the_card_is_device_pure(cuda):
     assert not planted["pure"] and planted["offending"][0].startswith("sync at "), planted
     log = learner._train(batch)
     assert np.isfinite(log["total_loss"])
+
+
+def _league_args(extra, tmp_path):
+    import json
+
+    from distar_tpu_torch.bin import rl_train
+    from distar_tpu_torch.bin.sl_train import SMOKE_MODEL
+    from distar_tpu_torch.utils import deep_merge_dicts
+
+    model = deep_merge_dicts(SMOKE_MODEL, {"encoder": {"entity": {"attention_impl": "pallas"},
+                                                       "scatter": {"impl": "pallas"}}})
+    args = rl_train.parser().parse_args(
+        ["--batch-size", "2", "--traj-len", "3", "--jaxenv-units", "2", "--jaxenv-episode-len", "8",
+         "--save-path", str(tmp_path), "--config", json.dumps({"model": model})] + extra)
+    rl_train._resolve_args(args)
+    return args
+
+
+@pytest.mark.cuda
+def test_league_learner_first_window_is_device_pure(cuda, tmp_path):
+    """A league learner's first window (the home seat and the away seat's
+    frozen initial policy) on CUDA, from a process with no lookup table on
+    the card yet (the runner uploads them under the index-filled device
+    name the generator's draws carry): pure by ``purity_report``, and a second
+    window runs under ``set_sync_debug_mode("error")`` launching both
+    kernels; one league round against an in-process control plane."""
+    from distar_tpu_torch.bin import rl_train
+    from distar_tpu_torch.envs.jaxenv import scenario
+    from distar_tpu_torch.league.runtime.runner import LeagueRunner
+
+    scenario._TABLES.clear()  # as in a fresh learner process: no table on the card yet
+    runner = LeagueRunner(("MP0", "EP0"), save_path=str(tmp_path))
+    addr = runner.start_control_plane()
+    try:
+        args = _league_args(["--type", "league-learner", "--player-id", "EP0", "--coordinator-addr", addr,
+                             "--league-rounds", "1", "--no-supervise"], tmp_path)
+        learner, loader, loop, report = rl_train.build_league_learner(args)
+        assert report == {"pure": True, "offending": []}
+        assert next(learner.model.parameters()).is_cuda
+        next(loader)
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            carry, batch = loader.runner.rollout(learner.model, loader._carry,
+                                                 opponent_model=loader._opponent_model())
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert kernels.launch_counts["masked_attention"] > 0
+        assert kernels.launch_counts["scatter_add_connection"] > 0
+        loader._carry = carry
+        out = loop.run()
+        assert out["jobs"] == 1 and out["mints"] == 1
+    finally:
+        runner.shutdown()
+
+
+@pytest.mark.cuda
+def test_arena_batch_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """One arena batch of a smoke-model generation against attack_nearest
+    on CUDA and on the CPU, the same scenarios (drawn on the CPU) and the
+    same Gumbel draws (each seat's from one CPU generator): the same
+    winners and game steps."""
+    from distar_tpu_torch import arena as A
+    from distar_tpu_torch.arena import evaluator as E
+    from distar_tpu_torch.bin.sl_train import SMOKE_MODEL
+    from distar_tpu_torch.envs import jaxenv as P
+    from distar_tpu_torch.model import Model, default_model_config, init_params, noise_shapes
+    from distar_tpu_torch.model.convert import params_to_flax
+    from distar_tpu_torch.utils import deep_merge_dicts
+    from distar_tpu_torch.utils.checkpoint import CheckpointManager, save_checkpoint
+
+    model_cfg = deep_merge_dicts(SMOKE_MODEL, {"encoder": {"entity": {"attention_impl": "pallas"},
+                                                           "scatter": {"impl": "pallas"}}})
+    model = Model(deep_merge_dicts(default_model_config(), model_cfg))
+    init_params(model, 2)
+    ckpt_dir = str(tmp_path / "ckpt")
+    path = str(tmp_path / "ckpt" / "g.ckpt")
+    import os
+
+    os.makedirs(ckpt_dir)
+    save_checkpoint(path, params_to_flax(model))
+    CheckpointManager(ckpt_dir).record(path, step=7)
+    env = P.EnvConfig(units_per_squad=2)
+    scn = P.ScenarioConfig(units_per_squad=2, min_units=2, max_units=2, episode_len=24, spawn_margin=50.0,
+                           spawn_spread=4.0, mirror_types=True, blocked_frac=0.0)
+    real_scenarios, real_h2h = E.assignment_scenarios, E.head_to_head
+
+    class Fed:
+        def __init__(self, policy):
+            self.policy, self.gen = policy, torch.Generator().manual_seed(11)
+
+        def init_carry(self, batch, device=None):
+            return self.policy.init_carry(batch, device)
+
+        def __call__(self, obs, carry, generator=None):
+            B = obs["entity_num"].shape[0]
+            dev = obs["entity_num"].device
+            noise = {k: -torch.log(-torch.log(torch.rand(s, generator=self.gen).clamp_min(1e-30))).to(dev)
+                     for k, s in noise_shapes(self.policy.model.cfg, B).items()}
+            return self.policy(obs, carry, noise=noise)
+
+    results = {}
+    try:
+        E.assignment_scenarios = lambda seed, n, cfg, device: P.Scenario(
+            *(x.to(device) for x in real_scenarios(seed, n, cfg, "cpu")))
+        E.head_to_head = lambda a, b, **kw: real_h2h(*(Fed(p) if isinstance(p, P.ModelPolicy) else p
+                                                       for p in (a, b)), **kw)
+        for dev in ("cpu", cuda):
+            ev = A.ArenaEvaluator(ckpt_dir, model_cfg, store=A.ArenaStore(), episodes=8, env_cfg=env,
+                                  scenario_cfg=scn, device=dev)
+            out = ev.evaluate_once()
+            assert {out["assignment"]["home"], out["assignment"]["away"]} == {"main:7", "attack_nearest"}
+            results[str(dev)] = [(m["winner"], m["game_steps"]) for m in out["result"]["matches"]]
+    finally:
+        E.assignment_scenarios, E.head_to_head = real_scenarios, real_h2h
+    assert results["cpu"] == results["cuda"]

@@ -1,5 +1,5 @@
 """The port stands alone: no module of distar_tpu_torch/ and neither of the
-port's root scripts (chip_smoke.py, attention_variants.py) imports jax,
+port's root scripts (chip_smoke.py, attention_variants.py, loop_gap_probe.py) imports jax,
 flax, optax or anything of the JAX package distar_tpu, nor msgpack or lz4,
 which the GPU machine lacks (the port reads and writes checkpoints and
 frames with its own codecs); zstandard and tensorboardX only under an
@@ -12,7 +12,7 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "distar_tpu", "msgpack", "lz4")
 GUARDED = ("zstandard", "tensorboardX")  # optional: imported only inside try / except ImportError
-ROOT_SCRIPTS = ("chip_smoke.py", "attention_variants.py")
+ROOT_SCRIPTS = ("chip_smoke.py", "attention_variants.py", "loop_gap_probe.py")
 
 
 def _port_files():
@@ -75,7 +75,9 @@ def test_port_has_modules():
                    "replay/local.py", "replay/client.py", "replay/server.py", "learner/replay_actor.py",
                    "bin/play.py", "envs/jaxenv/__init__.py", "envs/jaxenv/scenario.py",
                    "envs/jaxenv/core.py", "envs/jaxenv/obs.py", "envs/jaxenv/host.py",
-                   "envs/jaxenv/winrate.py", "envs/jaxenv/anakin.py"):
+                   "envs/jaxenv/winrate.py", "envs/jaxenv/anakin.py", "utils/pickles.py",
+                   "arena/__init__.py", "arena/store.py", "arena/evaluator.py", "league/runtime/__init__.py",
+                   "league/runtime/service.py", "league/runtime/reassign.py", "league/runtime/runner.py"):
         assert os.path.join("distar_tpu_torch", module) in files
     # the data plane's native library is the port's own copy of the source
     assert os.path.exists(os.path.join(REPO, "distar_tpu_torch", "comm", "native", "shuttle.cpp"))

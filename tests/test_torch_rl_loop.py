@@ -477,12 +477,12 @@ def test_replay_flags_take_their_working_path(argv, tmp_path, monkeypatch, capsy
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--type", "arena"], "item 9"), (["--type", "league-run"], "item 9"),
-    (["--type", "league-learner"], "item 9"),
+    (["--type", "league-run"], "item 11"), (["--type", "league-run", "--league-actors-per-player", "1",
+                                             "--journal-dir", "none"], "item 10"),
     (["--env", "sc2"], "item 10"), (["--mesh", "dp=2"], "item 7"), (["--dist-method", "auto"], "item 7"),
     (["--journal-dir", "j"], "item 11"), (["--ha-peers", "a:1"], "item 11"),
     (["--telemetry-interval-s", "5"], "item 9"), (["--no-health"], "item 9"),
-    (["--dynamics-every", "2"], "item 9"), (["--league-resume", "x"], "item 9"),
+    (["--dynamics-every", "2"], "item 9"),
     (["--platform", "cpu"], "--device"), (["--metrics-port", "9"], "item 9"),
 ])
 def test_unported_flags_raise_naming_their_item(argv, item):

@@ -491,6 +491,16 @@ def test_bin_trains_on_a_remote_feed(tmp_path, capsys, monkeypatch):
         assert isinstance(lrn._dataloader.source if hasattr(lrn._dataloader, "source") else lrn._dataloader,
                           RemoteSLDataloader)
         assert np.isfinite(lrn.last_log["total_loss"])
+        # the learner's prefetcher reads past the 2 steps and waits inside a
+        # pull on this coordinator; a thread left polling it after it stops
+        # retries into the metrics of whatever test runs next in this
+        # process. Close the prefetcher, feed its pending pull and see it end.
+        prefetcher = lrn._dataloader
+        prefetcher.close()
+        ReplayActor(["c.SC2Replay", "d.SC2Replay"], adapter_factory=lambda: Adapter(coordinator_addr=addr),
+                    decoder_factory=lambda: StubDecoder(seed=5), ntasks=1, proc_id=0).run()
+        prefetcher._thread.join(timeout=60)
+        assert not prefetcher._thread.is_alive()
     finally:
         co.stop()
 
