@@ -61,9 +61,15 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              B under traffic: it leaves discovery within one refresh, exits 0,
              its sessions migrate to A (counted), no request fails. f. a
              32-lane ``act_many`` against A in process, over TCP (``DTL0``) and
-             over shared-memory rings sized from the answer, median of 8 in
+             over shared-memory rings sized from the answer, median of 5 in
              turns, the shm row failing on any fallback to TCP; the
-             encode/decode split.
+             encode/decode split. b'. (before e.) fleet health: both gateways
+             ship their snapshots and request traces to the coordinator every
+             FLEET_SHIP_S (B as ``bin/serve.py --telemetry-interval-s``, A
+             through the ``TelemetryShipper`` ``bin/serve.py`` starts); its
+             ``/healthz`` lists both sources fresh, ``/traces`` holds request
+             traces of both, and ``/trace/<id>`` of B's slowest returns a
+             waterfall with its critical path; A's ship ms and bytes.
 7. train   — the SL train step at flagship width and depth, f32, batch 2 x
              unroll 32 (64 frames): each kernel's autograd Function at the
              training shapes, its forward (the kernel) against the plain
@@ -162,7 +168,49 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              a learner of 4 steps (exit 0, ``learner done``) and an actor
              (SIGTERM: exit 0; no traceback in the actor's log, while the
              coordinator and league may report its hang-up, as the JAX
-             servers do). Printed: env steps/s, frames/s
+             servers do), with fleet health on as the JAX defaults give it,
+             the learner and actor shipping every second. Check a: before
+             the SIGTERMs the coordinator's ``/healthz`` is 200 and ok with
+             the learner's and the actor's sources fresh, ``/timeseries``
+             shows the learner's iterations rising, ``/alerts`` nothing
+             firing, ``/traces?name=trajectory`` a trajectory the learner
+             shipped, and its ``/trace/<id>`` waterfall carries the actor's
+             push and the learner's collate; after them the coordinator and
+             the actor, not the league, have left one flight bundle each
+             (the signal event, a registry snapshot). c'. (after c., on the
+             loop's learner and actor, ``phase_health``) the fleet-health
+             fault drill, each fault under an ``init_fleet_health(
+             default_rulebook(("learner", "actor"), stall_window_s=2.0),
+             sample_interval_s=0.1, eval_interval_s=0.2)`` of its own and an
+             in-process ``CoordinatorServer``. With the actor idle,
+             ``ChaosInjector.poison_loss(learner, n=3)`` over 6 steps of
+             ``run()`` on an actor-made batch: ``learner_loss_nonfinite``
+             fires exactly once, ``/healthz`` answers 503 while it does, a
+             ``dump`` holds the transitions and the NaN
+             ``distar_learner_loss``, the rule is ok after the clean steps.
+             With the learner idle, the actor's job loop a ``Supervisor``
+             task with ``AlertRemediator(supervisor, {"actor_env_starvation":
+             "actor"})`` as ``--type all`` runs it, and every mock env's next
+             step delayed 3 s (``ChaosInjector.wrap`` patched over
+             ``MockEnv.step``): ``actor_env_starvation`` fires exactly once
+             (a job's start, the only gap in a running actor's env steps,
+             lasts about as long as the 2 s window, so the actor's first job
+             is under way before the stall), the task restarts
+             exactly once (one remediation, one ``task_restart``), env steps
+             resume; each kernel's inputs captured from the learner's first
+             clean step and the restarted actor's first flush against the
+             plain versions; launches by thread, read once the actor's
+             last job is over, exactly one attention call a layer and one
+             scatter a step and twice that a flush (policy and teacher).
+             Printed: ship ms and bytes (learner, actor), the coordinator's
+             ingest ms, its store's series and sources, ``/healthz`` ms,
+             seconds to each firing and to the restart, dump s and bundle
+             bytes, step and flush ms beside the phase's alone, without
+             fleet health. ``python3 chip_smoke.py --only health`` runs c'.
+             alone after the build, on a learner and actor built as c'.
+             finds them and on the batch it gets (``health_loop``), then
+             times the step with no fleet health, sampled every 1 s and
+             every 0.1 s, in turns (``sampler_ab``). Printed: env steps/s, frames/s
              made and consumed, flush and step ms in the loop and alone,
              data wait, publish and refresh ms, trajectory push ms and
              bytes, peak memory, the profiled step's idle share.
@@ -171,12 +219,12 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              ``bin/rl_train.py --type all --replay`` builds it
              (``rl_train.build_all``) at the flagship (kernel overlay, f32):
              rl_loop's league, actor (8 mock envs of 300 game loops,
-             trajectories of 16) and learner (4 x 16, 8 iterations, prefetch
+             trajectories of 16) and learner (4 x 16, 6 iterations, prefetch
              depth 2), and between them one ``ReplayServer`` on loopback,
              transport auto (its rings sized for a flagship trajectory where
              /dev/shm has room), sampler uniform, samples-per-insert 4, spill
              on. Checked: the store's inserts are the actor's acknowledged
-             pushes; its samples the learner's 32 and at most what the
+             pushes; its samples the learner's 24 and at most what the
              prefetcher drew ahead; the limiter's ratio within its buffer at
              every insert and sample; every sampled trajectory bit-equal to
              one pushed (a sha256 of its leaves a push); both kernels
@@ -272,6 +320,7 @@ its arena batch, each read from zero around its run); the last line is
 from __future__ import annotations
 
 import contextlib
+import glob
 import json
 import os
 import shutil
@@ -828,7 +877,7 @@ def profile_call(fn):
 # ---------------------------------------------------------- serve process
 SERVE_LAYERS = 3  # default_model_config's entity transformer layers
 SERVE_SESSIONS, SERVE_STEPS = 8, 3
-WIRE_ROUNDS = 8
+WIRE_ROUNDS = 5  # 8 until the health drill came
 
 
 def lz4_block(data: bytes) -> bytes:
@@ -1250,6 +1299,41 @@ FLEET_LEASE_S = 30.0  # the gateways' registration lease
 FLEET_REFRESH_S = 2.0  # FleetClient's re-discovery cadence
 FLEET_CANARY_PCT = 50.0
 FLEET_CANARY_SESSIONS = 8
+FLEET_SHIP_S = 1.0  # both gateways' telemetry cadence (gateway_proc's default is 2.0, bin/serve.py's 5.0)
+
+
+def fleet_health_check(coord_srv, port_a, port_b, addr_a):
+    """Check b of phase 6: the coordinator's view of both gateways' shipped
+    telemetry and traces; gateway A's ship timings and bytes."""
+    from distar_tpu_torch.obs import get_fleet_health
+
+    fh = get_fleet_health()
+    srcs = (f"serve:{port_a}", f"serve:{port_b}")
+
+    def traced():
+        rows = fh.traces.query(limit=1000)
+        return all(any(r["source"] == s for r in rows) for s in srcs)
+
+    wait_for(lambda: set(srcs) <= set(fh.store.sources()) and traced(), 60,
+             f"serve_fleet: both gateways' telemetry and traces at the coordinator ({sorted(fh.store.sources())})")
+    st, hz, hz_ms = get_json(coord_srv.host, coord_srv.port, "/healthz")
+    check(st in (200, 503) and set(srcs) <= set(hz["sources"]) and not any(hz["sources"][s]["stale"] for s in srcs),
+          f"serve_fleet: /healthz {st} sources {hz.get('sources')}")
+    _, listing, _ = get_json(coord_srv.host, coord_srv.port, "/traces?limit=1000")
+    rows = {s: [r for r in listing["traces"] if r["source"] == s] for s in srcs}
+    check(all(rows.values()), f"serve_fleet: /traces rows by source {[len(v) for v in rows.values()]}")
+    slow = max(rows[srcs[1]], key=lambda r: r["dur_ms"])
+    st, body, trace_ms = get_json(coord_srv.host, coord_srv.port, f"/trace/{slow['trace_id']}")
+    wf = body.get("waterfall", {})
+    check(st == 200 and wf.get("critical_path") and wf.get("segments") and wf.get("total_s", 0) > 0,
+          f"serve_fleet: the slow request's waterfall {st} {json.dumps(body)[:2000]}")
+    return {"sources": sorted(hz["sources"]), "healthz_status": st, "healthz_ms": hz_ms, "trace_ms": trace_ms,
+            "traces": {s: len(v) for s, v in rows.items()}, "slow_trace": {
+                "name": slow["name"], "dur_ms": slow["dur_ms"], "spans": len(body["spans"]),
+                "span_sources": sorted({sp["source"] for sp in body["spans"]}),
+                "critical_path": len(wf["critical_path"]), "top_segment": wf["segments"][0]},
+            "ship_gateway": ship_timings(srcs[0], (coord_srv.host, coord_srv.port), endpoint=addr_a),
+            "store": {"series": fh.store.stats()["series"], "sources": len(fh.store.sources())}}
 
 
 def counter_sum(prefix):
@@ -1299,7 +1383,7 @@ def phase_serve_fleet(device, rng, smi, v1, v2):
     from distar_tpu_torch.comm import serializer, shuttle
     from distar_tpu_torch.comm.coordinator import CoordinatorServer
     from distar_tpu_torch.lib import features as F
-    from distar_tpu_torch.obs import MetricsRegistry, set_registry
+    from distar_tpu_torch.obs import MetricsRegistry, TelemetryShipper, set_registry
     from distar_tpu_torch.ops import kernels as K
     from distar_tpu_torch.replay.sharding import HashRing
     from distar_tpu_torch.serve import (BatchedInferenceEngine, InferenceGateway, ServeClient,
@@ -1334,7 +1418,8 @@ def phase_serve_fleet(device, rng, smi, v1, v2):
             proc = subprocess.Popen(
                 [sys.executable, "-m", "distar_tpu_torch.bin.serve", "--checkpoint", v1, "--host", "127.0.0.1",
                  "--http-port", "0", "--tcp-port", "0", "--drain-timeout-s", "20", "--coordinator-addr",
-                 f"{coord_srv.host}:{coord_srv.port}", "--lease-s", str(FLEET_LEASE_S), *serve_flags],
+                 f"{coord_srv.host}:{coord_srv.port}", "--lease-s", str(FLEET_LEASE_S),
+                 "--telemetry-interval-s", str(FLEET_SHIP_S), *serve_flags],
                 cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
         args = serve_bin.parser().parse_args(["--checkpoint", v1, *serve_flags])
         gw_a = serve_bin.build_gateway(args).start()
@@ -1347,6 +1432,10 @@ def phase_serve_fleet(device, rng, smi, v1, v2):
         register_gateway(coord, tcp_a.host, tcp_a.port,
                          meta={"players": [], "slots": SLOTS, "http_port": http_a.port, "version": "v1",
                                "mock": False}, lease_s=FLEET_LEASE_S, target=gw_a)
+        # A ships as bin/serve.py's gateway does, to the fleet's coordinator
+        shipper_a = TelemetryShipper(f"serve:{tcp_a.port}", coordinator_addr=coord, interval_s=FLEET_SHIP_S,
+                                     endpoint=addr_a).start()
+        stack.append(shipper_a)
         while True:
             check(proc.poll() is None and time.perf_counter() - t0 < 300,
                   f"gateway B did not register: {open(log_b).read()[-2000:]}")
@@ -1453,6 +1542,13 @@ def phase_serve_fleet(device, rng, smi, v1, v2):
               f"{sum(to_b)} of {len(canary_sids)} new sessions on B answering v2, the rest on A answering v1, "
               f"existing sessions unmoved; promote ({promote_s:.2f} s): every gateway v2; a rollout of a "
               f"missing checkpoint answered {nack['outcome']} and left {current}")
+
+        # b'. fleet health: both gateways' snapshots and request traces at the
+        # coordinator, read before B drains (its lease's end evicts them)
+        result["health"] = fleet_health_check(coord_srv, tcp_a.port, int(addr_b.rsplit(":", 1)[1]), addr_a)
+        print(f"serve_fleet health ({smi}): both gateways ship every {FLEET_SHIP_S:g} s; the coordinator's "
+              f"/healthz lists both, /traces holds request traces of both, a slow request's waterfall has its "
+              f"critical path: {json.dumps(result['health'])}")
 
         # e. drain: SIGTERM B under traffic
         steps = {s: [] for s in every}
@@ -1924,7 +2020,7 @@ def phase_train(device, rng):
 
     # step time in turns (3 warm-up steps each, the parity step included),
     # a profiled step and the peak memory of one step
-    step_ms, times = step_times(learners, batch, warmup=2)
+    step_ms, times = step_times(learners, batch, rounds=3, warmup=1)  # cut from 5 and 2 for the drill's time
     frames = TRAIN_B * TRAIN_T
     memory = {impl: step_memory(lrn, batch)[0] for impl, lrn in learners.items()}
     profiles = {impl: profile_call(lambda: lrn._train(batch)) for impl, lrn in learners.items()}
@@ -3194,7 +3290,7 @@ def phase_rl(device, rng):
     stale = {k: v for k, v in lrn.last_log.items() if k.startswith("staleness/")}
     print(f"rl entry point: staleness after the last step {stale}")
     del lrn
-    step_ms, all_ms = step_times(learners, batch)
+    step_ms, all_ms = step_times(learners, batch, rounds=3, warmup=1)  # cut from 5 and 3 for the drill's time
     memory = {impl: step_memory(lrn, batch)[0] for impl, lrn in learners.items()}
     profiles = {impl: profile_call(lambda: lrn._train(batch)) for impl, lrn in learners.items()}
     del learners
@@ -3228,7 +3324,7 @@ def phase_rl(device, rng):
     d_losses, d_launches = entry_point(K, lrn, DISTILL_ITERS,
                                        "distill entry point (DistillLearner.run, student)")
     del lrn
-    d_ms, d_all = step_times(students, batch)
+    d_ms, d_all = step_times(students, batch, rounds=3, warmup=1)  # cut from 5 and 3 for the drill's time
     d_profile = profile_call(lambda: students["pallas"]._train(batch))
     del students
 
@@ -3425,12 +3521,46 @@ def flush_against_xla(device, cap):
     return worst
 
 
+def loop_fleet_health(co):
+    """Check a of phase 10: what the four processes' coordinator saw, read
+    once the learner has exited and before the SIGTERMs."""
+    host, port = co.rsplit(":", 1)
+    learner_src = "learner:MP0:0"
+    st, hz, hz_ms = get_json(host, port, "/healthz")
+    sources = hz.get("sources", {})
+    actor_src = next((s for s in sources if s.startswith("actor:")), None)
+    check(st == 200 and hz["status"] == "ok" and learner_src in sources and actor_src is not None
+          and not sources[learner_src]["stale"] and not sources[actor_src]["stale"],
+          f"rl loop processes: /healthz {st} {json.dumps(hz)[:3000]}")
+    _, ts, _ = get_json(host, port, "/timeseries?name=distar_learner_iterations_total")
+    rate = ((ts["stats"] or {}).get(learner_src) or {}).get("rate")
+    check(rate is not None and rate > 0, f"rl loop processes: the learner's iterations {json.dumps(ts)[:2000]}")
+    _, alerts, _ = get_json(host, port, "/alerts")
+    check(not alerts["firing"], f"rl loop processes: firing {alerts['firing']}: "
+          f"{json.dumps({n: alerts['rules'][n] for n in alerts['firing']})}")
+    _, traces, _ = get_json(host, port, "/traces?name=trajectory&limit=500")
+    rows = [r for r in traces["traces"] if r["source"] == learner_src]
+    check(rows, f"rl loop processes: no trajectory trace shipped: {json.dumps(traces)[:2000]}")
+    st, body, trace_ms = get_json(host, port, f"/trace/{rows[0]['trace_id']}")
+    hops = [h for r in body.get("waterfall", {}).get("spans", ()) for h in r["hops"]]
+    check(st == 200 and {"adapter_push", "learner_collate"} <= set(hops) and body["waterfall"]["critical_path"],
+          f"rl loop processes: the trajectory's waterfall does not cover the actor's push and the learner's "
+          f"collate: {st} {json.dumps(body)[:2000]}")
+    return {"healthz_ms": hz_ms, "trace_ms": trace_ms, "learner_iterations_rate": rate,
+            "sources": sorted(sources), "series": hz["tsdb"]["series"], "trajectory_traces": len(rows),
+            "waterfall_hops": hops, "waterfall_total_s": body["waterfall"]["total_s"]}
+
+
 def loop_processes(tmp, smi, device):
     """``bin/rl_train.py`` as four processes: coordinator, league, a learner
-    of LOOP_PROCESS_ITERS steps and an actor; the learner exits 0 with its
-    done line, then SIGTERM ends the actor (exit 0, no traceback), the
-    coordinator and the league (exit 0; like the JAX package's servers,
-    they may print the stdlib's traceback of the actor hanging up)."""
+    of LOOP_PROCESS_ITERS steps and an actor, with fleet health on (the
+    learner and the actor ship every second); the learner exits 0 with its
+    done line; check a (``loop_fleet_health``) reads the coordinator; then
+    SIGTERM ends the actor (exit 0, no traceback), the coordinator and the
+    league (exit 0; like the JAX package's servers, they may print the
+    stdlib's traceback of the actor hanging up), and the actor and the
+    coordinator, not the league, leave a flight bundle (the signal event
+    and a registry snapshot) under their save paths' ``flight/``."""
     import signal
 
     cfg = json.dumps({"model": overlay("pallas", "pallas"), "league": LOOP_LEAGUE})
@@ -3456,19 +3586,22 @@ def loop_processes(tmp, smi, device):
 
     t0 = time.perf_counter()
     try:
-        start("coordinator", "--port", "0")
-        start("league", "--port", "0", "--config", cfg)
+        saves = {role: os.path.join(tmp, f"rl_{role}") for role in ("coordinator", "league", "learner", "actor")}
+        start("coordinator", "--port", "0", "--save-path", saves["coordinator"])
+        start("league", "--port", "0", "--config", cfg, "--save-path", saves["league"])
         co, lg = serving("coordinator"), serving("league")
         sizes = ("--env-num", "2", "--traj-len", str(LOOP_PROCESS_T), "--batch-size", str(RL_B))
+        ship = ("--telemetry-interval-s", "1")
         start("learner", "--coordinator-addr", co, "--league-addr", lg, "--iters", str(LOOP_PROCESS_ITERS),
-              "--full-model", "--save-path", os.path.join(tmp, "rl_learner"), "--config", cfg, *sizes, *dev)
-        start("actor", "--coordinator-addr", co, "--league-addr", lg, "--full-model", "--config", cfg, *sizes,
-              *dev)
+              "--full-model", "--save-path", saves["learner"], "--config", cfg, *ship, *sizes, *dev)
+        start("actor", "--coordinator-addr", co, "--league-addr", lg, "--full-model", "--config", cfg,
+              "--save-path", saves["actor"], *ship, *sizes, *dev)
         learner, log_path = procs["learner"]
         wait_ok(learner, log_path, "rl_train learner", timeout=400)
         text = open(log_path).read()
         check(f"learner done: {LOOP_PROCESS_ITERS} iters" in text, f"learner process: {text[-2000:]}")
         out["learner_s"] = time.perf_counter() - t0
+        out["health"] = loop_fleet_health(co)
         for role in ("actor", "coordinator", "league"):
             proc, path = procs[role]
             check(proc.poll() is None, f"rl_train {role} exited early: {open(path).read()[-2000:]}")
@@ -3479,6 +3612,17 @@ def loop_processes(tmp, smi, device):
             check(rc == 0 and (role != "actor" or "Traceback" not in text),
                   f"rl_train {role} after SIGTERM: rc {rc} {text[-2000:]}")
             out[f"{role}_exit_s"] = time.perf_counter() - t1
+        bundles = {role: sorted(glob.glob(os.path.join(save, "flight", "flight_*.json")))
+                   for role, save in saves.items()}
+        check([role for role, b in bundles.items() if b] == ["coordinator", "actor"]
+              and all(len(bundles[r]) == 1 for r in ("coordinator", "actor")),
+              f"rl loop processes: flight bundles {bundles}, want one each from the coordinator and the actor")
+        for role in ("coordinator", "actor"):
+            with open(bundles[role][0]) as f:
+                bundle = json.load(f)
+            check([e for e in bundle["events"] if e["kind"] == "signal"] and bundle["registry_snapshot"],
+                  f"rl loop processes: the {role}'s bundle holds no signal event or no registry snapshot")
+            out["health"][f"{role}_bundle_bytes"] = os.path.getsize(bundles[role][0])
     finally:
         for proc, _ in procs.values():
             if proc.poll() is None:
@@ -3486,15 +3630,20 @@ def loop_processes(tmp, smi, device):
                 proc.wait()
     out["seconds"] = time.perf_counter() - t0
     print(f"rl loop processes ({smi}): coordinator, league, learner ({LOOP_PROCESS_ITERS} steps of "
-          f"{RL_B} x {LOOP_PROCESS_T}, exit 0) and actor (SIGTERM, exit 0, no traceback in its log): {json.dumps(out)}")
+          f"{RL_B} x {LOOP_PROCESS_T}, exit 0) and actor (SIGTERM, exit 0, no traceback in its log), fleet health "
+          f"on (the coordinator's /healthz ok with both sources fresh, the learner's iterations rising, nothing "
+          f"firing, a trajectory's waterfall from the actor's push to the learner's collate; bundles from the "
+          f"coordinator and the actor): {json.dumps(out)}")
     return out
 
 
-def phase_rl_loop(device, smi, tmp, untimed=()):
+def phase_rl_loop(device, smi, tmp, untimed=(), processes=()):
     """The league-RL loop at the flagship (module docstring, phase 10).
-    ``untimed``: ``Background`` jobs started when the loop's timed part has
-    ended. Returns the launch counts of its path (the actor's and the
-    learner's) and the measurements."""
+    ``untimed`` and ``processes``: ``Background`` jobs of later phases
+    started when the loop's timed part has ended; ``processes`` launch no
+    kernel in this process and start first, ``untimed`` once the drill's
+    counts are read. Returns the launch counts of its path (the actor's and
+    the learner's) and the measurements."""
     import threading
 
     import numpy as np
@@ -3513,14 +3662,7 @@ def phase_rl_loop(device, smi, tmp, untimed=()):
     from distar_tpu_torch.utils.transfer import to_host
 
     t_phase = time.perf_counter()
-    args = rl_train.parser().parse_args([
-        "--type", "all", "--full-model", "--iters", str(LOOP_ITERS), "--batch-size", str(RL_B),
-        "--traj-len", str(RL_T), "--env-num", str(LOOP_ENV_NUM),
-        "--episode-game-loops", str(LOOP_EPISODE_LOOPS), "--save-path", os.path.join(tmp, "rl_loop"),
-        "--device", device.type,
-        "--config", json.dumps({"model": overlay("pallas", "pallas"), "league": LOOP_LEAGUE,
-                                "learner": {"log_freq": 1}})])
-    rl_train._resolve_args(args)
+    args = loop_args(device, tmp)
     loop = rl_train.build_all(args)
     actor, learner, league = loop.actor, loop.learner, loop.league
     actor.cfg.model_update_interval_s = LOOP_REFRESH_S
@@ -3679,6 +3821,8 @@ def phase_rl_loop(device, smi, tmp, untimed=()):
         learner._train = real_train
         BatchedInference.sample, InlinePolicyClient.refresh = real["sample"], real["refresh"]
         adapter_mod.dumps = real["dumps"]
+        actor.adapter.push, actor._params_from_publication = real_push, real_pub
+        actor.plane.client_for, actor._refresh_models = real_client_for, real_refresh_models
         loop.supervisor.stop(timeout=120)
 
     # c. what the loop did
@@ -3708,12 +3852,24 @@ def phase_rl_loop(device, smi, tmp, untimed=()):
 
     rl_fn = lambda lrn, tb: rl_loss(lrn.model, lrn.loss_cfg, tb, RL_B, RL_T)  # noqa: E731
     held = as_float32({k: v for k, v in batch.items() if k not in ("trace_span_ids", "trace_age_s")})
-    step_alone, _ = step_times({"pallas": learner}, held, rounds=5, warmup=1)
+    step_alone, _ = step_times({"pallas": learner}, held, rounds=3, warmup=1)
+    # c'. the fleet-health drill on this learner and actor
+    finish_health = phase_health(
+        device, smi, tmp, loop, args, held,
+        baseline={"step_ms": {"alone_median": step_alone["pallas"]},
+                  "flush_ms": {"alone_median": statistics.median(flushes["alone"][2:] or flushes["alone"])}})
     del learner, loop, snapshots
 
     # e. the roles as processes, on a thread while d. (which times nothing)
-    # runs; so does ``untimed``, work of a later phase that times nothing
+    # runs; so do ``processes`` and ``untimed``, work of later phases that
+    # times nothing
     runner = Background(lambda: loop_processes(tmp, smi, device)).start()
+    for job in processes:
+        job.start()
+    # the drill's actor ends its last job beside the processes' start; its
+    # counts are read before ``untimed``, whose threads launch kernels here
+    health_launches, health = finish_health()
+    del finish_health
     for job in untimed:
         job.start()
     try:
@@ -3753,12 +3909,392 @@ def phase_rl_loop(device, smi, tmp, untimed=()):
         "launches": launches, "actor_job_alone_launches": actor_alone,
         "flush_vs_xla_worst_logp": flush_err, "strings": strings["strings"],
         "strings_probe": strings["probe"], "processes": processes,
+        "health": health, "health_launches": health_launches,
     }
-    print(f"rl loop ({smi}): " + json.dumps({k: v for k, v in result.items() if k != "in_loop_step_profile"}))
+    print(f"rl loop ({smi}): " + json.dumps({k: v for k, v in result.items()
+                                             if k not in ("in_loop_step_profile", "health")}))
     print(f"rl loop: a learner step profiled inside the loop (the actor running): "
           f"{json.dumps(in_loop_profile)}")
     total = {n: launches["learner"][n] + launches["actor"][n] for n in build.KERNELS}
     return total, result
+
+
+HEALTH_STALL_WINDOW_S = 2.0  # the drill's rulebook: a stall is 2 s of flat counter
+HEALTH_SAMPLE_S, HEALTH_EVAL_S = 0.1, 0.2  # registry sampling and rulebook cadence
+HEALTH_POISONED = 3  # NaN-loss steps, then as many clean ones
+HEALTH_STALL_S = 3.0  # every mock env's next step sleeps this long
+HEALTH_SHIPS = 8  # ship_once calls timed for each source
+
+
+def wait_for(cond, timeout, what):
+    """Poll ``cond`` every 20 ms; fail naming ``what`` at ``timeout`` s."""
+    deadline = time.monotonic() + timeout
+    while not cond():
+        check(time.monotonic() < deadline, f"{what} within {timeout} s")
+        time.sleep(0.02)
+
+
+def get_json(host, port, path):
+    """(HTTP status, JSON body, ms) of one GET."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(f"http://{host}:{port}{path}", timeout=30) as r:
+            status, body = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        status, body = e.code, e.read()
+    return status, json.loads(body), (time.perf_counter() - t0) * 1e3
+
+
+def ship_timings(source, coord, endpoint=None):
+    """Ms of HEALTH_SHIPS ``ship_once`` calls of this process's registry to
+    the coordinator at ``coord`` under ``source`` (p50 and max), and the
+    serialized bytes of one message."""
+    from distar_tpu_torch.comm import serializer
+    from distar_tpu_torch.obs import TelemetryShipper
+
+    ship = TelemetryShipper(source, coordinator_addr=coord, interval_s=60.0, endpoint=endpoint)
+    ms = []
+    for _ in range(HEALTH_SHIPS):
+        t0 = time.perf_counter()
+        check(ship.ship_once() > 0, f"{source}: a ship recorded nothing")
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return {"p50_ms": statistics.median(ms), "max_ms": max(ms), "bytes": len(serializer.dumps(ship._message()))}
+
+
+def loop_args(device, tmp, iters=LOOP_ITERS):
+    """The flags of phase 10's ``--type all`` loop at the flagship."""
+    from distar_tpu_torch.bin import rl_train
+
+    args = rl_train.parser().parse_args([
+        "--type", "all", "--full-model", "--iters", str(iters), "--batch-size", str(RL_B),
+        "--traj-len", str(RL_T), "--env-num", str(LOOP_ENV_NUM),
+        "--episode-game-loops", str(LOOP_EPISODE_LOOPS), "--save-path", os.path.join(tmp, "rl_loop"),
+        "--device", device.type,
+        "--config", json.dumps({"model": overlay("pallas", "pallas"), "league": LOOP_LEAGUE,
+                                "learner": {"log_freq": 1}})])
+    rl_train._resolve_args(args)
+    return args
+
+
+def health_loop(device, tmp):
+    """Phase 10's learner and actor for ``--only health``: built by
+    ``rl_train.build_all`` on phase 10's flags, the actor's jobs played on a
+    thread until the learner draws an actor-made batch, which is handed on
+    as phase 10 hands it to the drill (f32, without its trace keys)."""
+    import threading
+
+    from distar_tpu_torch.bin import rl_train
+    from distar_tpu_torch.learner.data import as_float32
+
+    args = loop_args(device, tmp)
+    loop = rl_train.build_all(args)
+    stop = threading.Event()
+
+    def jobs():
+        while not stop.is_set():
+            loop.actor.run_job(episodes=1)
+
+    job = Background(jobs).start()
+    try:
+        batch = next(loop.learner._dataloader)
+    finally:
+        stop.set()
+        job.result()
+    return loop, args, as_float32({k: v for k, v in batch.items() if k not in ("trace_span_ids", "trace_age_s")})
+
+
+def sampler_ab(learner, batch, repeats=3):
+    """The learner's step ms (``step_times``, 3 rounds after a warm-up) with
+    no fleet health, with the drill's rulebook sampled and evaluated at the
+    launchers' default cadence (1 s, 2 s) and at the drill's (0.1 s, 0.2 s),
+    the three in turns ``repeats`` times: {case: every median}."""
+    from distar_tpu_torch.obs import default_rulebook, init_fleet_health
+
+    cases = {"off": None, "default": (1.0, 2.0), "drill": (HEALTH_SAMPLE_S, HEALTH_EVAL_S)}
+    out = {case: [] for case in cases}
+    for _ in range(repeats):
+        for case, cadence in cases.items():
+            fleet = None if cadence is None else init_fleet_health(
+                default_rulebook(("learner", "actor"), stall_window_s=HEALTH_STALL_WINDOW_S),
+                sample_interval_s=cadence[0], eval_interval_s=cadence[1])
+            try:
+                out[case].append(step_times({"pallas": learner}, batch, rounds=3, warmup=1)[0]["pallas"])
+            finally:
+                if fleet is not None:
+                    fleet.stop()
+    return out
+
+
+def phase_health(device, smi, tmp, loop, args, batch, baseline=None):
+    """Check c of phase 10 (module docstring): the fleet-health fault drill
+    on rl_loop's flagship learner and actor, f32, the kernel overlay.
+    ``batch`` is an actor-made batch the learner trains on; ``baseline``
+    the loop's step and flush ms alone, without fleet health. The two faults
+    run one after the other, each under a fleet health installed for it:
+    the NaN loss with the actor idle, the stall with the learner idle (a
+    job's start, the only gap in a running actor's env steps, lasts about as
+    long as the 2 s stall window). The actor is asked to stop at the end;
+    returns ``finish``, which waits for its last job (the caller starts
+    work that launches no kernel in this process first), so the counts are
+    read whole, then checks them and returns the launch counts of the path
+    and the readings (``seconds``: the drill before ``finish``)."""
+    import itertools
+    import math
+    import threading
+
+    from distar_tpu_torch.actor import BatchedInference
+    from distar_tpu_torch.bin import rl_train
+    from distar_tpu_torch.comm import CoordinatorServer
+    from distar_tpu_torch.envs import MockEnv
+    from distar_tpu_torch.learner.prefetch import DevicePrefetcher
+    from distar_tpu_torch.obs import TelemetryShipper, default_rulebook, get_flight_recorder, get_registry, \
+        init_fleet_health
+    from distar_tpu_torch.ops import build
+    from distar_tpu_torch.ops import kernels as K
+    from distar_tpu_torch.resilience import AlertRemediator, ChaosInjector, Supervisor
+
+    t_phase = time.perf_counter()
+    learner, actor = loop.learner, loop.actor
+    drill_hooks = ("send_model", "send_model_init", "send_train_info", "save_ckpt")
+    for hooks in learner.hooks._hooks.values():  # the drill publishes and saves nothing
+        hooks[:] = [h for h in hooks if h.name not in drill_hooks]
+    learner.set_dataloader(itertools.repeat(batch))
+    recorder, reg = get_flight_recorder(), get_registry()
+    transitions = []
+
+    def install():
+        fleet = init_fleet_health(default_rulebook(("learner", "actor"), stall_window_s=HEALTH_STALL_WINDOW_S),
+                                  sample_interval_s=HEALTH_SAMPLE_S, eval_interval_s=HEALTH_EVAL_S)
+        fleet.evaluator.add_transition_callback(lambda e: transitions.append((time.perf_counter(), e)))
+        return fleet
+
+    srv = CoordinatorServer(port=0)  # its health routes answer from the installed fleet
+    srv.start()
+    chaos = ChaosInjector(seed=0)
+    supervisor = Supervisor(policy=rl_train._restart_policy(args))
+    armed = {"learner": False, "actor": False}
+    captured, steps, flush_ms, restarts = {}, [], [], []
+    real = {"attention": K.masked_attention, "scatter": K.scatter_add_connection,
+            "sample": BatchedInference.sample, "train": learner._train}
+
+    def side():
+        return "learner" if threading.current_thread() is threading.main_thread() else "actor"
+
+    def attention(q, k, v, mask):
+        key = (side(), "masked_attention")
+        if armed[key[0]] and key not in captured:
+            captured[key] = [t.detach().clone() for t in (q, k, v, mask)]
+        return real["attention"](q, k, v, mask)
+
+    def scatter(emb, idx, hw):
+        key = (side(), "scatter_add_connection")
+        if armed[key[0]] and key not in captured:
+            captured[key] = (emb.detach().clone(), idx.clone(), hw)
+        return real["scatter"](emb, idx, hw)
+
+    def sample(self, prepared, active=None, noise=None):
+        t0 = time.perf_counter()
+        out = real["sample"](self, prepared, active, noise)
+        flush_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def train(data):
+        t0 = time.perf_counter()
+        log = real["train"](data)
+        steps.append((time.perf_counter() - t0) * 1e3)
+        return log
+
+    def actor_loop(ctx):  # the job loop of ``--type all``
+        while not ctx.should_exit:
+            actor.run_job(episodes=1)
+
+    def on_restart(error):
+        armed["actor"] = True  # its first flush after the restart is captured
+        restarts.append((time.perf_counter(), time.time()))
+
+    def firings(rule):
+        return [t for t, e in transitions if e["rule"] == rule and e["state"] == "firing"]
+
+    def history():
+        return [(round(t - t_phase, 3), e["rule"], e["state"], e["value"]) for t, e in transitions]
+
+    def env_steps():
+        return reg.snapshot().get("distar_env_steps_total", 0.0)
+
+    supervisor.add("actor", actor_loop, on_restart=on_restart)
+    counts = ThreadCounts(build.KERNELS)
+    real_counts, K.launch_counts = K.launch_counts, counts
+    K.masked_attention, K.scatter_add_connection = attention, scatter
+    BatchedInference.sample, learner._train = sample, train
+    fleet = None
+    out = {}
+
+    def close():
+        if fleet is not None:
+            fleet.stop()
+        # a failed drill waits for the actor's job too: a thread still on the
+        # card when the process exits aborts it
+        supervisor.stop(timeout=120)
+        chaos.restore()
+        K.launch_counts = real_counts
+        K.masked_attention, K.scatter_add_connection = real["attention"], real["scatter"]
+        BatchedInference.sample, learner._train = real["sample"], real["train"]
+        if isinstance(learner._dataloader, DevicePrefetcher):
+            learner._dataloader.close()
+        srv.stop()
+
+    try:
+        # NaN, the actor idle: poisoned steps, the rule fires once, /healthz
+        # 503, a dump; clean steps, the rule clears
+        fleet = install()
+        state = lambda rule: fleet.evaluator.alerts()["rules"][rule]["state"]  # noqa: E731
+        it0 = learner.last_iter.val
+        chaos.poison_loss(learner, n=HEALTH_POISONED)
+        t_poison = time.perf_counter()
+        learner.run(it0 + HEALTH_POISONED)
+        wait_for(lambda: state("learner_loss_nonfinite") == "firing", 30, "health: learner_loss_nonfinite firing")
+        fire_s = firings("learner_loss_nonfinite")[0] - t_poison
+        status, hz, hz_ms = get_json(srv.host, srv.port, "/healthz")
+        check(status == 503 and hz["status"] == "firing" and "learner_loss_nonfinite" in hz["firing"],
+              f"health: /healthz while the NaN rule fires: {status} {hz.get('firing')}")
+        hz_ms_all = [hz_ms] + [get_json(srv.host, srv.port, "/healthz")[2] for _ in range(4)]
+        t0 = time.perf_counter()
+        path = recorder.dump(os.path.join(tmp, "health_flight"), reason="chip_smoke health drill")
+        dump_s = time.perf_counter() - t0
+        bundle_bytes = os.path.getsize(path)
+        with open(path) as f:
+            bundle = json.load(f)
+        states = [e.get("state") for e in bundle["events"]
+                  if e["kind"] == "alert" and e.get("rule") == "learner_loss_nonfinite"]
+        check(states[-2:] == ["warning", "firing"] and math.isnan(bundle["registry_snapshot"]["distar_learner_loss"]),
+              f"health: the bundle holds the transitions {states} and distar_learner_loss "
+              f"{bundle['registry_snapshot'].get('distar_learner_loss')}")
+        armed["learner"] = True  # the first clean step's kernel inputs
+        learner.run(it0 + 2 * HEALTH_POISONED)
+        wait_for(lambda: state("learner_loss_nonfinite") == "ok", 30, "health: learner_loss_nonfinite back to ok")
+        check(len(firings("learner_loss_nonfinite")) == 1 and [e["remaining"] for e in chaos.events] == [2, 1, 0],
+              f"health: learner_loss_nonfinite fired {len(firings('learner_loss_nonfinite'))} times for "
+              f"{HEALTH_POISONED} poisoned steps: {history()}")
+        check(math.isfinite(learner.last_log["total_loss"]), "health: the last clean step's loss")
+        chaos.restore()
+        fleet.stop()
+
+        # starvation, the learner idle: the actor's job loop under the
+        # supervisor and the remediator, a fleet installed once its env
+        # steps flow, then every env's next step sleeps HEALTH_STALL_S; the
+        # rule fires once, the job loop restarts once, steps resume
+        supervisor.start()
+        steps0 = env_steps()
+        wait_for(lambda: env_steps() > steps0 + LOOP_ENV_NUM, 180, "health: the actor's env steps flowing")
+        del transitions[:]
+        fleet = install()
+        AlertRemediator(supervisor, {"actor_env_starvation": "actor"}).attach(fleet.evaluator)
+        # a window's worth of history first: over a shorter one a pause of a
+        # few samples between env steps reads as a (transient) stall
+        t_fleet = time.perf_counter()
+        wait_for(lambda: time.perf_counter() - t_fleet > HEALTH_STALL_WINDOW_S
+                 and state("actor_env_starvation") == "ok", 30, "health: the actor's env steps recorded, ok")
+        check(not firings("actor_env_starvation") and not restarts,
+              f"health: actor_env_starvation before the stall: {history()}")
+        t_stall, wall_stall = time.perf_counter(), time.time()
+        chaos.patch(MockEnv, "step", chaos.wrap(MockEnv.step, op="env_step", delay_p=1.0,
+                                                delay_s=HEALTH_STALL_S, max_faults=LOOP_ENV_NUM))
+        wait_for(lambda: restarts, 180, "health: the starved actor restarted")
+        stall_fire_s = firings("actor_env_starvation")[0] - t_stall
+        restart_s = restarts[0][0] - t_stall
+
+        def after_restart():
+            return [p for p in fleet.store.points("distar_env_steps_total", window_s=60.0)["local"]
+                    if p[0] > restarts[0][1]]
+
+        wait_for(lambda: len(after_restart()) >= 2 and after_restart()[-1][1] > after_restart()[0][1], 120,
+                 "health: env steps after the restart")
+        wait_for(lambda: ("actor", "masked_attention") in captured and ("actor", "scatter_add_connection") in captured,
+                 60, "health: the restarted actor's first flush")
+        pts = after_restart()
+        rate_after = (pts[-1][1] - pts[0][1]) / (pts[-1][0] - pts[0][0])
+        fleet.stop()
+        supervisor.stop(timeout=0)  # the actor ends its job while the wire is timed below
+        remediations = reg.snapshot().get("distar_resilience_remediations_total{rule=actor_env_starvation}", 0.0)
+        task_restarts = [e for e in recorder.events(kind="task_restart")
+                         if e.get("task") == "actor" and e["ts"] >= wall_stall]
+        check(len(firings("actor_env_starvation")) == 1 and remediations == 1 and len(task_restarts) == 1
+              and task_restarts[0]["reason"] == "remediation:alert:actor_env_starvation",
+              f"health: {len(firings('actor_env_starvation'))} firings of actor_env_starvation, {remediations:g} "
+              f"remediations, restart events {task_restarts}: {history()}")
+        all_pts = fleet.store.points("distar_env_steps_total", window_s=120.0)["local"]
+        rises = [p for a_, p in zip(all_pts, all_pts[1:]) if p[1] > a_[1]]
+        gaps = [b_[0] - a_[0] for a_, b_ in zip(rises, rises[1:])]
+
+        # the coordinator's store and the wire, read after the drill
+        ships = {"learner": ship_timings("learner:health", (srv.host, srv.port)),
+                 "actor": ship_timings("actor:health", (srv.host, srv.port))}
+        msg = TelemetryShipper("ingest:health", ingest=fleet.ingest)._message()
+        ingest_ms = []
+        for _ in range(HEALTH_SHIPS):
+            t0 = time.perf_counter()
+            fleet.ingest.ingest(msg)
+            ingest_ms.append((time.perf_counter() - t0) * 1e3)
+        store = {"series": fleet.store.stats()["series"], "sources": len(fleet.store.sources())}
+        drill_s = time.perf_counter() - t_phase
+    except BaseException:
+        close()
+        raise
+
+    def finish():
+        """The actor's last job over, every flush and step is whole in the
+        counts: read and checked exactly, the captured inputs held against
+        the plain versions, the readings printed and returned."""
+        t0 = time.perf_counter()
+        try:
+            supervisor.join(timeout=120)
+            task = supervisor.status()["actor"]
+            check(not task["alive"], f"health: the drill's actor is still in a job 120 s after its stop: {task}")
+            launches = {s: dict(counts.by_side[s]) for s in ("learner", "actor")}
+            n_flush = len(flush_ms)
+        finally:
+            close()
+        join_s = time.perf_counter() - t0
+        # a step: one attention call a layer, one scatter; a flush: as many
+        # for the policy and for its teacher
+        layers = int(learner.model_cfg.encoder.entity.layer_num)
+        n_steps = len(steps)
+        want_step = {"masked_attention": layers, "scatter_add_connection": 1, "scatter_add_onehot": 0}
+        want_flush = {"masked_attention": 2 * layers, "scatter_add_connection": 2, "scatter_add_onehot": 0}
+        check(n_steps == 2 * HEALTH_POISONED and n_flush > 0, f"health: {n_steps} steps and {n_flush} flushes")
+        check(launches["learner"] == {n: want_step[n] * n_steps for n in build.KERNELS},
+              f"health: the learner launched {launches['learner']} in {n_steps} steps, want {want_step} a step")
+        check(launches["actor"] == {n: want_flush[n] * n_flush for n in build.KERNELS},
+              f"health: the actor launched {launches['actor']} in {n_flush} flushes, want {want_flush} a flush")
+        errs = path_kernels_against_plain(K, captured, what="health drill")
+        out.update({
+            "seconds": drill_s, "last_job_join_s": join_s,
+            "nan_fire_s": fire_s, "stall_fire_s": stall_fire_s, "stall_to_restart_s": restart_s,
+            "env_steps_per_s_after_restart": rate_after, "max_env_step_gap_s": max(gaps or [0.0]),
+            "healthz_ms": {"p50": statistics.median(hz_ms_all), "max": max(hz_ms_all)},
+            "dump_s": dump_s, "bundle_bytes": bundle_bytes, "ship": ships,
+            "ingest_ms": {"p50": statistics.median(ingest_ms), "max": max(ingest_ms)}, "store": store,
+            "step_ms": {"health_median": statistics.median(steps), "all": steps,
+                        **({"alone_median_without": baseline["step_ms"]["alone_median"]} if baseline else {})},
+            "flush_ms": {"health_median": statistics.median(flush_ms), "n": n_flush,
+                         **({"alone_median_without": baseline["flush_ms"]["alone_median"]} if baseline else {})},
+            "launches": launches,
+            "launches_per_step": want_step, "launches_per_flush": want_flush,
+            "kernel_max_abs_err": errs, "transitions": history(),
+        })
+        print(f"health drill ({smi}): rulebook (learner, actor) at a {HEALTH_STALL_WINDOW_S:g} s stall window, "
+              f"sampled every {HEALTH_SAMPLE_S:g} s, evaluated every {HEALTH_EVAL_S:g} s; {HEALTH_POISONED} NaN-loss "
+              f"steps: learner_loss_nonfinite fired once {fire_s:.3f} s after the first poisoned step, /healthz 503 "
+              f"({statistics.median(hz_ms_all):.2f} ms), a bundle of {bundle_bytes} bytes dumped in {dump_s:.3f} s with "
+              f"the transitions and the NaN loss, ok after {HEALTH_POISONED} clean steps; a {HEALTH_STALL_S:g} s env "
+              f"stall: actor_env_starvation fired once {stall_fire_s:.3f} s after it, the AlertRemediator restarted the "
+              f"job loop once {restart_s:.3f} s after it, env steps resumed at {rate_after:.2f}/s: " + json.dumps(out))
+        return {n: launches["learner"][n] + launches["actor"][n] for n in build.KERNELS}, out
+
+    return finish
 
 
 def hold_loop_batch(device, batch, loss_fn, dist, what="rl loop batch"):
@@ -3789,7 +4325,7 @@ def hold_loop_batch(device, batch, loss_fn, dist, what="rl loop batch"):
 
 
 # ------------------------------------------------------------------ replay
-REPLAY_ITERS = 8  # the replay loop's learner: RL_B x RL_T batches from the store
+REPLAY_ITERS = 6  # the replay loop's learner: RL_B x RL_T batches from the store (8 until the health drill came)
 REPLAY_SPI = 4.0  # --replay-spi: each trajectory sampled about four times
 REPLAY_SMALL_ITERS = 2  # the smaller runs: smoke model, 2 x 4 batches
 # the 2-shard run: the ring sends each insert to a shard by the hash of a
@@ -3962,8 +4498,10 @@ def replay_small_runs(device, tmp):
                                ("fast_path", REPLAY_SMALL_ITERS, ("--replay-fast-path",))):
         pushed0 = counter_delta("distar_actor_replay_pushed_total", 0.0)
         t0 = time.perf_counter()
+        # --no-health: a process holds one fleet health, and these runs share
+        # this one with each other and the phases (ROADMAP Queue 3 item 31)
         loop = rl_train.main(["--type", "all", "--replay", "--replay-sampler", "uniform", "--replay-spi", "2",
-                              "--device", device.type, "--iters", str(iters),
+                              "--no-health", "--device", device.type, "--iters", str(iters),
                               "--save-path", os.path.join(tmp, f"replay_{name}"), *REPLAY_SMALL, *flags])
         seconds = time.perf_counter() - t0
         check(loop.learner.last_iter.val == iters and finite(loop.learner.last_log),
@@ -4022,7 +4560,8 @@ def remote_sl_and_play(device, tmp):
         out["replay_actor_s"] = time.perf_counter() - t0
         check(actor.pushed == 6 and actor.failed == 0, f"replay actor pushed {actor.pushed}, failed {actor.failed}")
         t0 = time.perf_counter()
-        lrn = sl_train.main(["--remote", "--coordinator-addr", f"{co.host}:{co.port}", "--device", device.type,
+        lrn = sl_train.main(["--remote", "--coordinator-addr", f"{co.host}:{co.port}", "--no-health",
+                             "--device", device.type,
                              "--iters", str(REMOTE_SL_ITERS), "--batch-size", "2", "--traj-len", "8",
                              "--no-supervise", "--save-path", os.path.join(tmp, "remote_sl")])
         out["sl_train_s"] = time.perf_counter() - t0
@@ -4283,7 +4822,7 @@ def phase_replay(device, smi, tmp, rl_loop, background=None):
         for name in ("masked_attention", "scatter_add_connection"):
             check(launches[s][name] > 0, f"replay: {name} never launched on the {s}'s side")
     held = as_float32({k: v for k, v in batch.items() if k not in ("trace_span_ids", "trace_age_s")})
-    step_alone, _ = step_times({"pallas": learner}, held, rounds=5, warmup=1)
+    step_alone, _ = step_times({"pallas": learner}, held, rounds=3, warmup=1)
     del learner, loop
 
     errs = path_kernels_against_plain(K, captured)
@@ -4344,7 +4883,7 @@ def jaxenv_smoke_run(device, tmp):
     from distar_tpu_torch.bin import rl_train
 
     t0 = time.perf_counter()
-    loop = rl_train.main(["--type", "all", "--env", "jaxenv", "--smoke-model", "--device", device.type,
+    loop = rl_train.main(["--type", "all", "--env", "jaxenv", "--smoke-model", "--no-health", "--device", device.type,
                           "--iters", str(JAXENV_ITERS), "--env-num", "2", "--traj-len", "4", "--batch-size", "2",
                           "--jaxenv-episode-len", "8", "--save-path", os.path.join(tmp, "jaxenv_all")])
     seconds = time.perf_counter() - t0
@@ -5022,10 +5561,10 @@ def main(argv=None) -> int:
     only = None
     argv = sys.argv[1:] if argv is None else argv
     if argv:
-        if argv[:1] != ["--only"] or argv[1:] != ["league"]:
-            print("usage: python3 chip_smoke.py [--only league]", file=sys.stderr)
+        if argv[:1] != ["--only"] or len(argv) != 2 or argv[1] not in ("league", "health"):
+            print("usage: python3 chip_smoke.py [--only league|health]", file=sys.stderr)
             return 2
-        only = "league"
+        only = argv[1]
     try:
         import numpy as np
         import torch
@@ -5083,6 +5622,22 @@ def main(argv=None) -> int:
             print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                       "count": torch.cuda.device_count()}}))
             return 0
+        if only == "health":  # phase 10's fleet-health drill alone, on phase 10's learner and actor
+            loop, args, batch = health_loop(device, tmp)
+            mark("health_build")
+            health_launches, health = phase_health(device, smi, tmp, loop, args, batch)()
+            mark("health")
+            ab = sampler_ab(loop.learner, batch)
+            mark("health_sampler_ab")
+            print(f"health drill ({smi}): the learner's step ms by fleet health, none / sampled every 1 s / "
+                  f"every {HEALTH_SAMPLE_S:g} s, in turns: {json.dumps(ab)}")
+            print(f"phase seconds: {json.dumps(phase_s)}")
+            print(f"launches: health drill {health_launches}")
+            print(json.dumps({"health": {k: v for k, v in health.items() if k != "step_ms"},
+                              "health_step_ms": health["step_ms"]}))
+            print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                      "count": torch.cuda.device_count()}}))
+            return 0
 
         # 3. kernels
         rng = np.random.default_rng(0)
@@ -5134,11 +5689,12 @@ def main(argv=None) -> int:
         # model, and the league phase's processes (league-run, the arena)
         jaxenv_job = Background(lambda: jaxenv_smoke_run(device, tmp))
         league_job = Background(lambda: league_processes(tmp, device))
-        loop_launches, rl_loop = phase_rl_loop(device, smi, tmp,
-                                               untimed=replay_jobs + [jaxenv_job, league_job])
+        loop_launches, rl_loop = phase_rl_loop(device, smi, tmp, untimed=[replay_jobs[1], jaxenv_job],
+                                               processes=[replay_jobs[0], league_job])
         # ended before the replay loop, which they would disturb
         jaxenv_run, league_procs = jaxenv_job.result(), league_job.result()
         mark("rl_loop")
+        phase_s["health (in rl_loop)"] = round(rl_loop["health"]["seconds"], 1)
 
         # 11. the replay store between actors and learner
         replay_launches, replay = phase_replay(device, smi, tmp, rl_loop, replay_jobs)
@@ -5155,11 +5711,13 @@ def main(argv=None) -> int:
         print(f"phase seconds: {json.dumps(phase_s)}")
         print(f"launches: serve {launches}, serve process {process_launches}, serve fleet (gateway A) "
               f"{fleet_launches}, train {train_launches}, sl runtime {runtime_launches}, rl and distill "
-              f"{rl_launches}, rl loop (actor and learner) {loop_launches}, replay loop (actor and learner) "
+              f"{rl_launches}, rl loop (actor and learner) {loop_launches}, health drill (actor and learner) "
+              f"{rl_loop['health_launches']}, replay loop (actor and learner) "
               f"{replay_launches}, anakin (windows and learner steps) {anakin_launches}, league (a learner's "
               f"windows with the away seat, its step and an arena batch) {league_launches}")
         launches = {name: launches[name] + process_launches[name] + fleet_launches[name] + train_launches[name]
-                    + runtime_launches[name] + rl_launches[name] + loop_launches[name] + replay_launches[name]
+                    + runtime_launches[name] + rl_launches[name] + loop_launches[name]
+                    + rl_loop["health_launches"][name] + replay_launches[name]
                     + anakin_launches[name] + league_launches[name] for name in build.KERNELS}
 
         # 9. the kernels line; max_abs_err over the serve shapes and the f32
@@ -5168,6 +5726,7 @@ def main(argv=None) -> int:
                 **{f"rl {k}": v for k, v in rl["rl_kernel_max_abs_err"].items()},
                 **{f"student {k}": v for k, v in rl["student_kernel_max_abs_err"].items()},
                 **{f"replay {k}": v for k, v in replay["kernel_max_abs_err"].items()},
+                **{f"health {k}": v for k, v in rl_loop["health"]["kernel_max_abs_err"].items()},
                 **{f"anakin {k}": v for k, v in anakin["kernel_max_abs_err"].items()},
                 **{f"league {k}": v for k, v in league["kernel_max_abs_err"].items()}}
         for name, rec in records.items():
@@ -5193,6 +5752,13 @@ def main(argv=None) -> int:
                               "flush_ms", "step_ms", "data_wait_ms", "env_steps_per_s", "frames_made_per_s",
                               "frames_consumed_per_s", "refresh_ms", "push", "peak_memory_gb", "seconds")},
                           "rl_loop_publish_ms": [p["ms"] for p in rl_loop["publish_ms"]],
+                          "health": {k: rl_loop["health"][k] for k in (
+                              "nan_fire_s", "stall_fire_s", "stall_to_restart_s", "healthz_ms", "dump_s",
+                              "bundle_bytes", "ship", "ingest_ms", "store", "seconds")},
+                          "health_step_ms": {k: v for k, v in rl_loop["health"]["step_ms"].items() if k != "all"},
+                          "health_flush_ms": rl_loop["health"]["flush_ms"],
+                          "fleet_health_checks": {"rl_loop_processes": rl_loop["processes"].get("health"),
+                                                  "serve_fleet": fleet.get("health")},
                           "replay": {k: replay[k] for k in (
                               "inserts", "samples", "reuse", "spi", "data_wait_ms", "frames_made_per_s",
                               "frames_consumed_per_s", "step_ms", "flush_ms", "insert_ms", "sample_ms",

@@ -74,8 +74,29 @@ jaxenv`` or no ``--env``) replaces the actor plane: the learner trains on
 stepped together on the device (``envs.jaxenv.AnakinRunner``), and refuses
 to start when its first window is not device-pure.
 
+Fleet health (``_init_health``), in the roles where the JAX launcher runs
+it: a registry sampler into the time-series store every
+``--health-sample-s``, the default rulebook of the roles the process hosts
+evaluated every ``--health-eval-s``, and the crash flight recorder, whose
+bundles land under ``<save-path>/flight``; the learner, actor, replay,
+arena and league-learner roles also ship their snapshots and kept spans to
+``--coordinator-addr`` every ``--telemetry-interval-s``. The coordinator
+evaluates the whole rulebook over what the fleet ships and answers
+``/healthz``, ``/alerts``, ``/timeseries``, ``/traces`` and
+``/trace/<id>``; ``--metrics-port`` serves ``/metrics`` and those routes
+on the learner-hosting roles and the actor, and the replay role's admin
+surface. In ``--type all`` a firing ``actor_env_starvation`` restarts the
+actor's job loop (``AlertRemediator``). ``--no-health`` turns all of it
+off.
+
 The coordinator, the league, the replay store, the arena and the actor
-exit on SIGTERM or SIGINT; the learner saves a checkpoint first.
+exit on SIGTERM or SIGINT; the learner saves a checkpoint first. As in the
+JAX package, the coordinator (unless it hosts ``--arena-store``), the
+actor, the replay store and the arena dump a flight bundle on SIGTERM
+first: each installs its stop handler and then the crash hook, which
+chains over it; the learner-hosting roles, whose checkpoint-on-signal
+handler stands over the crash hook while they train, and the league,
+which runs no fleet health, do not.
 ``--type league --league-resume PATH`` loads the league's resume file
 (either package's) when present and autosaves it every
 ``--league-autosave-s``.
@@ -90,8 +111,8 @@ stand where ``--batch-size``, ``--traj-len`` and ``--env-num`` are not given.
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP Queue 1
 item (``NOT_PORTED``): the SC2 env, meshes and ``jax.distributed``, the
 coordinator's HA (``--journal-dir``, ``--ha-*``), the league-run's actor-slot
-fleets (``--league-actors-per-player`` above 0), and fleet health and
-telemetry (``--metrics-port`` serves only the replay role's admin surface).
+fleets (``--league-actors-per-player`` above 0), and the training-dynamics
+export (``--dynamics-every``).
 """
 from __future__ import annotations
 
@@ -107,11 +128,10 @@ from typing import Optional, Sequence
 from .. import plugins
 from ..comm import Adapter, Coordinator, CoordinatorServer
 from ..league import League, LeagueAPIServer, RemoteLeague
-from ..resilience import RestartPolicy, Supervisor, supervise_call
+from ..resilience import AlertRemediator, RestartPolicy, Supervisor, supervise_call
 from ..utils import read_config
 
 _MESH = "meshes, sharded checkpoints and jax.distributed are not ported yet (ROADMAP Queue 1 item 7)"
-_HEALTH = "fleet health, telemetry and the metrics endpoint are not ported yet (ROADMAP Queue 1 item 9)"
 _HA = "the coordinator's HA is not ported yet (ROADMAP Queue 1 item 11, comm/ha.py)"
 _FLEET = "the league-run's actor-slot fleets are not ported yet (ROADMAP Queue 1 item 10, fleet/)"
 
@@ -124,15 +144,15 @@ NOT_PORTED = {
     "--no-sharded-ckpt": _MESH,
     "--dist-": _MESH,
     "--ha-": _HA,
-    "--telemetry-interval-s": _HEALTH,
-    "--health-": _HEALTH,
-    "--no-health": _HEALTH,
     "--dynamics-every": "the training-dynamics export is not ported yet (ROADMAP Queue 1 item 9)",
     "--platform": "the JAX backend switch; the port picks its device with --device",
 }
 
 ROLES = ("all", "coordinator", "league", "learner", "actor", "replay", "arena", "league-run",
          "league-learner")
+
+#: the rulebook the coordinator evaluates over the whole fleet's telemetry
+FLEET_RULE_ROLES = ("learner", "actor", "coordinator", "trace", "serve", "replay", "distill", "arena")
 
 
 def _user_cfg(args) -> dict:
@@ -228,6 +248,91 @@ def _plane_cfg(args) -> dict:
 
 def _restart_policy(args) -> RestartPolicy:
     return RestartPolicy(max_restarts=args.restart_max, window_s=args.restart_window_s)
+
+
+@dataclasses.dataclass
+class Health:
+    """What ``_init_health`` stood up for a role: the process's started
+    ``FleetHealth`` (its crash hook installed) and, with a coordinator to
+    ship to, the ``TelemetryShipper``."""
+
+    fleet: object
+    shipper: Optional[object] = None
+
+
+def _init_health(args, roles, source: str = "local", shipper_addr=None,
+                 sigterm_bundle: bool = True) -> Optional[Health]:
+    """Fleet health for this process, as the JAX launcher stands it up: the
+    registry sampler into a time-series store, the default rulebook of the
+    roles it hosts (the coordinator: all of them, over what the fleet
+    ships) and the crash flight recorder, whose bundles land under
+    ``<save-path>/flight``. With ``shipper_addr`` the process also ships
+    its snapshots and kept spans to that coordinator. A role's stop
+    handler installed before this call is chained under the crash hook's
+    SIGTERM (a bundle, then the handler); with ``sigterm_bundle`` False
+    the hook leaves SIGTERM to it. The cadences default as in the JAX
+    launcher where a launcher has no flag for them. None under
+    ``--no-health``."""
+    if getattr(args, "no_health", False):
+        return None
+    from ..learner.base_learner import experiments_root
+    from ..obs import TelemetryShipper, default_rulebook, init_fleet_health
+
+    fleet = init_fleet_health(rules=default_rulebook(roles), source=source,
+                              sample_interval_s=getattr(args, "health_sample_s", 1.0),
+                              eval_interval_s=getattr(args, "health_eval_s", 2.0))
+    root = args.save_path or os.path.join(experiments_root(), args.experiment_name)
+    fleet.recorder.install_crash_hook(os.path.join(root, "flight"), config=vars(args),
+                                      handle_sigterm=sigterm_bundle)
+    shipper = None
+    interval_s = getattr(args, "telemetry_interval_s", 5.0)
+    if shipper_addr is not None and interval_s > 0:
+        shipper = TelemetryShipper(source, coordinator_addr=shipper_addr, interval_s=interval_s).start()
+    return Health(fleet, shipper)
+
+
+def _maybe_serve_metrics(args, coordinator=None):
+    """With ``--metrics-port``: a ``CoordinatorServer`` on that port as this
+    process's exporter (``/metrics`` and the fleet-health routes; outside
+    the broker its POST routes go unused). Returns the server or None."""
+    if args.metrics_port is None:
+        return None
+    server = CoordinatorServer(coordinator=coordinator, port=args.metrics_port)
+    server.start()
+    print(f"metrics on http://{server.host}:{server.port}/metrics", flush=True)
+    return server
+
+
+def _close_health(health: Optional[Health], metrics=None) -> None:
+    """A role's normal return: ship once more, so the coordinator holds the
+    role's last counters, then stop shipping, sampling, evaluating and the
+    metrics server, and take the crash hook off. A role that raises keeps
+    the hook, so its unhandled exception still dumps a bundle."""
+    if metrics is not None:
+        metrics.stop()
+    if health is not None:
+        if health.shipper is not None:
+            health.shipper.stop()
+            try:
+                health.shipper.ship_once()
+            except Exception:  # as in the shipper's loop: counted, never the role's failure
+                from ..obs import get_registry
+
+                get_registry().counter("distar_telemetry_ship_errors_total", "failed telemetry pushes").inc()
+        health.fleet.stop()
+        health.fleet.recorder.uninstall_crash_hook()
+
+
+def _on_stop_signals(fn) -> dict:
+    """``fn()`` on SIGTERM and SIGINT; returns the handlers it replaced.
+    Installed before ``_init_health``, the crash hook chains over it (a
+    bundle, then ``fn``)."""
+    return {s: signal.signal(s, lambda *_: fn()) for s in (signal.SIGTERM, signal.SIGINT)}
+
+
+def _restore_signals(previous: dict) -> None:
+    for s, handler in previous.items():
+        signal.signal(s, handler)
 
 
 def _run_learner_supervised(args, learner, iters: int) -> None:
@@ -333,6 +438,7 @@ class Loop:
     supervisor: Supervisor
     replay_stores: list = dataclasses.field(default_factory=list)
     replay_servers: list = dataclasses.field(default_factory=list)
+    coordinator: Optional[Coordinator] = None
 
 
 def _build_replay_layout(args):
@@ -401,7 +507,7 @@ def build_all(args) -> Loop:
         # the student tier publishes through checkpoints, not the weight plane
         learner.attach_comm(learner_adapter, player_id, league=league,
                             send_model_freq=4, send_train_info_freq=4)
-    return Loop(league, actor, learner, player_id, supervisor, stores, servers)
+    return Loop(league, actor, learner, player_id, supervisor, stores, servers, coordinator=co)
 
 
 def close_all(loop: Loop) -> None:
@@ -427,12 +533,22 @@ def close_all(loop: Loop) -> None:
 
 
 def run_all(args) -> Loop:
+    # one process hosts every role, so their whole rulebook applies here
+    roles = ("learner", "actor", "coordinator", "trace") + (("replay",) if args.replay else ()) + (
+        ("distill",) if args.distill else ())
+    health = _init_health(args, roles=roles)
     loop = build_all(args)
+    metrics = _maybe_serve_metrics(args, coordinator=loop.coordinator)
     loop.supervisor.start()
+    if health is not None and not args.no_supervise:
+        # detect -> remediate: a firing env-starvation alert bounces the
+        # actor's job loop instead of waiting for a human
+        AlertRemediator(loop.supervisor, {"actor_env_starvation": "actor"}).attach(health.fleet.evaluator)
     try:
         _run_learner_supervised(args, loop.learner, args.iters)
     finally:
         close_all(loop)
+    _close_health(health, metrics)
     learner = loop.learner
     print(f"rl_train done: {learner.last_iter.val} iters, "
           f"loss={learner.variable_record.get('total_loss').avg:.4f}, "
@@ -467,8 +583,11 @@ def build_anakin(args):
 
 
 def run_anakin(args):
+    health = _init_health(args, roles=("learner", "trace"))
+    metrics = _maybe_serve_metrics(args)
     learner, _, _ = build_anakin(args)
     _run_learner_supervised(args, learner, args.iters)
+    _close_health(health, metrics)
     print(f"learner done: {learner.last_iter.val} iters, "
           f"loss={learner.variable_record.get('total_loss').avg:.4f}", flush=True)
     return learner
@@ -488,6 +607,10 @@ def run_learner(args):
 
     league = RemoteLeague(*_addr(args.league_addr)) if args.league_addr else None
     adapter = Adapter(coordinator_addr=_addr(args.coordinator_addr))
+    health = _init_health(args, roles=("learner", "trace") + (("distill",) if args.distill else ()),
+                          source=f"{'distill' if args.distill else 'learner'}:{args.player_id}:0",
+                          shipper_addr=_addr(args.coordinator_addr))
+    metrics = _maybe_serve_metrics(args)
     model_cfg = _model_cfg(args)
     load_path = ""
     if league is not None:
@@ -509,6 +632,7 @@ def run_learner(args):
     if not args.distill:
         learner.attach_comm(adapter, args.player_id, league=league)
     _run_learner_supervised(args, learner, args.iters)
+    _close_health(health, metrics)
     print(f"learner done: {learner.last_iter.val} iters", flush=True)
     return learner
 
@@ -516,8 +640,16 @@ def run_learner(args):
 def run_actor(args) -> None:
     from ..actor import Actor
 
+    # SIGTERM leaves the job loop as SystemExit: the job's finally closes the
+    # env pool and the plane's clients, and no restart catches it. Installed
+    # before the crash hook, which chains over it: a bundle first, as the
+    # JAX actor dumps one
+    previous = _on_stop_signals(lambda: sys.exit(0))
     league = RemoteLeague(*_addr(args.league_addr))
     adapter = Adapter(coordinator_addr=_addr(args.coordinator_addr))
+    health = _init_health(args, roles=("actor", "trace"), source=f"actor:{os.getpid()}",
+                          shipper_addr=_addr(args.coordinator_addr))
+    metrics = _maybe_serve_metrics(args)
     actor_cfg = {"env_num": args.env_num, "traj_len": args.traj_len, "plane": _plane_cfg(args)}
     if args.replay_addr:
         replay_addr = args.replay_addr
@@ -538,32 +670,33 @@ def run_actor(args) -> None:
         while True:
             actor.run_job(episodes=1)
 
-    # SIGTERM leaves the job loop as SystemExit: the job's finally closes the
-    # env pool and the plane's clients, and no restart catches it
-    previous = {s: signal.signal(s, lambda *_: sys.exit(0)) for s in (signal.SIGTERM, signal.SIGINT)}
     try:
         if args.no_supervise:
             job_loop()
         else:
             supervise_call(job_loop, op="actor", policy=_restart_policy(args))
+    except SystemExit:
+        _close_health(health, metrics)
+        raise
     finally:
-        for s, handler in previous.items():
-            signal.signal(s, handler)
+        _restore_signals(previous)
 
 
-def _serve_until_signal(server, what: str) -> None:
+def _serve_until_signal(server, what: str, done: Optional[threading.Event] = None) -> None:
     """Start ``server``, print where it serves, and stop it on SIGTERM or
-    SIGINT."""
+    SIGINT; or, with ``done``, when that event is set (its caller installs
+    the signal handlers that set it)."""
     server.start()
     print(f"{what} serving on {server.host}:{server.port}", flush=True)
-    done = threading.Event()
-    previous = {s: signal.signal(s, lambda *_: done.set()) for s in (signal.SIGTERM, signal.SIGINT)}
+    previous = {}
+    if done is None:
+        done = threading.Event()
+        previous = _on_stop_signals(done.set)
     try:
         while not done.wait(0.5):
             pass
     finally:
-        for s, handler in previous.items():
-            signal.signal(s, handler)
+        _restore_signals(previous)
         server.stop()
 
 
@@ -579,6 +712,12 @@ def run_replay(args) -> None:
     from ..resilience import TaskContext
 
     shard_id = args.replay_shard_id or (f":{args.port}" if args.port else "")
+    stop = TaskContext()  # set by SIGTERM or SIGINT
+    # before the crash hook, which chains over it: SIGTERM dumps a bundle
+    # and then stops the store, as the JAX replay role dumps one
+    previous = _on_stop_signals(stop.request_stop)
+    health = _init_health(args, roles=("replay",), source=f"replay{shard_id}" if shard_id else "replay",
+                          shipper_addr=_addr(args.coordinator_addr) if args.coordinator_addr else None)
 
     def serve_loop(ctx):
         store = _build_replay_store(args, shard_id=shard_id)
@@ -606,21 +745,19 @@ def run_replay(args) -> None:
             if store._spill is not None:
                 store._spill.flush()
 
-    stop = TaskContext()  # set by SIGTERM or SIGINT
-    previous = {s: signal.signal(s, lambda *_: stop.request_stop()) for s in (signal.SIGTERM, signal.SIGINT)}
     try:
         if args.no_supervise:
             serve_loop(stop)
-            return
-        supervisor = Supervisor(policy=_restart_policy(args))
-        supervisor.add("replay", serve_loop)
-        supervisor.start()
-        while not stop.sleep(0.5):
-            pass
-        supervisor.stop(timeout=30)
+        else:
+            supervisor = Supervisor(policy=_restart_policy(args))
+            supervisor.add("replay", serve_loop)
+            supervisor.start()
+            while not stop.sleep(0.5):
+                pass
+            supervisor.stop(timeout=30)
+        _close_health(health)
     finally:
-        for s, handler in previous.items():
-            signal.signal(s, handler)
+        _restore_signals(previous)
 
 
 def run_coordinator(args) -> None:
@@ -628,7 +765,14 @@ def run_coordinator(args) -> None:
     ``ArenaStore`` (the ``arena_*`` routes and ``/arena/*``): the journal at
     PATH is reloaded first (ratings, payoff and the idempotency keys survive
     a restart), autosaved every ``--league-autosave-s`` and saved once more
-    on the way out (SIGTERM or SIGINT)."""
+    on the way out (SIGTERM or SIGINT). It evaluates the whole rulebook over
+    what the fleet ships; SIGTERM dumps a flight bundle first, unless the
+    arena store is hosted (the JAX launcher's journaling handler stands
+    over the crash hook there)."""
+    done = threading.Event()
+    previous = _on_stop_signals(done.set)
+    health = _init_health(args, roles=FLEET_RULE_ROLES, source="coordinator",
+                          sigterm_bundle=not args.arena_store)
     store = None
     if args.arena_store:
         from ..arena import ArenaStore, set_arena_store
@@ -640,7 +784,7 @@ def run_coordinator(args) -> None:
         set_arena_store(store)
     co = Coordinator(default_lease_s=args.lease_s or None)
     try:
-        _serve_until_signal(CoordinatorServer(coordinator=co, port=args.port), "coordinator")
+        _serve_until_signal(CoordinatorServer(coordinator=co, port=args.port), "coordinator", done=done)
     finally:
         if store is not None:
             from ..arena import set_arena_store
@@ -649,6 +793,8 @@ def run_coordinator(args) -> None:
             store.save()
             set_arena_store(None)
             print("arena store journaled on shutdown", flush=True)
+    _close_health(health)
+    _restore_signals(previous)
 
 
 def run_league(args) -> None:
@@ -681,6 +827,10 @@ def run_arena(args):
     roles = tuple(r.strip() for r in args.arena_roles.split(",")) if args.arena_roles else ("",)
     env_cfg, scenario_cfg = _jaxenv_cfgs(args)
     stop = TaskContext()  # set by SIGTERM or SIGINT
+    # before the crash hook, which chains over it: SIGTERM dumps a bundle
+    # and then stops the evaluator, as the JAX arena role dumps one
+    previous = _on_stop_signals(stop.request_stop)
+    health = _init_health(args, roles=("arena",), source="arena", shipper_addr=_addr(args.coordinator_addr))
 
     def serve_loop():
         evaluator = ArenaEvaluator(
@@ -708,14 +858,15 @@ def run_arena(args):
                 print(f"arena artifact written to {args.arena_artifact}", flush=True)
         return evaluator
 
-    previous = {s: signal.signal(s, lambda *_: stop.request_stop()) for s in (signal.SIGTERM, signal.SIGINT)}
     try:
         if args.no_supervise:
-            return serve_loop()
-        return supervise_call(serve_loop, op="arena", policy=_restart_policy(args))
+            evaluator = serve_loop()
+        else:
+            evaluator = supervise_call(serve_loop, op="arena", policy=_restart_policy(args))
+        _close_health(health)
+        return evaluator
     finally:
-        for s, handler in previous.items():
-            signal.signal(s, handler)
+        _restore_signals(previous)
 
 
 def _fetch_arena_ratings(args) -> Optional[dict]:
@@ -786,6 +937,9 @@ def run_league_learner(args):
     player's role-key lineage, and train-info (snapshot minting happens
     server-side). Under supervision it resumes its lineage on start and on
     a crash. Returns the loop's summary."""
+    health = _init_health(args, roles=("learner", "trace"), source=f"league:{args.player_id}",
+                          shipper_addr=_addr(args.coordinator_addr))
+    metrics = _maybe_serve_metrics(args)
     learner, _, loop, _ = build_league_learner(args)
     if not args.no_supervise:
         learner.resume_latest()  # a supervised restart resumes the lineage
@@ -796,9 +950,12 @@ def run_league_learner(args):
         return out
 
     if args.no_supervise:
-        return run_loop()
-    return supervise_call(run_loop, op=f"league-learner:{args.player_id}", policy=_restart_policy(args),
-                          on_restart=lambda e: learner.resume_latest())
+        out = run_loop()
+    else:
+        out = supervise_call(run_loop, op=f"league-learner:{args.player_id}", policy=_restart_policy(args),
+                             on_restart=lambda e: learner.resume_latest())
+    _close_health(health, metrics)
+    return out
 
 
 def _model_flags(args) -> list:
@@ -831,6 +988,8 @@ def run_league_run(args) -> dict:
              "--experiment-name", args.experiment_name, *_model_flags(args)]
     if args.device:
         extra += ["--device", args.device]
+    if args.no_health:
+        extra += ["--no-health"]
     if args.no_supervise:
         extra += ["--no-supervise"]
     runner = LeagueRunner(
@@ -929,8 +1088,17 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--replay-max-staleness-s", type=float, default=0.0,
                    help="replay: evict items older than this (0: never)")
     p.add_argument("--metrics-port", type=int, default=None,
-                   help="--type replay: the admin surface (/replay/stats, /metrics, POST /drain); "
-                        "other roles: " + _HEALTH)
+                   help="serve GET /metrics and the fleet-health routes on this port (the learner-hosting "
+                        "roles and the actor; --type replay: its admin surface, /replay/stats and POST "
+                        "/drain too; the coordinator serves them on --port already)")
+    p.add_argument("--no-health", action="store_true",
+                   help="no fleet health: no time-series sampler, rulebook, telemetry shipping or crash "
+                        "recorder")
+    p.add_argument("--health-sample-s", type=float, default=1.0, help="registry -> TSDB sampling cadence")
+    p.add_argument("--health-eval-s", type=float, default=2.0, help="rulebook evaluation cadence")
+    p.add_argument("--telemetry-interval-s", type=float, default=5.0,
+                   help="snapshot shipping cadence to --coordinator-addr (learner, actor, replay, arena and "
+                        "league-learner roles; 0: none)")
     p.add_argument("--distill", action="store_true",
                    help="train the student tier (DistillLearner) on the same batches")
     p.add_argument("--admin-port", type=int, default=None,
@@ -993,8 +1161,6 @@ def main(argv: Optional[Sequence[str]] = None):
     _refuse_not_ported(args, unknown)
     if args.type not in ROLES:
         raise SystemExit(f"rl_train: --type must be one of {', '.join(ROLES)}, got {args.type!r}")
-    if args.metrics_port is not None and args.type != "replay":
-        raise NotImplementedError(f"--metrics-port: {_HEALTH}")
     if args.journal_dir and not (args.type == "league-run" and args.journal_dir.lower() == "none"):
         raise NotImplementedError(f"--journal-dir: {_HA}")
     if args.league_actors_per_player > 0:

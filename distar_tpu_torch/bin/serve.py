@@ -21,19 +21,25 @@ address under the ``serve_gateway`` token with a ``--lease-s`` lease kept
 alive by heartbeats, so a ``serve.fleet`` router or ``FleetClient``
 discovers the gateway.
 
+Fleet health (unless ``--no-health``): the serve and trace rules over a
+time-series store the registry is sampled into (every 1 s, evaluated every
+2 s, as in the JAX package), answered at ``/healthz``,
+``/alerts``, ``/timeseries``, ``/traces`` and ``/trace/<id>`` on the HTTP
+frontend, and the crash flight recorder, whose bundles land under
+``$DISTAR_EXPERIMENTS_ROOT/serve/flight``. With ``--coordinator-addr`` the
+gateway also ships its snapshots, tail-sampled request spans and latency
+exemplars to the coordinator every ``--telemetry-interval-s`` (0: none).
+
 Shutdown (SIGTERM or SIGINT) is drain-then-stop: the gateway leaves
 discovery first (it unregisters from the coordinator), sheds new requests
 with the typed ``DrainingError``, flushes those it admitted, stops its
-frontends and exits 0.
-
-Not ported yet: ``--telemetry-interval-s`` above 0 raises
-``NotImplementedError`` (the telemetry shipper, ``obs/shipper.py``;
-ROADMAP Queue 1 item 9). Fleet health (``obs/health.py``, item 9) is not
-ported: ``--no-health`` is accepted and the start-up line says so.
+frontends and exits 0. Its drain handler stands over the crash hook, so
+SIGTERM writes no bundle, as in the JAX package.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import signal
 import threading
 import time
@@ -120,12 +126,12 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--lease-s", type=float, default=10.0,
                    help="registration lease (a gateway that stops heartbeating leaves the map)")
     p.add_argument("--no-health", action="store_true",
-                   help="accepted; fleet health is not ported yet (ROADMAP Queue 1 item 9)")
+                   help="no fleet health: no rulebook, time-series store or crash recorder")
     p.add_argument("--no-trace", action="store_true",
                    help="disable trace-span minting on the request path")
-    p.add_argument("--telemetry-interval-s", type=float, default=0.0,
-                   help="telemetry shipping to the coordinator: not ported yet (obs/shipper.py, "
-                        "ROADMAP Queue 1 item 9); only 0 is accepted")
+    p.add_argument("--telemetry-interval-s", type=float, default=5.0,
+                   help="cadence of registry-snapshot, tail-sampled-trace and exemplar shipping to the "
+                        "coordinator (with --coordinator-addr; 0: none)")
     p.add_argument("--transport", default="auto", choices=("auto", "shm", "tcp"),
                    help="TCP-frontend transport: auto and shm negotiate shared-memory rings with "
                         "clients on this host (the socket stays as control channel and fallback); "
@@ -141,13 +147,18 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         p.error("--checkpoint (or --player-checkpoint) is required unless --mock")
     if args.players and not args.mock:
         p.error("--players is the mock multiplexer; use --player-checkpoint PLAYER=URL for models")
-    if args.telemetry_interval_s > 0:
-        raise NotImplementedError("--telemetry-interval-s: the telemetry shipper (obs/shipper.py) "
-                                  "is not ported yet (ROADMAP Queue 1 item 9)")
     if args.no_trace:
         from ..obs import set_tracing
 
         set_tracing(False)
+    fleet = None
+    if not args.no_health:
+        from ..learner.base_learner import experiments_root
+        from ..obs import default_rulebook, init_fleet_health
+
+        fleet = init_fleet_health(rules=default_rulebook(("serve", "trace")), source="serve")
+        fleet.recorder.install_crash_hook(os.path.join(experiments_root(), "serve", "flight"),
+                                          config=vars(args))
 
     from ..serve import GatewayMux, ServeHTTPServer, ServeTCPServer
 
@@ -165,26 +176,36 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     http = ServeHTTPServer(target, host=args.host, port=args.http_port).start()
     tcp = ServeTCPServer(target, host=args.host, port=args.tcp_port, transport=args.transport).start()
 
-    beat = None
+    beat = shipper = None
     if args.coordinator_addr:
         from ..serve.fleet import register_gateway
 
         chost, _, cport = args.coordinator_addr.rpartition(":")
+        coord = (chost or "127.0.0.1", int(cport))
         # target: a drain's first step (begin_drain) leaves discovery now,
         # so routers stop pinning sessions here, not a lease later
         beat = register_gateway(
-            (chost or "127.0.0.1", int(cport)), tcp.host, tcp.port,
+            coord, tcp.host, tcp.port,
             meta={"players": players, "slots": args.slots, "http_port": http.port,
                   "version": args.version, "mock": bool(args.mock)},
             lease_s=args.lease_s or None, target=target)
+        if args.telemetry_interval_s > 0:
+            # snapshots, tail-sampled request spans and latency exemplars to
+            # the broker: its rulebook sees this gateway's latency series and
+            # its trace store answers "show me THIS slow request"
+            from ..obs import TelemetryShipper
+
+            shipper = TelemetryShipper(source=f"serve:{tcp.port}", coordinator_addr=coord,
+                                       interval_s=args.telemetry_interval_s,
+                                       endpoint=f"{tcp.host}:{tcp.port}").start()
     log(f"serving: http={http.host}:{http.port} tcp={tcp.host}:{tcp.port} slots={args.slots} "
         f"max_delay={args.max_delay_ms}ms players={players or ['<single>']} "
         f"{'mock' if args.mock else (args.checkpoint or player_ckpts)} "
         f"device={'cpu (mock)' if args.mock else (args.device or 'cuda')} "
         f"transport={args.transport}"
         + (f" registered@{args.coordinator_addr}" if beat else "")
-        + f" startup_s={time.perf_counter() - t0:.3f}; fleet health not ported "
-        f"(ROADMAP Queue 1 item 9)")
+        + f" startup_s={time.perf_counter() - t0:.3f} health={'off' if fleet is None else 'on'}"
+        + (f" telemetry_every={args.telemetry_interval_s}s" if shipper is not None else ""))
 
     done = threading.Event()
 
@@ -195,11 +216,16 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     signal.signal(signal.SIGTERM, _shutdown)
     signal.signal(signal.SIGINT, _shutdown)
     done.wait()
+    if shipper is not None:
+        shipper.stop()
     # leave discovery (the deregister hook), shed new requests typed while
     # the admitted ones flush, then stop the frontends
     target.drain_and_stop(args.drain_timeout_s)
     http.stop()
     tcp.stop()
+    if fleet is not None:
+        fleet.stop()
+        fleet.recorder.uninstall_crash_hook()
     log("drained; bye")
 
 

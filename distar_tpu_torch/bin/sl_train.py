@@ -17,7 +17,16 @@ says otherwise. Roles:
                again and trains on, within ``--restart-max`` restarts in
                ``--restart-window-s``. SIGTERM and SIGINT save a checkpoint
                before the process exits.
-  coordinator  the metadata broker (``comm.CoordinatorServer``).
+  coordinator  the metadata broker (``comm.CoordinatorServer``), evaluating
+               the learner, actor, coordinator and trace rules over what
+               the fleet ships; SIGTERM dumps a flight bundle, then stops it.
+
+Fleet health as in ``bin/rl_train.py``, at the JAX launcher's cadences
+(sampled every 1 s, evaluated every 2 s), off under ``--no-health``: the
+learner samples its registry into a time-series store under the learner
+and trace rules, its crash bundles land under ``<save-path>/flight``, and
+with ``--remote`` it ships its snapshots to ``--coordinator-addr`` every
+5 s.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP Queue
 1 item: the replay actor role (it needs the SC2 replay decoder), meshes and
@@ -46,6 +55,7 @@ from ..learner.sl_dataloader import ReplayDataset, SLDataloader
 from ..ops import kernels
 from ..resilience import RestartPolicy, supervise_call
 from ..utils import read_config
+from .rl_train import _close_health, _init_health, _on_stop_signals, _restore_signals
 
 NOT_PORTED = {
     "--type replay_actor": "the replay actor role needs the SC2 replay decoder, not ported yet "
@@ -131,6 +141,9 @@ def learner(args, dataloader: Optional[Iterable] = None) -> SLLearner:
     checkpoint unless ``--no-supervise``, serve its admin API on
     ``--admin-port``, train to ``args.iters`` steps under supervision and
     return it."""
+    host, _, port = args.coordinator_addr.rpartition(":")
+    health = _init_health(args, roles=("learner", "trace"), source="sl_learner",
+                          shipper_addr=(host or "127.0.0.1", int(port)) if args.remote else None)
     lrn = build_learner(args, dataloader)
     if not args.no_supervise:
         path = lrn.resume_latest()
@@ -152,6 +165,7 @@ def learner(args, dataloader: Optional[Iterable] = None) -> SLLearner:
                        policy=RestartPolicy(max_restarts=args.restart_max,
                                             window_s=args.restart_window_s),
                        on_restart=resume)
+    _close_health(health)
     log = lrn.last_log
     print(f"sl_train done: {lrn.last_iter.val} iters, loss={log.get('total_loss', float('nan')):.4f}, "
           f"action_type_acc={log.get('action_type_acc', float('nan')):.4f}, "
@@ -160,24 +174,25 @@ def learner(args, dataloader: Optional[Iterable] = None) -> SLLearner:
 
 
 def coordinator(args) -> None:
-    """Serve the coordinator until SIGTERM or SIGINT."""
-    import signal
+    """Serve the coordinator until SIGTERM or SIGINT, under the rulebook of
+    the fleet it brokers."""
     import threading
 
     from ..comm import CoordinatorServer
 
+    done = threading.Event()
+    previous = _on_stop_signals(done.set)  # the crash hook chains over it
+    health = _init_health(args, roles=("learner", "actor", "coordinator", "trace"), source="coordinator")
     server = CoordinatorServer(port=int(args.coordinator_addr.rsplit(":", 1)[1]))
     server.start()
     print(f"coordinator serving on {server.host}:{server.port}", flush=True)
-    done = threading.Event()
-    previous = {s: signal.signal(s, lambda *_: done.set()) for s in (signal.SIGTERM, signal.SIGINT)}
     try:
         while not done.wait(0.5):
             pass
     finally:
-        for s, handler in previous.items():
-            signal.signal(s, handler)
         server.stop()
+    _close_health(health)
+    _restore_signals(previous)
 
 
 def parser() -> argparse.ArgumentParser:
@@ -213,6 +228,9 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--coordinator-addr", default="127.0.0.1:8422")
     p.add_argument("--remote", action="store_true",
                    help="train on trajectories replay actors push to the coordinator at --coordinator-addr")
+    p.add_argument("--no-health", action="store_true",
+                   help="no fleet health: no time-series sampler, rulebook, telemetry shipping or crash "
+                        "recorder")
     p.add_argument("--mesh", default="", help=NOT_PORTED["--mesh"])
     p.add_argument("--dynamics-every", type=int, default=None,
                    help="0 or less: no training-dynamics tree, as always here; above 0: "

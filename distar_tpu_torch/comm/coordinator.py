@@ -15,11 +15,13 @@ package's ``coordinator_request`` talks to either's server. The arena and
 league routes (``arena_*``, ``league_*``, ``GET /league/status``,
 ``/arena/ratings``, ``/arena/payoff``) answer from the process-global
 ``ArenaStore`` and ``LeagueService`` when this process hosts them, and as
-the JAX coordinator does when it does not. Not ported yet, answering a
-typed error that names its ROADMAP Queue 1 item: telemetry ingest
-(``telemetry``, with the shipper and fleet health), item 9; the
-fleet-health GET routes answer 404 (``obs.handle_health_get``). The
-coordinator's high availability (``comm/ha.py``: journaled state, leader
+the JAX coordinator does when it does not. ``telemetry`` folds a shipped
+snapshot (an ``application/x-distar-serialized`` body, the comm
+serializer's codec) into the process fleet health's store and trace store,
+and an endpoint that leaves (its lease lapses, or it unregisters) takes
+its shipped series and traces with it (``add_evict_callback``); the
+fleet-health GET routes answer from the same handle
+(``obs.handle_health_get``). The coordinator's high availability (``comm/ha.py``: journaled state, leader
 failover, the multi-address client) is item 11: ``attach_ha`` and an
 address list given to ``coordinator_request`` raise
 ``NotImplementedError``.
@@ -32,9 +34,8 @@ import time
 from collections import defaultdict, deque
 from typing import Dict, Optional
 
-#: the ROADMAP items that bring the routes and surfaces not ported yet
+#: the ROADMAP item that brings the surfaces not ported yet
 HA_ITEM = "ROADMAP Queue 1 item 11"
-OBS_ITEM = "ROADMAP Queue 1 item 9"
 
 
 class Coordinator:
@@ -55,7 +56,26 @@ class Coordinator:
         # depth()/stats() stay wall-clock: they describe data, not liveness)
         self._leases: Dict[str, float] = {}
         self._last_sweep = 0.0  # monotonic
+        self._evict_callbacks: list = []
         self._lock = threading.RLock()
+
+    def add_evict_callback(self, fn) -> None:
+        """Subscribe to endpoint departures: ``fn("ip:port")`` runs whenever
+        an endpoint's records leave the broker through the lease sweep or
+        an explicit ``unregister`` (not per-fetch strikes: a struck endpoint
+        may still be alive). Callbacks run under the broker lock, must be
+        quick and never call back into the coordinator; their exceptions
+        are swallowed. ``TelemetryIngest`` evicts a departed member's TSDB
+        series through this."""
+        with self._lock:
+            self._evict_callbacks.append(fn)
+
+    def _notify_evicted(self, key: str) -> None:
+        for fn in self._evict_callbacks:
+            try:
+                fn(key)
+            except Exception:  # noqa: BLE001 - observers must not break the broker
+                pass
 
     def register(self, token: str, ip: str, port: int, meta: Optional[dict] = None,
                  lease_s: Optional[float] = None) -> bool:
@@ -113,19 +133,22 @@ class Coordinator:
         for key in expired:
             self._purge_endpoint(key)
             evictions.inc()
+            self._notify_evicted(key)
 
     def unregister(self, ip: str, port: int) -> int:
         """Graceful departure: drop every record of ``ip:port`` now (a
         draining member leaves discovery before it sheds, not ``lease_s``
         later). Returns the number of records removed."""
+        key = f"{ip}:{port}"
         with self._lock:
-            removed = self._purge_endpoint(f"{ip}:{port}")
+            removed = self._purge_endpoint(key)
             from ..obs import get_registry
 
             get_registry().counter(
                 "distar_coordinator_unregisters_total",
                 "endpoints that deregistered gracefully (drain path)",
             ).inc()
+            self._notify_evicted(key)
             return removed
 
     def ask(self, token: str) -> Optional[dict]:
@@ -197,24 +220,35 @@ class Coordinator:
         reg.gauge("distar_coordinator_endpoint_strikes", "outstanding dead-endpoint strikes").set(strikes)
 
 
-def _not_ported(route: str, item: str):
-    def answer(body):
-        raise NotImplementedError(f"coordinator route {route!r} is not ported yet ({item})")
-
-    return answer
-
-
 class CoordinatorServer:
-    """HTTP wrapper: ``POST /coordinator/<route>`` with a JSON body answers
-    ``{"code": 0, "info": ...}`` (1 with the error's repr when the route
-    raised, 404 for an unknown route); ``GET /metrics`` is the Prometheus
-    scrape."""
+    """HTTP wrapper: ``POST /coordinator/<route>`` with a JSON body (the
+    ``telemetry`` route: a serialized one) answers ``{"code": 0, "info":
+    ...}`` (1 with the error's repr when the route raised, 404 for an
+    unknown route); ``GET /metrics`` is the Prometheus scrape, and the
+    fleet-health routes answer JSON."""
 
     def __init__(self, coordinator: Optional[Coordinator] = None, host="127.0.0.1", port=0):
         from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
         self.coordinator = coordinator or Coordinator()
         co = self.coordinator
+
+        def _ingest_telemetry(msg: dict) -> int:
+            # fold shipped snapshots into the process fleet store: the broker
+            # is the one place that sees every actor, learner and gateway
+            from ..obs import get_fleet_health
+
+            return get_fleet_health().ingest.ingest(msg)
+
+        def _evict_telemetry(key: str) -> None:
+            # an endpoint left (lease lapsed or graceful unregister): free
+            # its series and traces, so a churning fleet cannot exhaust the
+            # series cap (the ingest maps endpoint -> shipped sources)
+            from ..obs import get_fleet_health
+
+            get_fleet_health().ingest.evict_endpoint(key)
+
+        co.add_evict_callback(_evict_telemetry)
         routes = {
             # explicit arguments, never **body: a wire body reaches no other
             # keyword of the broker
@@ -229,7 +263,7 @@ class CoordinatorServer:
             "stats": lambda b: co.stats(b["max_age_s"]) if "max_age_s" in b else co.stats(),
             "depth": lambda b: (co.depth(b["token"], b["max_age_s"]) if "max_age_s" in b
                                 else co.depth(b["token"])),
-            "telemetry": _not_ported("telemetry", f"the telemetry shipper and fleet health, {OBS_ITEM}"),
+            "telemetry": _ingest_telemetry,
             # the arena's wire plane (served when this process hosts the
             # ArenaStore; its idempotent keys make arena_report exactly-once
             # even when the retry policy replays a POST)
@@ -286,8 +320,8 @@ class CoordinatorServer:
                 queue-depth gauges refreshed at scrape time); GET
                 /league/status, /arena/ratings and /arena/payoff: the hosted
                 league service's and arena store's snapshots (404 where none
-                is hosted); the fleet-health routes answer 404 until they are
-                ported."""
+                is hosted); GET /healthz, /alerts, /timeseries, /traces and
+                /trace/<id>: fleet-health JSON."""
                 from ..obs import handle_health_get, write_json_response, write_scrape_response
 
                 path = self.path.rstrip("/")
@@ -315,7 +349,16 @@ class CoordinatorServer:
                 ctx = join_trace(wire, f"coordinator_{name}") if wire is not None else None
                 outcome = "ok"
                 try:
-                    body = json.loads(self.rfile.read(length) or b"{}")
+                    raw = self.rfile.read(length)
+                    if name == "telemetry" and self.headers.get("Content-Type", "").startswith(
+                            "application/x-distar"):
+                        # shipped snapshots ride the comm serializer's codec
+                        # (pickle+LZ4), the data plane's, not JSON
+                        from .serializer import loads as _loads
+
+                        body = _loads(raw)
+                    else:
+                        body = json.loads(raw or b"{}")
                     fn = routes.get(name)
                     if fn is None:
                         payload = {"code": 404, "info": f"no route {name}"}

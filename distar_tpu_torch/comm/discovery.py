@@ -9,10 +9,11 @@ evicted broker-side, so a fresh read never holds a process that stopped
 heartbeating. ``serve.fleet.discovery.register_gateway`` (token
 ``serve_gateway``) wraps this module.
 
-The JAX package's keep-alive also asks the telemetry shipper to resend
-its whole snapshot after such a re-registration; the shipper comes with
-ROADMAP Queue 1 item 9, and that call with it. A coordinator address list
-(the HA client) is item 11 and raises in ``coordinator_request``.
+After such a re-registration the keep-alive also asks every telemetry
+shipper of the process to resend its whole snapshot
+(``obs.shipper.request_resync_all``), so the restarted broker does not show
+the source stale until the next ship. A coordinator address list (the HA
+client) is ROADMAP Queue 1 item 11 and raises in ``coordinator_request``.
 """
 from __future__ import annotations
 
@@ -62,8 +63,13 @@ def register_endpoint(coordinator_addr: Tuple[str, int], token: str, host: str, 
                     hb["lease_s"] = lease_s
                 alive = coordinator_request(chost, cport, "heartbeat", hb)
                 if not (alive or {}).get("info", False):
-                    # the broker lost our records (restart): register again
+                    # the broker lost our records (restart): register again,
+                    # and nudge this process's telemetry shippers to re-ship
+                    # their full snapshot
                     coordinator_request(chost, cport, "register", body)
+                    from ..obs.shipper import request_resync_all
+
+                    request_resync_all("heartbeat")
             except Exception:  # noqa: BLE001 - a keep-alive must never crash its process
                 continue
 

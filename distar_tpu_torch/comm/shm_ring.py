@@ -43,11 +43,10 @@ when both sides share a host the server mints the ring pair and names the
 segments in its reply.
 
 Lifecycle: the server owns the segments and unlinks them on connection
-teardown and at interpreter exit (atexit). The JAX package also unlinks
-them from the flight recorder's crash hook; the port's flight recorder
-comes with ROADMAP Queue 1 item 9, and with it that hook. A SIGKILLed
-process runs none of these: its peer sees the death typed, and the stale
-segments go at reboot.
+teardown, at interpreter exit (atexit) and from the flight recorder's
+crash hook (``FlightRecorder.add_crash_callback``), so a crashed fleet
+leaves no /dev/shm litter. A SIGKILLed process runs none of these: its
+peer sees the death typed, and the stale segments go at reboot.
 """
 from __future__ import annotations
 
@@ -240,6 +239,14 @@ def _register_owned(ring: "ShmRing") -> None:
         if not _cleanup_hooked:
             _cleanup_hooked = True
             atexit.register(unlink_all)
+    try:
+        # (re-)attach to the CURRENT flight recorder every time: tests and
+        # role restarts swap recorders, and add_crash_callback dedupes
+        from ..obs import get_flight_recorder
+
+        get_flight_recorder().add_crash_callback(unlink_all)
+    except Exception:  # noqa: BLE001 - the crash hook is best-effort plumbing
+        pass
 
 
 def _deregister_owned(ring: "ShmRing") -> None:

@@ -226,8 +226,9 @@ class BaseLearner:
                 continue
             self.metrics.counter("distar_resilience_resumes_total",
                                  "learner restarts resumed from the latest pointer").inc()
-            # the JAX package also records a "learner_resume" flight-recorder
-            # event; the flight recorder comes with ROADMAP Queue 1 item 9
+            from ..obs import get_flight_recorder
+
+            get_flight_recorder().record("learner_resume", path=gen["path"], step=gen.get("step", 0))
             self.logger.info(f"resumed from {gen['path']} (iter {self.last_iter.val})")
             return gen["path"]
         return None

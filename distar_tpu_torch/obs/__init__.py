@@ -1,12 +1,21 @@
-"""Telemetry: the metrics registry, its exporters, and trace spans.
+"""Telemetry and fleet health.
 
-Counterpart of the instrumentation half of ``distar_tpu.obs``: one
-process-wide ``MetricsRegistry`` (``get_registry()``) that the serving
-plane publishes into under the JAX package's series names, Prometheus text
-and JSON responses, and explicit-context trace spans with a tail-sampled
-``TraceBuffer``. Fleet health, the time-series store, the shipper, the
-flight recorder, the profiler and the dynamics tree come with ROADMAP
-Queue 1 item 9.
+Counterpart of ``distar_tpu.obs``. Instrumentation: one process-wide
+``MetricsRegistry`` (``get_registry()``) that every layer publishes into
+under the JAX package's series names, Prometheus text and JSON responses,
+and explicit-context trace spans with a tail-sampled ``TraceBuffer``.
+
+Fleet health: a bounded ring-buffer ``TimeSeriesStore`` fed by a
+``RegistrySampler``; a ``TelemetryShipper`` pushing snapshots, span records
+and exemplars from every fleet process to the coordinator's
+``TelemetryIngest`` and ``TraceIngest``; a declarative ``HealthRule``
+engine with a debounced ok -> warning -> firing state machine
+(``HealthEvaluator``, ``default_rulebook``); a ``FlightRecorder`` crash
+bundle; and the waterfall analyzer. Surfaced through ``GET /healthz``,
+``/alerts``, ``/timeseries``, ``/traces`` and ``/trace/<id>`` on the
+coordinator, the serve HTTP frontend and the replay admin. The learner
+diagnostics (the profiler, the perf monitor, the dynamics tree) are ROADMAP
+Queue 1 item 9, parts 4 and 5.
 """
 from .exporters import (
     PROMETHEUS_CONTENT_TYPE,
@@ -43,33 +52,62 @@ from .trace import (
 from .tracestore import (
     ExemplarStore,
     TraceBuffer,
+    TraceIngest,
     get_exemplar_store,
     get_trace_buffer,
     note_exemplar,
     set_exemplar_store,
     set_trace_buffer,
 )
+from .waterfall import build_waterfall, render_listing, render_waterfall
+from .timeseries import RegistrySampler, TimeSeriesStore
+from .shipper import SERIALIZED_CONTENT_TYPE, TelemetryIngest, TelemetryShipper
+from .flightrecorder import FlightRecorder, get_flight_recorder, set_flight_recorder
+from .health import (
+    FleetHealth,
+    HealthEvaluator,
+    HealthRule,
+    default_rulebook,
+    get_fleet_health,
+    init_fleet_health,
+    set_fleet_health,
+)
 
 __all__ = [
     "Counter",
     "ExemplarStore",
+    "FleetHealth",
+    "FlightRecorder",
     "Gauge",
+    "HealthEvaluator",
+    "HealthRule",
     "Histogram",
     "JsonlExporter",
     "MetricsRegistry",
     "PROMETHEUS_CONTENT_TYPE",
+    "RegistrySampler",
+    "SERIALIZED_CONTENT_TYPE",
     "Span",
+    "TelemetryIngest",
+    "TelemetryShipper",
+    "TimeSeriesStore",
     "TraceBuffer",
+    "TraceIngest",
     "annotate",
     "annotate_active",
+    "build_waterfall",
     "current_trace",
+    "default_rulebook",
     "finish_trace",
     "format_traceparent",
     "get_exemplar_store",
+    "get_fleet_health",
+    "get_flight_recorder",
     "get_registry",
     "get_trace_buffer",
     "handle_health_get",
     "hop_names",
+    "init_fleet_health",
     "is_trace",
     "is_wire_ctx",
     "join_trace",
@@ -77,9 +115,13 @@ __all__ = [
     "mint_span_id",
     "note_exemplar",
     "parse_traceparent",
+    "render_listing",
     "render_prometheus",
+    "render_waterfall",
     "set_active_trace",
     "set_exemplar_store",
+    "set_fleet_health",
+    "set_flight_recorder",
     "set_registry",
     "set_trace_buffer",
     "set_tracing",

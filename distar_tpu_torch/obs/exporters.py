@@ -4,11 +4,10 @@ Counterpart of ``distar_tpu.obs.exporters``. Prometheus rendering follows
 the text exposition format (v0.0.4): counters and gauges render one sample
 per labelset; histograms render as summaries (quantile-labelled samples +
 ``_sum``/``_count``), which matches their bounded-reservoir semantics.
-
-Not here yet: the fleet-health routes (``/healthz``, ``/alerts``,
-``/timeseries``, ``/traces``, ``/trace/<id>``) answer 404 through
-``handle_health_get`` until ``obs/health.py`` is ported (ROADMAP Queue 1
-item 9). ``JsonlExporter`` writes registry snapshots as JSON lines.
+``handle_health_get`` answers the fleet-health routes (``/healthz``,
+``/alerts``, ``/timeseries``, ``/traces``, ``/trace/<id>``) on every HTTP
+surface, as the JAX package's does. ``JsonlExporter`` writes registry
+snapshots as JSON lines.
 """
 from __future__ import annotations
 
@@ -106,22 +105,110 @@ def write_json_response(handler, obj, status: int = 200) -> None:
     handler.wfile.write(data)
 
 
-HEALTH_ROUTES = ("/healthz", "/alerts", "/timeseries", "/traces")
-
-
 def handle_health_get(handler, path: str) -> bool:
-    """The fleet-health GET routes of every HTTP surface. Until
-    ``obs/health.py`` is ported (ROADMAP Queue 1 item 9) each answers 404
-    with a JSON body saying so. Returns False when ``path`` is not a health
-    route (the caller answers it)."""
-    from urllib.parse import urlparse
+    """Answer the fleet-health GET routes shared by every HTTP surface
+    (coordinator broker, serve gateway, replay admin):
 
-    route = urlparse(path).path.rstrip("/")
-    if route not in HEALTH_ROUTES and not route.startswith("/trace/"):
+      GET /healthz                           overall state + per-source staleness
+                                             (HTTP 503 while any rule is firing)
+      GET /alerts                            per-rule states + transition history
+      GET /timeseries?name=&window_s=&source=  windowed stats + raw points
+      GET /traces?name=&min_ms=&outcome=&limit=  retained trace listings
+                                             (shipped ingest + this process's
+                                             tail-sampled buffer)
+      GET /trace/<id>                        one trace's span records + the
+                                             assembled waterfall report
+
+    Returns False when ``path`` is not a health route (caller 404s). Route
+    failures answer 500 — an ops probe must never wedge the serving process."""
+    from urllib.parse import parse_qs, urlparse
+
+    parsed = urlparse(path)
+    route = parsed.path.rstrip("/")
+    if route not in ("/healthz", "/alerts", "/timeseries", "/traces") \
+            and not route.startswith("/trace/"):
         return False
-    write_json_response(handler, {"error": f"{route} needs fleet health (obs/health.py), which the "
-                                           f"port has not ported yet: ROADMAP Queue 1 item 9"},
-                        status=404)
+    try:
+        from .health import get_fleet_health
+
+        fleet = get_fleet_health()
+        if route == "/healthz":
+            body = fleet.healthz()
+            write_json_response(handler, body,
+                                status=503 if body["status"] == "firing" else 200)
+        elif route == "/alerts":
+            write_json_response(handler, fleet.evaluator.alerts())
+        elif route == "/traces":
+            from .tracestore import _listing, get_trace_buffer
+
+            q = parse_qs(parsed.query)
+            name = (q.get("name") or [None])[0] or None
+            outcome = (q.get("outcome") or [None])[0] or None
+            min_ms = float((q.get("min_ms") or ["0"])[0])
+            limit = int((q.get("limit") or ["50"])[0])
+            rows = fleet.traces.query(name=name, min_ms=min_ms,
+                                      outcome=outcome, limit=limit)
+            # the process's OWN tail-sampled buffer answers too, so a lone
+            # gateway/store is inspectable without a coordinator in front
+            for rec in get_trace_buffer().records():
+                if name and rec.get("name") != name:
+                    continue
+                if outcome and rec.get("outcome", "ok") != outcome:
+                    continue
+                if float(rec.get("dur_s", 0.0)) * 1000.0 < min_ms:
+                    continue
+                rows.append(_listing(rec, "local"))
+            rows.sort(key=lambda r: r["dur_ms"], reverse=True)
+            write_json_response(handler, {
+                "traces": rows[:limit],
+                "ingest": fleet.traces.stats(),
+                "buffer": get_trace_buffer().stats(),
+            })
+        elif route.startswith("/trace/"):
+            from .tracestore import get_trace_buffer
+            from .waterfall import build_waterfall
+
+            trace_id = route.rsplit("/", 1)[1]
+            spans = fleet.traces.get(trace_id)
+            seen = {r.get("span_id") for r in spans}
+            for rec in get_trace_buffer().get(trace_id):
+                if rec.get("span_id") not in seen:
+                    rec = dict(rec)
+                    rec["source"] = "local"
+                    spans.append(rec)
+            if not spans:
+                write_json_response(
+                    handler, {"error": f"no spans for trace {trace_id!r}"},
+                    status=404)
+                return True
+            write_json_response(handler, {
+                "trace_id": trace_id,
+                "spans": spans,
+                "waterfall": build_waterfall(spans),
+            })
+        else:
+            q = parse_qs(parsed.query)
+            name = (q.get("name") or [""])[0]
+            if not name:
+                write_json_response(
+                    handler, {"error": "query parameter 'name' is required"}, status=400
+                )
+                return True
+            window_s = float((q.get("window_s") or ["300"])[0])
+            source = (q.get("source") or [None])[0]
+            points = fleet.store.points(name, window_s=window_s, source=source)
+            stats = {
+                s: fleet.store.query(name, window_s=window_s, source=s)
+                for s in points
+            }
+            write_json_response(handler, {
+                "name": name,
+                "window_s": window_s,
+                "stats": stats,
+                "points": points,
+            })
+    except Exception as e:
+        write_json_response(handler, {"error": repr(e)}, status=500)
     return True
 
 

@@ -1,9 +1,8 @@
 """Distributed trace spans with explicit context propagation.
 
-Counterpart of ``distar_tpu.obs.trace``. The crash flight recorder that the
-JAX package feeds from ``finish_trace`` and ``Span`` is not ported yet
-(``obs/flightrecorder.py``, ROADMAP Queue 1 item 9): kept spans and span
-errors are counted and retained here, and reach no recorder.
+Counterpart of ``distar_tpu.obs.trace``. Kept span completions and span
+errors also land in the crash flight recorder's ring
+(``obs/flightrecorder.py``), as in the JAX package.
 
 A trace context is a plain picklable dict minted at the head of a request or
 pipeline (the actor when a trajectory is born, the serve client when a
@@ -310,8 +309,17 @@ def finish_trace(ctx: dict, hop: str = "end",
         # sampled-out trace_id would 404 on retrieval); the slow tail is
         # always retained, so the freshest exemplar is the one that matters
         tracestore.note_exemplar(_exemplar_key(ctx["name"]), ctx["trace_id"], age)
-        # the JAX package also records the kept span in its crash flight
-        # recorder here; that recorder comes with ROADMAP Queue 1 item 9
+        # KEPT span completions land in the crash flight recorder's bounded
+        # ring, trace_id included so a crash bundle cross-references the
+        # coordinator's trace store (sampled-out ok spans would wash the
+        # 512-event ring out in milliseconds at serve rates)
+        from .flightrecorder import get_flight_recorder
+
+        event = {"name": ctx["name"], "trace_id": ctx["trace_id"],
+                 "age_s": round(age, 4), "hops": hop_names(ctx)}
+        if outcome != "ok":
+            event["outcome"] = str(outcome)
+        get_flight_recorder().record("span", **event)
     return age
 
 
@@ -359,12 +367,18 @@ class Span:
             "distar_span_seconds", "in-process span duration", span=self.name
         ).observe(self.elapsed)
         if exc_type is not None:
-            # (the JAX package also ships a span_error event to its flight
-            # recorder, which comes with ROADMAP Queue 1 item 9)
             reg.counter(
                 "distar_span_errors_total",
                 "in-process spans that exited on an exception", span=self.name,
             ).inc()
+            from .flightrecorder import get_flight_recorder
+
+            event = {"name": self.name,
+                     "error": getattr(exc_type, "__name__", str(exc_type)),
+                     "elapsed_s": round(self.elapsed, 4)}
+            if self.trace_id:
+                event["trace_id"] = self.trace_id
+            get_flight_recorder().record("span_error", **event)
         return False
 
 

@@ -5,13 +5,14 @@ Counterpart of ``distar_tpu.obs.tracestore``. Every finished span becomes a
 compact record offered to the process ``TraceBuffer``, whose tail-based
 sampler (deciding after the outcome is known) keeps every non-``ok``
 outcome, the slowest tail per span name, and 1-in-N of everything else;
-the rest is dropped and counted (``distar_tracebuf_dropped_total``). Key
-latency histograms ``note_exemplar`` the last retained trace id. Buffer and
-exemplar store are bounded with counted drops.
-
-Not here yet (ROADMAP Queue 1 item 9): the telemetry shipper that drains
-the buffer to a coordinator, the coordinator's ``TraceIngest``, and the
-``GET /traces`` and ``GET /trace/<id>`` routes that list the records.
+the rest is dropped and counted (``distar_tracebuf_dropped_total``). The
+``TelemetryShipper`` drains the buffer past a ship cursor into its
+periodic message, and the coordinator's ``TelemetryIngest`` folds the
+records into the ``TraceIngest`` here: bounded per source, evicted when
+the member departs (the TSDB series contract), served at ``GET /traces``
+and ``GET /trace/<id>``. Key latency histograms ``note_exemplar`` the last
+retained trace id, so a firing health rule names a retrievable trace.
+Buffer, ingest and exemplar store are bounded with counted drops.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from .trace import _instrument
 DROP_SAMPLED = "sampled_out"     # tail sampler decided against keeping
 DROP_EVICTED = "evicted"         # bounded ring evicted the oldest kept record
 DROP_EXEMPLAR = "exemplar_cap"   # exemplar map full for a new metric key
+DROP_INGEST = "ingest_cap"       # coordinator refused a new source past cap
 
 
 def _count_drop(reason: str, n: int = 1,
@@ -191,6 +193,115 @@ class TraceBuffer:
         with self._lock:
             self._records.clear()
             self._durations.clear()
+
+
+def _listing(rec: dict, source: str) -> dict:
+    """Compact ``GET /traces`` row for one span record."""
+    return {
+        "trace_id": rec.get("trace_id"),
+        "name": rec.get("name"),
+        "ts": rec.get("ts"),
+        "dur_ms": round(float(rec.get("dur_s", 0.0)) * 1000.0, 3),
+        "outcome": rec.get("outcome", "ok"),
+        "keep": rec.get("keep"),
+        "source": source,
+        **({"skew": True} if rec.get("skew") else {}),
+    }
+
+
+class TraceIngest:
+    """Coordinator-side trace store: shipped span records, bounded per
+    source, evicted on member departure (the TSDB series contract)."""
+
+    def __init__(self, max_per_source: int = 512, max_sources: int = 64,
+                 registry: Optional[MetricsRegistry] = None):
+        assert max_per_source > 0 and max_sources > 0
+        self.max_per_source = int(max_per_source)
+        self.max_sources = int(max_sources)
+        self._registry = registry
+        self._lock = threading.Lock()
+        self._by_source: Dict[str, deque] = {}
+
+    def ingest(self, source: str, records) -> int:
+        if not isinstance(records, (list, tuple)):
+            return 0
+        source = str(source or "unknown")
+        accepted = 0
+        evicted = 0
+        with self._lock:
+            ring = self._by_source.get(source)
+            if ring is None:
+                if len(self._by_source) >= self.max_sources:
+                    _count_drop(DROP_INGEST, n=len(records),
+                                registry=self._registry)
+                    return 0
+                ring = self._by_source[source] = deque()
+            for rec in records:
+                if not isinstance(rec, dict) or "trace_id" not in rec:
+                    continue
+                if len(ring) >= self.max_per_source:
+                    ring.popleft()
+                    evicted += 1
+                ring.append(rec)
+                accepted += 1
+        if evicted:
+            _count_drop(DROP_EVICTED, n=evicted, registry=self._registry)
+        if accepted:
+            (self._registry or get_registry()).counter(
+                "distar_trace_ingest_records_total",
+                "shipped span records folded into the coordinator trace store",
+            ).inc(accepted)
+        return accepted
+
+    def evict_source(self, source: str) -> int:
+        """A member departed (lease expiry / graceful unregister): reclaim
+        its traces like its TSDB series. Returns records reclaimed."""
+        with self._lock:
+            ring = self._by_source.pop(source, None)
+            return len(ring) if ring else 0
+
+    # --------------------------------------------------------------- reads
+    def query(self, name: Optional[str] = None, min_ms: float = 0.0,
+              outcome: Optional[str] = None, limit: int = 50) -> List[dict]:
+        """Compact listings, slowest first, across every source."""
+        with self._lock:
+            snap = {s: list(ring) for s, ring in self._by_source.items()}
+        rows = []
+        for source, recs in snap.items():
+            for rec in recs:
+                if name and rec.get("name") != name:
+                    continue
+                if outcome and rec.get("outcome", "ok") != outcome:
+                    continue
+                if float(rec.get("dur_s", 0.0)) * 1000.0 < float(min_ms):
+                    continue
+                rows.append(_listing(rec, source))
+        rows.sort(key=lambda r: r["dur_ms"], reverse=True)
+        return rows[: max(1, int(limit))]
+
+    def get(self, trace_id: str) -> List[dict]:
+        """Every span record of one trace, across sources (the waterfall
+        input — a trace's spans come from several processes)."""
+        with self._lock:
+            snap = {s: list(ring) for s, ring in self._by_source.items()}
+        out = []
+        for source, recs in snap.items():
+            for rec in recs:
+                if rec.get("trace_id") == trace_id:
+                    rec = dict(rec)
+                    rec["source"] = source
+                    out.append(rec)
+        out.sort(key=lambda r: r.get("ts", 0.0))
+        return out
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "sources": len(self._by_source),
+                "records": sum(len(r) for r in self._by_source.values()),
+                "max_per_source": self.max_per_source,
+                "max_sources": self.max_sources,
+            }
 
 
 class ExemplarStore:

@@ -1,8 +1,7 @@
 """Replay-store service: framed-TCP data plane + HTTP admin surface.
 
 Counterpart of ``distar_tpu.replay.server``, with its wire and its
-``REPLAY-SHARD`` line. The fleet-health routes answer 404 until
-``obs/health.py`` is ported (ROADMAP Queue 1 item 9).
+``REPLAY-SHARD`` line.
 
 Wire format = ``comm.serializer`` (8-byte big-endian length prefix around a
 pickled+compressed payload) with the ``serve/tcp_frontend`` conventions:

@@ -1,9 +1,7 @@
-"""Fault tolerance: the retry and circuit-breaker primitive, and role
-supervision.
+"""Fault tolerance: the retry and circuit-breaker primitive, role
+supervision, alert remediation and the chaos injector.
 
-Counterpart of ``distar_tpu.resilience``'s ``policy`` and ``supervisor``
-modules; ``AlertRemediator`` and the chaos harness come with ROADMAP Queue
-1 item 9.
+Counterpart of ``distar_tpu.resilience``.
 """
 from .policy import (
     DEFAULT_COMM_POLICY,
@@ -17,9 +15,12 @@ from .policy import (
     retry_call,
     retryable,
 )
-from .supervisor import RestartPolicy, Supervisor, TaskContext, supervise_call
+from .supervisor import AlertRemediator, RestartPolicy, Supervisor, TaskContext, supervise_call
+from .chaos import ChaosInjector
 
 __all__ = [
+    "AlertRemediator",
+    "ChaosInjector",
     "DEFAULT_COMM_POLICY",
     "NO_RETRY",
     "CircuitBreaker",

@@ -12,9 +12,9 @@ Counterpart of ``distar_tpu.resilience.policy``:
   circuit opens and calls fail fast with ``CircuitOpenError``; after
   ``reset_after_s`` one probe is let through (half-open).
 * Every retry, giveup and breaker transition counts in the
-  ``distar_resilience_*`` metrics of the port's ``obs`` registry. The JAX
-  package also records each as a flight-recorder event; that recorder comes
-  with ROADMAP Queue 1 item 9.
+  ``distar_resilience_*`` metrics of the port's ``obs`` registry and is
+  recorded as a flight-recorder event (``retry``, ``retry_giveup``,
+  ``breaker_open``).
 """
 from __future__ import annotations
 
@@ -58,6 +58,12 @@ def _metrics():
     from ..obs import get_registry
 
     return get_registry()
+
+
+def _recorder():
+    from ..obs import get_flight_recorder
+
+    return get_flight_recorder()
 
 
 @dataclass(frozen=True)
@@ -131,6 +137,8 @@ class CircuitBreaker:
                 "distar_resilience_breaker_open_total",
                 "circuit-breaker open transitions", op=self.op,
             ).inc()
+            _recorder().record("breaker_open", op=self.op,
+                               failures=self._failures)
         _metrics().gauge(
             "distar_resilience_breaker_state",
             "0 closed / 1 half-open / 2 open", op=self.op,
@@ -205,6 +213,10 @@ def retry_call(fn: Callable, *args, op: str = "", policy: Optional[RetryPolicy] 
                     "distar_resilience_giveups_total",
                     "calls abandoned after exhausting retries/deadline", op=op,
                 ).inc()
+                _recorder().record(
+                    "retry_giveup", op=op, attempts=attempt + 1,
+                    elapsed_s=round(elapsed, 3), error=repr(e),
+                )
                 raise
             pause = policy.backoff_s(attempt, rng)
             if policy.deadline_s is not None:
@@ -212,6 +224,10 @@ def retry_call(fn: Callable, *args, op: str = "", policy: Optional[RetryPolicy] 
             _metrics().counter(
                 "distar_resilience_retries_total", "retried call attempts", op=op,
             ).inc()
+            _recorder().record(
+                "retry", op=op, attempt=attempt + 1, backoff_s=round(pause, 3),
+                error=repr(e),
+            )
             if pause > 0:
                 sleep(pause)
         else:

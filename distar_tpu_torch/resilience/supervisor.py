@@ -10,11 +10,15 @@ Counterpart of ``distar_tpu.resilience.supervisor``:
   learner): run, and on a crash call ``on_restart`` (resume from the latest
   checkpoint) and run again under the same budget; the last failure is
   re-raised.
+* ``AlertRemediator`` bridges the health layer (``obs/health.py``): a
+  firing rule mapped to a task requests a cooperative restart of it,
+  closing the detect -> remediate loop.
 
 Every restart and give-up counts in ``distar_resilience_restarts_total`` and
-``distar_resilience_task_giveups_total`` (label ``task``). The JAX package
-also records each as a flight-recorder event, and bridges health alerts to
-restarts (``AlertRemediator``); both come with ROADMAP Queue 1 item 9.
+``distar_resilience_task_giveups_total`` (label ``task``) and is recorded as
+a flight-recorder event (``task_restart``, ``task_giveup``); a remediation
+counts in ``distar_resilience_remediations_total`` (label ``rule``) and
+records a ``remediation`` event.
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ import threading
 import time
 from collections import deque
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Mapping, Optional
 
 
 def _metrics():
@@ -31,14 +35,22 @@ def _metrics():
     return get_registry()
 
 
-def _count_restart(task: str) -> None:
+def _recorder():
+    from ..obs import get_flight_recorder
+
+    return get_flight_recorder()
+
+
+def _count_restart(task: str, reason: str, restart_no: int) -> None:
     _metrics().counter("distar_resilience_restarts_total", "supervised task restarts",
                        task=task).inc()
+    _recorder().record("task_restart", task=task, reason=reason, restart_no=restart_no)
 
 
-def _count_giveup(task: str) -> None:
+def _count_giveup(task: str, reason: str, restarts: int) -> None:
     _metrics().counter("distar_resilience_task_giveups_total",
                        "supervised tasks abandoned (restart budget exhausted)", task=task).inc()
+    _recorder().record("task_giveup", task=task, reason=reason, restarts=restarts)
 
 
 @dataclass(frozen=True)
@@ -181,7 +193,7 @@ class Supervisor:
             task.last_error = reason
             if not _budget_ok(task.restart_times, task.policy):
                 task.gave_up = True
-                _count_giveup(task.name)
+                _count_giveup(task.name, reason, task.restarts)
                 if task.on_giveup is not None:
                     try:
                         task.on_giveup(cause)
@@ -190,7 +202,7 @@ class Supervisor:
                 break
             restart_no = task.restarts
             task.restarts += 1
-            _count_restart(task.name)
+            _count_restart(task.name, reason, task.restarts)
             if task.on_restart is not None:
                 try:
                     task.on_restart(cause)
@@ -242,10 +254,43 @@ def supervise_call(fn: Callable[[], None], op: str = "main",
             raise
         except BaseException as e:  # noqa: BLE001 - restarted or re-raised
             if not _budget_ok(window, policy):
-                _count_giveup(op)
+                _count_giveup(op, repr(e), restart_no)
                 raise
-            _count_restart(op)
+            _count_restart(op, repr(e), restart_no + 1)
             if on_restart is not None:
                 on_restart(e)
             sleep(policy.backoff_s(restart_no))
             restart_no += 1
+
+
+class AlertRemediator:
+    """Health alerts into supervised restarts.
+
+    ``mapping`` routes a firing rule name to a supervised task name; when
+    the ``HealthEvaluator`` emits a ``firing`` transition for a mapped rule
+    the remediator requests a cooperative restart of that task. The
+    debounce lives in the rules engine: exactly one firing event per
+    incident means exactly one remediation per incident."""
+
+    def __init__(self, supervisor: Supervisor, mapping: Mapping[str, str]):
+        self.supervisor = supervisor
+        self.mapping = dict(mapping)
+
+    def attach(self, evaluator) -> "AlertRemediator":
+        evaluator.add_transition_callback(self.on_event)
+        return self
+
+    def on_event(self, event: dict) -> None:
+        if event.get("state") != "firing":
+            return
+        task = self.mapping.get(event.get("rule"))
+        if task is None:
+            return
+        if self.supervisor.restart(task, reason=f"alert:{event.get('rule')}"):
+            # rule names are bounded by the declarative rulebook, never by
+            # request data
+            _metrics().counter(
+                "distar_resilience_remediations_total",
+                "alert-triggered supervised restarts", rule=event.get("rule"),
+            ).inc()
+            _recorder().record("remediation", rule=event.get("rule"), task=task)

@@ -10,11 +10,10 @@ or, after a drain, until every resident session has left.
 ``--players MP0,MP1`` serves several mock models behind the one address
 (``GatewayMux``); ``--coordinator host:port`` registers the data-plane
 endpoint under ``serve_gateway`` with a lease and heartbeats, and a drain
-unregisters it first.
-
-``--telemetry-interval-s`` defaults to 0 here (2.0 in the JAX package) and
-raises above 0: the telemetry shipper comes with ROADMAP Queue 1 item 9, as
-for ``bin/serve.py``.
+unregisters it first, and every ``--telemetry-interval-s`` (0: never) the
+gateway ships its registry snapshot, tail-sampled request spans and latency
+exemplars to that coordinator, so its server spans join the clients' in the
+coordinator's trace store.
 """
 from __future__ import annotations
 
@@ -49,9 +48,10 @@ def main(argv=None) -> int:
     p.add_argument("--coordinator", default="",
                    help="coordinator host:port to register under serve_gateway")
     p.add_argument("--lease-s", type=float, default=10.0)
-    p.add_argument("--telemetry-interval-s", type=float, default=0.0,
-                   help="telemetry shipping to the coordinator: not ported yet "
-                        "(obs/shipper.py, ROADMAP Queue 1 item 9); only 0 is accepted")
+    p.add_argument("--telemetry-interval-s", type=float, default=2.0,
+                   help="cadence of registry-snapshot + tail-sampled-trace "
+                        "shipping to the coordinator (requires "
+                        "--coordinator; 0 disables)")
     p.add_argument("--no-trace", action="store_true",
                    help="disable request-span minting")
     p.add_argument("--trace-keep-one-in", type=int, default=0,
@@ -65,9 +65,6 @@ def main(argv=None) -> int:
                    help="TCP-frontend transport policy (auto/shm negotiate "
                         "shared-memory rings with colocated clients)")
     args = p.parse_args(argv)
-    if args.telemetry_interval_s > 0:
-        raise NotImplementedError("--telemetry-interval-s: the telemetry shipper (obs/shipper.py) "
-                                  "is not ported yet (ROADMAP Queue 1 item 9)")
 
     if args.no_trace:
         from ...obs import set_tracing
@@ -101,17 +98,29 @@ def main(argv=None) -> int:
                          transport=args.transport).start()
     http = ServeHTTPServer(target, host=args.host, port=args.http_port).start()
 
-    beat = None
+    beat = shipper = None
     if args.coordinator:
         chost, _, cport = args.coordinator.rpartition(":")
+        coord = (chost or "127.0.0.1", int(cport))
         # target: drain's step 1 leaves discovery now, not a lease TTL later
         beat = register_gateway(
-            (chost or "127.0.0.1", int(cport)), tcp.host, tcp.port,
+            coord, tcp.host, tcp.port,
             meta={"players": players, "slots": args.slots,
                   "http_port": http.port, "version": args.version,
                   "mock": True},
             lease_s=args.lease_s, target=target,
         )
+        if args.telemetry_interval_s > 0:
+            # telemetry, tail-sampled span records and exemplars to the
+            # broker: this gateway's server spans join the client spans in
+            # the coordinator's trace store (GET /traces)
+            from ...obs import TelemetryShipper
+
+            shipper = TelemetryShipper(
+                source=f"gateway:{tcp.port}", coordinator_addr=coord,
+                interval_s=args.telemetry_interval_s,
+                endpoint=f"{tcp.host}:{tcp.port}",
+            ).start()
 
     # the parseable serving line callers wait for
     print(f"SERVE-GATEWAY {tcp.host} {tcp.port} {http.port}", flush=True)
@@ -139,6 +148,8 @@ def main(argv=None) -> int:
                     break
     except (OSError, ValueError, KeyboardInterrupt):
         pass
+    if shipper is not None:
+        shipper.stop()
     if beat is not None:
         beat.stop_event.set()
     tcp.stop()

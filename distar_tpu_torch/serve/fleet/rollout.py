@@ -212,9 +212,8 @@ class FleetRollout:
         """Freshest ``distar_distill_kl`` value from the coordinator's
         ``/timeseries`` (the distillation learner ships it with its
         telemetry): the divergence-vs-teacher leg of the canary compare.
-        None when no coordinator is configured or none answers it (the
-        port's coordinator answers ``/timeseries`` 404 until fleet health,
-        ROADMAP Queue 1 item 9)."""
+        None when no coordinator is configured or no distillation learner
+        ever shipped."""
         if self.coordinator_addr is None:
             return None
         import json

@@ -17,8 +17,7 @@ Routes:
   POST /serve/drain   {}   -> begin graceful retirement (idempotent)
   GET  /metrics       Prometheus scrape (shared obs helper)
   GET  /healthz /alerts /timeseries /traces /trace/<id>
-                      fleet health: 404 until ``obs/health.py`` is ported
-                      (ROADMAP Queue 1 item 9)
+                      fleet health (shared obs helper)
 
 Drain contract: after ``POST /serve/drain`` a shed NEW request answers
 HTTP **503** with the typed ``DrainingError`` wire body (every other typed

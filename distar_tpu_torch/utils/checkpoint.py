@@ -322,14 +322,13 @@ class CheckpointManager:
 
     @staticmethod
     def _note_fallback(path: str) -> None:
-        from ..obs import get_registry
+        from ..obs import get_flight_recorder, get_registry
 
         get_registry().counter(
             "distar_resilience_ckpt_fallbacks_total",
             "corrupt/missing checkpoint generations skipped on resume",
         ).inc()
-        # the JAX package also records a "ckpt_fallback" flight-recorder
-        # event here; the flight recorder comes with ROADMAP Queue 1 item 9
+        get_flight_recorder().record("ckpt_fallback", path=path)
 
     def load_latest(self, target: Any = None) -> Optional[Dict]:
         """``load_checkpoint`` of the newest generation that loads, with its

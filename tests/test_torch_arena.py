@@ -17,17 +17,18 @@ on the CPU.
   player the Gumbel draws JAX derives for its seat (``jax_gumbel_noise``,
   as tests/test_torch_anakin.py does). Winners and game steps must be
   equal, match by match.
-* Mirrors of every test of tests/test_arena.py on the port, apart from
-  ``test_default_rulebook_carries_arena_rules`` (fleet health, ROADMAP
-  Queue 1 item 9.1) and the e2e's TSDB scoreboard (``opsctl arena`` reads
-  fleet-health series); the e2e's ratings, payoff, restart and HTTP
-  surfaces are all held.
+* Mirrors of every test of tests/test_arena.py on the port, the e2e's
+  ratings, payoff, restart and HTTP surfaces and its TSDB scoreboard
+  (the JAX package's ``opsctl arena`` against the port's coordinator,
+  reading the series the port's fleet health sampled) among them.
 """
 import json
 import math
 import os
+import sys
 import time
 import urllib.request
+from argparse import Namespace
 
 import jax
 import numpy as np
@@ -426,6 +427,17 @@ def test_pfsp_preview_matches_hand_computed_variance_weights(registry):
 
 
 # ------------------------------------------------------- head_to_head match stats
+def test_default_rulebook_carries_arena_rules():
+    rules = {r.name: r for r in pobs.default_rulebook()}
+    reg = rules["arena_rating_regression"]
+    assert reg.metric == "distar_arena_main_rating_inverted"
+    assert reg.op == "trending_up"
+    stall = rules["arena_match_stall"]
+    assert stall.metric == "distar_arena_matches_applied"
+    assert stall.op == "stalled"
+    assert vars(reg) == vars({r.name: r for r in jobs.default_rulebook()}["arena_rating_regression"])
+
+
 def test_head_to_head_reports_per_match_stats(registry):
     res = P.head_to_head(P.attack_nearest_policy(), P.idle_policy(), episodes=4, seed=3, env_cfg=TINY_ENV,
                          scenario_cfg=TINY_SCN, device="cpu")
@@ -495,13 +507,17 @@ def _save_generations(ckpt_dir, model, steps):
         mgr.record(path, step=step)
 
 
-def test_arena_e2e_generations_vs_anchors(registry, arena_global, tmp_path):
+def test_arena_e2e_generations_vs_anchors(registry, arena_global, tmp_path, capsys):
     """Three toy checkpoint generations + two scripted anchors play a
     scheduled arena on the port's jaxenv; attack_nearest out-rates idle
     with confidence; the matrix is non-trivial; ratings survive a
     coordinator restart; GET /arena/ratings and /arena/payoff serve them
-    over a real CoordinatorServer."""
+    over a real CoordinatorServer, and ``opsctl arena`` renders the
+    scoreboard from the TSDB series the port's fleet health sampled."""
     from distar_tpu_torch.comm.coordinator import CoordinatorServer
+
+    fh = pobs.FleetHealth(rules=pobs.default_rulebook(), registry=registry)
+    prev_fh = pobs.set_fleet_health(fh)
 
     journal = str(tmp_path / "arena.journal")
     ckpt_dir = str(tmp_path / "ckpt")
@@ -567,6 +583,27 @@ def test_arena_e2e_generations_vs_anchors(registry, arena_global, tmp_path):
         art = ev_b.artifact(ratings=ratings)
         assert art["arena"]["player"] == "main:300" and art["batches"] == 4
         assert registry.counter("distar_arena_eval_batches_total", "").value == 3 + 4
+
+        # the scoreboard from TSDB series: sample the registry into the fleet
+        # store (what the coordinator's sampler thread does), then render it
+        # with the JAX package's opsctl against the port's server
+        fh.sampler.sample_once()
+        fh.sampler.sample_once()
+        sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools"))
+        try:
+            import opsctl
+        finally:
+            sys.path.pop(0)
+        capsys.readouterr()
+        assert opsctl.cmd_arena(Namespace(addr=f"{srv.host}:{srv.port}", window=600.0, json=False)) == 0
+        out = capsys.readouterr().out
+        assert "attack_nearest" in out and "idle" in out
+        assert "rating trajectories (TSDB):" in out
+        assert "pfsp preview" in out
+        opsctl._print_arena_digest(f"{srv.host}:{srv.port}")
+        assert "arena: 64 matches" in capsys.readouterr().out
     finally:
         srv.stop()
         set_arena_store(None)
+        pobs.set_fleet_health(prev_fh)
+        fh.stop()

@@ -297,13 +297,18 @@ def test_unported_coordinator_parts_name_their_roadmap_item():
         srv.attach_ha(object())
     srv.start()
     try:
-        reply = pcoord.coordinator_request(srv.host, srv.port, "telemetry", {})
-        assert reply["code"] == 1 and "item 9" in reply["info"], reply
         # the arena and league routes answer as the JAX coordinator's do
-        # when the process hosts no store and no service
+        # when the process hosts no store and no service; so does telemetry
+        # ingest, a malformed message refused and a JSON one folded
         jsrv = jcoord.CoordinatorServer(port=0)
         jsrv.start()
         try:
+            msg = {"source": "actor:1", "ts": 1.0e9, "snapshot": {"distar_env_steps_total": 3.0}}
+            for body, code in (({}, 1), (msg, 0)):
+                reply = pcoord.coordinator_request(srv.host, srv.port, "telemetry", body)
+                assert reply == jcoord.coordinator_request(jsrv.host, jsrv.port, "telemetry", body), reply
+                assert reply["code"] == code, reply
+            assert reply["info"] == 1
             for route in ("arena_next", "league_ask"):
                 reply = pcoord.coordinator_request(srv.host, srv.port, route, {})
                 assert reply == jcoord.coordinator_request(jsrv.host, jsrv.port, route, {}), reply

@@ -11,6 +11,7 @@ import signal
 import socket
 import subprocess
 import sys
+import time
 import urllib.error
 import urllib.request
 
@@ -129,8 +130,8 @@ def test_http_script_answers_like_the_jax_frontend():
     count = [sorted(ln for ln in m[1].splitlines() if ln.startswith("distar_serve_requests_total"))
              for m in (metrics, jmetrics)]
     assert count[0] == count[1]
-    # fleet health is not ported: 404, where the JAX package answers it
-    assert health == 404 and jhealth == 200
+    # fleet health answers as the JAX package's does
+    assert health == jhealth == 200
 
 
 def framed(sock, obj, lib="port"):
@@ -363,7 +364,7 @@ def serve_process(*flags):
     assert "serving:" in line, line + proc.stdout.read()
     http = int(line.split("http=")[1].split()[0].rsplit(":", 1)[1])
     tcp = int(line.split("tcp=")[1].split()[0].rsplit(":", 1)[1])
-    assert "fleet health not ported (ROADMAP Queue 1 item 9)" in line
+    assert f"health={'off' if '--no-health' in flags else 'on'}" in line
     return proc, http, tcp
 
 
@@ -415,13 +416,32 @@ def test_bin_serve_checkpoint_process_on_the_cpu(tmp_path):
         sigterm(proc)
 
 
-@pytest.mark.parametrize("argv, match", [
-    (["--mock", "--telemetry-interval-s", "0.5"], "item 9"),
-    (["--mock", "--telemetry-interval-s", "5"], "item 9"),
-])
-def test_bin_serve_flags_not_ported_raise(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
-        serve_bin.main(argv + ["--http-port", "0", "--tcp-port", "0"])
+@pytest.mark.parametrize("flags", [["--telemetry-interval-s", "0.5"], []], ids=["0.5", "default_5"])
+def test_bin_serve_ships_telemetry_to_its_coordinator(flags, tmp_path):
+    """``--telemetry-interval-s`` (5.0 by default, as in the JAX package)
+    with ``--coordinator-addr``: the gateway process's snapshots reach the
+    coordinator's store under ``serve:<tcp port>``, and its answers to the
+    fleet-health routes are the process's own."""
+    from distar_tpu_torch.comm import CoordinatorServer
+    from distar_tpu_torch.obs import FleetHealth, set_fleet_health
+
+    fleet = FleetHealth()
+    prev = set_fleet_health(fleet)
+    coord = CoordinatorServer()
+    coord.start()
+    proc, http, tcp = serve_process("--mock", "--coordinator-addr", f"{coord.host}:{coord.port}", *flags)
+    try:
+        deadline = time.time() + 30
+        while time.time() < deadline and f"serve:{tcp}" not in fleet.store.sources():
+            time.sleep(0.1)
+        assert f"serve:{tcp}" in fleet.store.sources(), fleet.store.sources()
+        assert any(n.startswith("distar_serve_") for n in fleet.store.names(f"serve:{tcp}"))
+        with urllib.request.urlopen(f"http://127.0.0.1:{http}/alerts", timeout=10) as r:
+            assert {"serve_shed_rate", "serve_latency_slo", "trace_e2e_slo"} == set(json.loads(r.read())["rules"])
+    finally:
+        sigterm(proc)
+        coord.stop()
+        set_fleet_health(prev)
 
 
 def test_bin_serve_needs_cuda_unless_told_cpu(tmp_path):

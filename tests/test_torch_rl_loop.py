@@ -371,9 +371,17 @@ def test_rl_train_roles_as_processes(tmp_path):
     """Coordinator, league, learner and actor as four processes on the CPU:
     the learner trains on the actor's trajectories and exits 0 with its
     done line; SIGTERM ends the actor, the coordinator and the league with
-    exit 0, the actor with no traceback."""
+    exit 0, the actor with no traceback. Fleet health is on, as the JAX
+    defaults give it: the learner and the actor ship to the coordinator
+    (every second here), whose ``/healthz`` lists both sources and whose
+    ``/timeseries`` holds the learner's iterations up to its last; on
+    SIGTERM the actor and the coordinator write a flight bundle under their
+    ``flight/`` directory, and the league, which runs no fleet health, does
+    not."""
+    import json
     import signal
     import time
+    import urllib.request
 
     env = dict(os.environ, PYTHONPATH=REPO, DISTAR_EXPERIMENTS_ROOT=str(tmp_path),
                OMP_NUM_THREADS="1")  # one core each beside the other workers
@@ -400,17 +408,40 @@ def test_rl_train_roles_as_processes(tmp_path):
         start("league", "--port", "0", "--config", cfg)
         co, lg = serving("coordinator"), serving("league")
         sizes = ("--env-num", "1", "--traj-len", "2", "--batch-size", "2", "--episode-game-loops", "60")
-        start("learner", "--coordinator-addr", co, "--league-addr", lg, "--iters", "1",
-              "--save-path", str(tmp_path / "learner"), *sizes)
-        start("actor", "--coordinator-addr", co, "--league-addr", lg, *sizes)
+        ship = ("--telemetry-interval-s", "1")
+        start("learner", "--coordinator-addr", co, "--league-addr", lg, "--iters", "2",
+              "--save-path", str(tmp_path / "learner"), *ship, *sizes)
+        start("actor", "--coordinator-addr", co, "--league-addr", lg, "--save-path", str(tmp_path / "actor"),
+              *ship, *sizes)
         assert procs["learner"].wait(timeout=240) == 0, (tmp_path / "learner.log").read_text()[-3000:]
-        assert "learner done: 1 iters" in (tmp_path / "learner.log").read_text()
+        assert "learner done: 2 iters" in (tmp_path / "learner.log").read_text()
+
+        def get(path):
+            with urllib.request.urlopen(f"http://{co}{path}", timeout=10) as r:
+                return json.loads(r.read())
+
+        deadline = time.time() + 30
+        while time.time() < deadline:
+            sources = get("/healthz")["sources"]
+            if "learner:MP0:0" in sources and any(s.startswith("actor:") for s in sources):
+                break
+            time.sleep(0.2)
+        assert "learner:MP0:0" in sources and any(s.startswith("actor:") for s in sources), sources
+        iters = get("/timeseries?name=distar_learner_iterations_total")
+        # the learner's normal return ships its last counters
+        assert iters["points"]["learner:MP0:0"][-1][1] == 2 and iters["stats"]["learner:MP0:0"]["count"] >= 1, iters
         for role in ("actor", "coordinator", "league"):
             assert procs[role].poll() is None, (tmp_path / f"{role}.log").read_text()[-3000:]
             procs[role].send_signal(signal.SIGTERM)
             assert procs[role].wait(timeout=60) == 0, (tmp_path / f"{role}.log").read_text()[-3000:]
         # the coordinator and the league may report the actor hanging up, as the JAX servers do
         assert "Traceback" not in (tmp_path / "actor.log").read_text()
+        bundles = {role: sorted(tmp_path.glob(f"{where}/flight/flight_*.json"))
+                   for role, where in (("actor", "actor"), ("coordinator", "rl_train"), ("league", "rl_train"))}
+        assert len(bundles["actor"]) == 1 and len(bundles["coordinator"]) == 1, bundles
+        for role in ("actor", "coordinator"):
+            bundle = json.loads(bundles[role][0].read_text())
+            assert [e for e in bundle["events"] if e["kind"] == "signal"] and bundle["registry_snapshot"]
     finally:
         for proc in procs.values():
             if proc.poll() is None:
@@ -481,13 +512,83 @@ def test_replay_flags_take_their_working_path(argv, tmp_path, monkeypatch, capsy
                                              "--journal-dir", "none"], "item 10"),
     (["--env", "sc2"], "item 10"), (["--mesh", "dp=2"], "item 7"), (["--dist-method", "auto"], "item 7"),
     (["--journal-dir", "j"], "item 11"), (["--ha-peers", "a:1"], "item 11"),
-    (["--telemetry-interval-s", "5"], "item 9"), (["--no-health"], "item 9"),
-    (["--dynamics-every", "2"], "item 9"),
-    (["--platform", "cpu"], "--device"), (["--metrics-port", "9"], "item 9"),
+    (["--dynamics-every", "2"], "item 9"), (["--platform", "cpu"], "--device"),
 ])
 def test_unported_flags_raise_naming_their_item(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         rl_train.main(argv + ["--device", "cpu"])
+
+
+SMALL_ALL = ["--type", "all", "--device", "cpu", "--iters", "2", "--env-num", "1", "--traj-len", "2",
+             "--batch-size", "2", "--episode-game-loops", "60"]
+
+
+def test_telemetry_interval_ships_a_roles_snapshots(tmp_path):
+    """``--telemetry-interval-s``: a role's shipper (``_init_health`` with a
+    coordinator address) reaches the coordinator's store on that cadence,
+    and leaves the process as it found it on the role's normal return."""
+    import sys as _sys
+    import time
+
+    from distar_tpu_torch.obs import get_fleet_health
+
+    args = _resolved(["--type", "actor", "--telemetry-interval-s", "0.2", "--health-sample-s", "0.1",
+                      "--save-path", str(tmp_path), "--device", "cpu"])
+    hook = _sys.excepthook
+    srv = CoordinatorServer()
+    srv.start()
+    try:
+        health = rl_train._init_health(args, roles=("actor", "trace"), source="actor:7",
+                                       shipper_addr=(srv.host, srv.port))
+        assert get_fleet_health() is health.fleet and health.shipper.interval_s == 0.2
+        deadline = time.time() + 20
+        while time.time() < deadline and "actor:7" not in health.fleet.store.sources():
+            time.sleep(0.05)
+        assert "actor:7" in health.fleet.store.sources()
+        assert [r.name for r in health.fleet.evaluator.rules] == ["actor_env_starvation", "trace_e2e_slo"]
+        rl_train._close_health(health)
+        assert _sys.excepthook is hook and health.shipper._thread is None
+    finally:
+        srv.stop()
+
+
+def test_no_health_runs_the_loop_without_fleet_health(tmp_path, monkeypatch):
+    """``--no-health``: ``--type all`` trains with no sampler, rulebook,
+    shipper or crash hook, and writes no flight directory."""
+    from distar_tpu_torch import obs as pobs
+
+    monkeypatch.setenv("DISTAR_EXPERIMENTS_ROOT", str(tmp_path))
+    before = pobs.set_fleet_health(None)
+    try:
+        loop = rl_train.main(SMALL_ALL + ["--no-health", "--save-path", str(tmp_path / "run")])
+        assert loop.learner.last_iter.val == 2
+        assert pobs.set_fleet_health(None) is None  # never installed
+        assert not (tmp_path / "run" / "flight").exists()
+        assert rl_train._init_health(_resolved(["--no-health", "--device", "cpu"]), roles=("actor",)) is None
+    finally:
+        pobs.set_fleet_health(before)
+
+
+def test_metrics_port_serves_metrics_and_health_routes(tmp_path, monkeypatch, capsys):
+    """``--metrics-port``: the process's registry and fleet-health routes on
+    that port, in every role the JAX launcher serves them from."""
+    import json
+    import urllib.request
+
+    monkeypatch.setenv("DISTAR_EXPERIMENTS_ROOT", str(tmp_path))
+    server = rl_train._maybe_serve_metrics(_resolved(["--metrics-port", "0", "--device", "cpu"]))
+    try:
+        base = f"http://{server.host}:{server.port}"
+        with urllib.request.urlopen(base + "/metrics", timeout=10) as r:
+            assert r.status == 200
+        with urllib.request.urlopen(base + "/alerts", timeout=10) as r:
+            assert "rules" in json.loads(r.read())
+    finally:
+        server.stop()
+    assert rl_train._maybe_serve_metrics(_resolved(["--device", "cpu"])) is None
+    loop = rl_train.main(SMALL_ALL + ["--metrics-port", "0", "--save-path", str(tmp_path / "run")])
+    assert loop.learner.last_iter.val == 2
+    assert "metrics on http://127.0.0.1:" in capsys.readouterr().out
 
 
 JAXENV_SMALL = ["--smoke-model", "--device", "cpu", "--iters", "2", "--batch-size", "2", "--traj-len", "3",
