@@ -92,7 +92,7 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              with the bytes a step, the write time, one batch's collation and
              its host-to-device copy (pinned, pageable); ``python -m
              distar_tpu_torch.bin.sl_train --data --eval-data`` as a process
-             under 'pallas_onehot' for 12 steps (a checkpoint every 4, EVAL
+             under 'pallas_onehot' for 8 steps (a checkpoint every 4, EVAL
              every 4): exit 0, finite log lines, the pointer's generations
              newest first and verified, its launches read from its output;
              the same command again, SIGTERM after its next periodic
@@ -109,8 +109,10 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              batches bit-equal to the host ones, each run held against A the
              same way, step and data-wait ms, a profiled step); the async save (the loop's blocked time against the
              write), a sync save and a restore; the admin API's status,
-             save_ckpt (landing at the next boundary) and profile (an error
-             naming item 9) during a run; ``evaluate`` on the held-out set.
+             save_ckpt (landing at the next boundary) and profile (one
+             step captured, its ranked buckets, its device time within 10%
+             of torch.profiler's busy time) during a run; ``evaluate`` on
+             the held-out set.
 9. rl      — the RL learner (``RL_LEARNER_DEFAULTS``, 4 x 16: 68 observed
              frames) and the distillation student at flagship width, f32:
              each kernel's Function at the RL shapes [68, 2, 512, 128] /
@@ -119,7 +121,8 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              readings of the strings' gradient gap (``rl_gap``: repeat,
              mixed strings, intermediates, an f64 yardstick, the ReLU and
              max-pool kinks and UPGO's step) on the phase's batch and a
-             seed-0 batch, held, and on zero observations, printed; the
+             seed-0 batch, held (on zero observations, printed, until the
+             learner diagnostics came); the
              three config strings from the same weights on a zero-observation
              ``FakeRLDataloader`` batch and on a fixed ``random_rl_batch``:
              loss and every info scalar within STEP_TOL, the whole gradients
@@ -137,15 +140,37 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              reference's 6 x 64 with their peak memory; the
              ``DistillLearner`` strings held the same way, 4 steps of
              ``DistillLearner.run`` with 2 attention + 1 scatter launches a
-             step, and its step ms.
+             step, and its step ms. The learner diagnostics on the strings'
+             learners (``phase_diagnostics``; ``python3 chip_smoke.py --only
+             diagnostics`` runs them alone): d. the training-dynamics tree
+             of the 'pallas' learner's first step: its keys those of the
+             smoke model's RL step on the CPU (the CPU tests' set), every
+             norm within TREE_TOL of a float64 recomputation per module on
+             the card (parameters, the gradient of its own autograd pass,
+             the first Adam update), its census 0, and as many
+             synchronizing calls a step with the tree as without
+             (``device_pure_report``); e. ``step_times`` with the tree off
+             and on (the monitor at every_n 10), in turns, 3 each, the
+             medians printed; g. ``POST /learner/profile?steps=2`` to the
+             learner running ``run()`` with its admin route: the report's
+             buckets ranked, entity-attention and scatter above 0, shares
+             summing to 1 within 1e-5, its device time within 10% of
+             torch.profiler's busy time for the same steps; h.
+             ``distar_perf_flops_per_step`` equal under the 'pallas' and
+             'xla' strings (their learners count, ``learner.perf.aot``; the
+             script's other learners do not, ``DISTAR_PERF_AOT=0``),
+             ``distar_perf_mfu`` printed, the HBM gauges those of
+             ``torch.cuda.memory_stats()``. Their seconds are in the
+             ``phase seconds`` line.
 10. rl_loop — the league-RL loop of ``bin/rl_train.py --type all`` at the
              flagship (kernel overlay, f32), built by ``rl_train.build_all``:
              tests/test_pipeline.py's league (PFSP, MP0 against HP0), an
              in-process coordinator, the actor on 8 mock envs of 300 game
              loops with trajectories of 16 steps (weights refreshed every
              second), the RL learner on 4 x 16 batches of the actors'
-             trajectories for 4 iterations (8 before phase 11 came; cut to
-             keep the script in its time), publishing its weights and its
+             trajectories for 3 iterations (8 before phase 11 came, 4
+             before the learner diagnostics; cut to keep the script in its time),
+             publishing its weights and its
              train-info every 2 (the launcher's 4 replaced by attaching the
              weight plane again). a. one actor job alone on a thread. b. the
              loop: the actor's job loop on the supervisor's thread, the
@@ -171,9 +196,11 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              servers do), with fleet health on as the JAX defaults give it,
              the learner and actor shipping every second. Check a: before
              the SIGTERMs the coordinator's ``/healthz`` is 200 and ok with
-             the learner's and the actor's sources fresh, ``/timeseries``
-             shows the learner's iterations rising, ``/alerts`` nothing
-             firing, ``/traces?name=trajectory`` a trajectory the learner
+             the learner's and the actor's sources fresh (503 where the
+             reference's ``learner_mfu_collapse``, the one rule allowed,
+             fires: where the learner's ``distar_perf_mfu`` reads under
+             2%), ``/timeseries`` shows the learner's iterations rising,
+             ``/traces?name=trajectory`` a trajectory the learner
              shipped, and its ``/trace/<id>`` waterfall carries the actor's
              push and the learner's collate; after them the coordinator and
              the actor, not the league, have left one flight bundle each
@@ -183,11 +210,21 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              default_rulebook(("learner", "actor"), stall_window_s=2.0),
              sample_interval_s=0.1, eval_interval_s=0.2)`` of its own and an
              in-process ``CoordinatorServer``. With the actor idle,
-             ``ChaosInjector.poison_loss(learner, n=3)`` over 6 steps of
-             ``run()`` on an actor-made batch: ``learner_loss_nonfinite``
-             fires exactly once, ``/healthz`` answers 503 while it does, a
-             ``dump`` holds the transitions and the NaN
-             ``distar_learner_loss``, the rule is ok after the clean steps.
+             ``ChaosInjector.poison_module(learner, "core_lstm", n=3)`` over
+             3 steps of ``run()`` on an actor-made batch (the tree exported
+             every step): ``learner_loss_nonfinite`` and
+             ``learner_grad_nonfinite`` fire exactly once each (and of the
+             learner's numeric and perf rules only they, and
+             ``learner_mfu_collapse`` where MFU reads under 2%),
+             ``learner_grad_nonfinite``'s exemplar is
+             ``blackbox:<bundle>``, the one black-box bundle of the poisoned
+             steps (f.: its capture ms and bytes printed, and
+             ``python -m distar_tpu_torch.tools.stepreplay`` replays it on
+             the card as a process: ``ok``, non-finite reproduced,
+             provenance confirmed, bit for bit), ``/healthz`` answers 503
+             while they fire, a ``dump`` holds the transitions and the NaN
+             ``distar_learner_loss``; the learner state from before the
+             poison put back, 3 clean steps, both rules ok.
              With the learner idle, the actor's job loop a ``Supervisor``
              task with ``AlertRemediator(supervisor, {"actor_env_starvation":
              "actor"})`` as ``--type all`` runs it, and every mock env's next
@@ -219,12 +256,12 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              ``bin/rl_train.py --type all --replay`` builds it
              (``rl_train.build_all``) at the flagship (kernel overlay, f32):
              rl_loop's league, actor (8 mock envs of 300 game loops,
-             trajectories of 16) and learner (4 x 16, 6 iterations, prefetch
+             trajectories of 16) and learner (4 x 16, 4 iterations, prefetch
              depth 2), and between them one ``ReplayServer`` on loopback,
              transport auto (its rings sized for a flagship trajectory where
              /dev/shm has room), sampler uniform, samples-per-insert 4, spill
              on. Checked: the store's inserts are the actor's acknowledged
-             pushes; its samples the learner's 24 and at most what the
+             pushes; its samples the learner's 16 and at most what the
              prefetcher drew ahead; the limiter's ratio within its buffer at
              every insert and sample; every sampled trajectory bit-equal to
              one pushed (a sha256 of its leaves a push); both kernels
@@ -1766,6 +1803,12 @@ RL_ITERS = 8
 # observations. Dropping UPGO moves the gradient 2.4e-2 to 5.5e-2, crossing
 # the time and batch axes 0.9 to 1.2. 1e-2 lies between.
 GRAD_TOL = 1e-2
+# the dynamics tree's scalars that derive from the gradient (its norms, the
+# update's, the clip's fraction) part between the strings as the gradient
+# does: held at GRAD_TOL, relative, as grad_norm is in ``steps_agree``
+GRAD_KEYS = ("dyn/grad_norm/", "dyn/update_ratio/", "dyn/clip_fraction")
+# check d: the tree's norms against an f64 recomputation on the card
+TREE_TOL = 1e-5
 # the RL gap readings (``rl_gap``): the first intermediate whose max |a - b| /
 # max |b| exceeds this names the layer where two strings part
 GAP_TOL = 1e-5
@@ -1915,6 +1958,13 @@ def train_kernel_times(K, inputs, tag="train"):
             rec["bf16_fwd_ms"] = device_ms(lambda: K.masked_attention(q, k, v, m))[0]
             rec["bf16_bwd_ms"] = device_ms(lambda: K.masked_attention_backward(q, k, v, m, dout),
                                            iters=5, warmup=1)[0]
+            # the same counts at 2 bytes an element: the forward's products on
+            # the bf16 tensor cores (1.5 passes, as in the kernels phase), the
+            # backward's in f32 on the CUDA cores (it upcasts, as the JAX one)
+            rec["bf16_fwd_bound_ms"] = bound(2 * q.numel() * 2 + 2 * H * Dh * 2 * keys + m.numel(),
+                                             4 * H * Dh * N * keys, PEAK_BF16_FLOPS, 1.5)[0]
+            rec["bf16_bwd_bound_ms"] = bound(5 * q.numel() * 2 + 2 * H * Dh * 2 * keys + m.numel(),
+                                             10 * H * Dh * N * keys)[0]
         rec[f"library_{name}_fwd_ms"] = device_ms(fwd)[0]
         rec[f"library_{name}_fwd_bwd_ms"] = device_ms(both, iters=5, warmup=1)[0]
     emb, idx, dmap = inputs["uniform"]  # dmap: an output gradient [B, hw, D]
@@ -2047,7 +2097,7 @@ def phase_train(device, rng):
 
 # ------------------------------------------------------------- SL runtime
 RT_TRAJ, RT_HELD_OUT, RT_STEPS = 6, 2, 40  # trajectories x steps: 32-step windows cross their ends
-RT_ITERS, RT_SAVE_FREQ, RT_EVAL_FREQ = 12, 4, 4  # the bin as a process
+RT_ITERS, RT_SAVE_FREQ, RT_EVAL_FREQ = 8, 4, 4  # the bin as a process (12 steps until the diagnostics came)
 RT_BATCHES = 8  # resume equivalence: A trains 8, B 4, C restores B and trains 5-8
 # two runs from one state on one batch compute the same loss: the forward
 # repeats bit for bit on the card; this is the allowance for that loss
@@ -2162,7 +2212,7 @@ def post_admin(admin, route, body=None):
 
 
 def runtime_processes(tmp, device, smi, root, train_ds, eval_ds, layers):
-    """Phase 8's processes: ``bin/sl_train.py`` for 12 steps, then SIGTERM,
+    """Phase 8's processes: ``bin/sl_train.py`` for 8 steps, then SIGTERM,
     a restart and a torn generation (module docstring). Returns the
     measurements and the first process's launches."""
     import signal
@@ -2172,7 +2222,7 @@ def runtime_processes(tmp, device, smi, root, train_ds, eval_ds, layers):
     from distar_tpu_torch.utils import checkpoint as C
 
     out = {}
-    # 2. the bin as a process: 12 steps, a checkpoint every 4, EVAL every 4
+    # 2. the bin as a process: 8 steps, a checkpoint every 4, EVAL every 4
     save = os.path.join(root, "run")
     cfg = {"model": overlay("pallas_onehot", "pallas"),
            "learner": {"save_freq": RT_SAVE_FREQ, "log_freq": 1}}
@@ -2260,6 +2310,7 @@ def phase_sl_runtime(device, rng, smi, tmp):
     from distar_tpu_torch.utils import checkpoint as C
 
     t_phase = time.perf_counter()
+    laps = Laps()
     root = os.path.join(tmp, "sl_runtime")
     layers = 3  # default_model_config's entity transformer layers: one attention call each
     out = {}
@@ -2295,8 +2346,10 @@ def phase_sl_runtime(device, rng, smi, tmp):
           f"bytes, host-to-device {copies['pinned_side_path']:.2f} ms pinned, "
           f"{copies['pageable_to_device']:.2f} ms pageable")
 
+    laps("dataset")
     # 2-3. the bin as processes, on a thread of this process's own while it
-    # holds the resume equivalence (4), which times nothing
+    # holds the resume equivalence (4), which times nothing, then times
+    # prefetch (5) and the saves (6) beside them
     chain = {}
 
     def processes():
@@ -2364,13 +2417,10 @@ def phase_sl_runtime(device, rng, smi, tmp):
           f"{resumed['params']:.3g}; A' vs A (the repeat) loss {spread['loss']:.3g} params "
           f"{spread['params']:.3g}, envelope of A, A', B loss {envelope['loss']:.3g} params "
           f"{envelope['params']:.3g}; launches {resume_launches}")
-    worker.join()
-    if "error" in chain:
-        raise chain["error"]
-    p_launches = chain.pop("launches")
-    out.update(chain)
+    laps("resume equivalence")
 
     # 5. prefetch on and off, through run() on the same dataset batches
+    # (beside the processes, to keep the script in its time: its timings read with them on the card)
     K.reset_launch_counts()
     pf = {}
     for depth in (2, 0):
@@ -2431,6 +2481,7 @@ def phase_sl_runtime(device, rng, smi, tmp):
           f"profiled step idle share {pf[2]['profile'].get('idle_share')} vs {pf[0]['profile'].get('idle_share')}; "
           f"against A: depth 2 {pf[2]['vs_A']}, depth 0 {pf[0]['vs_A']}")
 
+    laps("prefetch")
     # 6. the async save, a sync save, a restore, and the admin API during a run
     path = os.path.join(root, "async.ckpt")
     t0 = time.perf_counter()
@@ -2468,7 +2519,10 @@ def phase_sl_runtime(device, rng, smi, tmp):
     check(posted.get("status", {}).get("code") == 0 and posted["status"]["info"]["last_iter"] >= start + 1,
           f"admin status {posted.get('status')}")
     check(posted["save"] == {"code": 0, "info": "queued"}, f"admin save {posted['save']}")
-    check(posted["profile"]["code"] == 1 and "item 9" in posted["profile"]["info"],
+    report = posted["profile"].get("info") or {}
+    busy = report.get("profiler_device_busy_us") if isinstance(report, dict) else None
+    check(posted["profile"]["code"] == 0 and report["captured_steps"] == 1 and report["buckets"]
+          and busy and abs(report["total_device_us"] - busy) <= 0.1 * busy,
           f"admin profile {posted['profile']}")
     admin_gens = [g["step"] for g in rt.checkpoint_manager.generations()]
     check(any(start + 1 <= s < start + 5 for s in admin_gens), f"no admin checkpoint in {admin_gens}")
@@ -2477,9 +2531,17 @@ def phase_sl_runtime(device, rng, smi, tmp):
     print(f"sl_runtime save ({smi}): {nbytes} bytes; async save blocks the loop {blocked_s:.3f} s, "
           f"written in {write_s:.2f} s; sync save {sync_save_s:.2f} s; restore {restore_s:.2f} s; admin "
           f"status at iter {posted['status']['info']['last_iter']}, save_ckpt landed at "
-          f"{[s for s in admin_gens if start + 1 <= s < start + 5]}, profile answered "
-          f"{posted['profile']['info'][:60]!r}")
+          f"{[s for s in admin_gens if start + 1 <= s < start + 5]}, profile answered the ranked buckets "
+          f"{json.dumps({b['bucket']: b['share'] for b in report['buckets']})} of "
+          f"{report['total_device_us'] / 1e3:.2f} device ms")
 
+    laps("saves and admin")
+    worker.join()
+    laps("processes wait")
+    if "error" in chain:
+        raise chain["error"]
+    p_launches = chain.pop("launches")
+    out.update(chain)
     # 7. the held-out evaluation
     before = dict(K.launch_counts)
     torch.cuda.synchronize()
@@ -2502,7 +2564,9 @@ def phase_sl_runtime(device, rng, smi, tmp):
     for name, n in launches.items():
         check(n > 0, f"{name} never launched on the SL runtime path")
     out["launches"] = launches
-    out["seconds"] = time.perf_counter() - t_phase
+    laps("evaluate")
+    out["seconds"], out["laps"] = time.perf_counter() - t_phase, laps
+    print(f"sl_runtime seconds by part: {json.dumps(laps)}")
     print(f"sl_runtime: {out['seconds']:.1f} s, launches (the process {p_launches}, resume "
           f"{resume_launches}, prefetch, admin and evaluate {in_process})")
     print(json.dumps({"sl_runtime": out}))
@@ -2538,14 +2602,21 @@ def distill_learner(device, impl="pallas", **learner):
 
 def strings_agree(logs, what):
     """Every config string's step scalars within STEP_TOL of the 'xla'
-    string's (max |a - b| / max(|b|, 1)); returns the worst key of each."""
+    string's (max |a - b| / max(|b|, 1)), the dynamics tree's
+    gradient-derived ones (``GRAD_KEYS``) within GRAD_TOL of it, relative;
+    returns the worst key of each."""
     worst = {}
     for impl in ("pallas", "pallas_onehot"):
         check(set(logs[impl]) == set(logs["xla"]), f"{what} {impl}: info keys differ")
-        errs = {k: abs(logs[impl][k] - v) / max(abs(v), 1.0) for k, v in logs["xla"].items()}
+        errs = {k: abs(logs[impl][k] - v) / max(abs(v), 1.0) for k, v in logs["xla"].items()
+                if not k.startswith(GRAD_KEYS)}
         key = max(errs, key=errs.get)
         check(errs[key] <= STEP_TOL, f"{what} {impl} vs xla: {key} {logs[impl][key]} vs {logs['xla'][key]}")
         worst[impl] = (key, errs[key])
+        for k, v in logs["xla"].items():
+            if k.startswith(GRAD_KEYS):
+                check(abs(logs[impl][k] - v) <= GRAD_TOL * max(abs(v), 1e-30),
+                      f"{what} {impl} vs xla: {k} {logs[impl][k]} vs {v} (tol {GRAD_TOL})")
     check(all(finite(lg, [k for k in ("total_loss", "grad_norm") if k in lg]) for lg in logs.values()),
           f"{what}: a non-finite loss or grad_norm")
     return worst
@@ -3243,7 +3314,288 @@ def gated_step(device, batch):
     return groups
 
 
-def phase_rl(device, rng):
+# ---------------------------------------------------- learner diagnostics
+class Laps(dict):
+    """``laps(name)``: the seconds since the previous lap (or since it was
+    made) under ``name``: a phase's seconds by part."""
+
+    def __init__(self):
+        super().__init__()
+        self._t = time.perf_counter()
+
+    def __call__(self, name):
+        now = time.perf_counter()
+        self[name] = round(self.get(name, 0.0) + now - self._t, 1)
+        self._t = now
+
+
+def step_batch(lrn, batch):
+    """``batch`` as ``RLLearner._train`` hands it to its step: the host keys
+    dropped, float64 leaves as float32, on the learner's device."""
+    from distar_tpu_torch.actor.inference import to_device
+    from distar_tpu_torch.learner.data import as_float32
+
+    data = {k: v for k, v in batch.items() if k not in ("model_last_iter", "trace_span_ids", "trace_age_s")}
+    return to_device(as_float32(lrn._cap(data)), lrn.device)
+
+
+def tree_reference(lrn, batch):
+    """Check d's yardstick, read before the first step of a fresh RL
+    learner: per flax top-level module, in float64 on the card, the norms of
+    the parameters, of the raw gradient of the loss on ``batch`` (its own
+    autograd pass) and of the first Adam update (``u = g_c / (|g_c| + eps)``
+    at count 0, ``g_c`` the norm-clipped gradient), as the tree's keys."""
+    import torch
+
+    from distar_tpu_torch.learner import rl_loss
+    from distar_tpu_torch.model.convert import flax_names
+
+    opt = lrn.optimizer
+    check(opt.count == 0, f"tree reference: the optimizer has stepped {opt.count} times")
+    params = opt.params
+    total, _ = rl_loss(lrn.model, lrn.loss_cfg, step_batch(lrn, batch), RL_B, RL_T)
+    grads = torch.autograd.grad(total, params, allow_unused=True, materialize_grads=True)
+    names = flax_names(lrn.model)
+    by_id = {id(p): n for n, p in lrn.model.named_parameters()}
+    mods = [names[by_id[id(p)]].split("/")[1] for p in params]
+    g64 = [g.detach().double() for g in grads]
+    gn = sum(float((g * g).sum()) for g in g64) ** 0.5
+    clip = opt.clip.cfg
+    check(clip.type == "norm", f"tree reference: clip {clip.type}")
+    scale = 1.0 if gn < clip.threshold else clip.threshold / gn
+    sums = {}
+    for m, p, g in zip(mods, params, g64):
+        u = (g * scale) / ((g * scale).abs() + opt.eps)
+        acc = sums.setdefault(m, [0.0, 0.0, 0.0])
+        acc[0] += float((p.detach().double() ** 2).sum())
+        acc[1] += float((g * g).sum())
+        acc[2] += float((u * u).sum())
+    lr = opt.lr(0)
+    ref = {}
+    for m, (p2, g2, u2) in sums.items():
+        ref[f"dyn/param_norm/{m}"] = p2 ** 0.5
+        ref[f"dyn/grad_norm/{m}"] = g2 ** 0.5
+        ref[f"dyn/update_ratio/{m}"] = lr * u2 ** 0.5 / (p2 ** 0.5 + 1e-12)
+    p2, g2, u2 = (sum(v[i] for v in sums.values()) for i in range(3))
+    ref.update({"dyn/param_norm/total": p2 ** 0.5, "dyn/grad_norm/total": g2 ** 0.5,
+                "dyn/update_ratio/total": lr * u2 ** 0.5 / (p2 ** 0.5 + 1e-12)})
+    return ref
+
+
+COUNTED = ("pallas", "xla")  # check h: the strings whose learners count their flops
+
+
+def flop_counts(learners):
+    """Wait for the flop counts the ``COUNTED`` learners started at their
+    first step (``learner.perf.aot``); the seconds waited."""
+    t0 = time.perf_counter()
+    for impl in COUNTED:
+        learners[impl]._perf.analysis.join()
+    return time.perf_counter() - t0
+
+
+class DynamicsArm:
+    """One arm of check e's A/B: the learner's step rebuilt with the tree
+    (and the monitor fed as ``run()`` feeds it: ``every_n`` 10) or without."""
+
+    def __init__(self, lrn, on):
+        from distar_tpu_torch.learner.rl_learner import make_rl_train_step
+
+        self.lrn, self.on = lrn, on
+        self.step = make_rl_train_step(lrn.model, lrn.loss_cfg, lrn.optimizer, RL_B, RL_T,
+                                       dynamics=lrn._dynamics_spec() if on else None)
+
+    def _train(self, batch):
+        self.lrn._train_step = self.step
+        log = self.lrn._train(batch)
+        if self.on:
+            self.lrn._dynamics.on_step(self.lrn, log, batch)
+        return log
+
+
+def tree_alone(lrn, batch, calls=10):
+    """The tree by itself on the learner's parameters, a stand-in gradient
+    and update and the step's batch: host ms a call to enqueue it, ms a call
+    to the device's end, and the launches it makes (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from distar_tpu_torch.obs.dynamics import DynamicsTree
+
+    params = lrn.optimizer.params
+    tree = DynamicsTree(lrn.model, params, lrn._dynamics_spec())
+    grads = [torch.randn_like(p) for p in params]
+    data = step_batch(lrn, batch)
+
+    def once():
+        tree.before_update(params, grads, data)
+        return tree.after_update(grads, 1e-5)
+
+    once()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        once()
+    host_ms = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        once()
+        torch.cuda.synchronize()
+    acts = device_activities(prof)
+    return {"host_ms": host_ms, "wall_ms": wall_ms, "device_ms": sum(ms for ms, _ in acts.values()),
+            "launches": sum(n for _, n in acts.values()), "leaves": len(params), "modules": len(tree.modules)}
+
+
+def check_tree(log, ref, cpu_keys, what):
+    """Check d's readings of one step's log: the tree's keys those of the
+    CPU test's learner, its norms within TREE_TOL of ``ref``, its census 0."""
+    keys = {k for k in log if k.startswith("dyn/")}
+    check(keys == cpu_keys, f"{what}: tree keys {sorted(keys ^ cpu_keys)} differ from the smoke model's")
+    errs = {k: abs(log[k] - v) / max(abs(v), 1e-30) for k, v in ref.items()}
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= TREE_TOL, f"{what}: {worst} {log[worst]} against f64 {ref[worst]} "
+          f"({errs[worst]:.3g} > {TREE_TOL})")
+    census = {k: v for k, v in log.items() if k.startswith("dyn/nonfinite_")}
+    check(census and not any(census.values()), f"{what}: a non-zero census on a clean step {census}")
+    return {"keys": len(keys), "worst": [worst, errs[worst]], "census": len(census)}
+
+
+def smoke_tree_keys():
+    """The tree's keys of an RL step of the smoke model on the CPU: the
+    set tests/test_torch_dynamics.py holds."""
+    from distar_tpu_torch.bin.sl_train import SMOKE_MODEL
+    from distar_tpu_torch.learner import RLLearner
+
+    lrn = RLLearner({"learner": {"batch_size": 2, "unroll_len": 2, "perf": {"aot": False}},
+                     "model": SMOKE_MODEL}, device="cpu")
+    return {k for k in lrn._train(next(lrn._dataloader)) if k.startswith("dyn/")}
+
+
+def profile_route(lrn, batch):
+    """Check g: ``POST /learner/profile?steps=2`` to ``lrn`` running
+    ``run()`` on ``batch`` with its admin route on; the report."""
+    import itertools
+    import urllib.request
+
+    for hooks in lrn.hooks._hooks.values():  # no checkpoint at the run's end
+        hooks[:] = [h for h in hooks if h.name != "save_ckpt"]
+    lrn.set_dataloader(itertools.repeat(batch))
+    admin = lrn.start_admin(0)
+
+    def ask():  # the operator's request; the run loop below serves it
+        try:
+            req = urllib.request.Request(f"http://{admin.host}:{admin.port}/learner/profile?steps=2",
+                                         data=b"{}", method="POST")
+            with urllib.request.urlopen(req, timeout=300) as r:
+                return json.loads(r.read())
+        finally:
+            lrn.request_stop()
+
+    client = Background(ask).start()
+    try:
+        lrn.run(lrn.last_iter.val + 10 ** 6)  # on this thread, as a learner process runs it
+    finally:
+        lrn.request_stop()
+        reply = client.result()
+        admin.stop()
+        lrn.set_dataloader(iter(()))  # closes the run's prefetcher
+    check(reply["code"] == 0, f"profile route: {reply}")
+    return reply["info"]
+
+
+def phase_diagnostics(device, smi, learners, batch, ref, first_logs):
+    """Checks d-h on the flagship RL learners (4 x 16, f32, kernel overlay
+    'pallas' and the 'xla' strings): ``ref`` is ``tree_reference`` of
+    ``learners["pallas"]`` before its first step, ``first_logs`` that step's
+    log per string. Returns the readings (``seconds`` per check)."""
+    import torch
+
+    from distar_tpu_torch.envs.jaxenv.anakin import device_pure_report
+    from distar_tpu_torch.obs import get_registry
+
+    lrn, out, secs = learners["pallas"], {}, {}
+    # d. the tree on the flagship step
+    t0 = time.perf_counter()
+    cpu_keys = smoke_tree_keys()
+    out["d"] = check_tree(first_logs["pallas"], ref, cpu_keys, "d. the tree on the flagship RL step")
+    arms = {"off": DynamicsArm(lrn, False), "on": DynamicsArm(lrn, True)}
+    syncs = {}
+    for name, arm in arms.items():
+        arm._train(batch)  # warm
+        rep = device_pure_report(arm._train, batch)
+        syncs[name] = rep["offending"]
+    check(len(syncs["on"]) == len(syncs["off"]),
+          f"d. synchronizing calls a step: tree on {syncs['on']}, off {syncs['off']}")
+    out["d"]["syncs"] = {k: len(v) for k, v in syncs.items()}
+    print(f"d. the tree on the flagship RL 4 x 16 step ({smi}): {len(cpu_keys)} keys, those of the smoke "
+          f"model's step on the CPU; worst |a - b| / |b| against f64 {out['d']['worst']} (tol {TREE_TOL}); "
+          f"census 0 over {out['d']['census']} keys; synchronizing calls a step on / off "
+          f"{out['d']['syncs']}: {syncs['on']}")
+    secs["d"] = time.perf_counter() - t0
+
+    # e. the A/B: dynamics off, then on (every_n 10), in turns
+    t0 = time.perf_counter()
+    ab, ab_all = step_times(arms, batch, rounds=3, warmup=1)
+    out["e"] = {"median_ms": ab, "ms": ab_all, "on_over_off": ab["on"] / ab["off"] - 1,
+                "tree_alone": tree_alone(lrn, batch)}
+    print(f"e. the tree's A/B ({smi}): RL 4 x 16 step ms, off then on (every_n 10), in turns, 3 each: "
+          f"medians {json.dumps(ab)} ({out['e']['on_over_off']:+.2%}); every step {json.dumps(ab_all)}; "
+          f"the tree alone on the flagship's parameters {json.dumps(out['e']['tree_alone'])}")
+    secs["e"] = time.perf_counter() - t0
+    lrn._train_step = arms["on"].step
+
+    # h. perf gauges: the flop count under the 'pallas' and 'xla' strings, MFU, HBM
+    t0 = time.perf_counter()
+    flops = {impl: learners[impl]._perf.flops_per_step for impl in COUNTED}
+    check(flops["pallas"] > 0 and len(set(flops.values())) == 1,
+          f"h. distar_perf_flops_per_step differs across the strings: {flops}")
+    secs["h"] = time.perf_counter() - t0
+
+    # g. an on-demand profile through the admin route
+    t0 = time.perf_counter()
+    report = profile_route(lrn, batch)
+    shares = {b["bucket"]: b["share"] for b in report["buckets"]}
+    busy = report.get("profiler_device_busy_us")
+    check(shares.get("entity-attention", 0) > 0 and shares.get("scatter", 0) > 0
+          and abs(sum(shares.values()) - 1.0) <= 1e-5,
+          f"g. the profile's buckets: {shares}")
+    check(busy and abs(report["total_device_us"] - busy) <= 0.1 * busy,
+          f"g. the report's device time {report['total_device_us']} us against torch.profiler's busy {busy} us")
+    out["g"] = {"buckets": shares, "total_device_ms": report["total_device_us"] / 1e3,
+                "profiler_busy_ms": busy / 1e3, "per_step_ms": report["step_time_device_us"] / 1e3,
+                "events": report["device_op_events"], "top": {b["bucket"]: b["top_ops"][:2]
+                                                               for b in report["buckets"][:4]}}
+    print(f"g. POST /learner/profile?steps=2 ({smi}): buckets {json.dumps(shares)}, device "
+          f"{out['g']['total_device_ms']:.3f} ms against torch.profiler's busy {out['g']['profiler_busy_ms']:.3f} ms"
+          f"\n{report['markdown']}")
+    secs["g"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    mfu = lrn._perf.last.get("mfu")
+    check(mfu is not None and 0 < mfu < 1, f"h. distar_perf_mfu {mfu}")
+    before = torch.cuda.memory_stats(device)
+    lrn._perf.sample_memory()
+    after = torch.cuda.memory_stats(device)
+    snap = get_registry().snapshot()
+    label = f"gpu:{device.index if device.index is not None else torch.cuda.current_device()}"
+    hbm = {"in_use": snap.get(f"distar_perf_hbm_bytes_in_use{{device={label}}}"),
+           "peak": snap.get(f"distar_perf_hbm_peak_bytes{{device={label}}}")}
+    for gauge, key in (("in_use", "allocated_bytes.all.current"), ("peak", "allocated_bytes.all.peak")):
+        lo, hi = sorted((before[key], after[key]))
+        check(hbm[gauge] is not None and lo <= hbm[gauge] <= hi,
+              f"h. distar_perf_hbm {gauge} {hbm[gauge]} against memory_stats {before[key]}, {after[key]}")
+    out["h"] = {"flops_per_step": flops, "mfu": mfu, "peak_flops": lrn._perf.peak, "hbm_bytes": hbm,
+                "step_seconds": lrn._perf.last.get("step_seconds")}
+    print(f"h. perf gauges ({smi}): distar_perf_flops_per_step {json.dumps(flops)} (equal across the "
+          f"strings), distar_perf_mfu {mfu:.6f} of {lrn._perf.peak:.3g} (bf16 peak; the step runs f32), "
+          f"HBM gauges {json.dumps(hbm)} = torch.cuda.memory_stats()")
+    secs["h"] += time.perf_counter() - t0
+    out["seconds"] = secs
+    return out
+
+
+def phase_rl(device, smi, rng):
     """The RL and distillation learners on the card (module docstring,
     phase 9). Returns the launch counts of their paths and the measurements."""
     import numpy as np
@@ -3255,6 +3607,7 @@ def phase_rl(device, rng):
     print(f"rl: torch.backends.cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
     # one fixed batch of random in-range observations, 68 observed frames
+    laps = Laps()
     batch = random_rl_batch(RL_B, RL_T, rng)
     entity_num = batch["entity_num"].reshape(-1)
     inputs, rl_err = train_kernel_grads(K, rng, device, entity_num)
@@ -3263,37 +3616,49 @@ def phase_rl(device, rng):
     inputs, student_err = train_kernel_grads(K, rng, device, entity_num, Dh=64, D=16)
     student_kernel_ms = train_kernel_times(K, inputs, "student")
     del inputs
+    laps("kernels")
 
     rl_fn = lambda lrn, tb: rl_loss(lrn.model, lrn.loss_cfg, tb, RL_B, RL_T)  # noqa: E731
     zero_obs = next(FakeRLDataloader(RL_B, RL_T))
-    # the gap on this phase's batch, on a second seeded apart, and on zero
-    # observations: which kinks a batch puts near zero sets it. On zero
-    # observations the LSTM amplifies f32 rounding (f32 'xla' lies 4e-5 from
-    # f64 with every kink pinned), so GAP_TOL holds the random batches only
+    # the gap on this phase's batch and on a second seeded apart, both held
+    # at GAP_TOL: which kinks a batch puts near zero sets it. (On zero
+    # observations, printed and never held, until the diagnostics came, the LSTM amplifies f32
+    # rounding: f32 'xla' lay 4e-5 from f64 with every kink pinned.)
     gaps = {what: rl_gap(device, b, rl_fn, what, held) for what, b, held in (
         ("phase batch", batch, True),
-        ("seed-0 batch", random_rl_batch(RL_B, RL_T, np.random.default_rng(0)), True),
-        ("zero-observation batch", zero_obs, False))}
+        ("seed-0 batch", random_rl_batch(RL_B, RL_T, np.random.default_rng(0)), True))}
+    laps("gaps")
 
     K.reset_launch_counts()
-    learners = {impl: rl_learner(device, impl) for impl in STRINGS}
+    learners = {impl: rl_learner(device, impl, perf={"aot": impl in COUNTED}) for impl in STRINGS}
     grads = {"rl_zero_obs": hold_strings("rl loss on a FakeRLDataloader batch (zero observations)",
                                          learners, zero_obs, rl_fn),
              "rl_random": hold_strings("rl loss on the random batch", learners, batch, rl_fn,
                                        rl_faults(batch))}
-    steps_agree("rl step", learners, batch)
+    t_ref = time.perf_counter()
+    ref = tree_reference(learners["pallas"], batch)  # check d's yardstick, before the first step
+    t_ref = time.perf_counter() - t_ref
+    first_logs = steps_agree("rl step", learners, batch)
+    t_count = flop_counts(learners)  # check h's counts, over before anything is timed
     gated = gated_step(device, batch)
     launches = dict(K.launch_counts)  # the strings' steps and the gated step
+    laps("strings")
 
     lrn = rl_learner(device, log_freq=1)
     losses, rl_launches = entry_point(K, lrn, RL_ITERS, "rl entry point (RLLearner.run, flagship)")
     stale = {k: v for k, v in lrn.last_log.items() if k.startswith("staleness/")}
     print(f"rl entry point: staleness after the last step {stale}")
     del lrn
+    laps("entry point")
     step_ms, all_ms = step_times(learners, batch, rounds=3, warmup=1)  # cut from 5 and 3 for the drill's time
     memory = {impl: step_memory(lrn, batch)[0] for impl, lrn in learners.items()}
     profiles = {impl: profile_call(lambda: lrn._train(batch)) for impl, lrn in learners.items()}
+    laps("timings")
+    diagnostics = phase_diagnostics(device, smi, learners, batch, ref, first_logs)
+    diagnostics["seconds"]["d"] += t_ref
+    diagnostics["seconds"]["h"] += t_count
     del learners
+    laps("diagnostics")
 
     lrn16 = rl_learner(device, dtype="bfloat16")
     log16 = lrn16._train(batch)
@@ -3311,6 +3676,7 @@ def phase_rl(device, rng):
     print(f"rl 6 x 64 step (kernel overlay, f32): ms {big_all['pallas']} total_loss "
           f"{big_log['total_loss']:.4f} memory {big_memory}")
     del big, big_batch
+    laps("bf16 and 6 x 64")
 
     # the distillation student, one step per string from the same weights
     students = {impl: distill_learner(device, impl) for impl in STRINGS}
@@ -3327,6 +3693,8 @@ def phase_rl(device, rng):
     d_ms, d_all = step_times(students, batch, rounds=3, warmup=1)  # cut from 5 and 3 for the drill's time
     d_profile = profile_call(lambda: students["pallas"]._train(batch))
     del students
+    laps("distill")
+    print(f"rl seconds by part: {json.dumps(laps)}")
 
     paths = {"rl strings": launches, "rl entry point": rl_launches,
              "distill strings": d_strings, "distill entry point": d_launches}
@@ -3350,14 +3718,14 @@ def phase_rl(device, rng):
                                    if k not in ("forward_vs_f64", "grad_at_vs_f64")},
                              "k_pinned": gap["k"]["pinned"], "k_smooth": gap["k"]["smooth_pallas_vs_xla"]}
                       for what, gap in gaps.items()},
-              "launches": launches, "launches_by_path": paths}
+              "launches": launches, "launches_by_path": paths, "diagnostics": diagnostics, "laps": laps}
     print(json.dumps({"rl": result}))
     return launches, result
 
 
 # ----------------------------------------------------------------- RL loop
 LOOP_ENV_NUM, LOOP_EPISODE_LOOPS = 8, 300  # the actor: 8 mock envs of 300 game loops
-LOOP_ITERS = 4  # the learner: RL_B x RL_T batches from the actors (8 until the replay phase came)
+LOOP_ITERS = 3  # the learner: RL_B x RL_T batches from the actors (8 until the replay phase came, 4 until the diagnostics)
 LOOP_PUBLISH_FREQ = 2  # send_model_freq and send_train_info_freq
 LOOP_REFRESH_S = 1.0  # the actor's model_update_interval_s: jobs last a few seconds
 LOOP_PROCESS_ITERS = 4  # the learner process: 4 steps of 4 x 4
@@ -3524,20 +3892,35 @@ def flush_against_xla(device, cap):
 def loop_fleet_health(co):
     """Check a of phase 10: what the four processes' coordinator saw, read
     once the learner has exited and before the SIGTERMs."""
+    import urllib.parse
+
     host, port = co.rsplit(":", 1)
     learner_src = "learner:MP0:0"
-    st, hz, hz_ms = get_json(host, port, "/healthz")
+    # the reference's learner_mfu_collapse (MFU under 2% of the bf16 peak
+    # for 3 passes) may fire, where the learner's MFU reads under 2%: the
+    # one rule allowed; /healthz answers 503 while it does
+    for _ in range(3):  # the firing set read on both sides of /healthz, unchanged
+        _, alerts, _ = get_json(host, port, "/alerts")
+        st, hz, hz_ms = get_json(host, port, "/healthz")
+        _, again, _ = get_json(host, port, "/alerts")
+        if set(again["firing"]) == set(alerts["firing"]):
+            break
+    firing = set(alerts["firing"])
+    name = urllib.parse.quote("distar_perf_mfu{token=rllearner}")
+    _, mfu_ts, _ = get_json(host, port, f"/timeseries?name={name}")
+    mfu = ((mfu_ts.get("stats") or {}).get(learner_src) or {}).get("last")
+    check(firing <= {"learner_mfu_collapse"} and (not firing or (mfu is not None and mfu < 0.02)),
+          f"rl loop processes: firing {sorted(firing)} with the learner's MFU {mfu}: "
+          f"{json.dumps({n: alerts['rules'][n] for n in firing})}")
     sources = hz.get("sources", {})
     actor_src = next((s for s in sources if s.startswith("actor:")), None)
-    check(st == 200 and hz["status"] == "ok" and learner_src in sources and actor_src is not None
+    check(st == (503 if firing else 200) and hz["status"] == ("firing" if firing else "ok")
+          and learner_src in sources and actor_src is not None
           and not sources[learner_src]["stale"] and not sources[actor_src]["stale"],
           f"rl loop processes: /healthz {st} {json.dumps(hz)[:3000]}")
     _, ts, _ = get_json(host, port, "/timeseries?name=distar_learner_iterations_total")
     rate = ((ts["stats"] or {}).get(learner_src) or {}).get("rate")
     check(rate is not None and rate > 0, f"rl loop processes: the learner's iterations {json.dumps(ts)[:2000]}")
-    _, alerts, _ = get_json(host, port, "/alerts")
-    check(not alerts["firing"], f"rl loop processes: firing {alerts['firing']}: "
-          f"{json.dumps({n: alerts['rules'][n] for n in alerts['firing']})}")
     _, traces, _ = get_json(host, port, "/traces?name=trajectory&limit=500")
     rows = [r for r in traces["traces"] if r["source"] == learner_src]
     check(rows, f"rl loop processes: no trajectory trace shipped: {json.dumps(traces)[:2000]}")
@@ -3546,7 +3929,9 @@ def loop_fleet_health(co):
     check(st == 200 and {"adapter_push", "learner_collate"} <= set(hops) and body["waterfall"]["critical_path"],
           f"rl loop processes: the trajectory's waterfall does not cover the actor's push and the learner's "
           f"collate: {st} {json.dumps(body)[:2000]}")
+    print(f"rl loop processes: the learner's MFU {mfu}, firing {sorted(firing)}")
     return {"healthz_ms": hz_ms, "trace_ms": trace_ms, "learner_iterations_rate": rate,
+            "learner_mfu": mfu, "firing": sorted(firing),
             "sources": sorted(sources), "series": hz["tsdb"]["series"], "trajectory_traces": len(rows),
             "waterfall_hops": hops, "waterfall_total_s": body["waterfall"]["total_s"]}
 
@@ -3662,12 +4047,13 @@ def phase_rl_loop(device, smi, tmp, untimed=(), processes=()):
     from distar_tpu_torch.utils.transfer import to_host
 
     t_phase = time.perf_counter()
+    laps = Laps()
     args = loop_args(device, tmp)
     loop = rl_train.build_all(args)
     actor, learner, league = loop.actor, loop.learner, loop.league
     actor.cfg.model_update_interval_s = LOOP_REFRESH_S
     mp = loop.player_id
-    # the launcher publishes every 4 iterations, twice in LOOP_ITERS: attach
+    # the launcher publishes every 4 iterations, past LOOP_ITERS: attach
     # the weight plane again at LOOP_PUBLISH_FREQ
     comm_hooks = ("send_model", "send_model_init", "send_train_info")
     for hooks in learner.hooks._hooks.values():
@@ -3786,6 +4172,7 @@ def phase_rl_loop(device, smi, tmp, untimed=(), processes=()):
     real_counts, K.launch_counts = K.launch_counts, counts
     reg = get_registry()
     env_steps = lambda: reg.snapshot().get("distar_env_steps_total", 0.0)  # noqa: E731
+    laps("build")
     try:
         # a. the actor alone: one job on a thread, on the actor's own seeded
         # weights (nothing is published yet: the learner's before_run hook
@@ -3853,6 +4240,7 @@ def phase_rl_loop(device, smi, tmp, untimed=(), processes=()):
     rl_fn = lambda lrn, tb: rl_loss(lrn.model, lrn.loss_cfg, tb, RL_B, RL_T)  # noqa: E731
     held = as_float32({k: v for k, v in batch.items() if k not in ("trace_span_ids", "trace_age_s")})
     step_alone, _ = step_times({"pallas": learner}, held, rounds=3, warmup=1)
+    laps("alone, loop and checks")
     # c'. the fleet-health drill on this learner and actor
     finish_health = phase_health(
         device, smi, tmp, loop, args, held,
@@ -3870,6 +4258,7 @@ def phase_rl_loop(device, smi, tmp, untimed=(), processes=()):
     # counts are read before ``untimed``, whose threads launch kernels here
     health_launches, health = finish_health()
     del finish_health
+    laps("drill")
     for job in untimed:
         job.start()
     try:
@@ -3881,8 +4270,12 @@ def phase_rl_loop(device, smi, tmp, untimed=(), processes=()):
                                hold_gradient=False)
         del learners
         strings["probe"] = hold_loop_batch(device, held, rl_fn, strings["strings"])
+        laps("hold against xla")
     finally:
         processes = runner.result()
+        laps("processes wait")
+    print(f"rl loop seconds by part (the processes {processes.get('seconds', 0):.1f} s on a thread): "
+          f"{json.dumps(laps)}")
 
     flush_alone = flushes["alone"][2:] or flushes["alone"]
     result = {
@@ -3909,7 +4302,7 @@ def phase_rl_loop(device, smi, tmp, untimed=(), processes=()):
         "launches": launches, "actor_job_alone_launches": actor_alone,
         "flush_vs_xla_worst_logp": flush_err, "strings": strings["strings"],
         "strings_probe": strings["probe"], "processes": processes,
-        "health": health, "health_launches": health_launches,
+        "health": health, "health_launches": health_launches, "laps": laps,
     }
     print(f"rl loop ({smi}): " + json.dumps({k: v for k, v in result.items()
                                              if k not in ("in_loop_step_profile", "health")}))
@@ -4028,6 +4421,45 @@ def sampler_ab(learner, batch, repeats=3):
     return out
 
 
+def learner_snapshot(learner):
+    """Device copies of a learner's parameters and Adam state (the drill
+    puts them back after its poisoned steps)."""
+    opt = learner.optimizer
+    return {"params": [p.detach().clone() for p in opt.params], "mu": [t.clone() for t in opt.mu],
+            "nu": [t.clone() for t in opt.nu], "count": opt.count}
+
+
+def learner_restore(learner, snap):
+    import torch
+
+    opt = learner.optimizer
+    with torch.no_grad():
+        for key in ("params", "mu", "nu"):
+            for dst, src in zip(opt.params if key == "params" else getattr(opt, key), snap[key]):
+                dst.copy_(src)
+    opt.count = snap["count"]
+
+
+def stepreplay_process(tmp, bundle_path):
+    """Check f's replay: ``python -m distar_tpu_torch.tools.stepreplay`` on
+    the drill's bundle, on the card, as a process; its verdict."""
+    log_path = os.path.join(tmp, "stepreplay.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        rc = subprocess.run([sys.executable, "-m", "distar_tpu_torch.tools.stepreplay", "--bundle", bundle_path,
+                             "--json", "--workdir", os.path.join(tmp, "stepreplay")],
+                            cwd=REPO, stdout=log, stderr=subprocess.STDOUT, timeout=300).returncode
+    text = open(log_path).read()
+    lines = [ln for ln in text.splitlines() if ln.startswith("{")]
+    check(rc == 0 and lines, f"stepreplay: exit {rc}: {text[-3000:]}")
+    verdict = json.loads(lines[-1])
+    check(verdict["ok"] and verdict["nonfinite_reproduced"] and verdict["provenance_confirmed"]
+          and verdict["deterministic"] and verdict["device"].startswith("cuda"), f"stepreplay: {verdict}")
+    verdict["seconds"] = time.perf_counter() - t0
+    print(f"f. python -m distar_tpu_torch.tools.stepreplay on the drill's bundle, on the card: {json.dumps(verdict)}")
+    return verdict
+
+
 def phase_health(device, smi, tmp, loop, args, batch, baseline=None):
     """Check c of phase 10 (module docstring): the fleet-health fault drill
     on rl_loop's flagship learner and actor, f32, the kernel overlay.
@@ -4113,6 +4545,10 @@ def phase_health(device, smi, tmp, loop, args, batch, baseline=None):
 
     def on_restart(error):
         armed["actor"] = True  # its first flush after the restart is captured
+        # the stall ends with the job it starved: faults of its budget that
+        # no env of that job drew (a slow host) must not stall the restarted
+        # one (seen on the card: a second firing)
+        chaos.restore()
         restarts.append((time.perf_counter(), time.time()))
 
     def firings(rule):
@@ -4147,19 +4583,40 @@ def phase_health(device, smi, tmp, loop, args, batch, baseline=None):
         srv.stop()
 
     try:
-        # NaN, the actor idle: poisoned steps, the rule fires once, /healthz
-        # 503, a dump; clean steps, the rule clears
+        # NaN, the actor idle: a NaN written into a core_lstm parameter
+        # before each of 3 steps; the loss and the gradient rules fire once,
+        # the gradient rule's exemplar the black-box bundle of the first
+        # poisoned step, /healthz 503, a dump; the state from before the
+        # poison restored, clean steps, both rules clear
+        monitor = learner._dynamics
+        # the tree's gauges exported every step for the drill (every_n 10
+        # would leave the last poisoned census standing through the clean steps)
+        every_n, monitor.every_n = monitor.every_n, 1
+        bundles0 = monitor.bundles_written
         fleet = install()
         state = lambda rule: fleet.evaluator.alerts()["rules"][rule]["state"]  # noqa: E731
         it0 = learner.last_iter.val
-        chaos.poison_loss(learner, n=HEALTH_POISONED)
+        clean = learner_snapshot(learner)
+        chaos.poison_module(learner, "core_lstm", n=HEALTH_POISONED)
         t_poison = time.perf_counter()
         learner.run(it0 + HEALTH_POISONED)
-        wait_for(lambda: state("learner_loss_nonfinite") == "firing", 30, "health: learner_loss_nonfinite firing")
+        wait_for(lambda: state("learner_loss_nonfinite") == "firing" and state("learner_grad_nonfinite") == "firing",
+                 30, "health: learner_loss_nonfinite and learner_grad_nonfinite firing")
         fire_s = firings("learner_loss_nonfinite")[0] - t_poison
+        grad_fire_s = firings("learner_grad_nonfinite")[0] - t_poison
+        check(monitor.bundles_written == bundles0 + 1, f"health: {monitor.bundles_written - bundles0} black-box "
+              f"bundles for {HEALTH_POISONED} poisoned steps, want 1 (debounced)")
+        bundle_id = os.path.basename(monitor.last_bundle_path)
+        exemplars = [e.get("exemplar_trace_id") for e in fleet.evaluator.alerts()["history"]
+                     if e["rule"] == "learner_grad_nonfinite" and e["state"] == "firing"]
+        check(exemplars == [f"blackbox:{bundle_id}"],
+              f"health: learner_grad_nonfinite's exemplar {exemplars}, want blackbox:{bundle_id}")
+        blackbox = {"id": bundle_id, "path": monitor.last_bundle_path, "capture_ms": monitor.last_capture_s * 1e3,
+                    "bytes": os.path.getsize(monitor.last_bundle_path), "grad_fire_s": grad_fire_s}
         status, hz, hz_ms = get_json(srv.host, srv.port, "/healthz")
-        check(status == 503 and hz["status"] == "firing" and "learner_loss_nonfinite" in hz["firing"],
-              f"health: /healthz while the NaN rule fires: {status} {hz.get('firing')}")
+        check(status == 503 and hz["status"] == "firing" and "learner_loss_nonfinite" in hz["firing"]
+              and "learner_grad_nonfinite" in hz["firing"],
+              f"health: /healthz while the NaN rules fire: {status} {hz.get('firing')}")
         hz_ms_all = [hz_ms] + [get_json(srv.host, srv.port, "/healthz")[2] for _ in range(4)]
         t0 = time.perf_counter()
         path = recorder.dump(os.path.join(tmp, "health_flight"), reason="chip_smoke health drill")
@@ -4172,14 +4629,30 @@ def phase_health(device, smi, tmp, loop, args, batch, baseline=None):
         check(states[-2:] == ["warning", "firing"] and math.isnan(bundle["registry_snapshot"]["distar_learner_loss"]),
               f"health: the bundle holds the transitions {states} and distar_learner_loss "
               f"{bundle['registry_snapshot'].get('distar_learner_loss')}")
+        chaos.restore()
+        learner_restore(learner, clean)
         armed["learner"] = True  # the first clean step's kernel inputs
         learner.run(it0 + 2 * HEALTH_POISONED)
-        wait_for(lambda: state("learner_loss_nonfinite") == "ok", 30, "health: learner_loss_nonfinite back to ok")
-        check(len(firings("learner_loss_nonfinite")) == 1 and [e["remaining"] for e in chaos.events] == [2, 1, 0],
-              f"health: learner_loss_nonfinite fired {len(firings('learner_loss_nonfinite'))} times for "
-              f"{HEALTH_POISONED} poisoned steps: {history()}")
+        wait_for(lambda: state("learner_loss_nonfinite") == "ok" and state("learner_grad_nonfinite") == "ok", 30,
+                 "health: learner_loss_nonfinite and learner_grad_nonfinite back to ok")
+        check(len(firings("learner_loss_nonfinite")) == 1 and len(firings("learner_grad_nonfinite")) == 1
+              and [e["remaining"] for e in chaos.events] == [2, 1, 0],
+              f"health: learner_loss_nonfinite fired {len(firings('learner_loss_nonfinite'))} times and "
+              f"learner_grad_nonfinite {len(firings('learner_grad_nonfinite'))} for {HEALTH_POISONED} "
+              f"poisoned steps: {history()}")
         check(math.isfinite(learner.last_log["total_loss"]), "health: the last clean step's loss")
-        chaos.restore()
+        # of the learner's numeric and perf rules, the two NaN rules fire,
+        # and the reference's learner_mfu_collapse (distar_perf_mfu under 2%
+        # of the bf16 peak for 3 passes) where MFU reads under 2%, and only then
+        mfu = reg.snapshot().get(f"distar_perf_mfu{{token={learner.name}}}")
+        numeric = {"learner_loss_nonfinite", "learner_grad_nonfinite", "learner_grad_explosion",
+                   "learner_entropy_collapse", "learner_mfu_collapse"}
+        fired = {e["rule"] for _, e in transitions if e["state"] == "firing"} & numeric
+        want = {"learner_loss_nonfinite", "learner_grad_nonfinite"} | (
+            {"learner_mfu_collapse"} if mfu is not None and mfu < 0.02 else set())
+        check(fired == want, f"health: fired {sorted(fired)} with MFU {mfu}, want {sorted(want)}: {history()}")
+        blackbox["mfu"] = mfu
+        monitor.every_n = every_n
         fleet.stop()
 
         # starvation, the learner idle: the actor's job loop under the
@@ -4275,7 +4748,7 @@ def phase_health(device, smi, tmp, loop, args, batch, baseline=None):
             "nan_fire_s": fire_s, "stall_fire_s": stall_fire_s, "stall_to_restart_s": restart_s,
             "env_steps_per_s_after_restart": rate_after, "max_env_step_gap_s": max(gaps or [0.0]),
             "healthz_ms": {"p50": statistics.median(hz_ms_all), "max": max(hz_ms_all)},
-            "dump_s": dump_s, "bundle_bytes": bundle_bytes, "ship": ships,
+            "dump_s": dump_s, "bundle_bytes": bundle_bytes, "blackbox": blackbox, "ship": ships,
             "ingest_ms": {"p50": statistics.median(ingest_ms), "max": max(ingest_ms)}, "store": store,
             "step_ms": {"health_median": statistics.median(steps), "all": steps,
                         **({"alone_median_without": baseline["step_ms"]["alone_median"]} if baseline else {})},
@@ -4285,8 +4758,12 @@ def phase_health(device, smi, tmp, loop, args, batch, baseline=None):
             "launches_per_step": want_step, "launches_per_flush": want_flush,
             "kernel_max_abs_err": errs, "transitions": history(),
         })
+        print(f"f. the drill's black box ({smi}): {HEALTH_POISONED} steps with a NaN in a core_lstm parameter "
+              f"fired learner_grad_nonfinite once {grad_fire_s:.3f} s after the first, its exemplar "
+              f"blackbox:{bundle_id}; captured in {blackbox['capture_ms']:.1f} ms, {blackbox['bytes']} bytes; "
+              f"learner_mfu_collapse at MFU {mfu}: {'fired' if 'learner_mfu_collapse' in fired else 'not fired'}")
         print(f"health drill ({smi}): rulebook (learner, actor) at a {HEALTH_STALL_WINDOW_S:g} s stall window, "
-              f"sampled every {HEALTH_SAMPLE_S:g} s, evaluated every {HEALTH_EVAL_S:g} s; {HEALTH_POISONED} NaN-loss "
+              f"sampled every {HEALTH_SAMPLE_S:g} s, evaluated every {HEALTH_EVAL_S:g} s; {HEALTH_POISONED} NaN "
               f"steps: learner_loss_nonfinite fired once {fire_s:.3f} s after the first poisoned step, /healthz 503 "
               f"({statistics.median(hz_ms_all):.2f} ms), a bundle of {bundle_bytes} bytes dumped in {dump_s:.3f} s with "
               f"the transitions and the NaN loss, ok after {HEALTH_POISONED} clean steps; a {HEALTH_STALL_S:g} s env "
@@ -4325,7 +4802,7 @@ def hold_loop_batch(device, batch, loss_fn, dist, what="rl loop batch"):
 
 
 # ------------------------------------------------------------------ replay
-REPLAY_ITERS = 6  # the replay loop's learner: RL_B x RL_T batches from the store (8 until the health drill came)
+REPLAY_ITERS = 4  # the replay loop's learner: RL_B x RL_T batches from the store (8 until the health drill, 6 until the diagnostics)
 REPLAY_SPI = 4.0  # --replay-spi: each trajectory sampled about four times
 REPLAY_SMALL_ITERS = 2  # the smaller runs: smoke model, 2 x 4 batches
 # the 2-shard run: the ring sends each insert to a shard by the hash of a
@@ -5561,8 +6038,8 @@ def main(argv=None) -> int:
     only = None
     argv = sys.argv[1:] if argv is None else argv
     if argv:
-        if argv[:1] != ["--only"] or len(argv) != 2 or argv[1] not in ("league", "health"):
-            print("usage: python3 chip_smoke.py [--only league|health]", file=sys.stderr)
+        if argv[:1] != ["--only"] or len(argv) != 2 or argv[1] not in ("league", "health", "diagnostics"):
+            print("usage: python3 chip_smoke.py [--only league|health|diagnostics]", file=sys.stderr)
             return 2
         only = argv[1]
     try:
@@ -5592,6 +6069,11 @@ def main(argv=None) -> int:
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")  # the phases' checkpoints and datasets
     # the learners' default experiment directories, out of the checkout
     os.environ["DISTAR_EXPERIMENTS_ROOT"] = os.path.join(tmp, "experiments")
+    # the perf monitor's flop count off (learner.perf.aot "auto"), as the
+    # test harness has it: a flagship count is seconds of host time on a
+    # thread of its own, and the script builds dozens of learners; check h
+    # turns it on for the two learners it reads
+    os.environ["DISTAR_PERF_AOT"] = "0"
     try:
         # 1. device
         device = torch.device("cuda")
@@ -5622,11 +6104,31 @@ def main(argv=None) -> int:
             print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                       "count": torch.cuda.device_count()}}))
             return 0
+        if only == "diagnostics":  # checks d, e, g and h of phase 9 alone, on learners of their own
+            from distar_tpu_torch.learner import random_rl_batch
+
+            batch = random_rl_batch(RL_B, RL_T, np.random.default_rng(0))
+            learners = {impl: rl_learner(device, impl, perf={"aot": impl in COUNTED}) for impl in STRINGS}
+            ref = tree_reference(learners["pallas"], batch)
+            first_logs = steps_agree("rl step", learners, batch)
+            flop_counts(learners)
+            mark("diagnostics_build")
+            diag = phase_diagnostics(device, smi, learners, batch, ref, first_logs)
+            mark("diagnostics")
+            for name, sec in diag["seconds"].items():
+                phase_s[f"{name} (in diagnostics)"] = round(sec, 1)
+            print(f"phase seconds: {json.dumps(phase_s)}")
+            print(json.dumps({"diagnostics": diag}))
+            print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                      "count": torch.cuda.device_count()}}))
+            return 0
         if only == "health":  # phase 10's fleet-health drill alone, on phase 10's learner and actor
             loop, args, batch = health_loop(device, tmp)
             mark("health_build")
             health_launches, health = phase_health(device, smi, tmp, loop, args, batch)()
             mark("health")
+            health["stepreplay"] = stepreplay_process(tmp, health["blackbox"]["path"])
+            mark("stepreplay")
             ab = sampler_ab(loop.learner, batch)
             mark("health_sampler_ab")
             print(f"health drill ({smi}): the learner's step ms by fleet health, none / sampled every 1 s / "
@@ -5677,8 +6179,10 @@ def main(argv=None) -> int:
         mark("sl_runtime")
 
         # 9. RL and distillation
-        rl_launches, rl = phase_rl(device, rng)
+        rl_launches, rl = phase_rl(device, smi, rng)
         mark("rl")
+        for name, sec in rl["diagnostics"]["seconds"].items():
+            phase_s[f"{name} (in rl)"] = round(sec, 1)
 
         # 10. the league-RL loop; the replay phase's runs on the smoke model
         # (its roles as processes, the other layouts, sl_train --remote and
@@ -5691,14 +6195,24 @@ def main(argv=None) -> int:
         league_job = Background(lambda: league_processes(tmp, device))
         loop_launches, rl_loop = phase_rl_loop(device, smi, tmp, untimed=[replay_jobs[1], jaxenv_job],
                                                processes=[replay_jobs[0], league_job])
-        # ended before the replay loop, which they would disturb
-        jaxenv_run, league_procs = jaxenv_job.result(), league_job.result()
+        # ended before the replay loop, whose launch counts it would disturb
+        jaxenv_run = jaxenv_job.result()
         mark("rl_loop")
         phase_s["health (in rl_loop)"] = round(rl_loop["health"]["seconds"], 1)
+        # f. the drill's bundle replayed by the port's stepreplay, as a
+        # process (it launches nothing in this one) beside the replay phase
+        stepreplay_job = Background(lambda: stepreplay_process(tmp, rl_loop["health"]["blackbox"]["path"])).start()
 
         # 11. the replay store between actors and learner
         replay_launches, replay = phase_replay(device, smi, tmp, rl_loop, replay_jobs)
         mark("replay")
+
+        # the league's processes (they launch nothing in this process) ran
+        # on beside the replay phase; ended before the Anakin loop's windows
+        league_procs = league_job.result()
+        rl_loop["health"]["stepreplay"] = stepreplay_job.result()
+        mark("league processes and stepreplay wait")
+        phase_s["f: stepreplay (beside replay)"] = round(rl_loop["health"]["stepreplay"]["seconds"], 1)
 
         # 12. the Anakin loop: the micro-battle world and the flagship on the card
         anakin_launches, anakin = phase_anakin(device, smi, tmp, rl_loop, jaxenv_run)

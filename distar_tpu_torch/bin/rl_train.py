@@ -111,8 +111,11 @@ stand where ``--batch-size``, ``--traj-len`` and ``--env-num`` are not given.
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP Queue 1
 item (``NOT_PORTED``): the SC2 env, meshes and ``jax.distributed``, the
 coordinator's HA (``--journal-dir``, ``--ha-*``), the league-run's actor-slot
-fleets (``--league-actors-per-player`` above 0), and the training-dynamics
-export (``--dynamics-every``).
+fleets (``--league-actors-per-player`` above 0).
+
+``--dynamics-every N`` sets the learners' training-dynamics gauge-export
+stride (``learner.dynamics.every_n``); 0 turns the tree off, as in the JAX
+launcher.
 """
 from __future__ import annotations
 
@@ -144,7 +147,6 @@ NOT_PORTED = {
     "--no-sharded-ckpt": _MESH,
     "--dist-": _MESH,
     "--ha-": _HA,
-    "--dynamics-every": "the training-dynamics export is not ported yet (ROADMAP Queue 1 item 9)",
     "--platform": "the JAX backend switch; the port picks its device with --device",
 }
 
@@ -205,17 +207,31 @@ def _env_fn(args):
     return lambda: MockEnv(episode_game_loops=args.episode_game_loops)
 
 
+def _dynamics_cfg(args, learner: Optional[dict] = None) -> dict:
+    """--dynamics-every N -> the learner's training-dynamics block (over
+    ``learner``'s): 0 turns the tree off (the overhead A/B's off arm),
+    N > 0 sets the gauge-export stride, absent keeps the block."""
+    every = getattr(args, "dynamics_every", None)
+    if every is None:
+        return {}
+    block = dict((learner or {}).get("dynamics", {}) or {})
+    block.update({"enabled": False} if every <= 0 else {"every_n": every})
+    return {"dynamics": block}
+
+
 def _learner_cfg(args, model_cfg: dict, load_path: str = "") -> dict:
+    user = _user_cfg(args).get("learner", {})
     return {
         "common": {"experiment_name": args.experiment_name,
                    **({"save_path": args.save_path} if args.save_path else {})},
         "learner": {
             "log_freq": max(args.iters // 4, 1),
             "save_freq": 10 ** 9,
-            **_user_cfg(args).get("learner", {}),
+            **user,
             "batch_size": args.batch_size,
             "unroll_len": args.traj_len,
             **({"load_path": load_path} if load_path else {}),
+            **_dynamics_cfg(args, user),
         },
         "model": model_cfg,
     }
@@ -1101,6 +1117,9 @@ def parser() -> argparse.ArgumentParser:
                         "league-learner roles; 0: none)")
     p.add_argument("--distill", action="store_true",
                    help="train the student tier (DistillLearner) on the same batches")
+    p.add_argument("--dynamics-every", type=int, default=None,
+                   help="training-dynamics gauge-export stride (learner dynamics.every_n); 0 turns the "
+                        "in-step tree off; default: the learner config's")
     p.add_argument("--admin-port", type=int, default=None,
                    help="serve the learner admin API (status, save_ckpt, ...) on this port")
     p.add_argument("--no-supervise", action="store_true",

@@ -29,9 +29,9 @@ with ``--remote`` it ships its snapshots to ``--coordinator-addr`` every
 5 s.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP Queue
-1 item: the replay actor role (it needs the SC2 replay decoder), meshes and
-sharded checkpoints (``--mesh``), and the training-dynamics export
-(``--dynamics-every``).
+1 item: the replay actor role (it needs the SC2 replay decoder), and meshes
+and sharded checkpoints (``--mesh``). ``--dynamics-every`` is the JAX
+launcher's (``rl_train._dynamics_cfg``).
 
 ``--config`` takes what the JAX launcher's does, a YAML file, and also a JSON
 file or an inline JSON object. Its ``model`` block replaces the smoke model
@@ -55,13 +55,12 @@ from ..learner.sl_dataloader import ReplayDataset, SLDataloader
 from ..ops import kernels
 from ..resilience import RestartPolicy, supervise_call
 from ..utils import read_config
-from .rl_train import _close_health, _init_health, _on_stop_signals, _restore_signals
+from .rl_train import _close_health, _dynamics_cfg, _init_health, _on_stop_signals, _restore_signals
 
 NOT_PORTED = {
     "--type replay_actor": "the replay actor role needs the SC2 replay decoder, not ported yet "
                            "(ROADMAP Queue 1 item 10)",
     "--mesh": "meshes and sharded checkpoints are not ported yet (ROADMAP Queue 1 item 7)",
-    "--dynamics-every": "the training-dynamics export is not ported yet (ROADMAP Queue 1 item 9)",
 }
 
 # the JAX launchers' smoke model (distar_tpu/bin/rl_train.py SMOKE_MODEL)
@@ -102,6 +101,7 @@ def build_learner(args, dataloader: Optional[Iterable] = None) -> SLLearner:
                 **learner_cfg,
                 "batch_size": batch_size,
                 "unroll_len": unroll_len,
+                **_dynamics_cfg(args, learner_cfg),
             },
             "model": user_cfg.get("model", SMOKE_MODEL if args.smoke_model else {}),
         },
@@ -233,15 +233,14 @@ def parser() -> argparse.ArgumentParser:
                         "recorder")
     p.add_argument("--mesh", default="", help=NOT_PORTED["--mesh"])
     p.add_argument("--dynamics-every", type=int, default=None,
-                   help="0 or less: no training-dynamics tree, as always here; above 0: "
-                        + NOT_PORTED["--dynamics-every"])
+                   help="training-dynamics gauge-export stride (learner dynamics.every_n); 0 turns the "
+                        "in-step tree off; default: the learner config's")
     return p
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Optional[SLLearner]:
     args = parser().parse_args(argv)
-    for flag, given in (("--type replay_actor", args.type == "replay_actor"), ("--mesh", args.mesh),
-                        ("--dynamics-every", (args.dynamics_every or 0) > 0)):  # <= 0: off, as here
+    for flag, given in (("--type replay_actor", args.type == "replay_actor"), ("--mesh", args.mesh)):
         if given:
             raise NotImplementedError(f"{flag}: {NOT_PORTED[flag]}")
     if args.type == "coordinator":

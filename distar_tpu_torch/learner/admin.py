@@ -5,8 +5,11 @@ Counterpart of ``distar_tpu.learner.admin``: ``POST
 body answers ``{"code": 0, "info": ...}``, 404 for an unknown route or one
 the learner lacks, 1 with the error's repr when the route raised. The
 server only queues a request; the learner applies it at the next iteration
-boundary, never inside a step. ``profile`` answers an error until
-``obs/profiler.py`` is ported (ROADMAP Queue 1 item 9).
+boundary, never inside a step. ``POST /learner/profile?steps=N`` is the
+exception to fire-and-forget: it arms a bounded ``torch.profiler`` capture
+that the run loop starts and stops at iteration boundaries, blocks until
+the trace is analysed (``obs/traceview.py``) and answers the ranked
+per-bucket report.
 """
 from __future__ import annotations
 
@@ -37,7 +40,8 @@ class LearnerAdminServer:
                 return "queued"
             if name == "status":
                 return {"last_iter": learner.last_iter.val,
-                        "meters": {k: m.avg for k, m in learner.variable_record.vars().items()}}
+                        "meters": {k: m.avg for k, m in learner.variable_record.vars().items()},
+                        "perf": learner._perf.snapshot()}
             if name == "profile":
                 return learner.request_profile(
                     steps=int(query.get("steps", body.get("steps", 2))),

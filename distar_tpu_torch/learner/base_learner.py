@@ -12,23 +12,37 @@ thread by default and published in the ``latest`` pointer only once
 durable; ``restore``, which refuses a checkpoint that does not fit and
 names the leaves, and ``resume_latest``, which falls back past a corrupt
 generation; the admin API; the hooks; the prefetcher; and the
-``distar_learner_*`` series.
+``distar_learner_*`` series. Around every step, as in the JAX run loop:
+the training-dynamics monitor (``obs.DynamicsMonitor``: the tree's gauges,
+anomaly detection, black-box bundles), the perf monitor
+(``obs.PerfMonitor``: the ``distar_perf_*`` gauges, the flop count once per
+learner), the step phases, and an on-demand profile
+(``request_profile``, the admin ``profile`` route) started and stopped at
+iteration boundaries.
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-Queue 1 item: sharded checkpoints (item 7), the profiler hooks, on-demand
-profiles and the training-dynamics tree (item 9).
+Not ported yet, raising ``NotImplementedError`` with its ROADMAP Queue 1
+item: sharded checkpoints (item 7).
 """
 from __future__ import annotations
 
 import json
 import os
+import threading
 from typing import Any, Dict, Iterable, Optional
 
 import torch
 
 from ..actor.inference import resolve_device
 from ..model.convert import learner_state_to_flax, load_learner_state
-from ..obs import get_registry
+from ..obs import (
+    DYNAMICS_DEFAULTS,
+    DynamicsMonitor,
+    PerfMonitor,
+    get_registry,
+    record_step_phases,
+    tree_spec,
+)
+from ..obs.perf import to_meta
 from ..parallel import GradClipConfig, build_optimizer
 from ..utils import Config, EasyTimer, build_logger, deep_merge_dicts
 from ..utils.checkpoint import (
@@ -44,10 +58,6 @@ from ..utils.checkpoint import (
 from ..utils.timing import sw as global_stopwatch
 from .hooks import HookRegistry, default_hooks
 from .prefetch import DevicePrefetcher
-
-PROFILE_NOT_PORTED = ("on-demand profiles need obs/profiler.py and obs/traceview.py, which are not "
-                      "ported yet (ROADMAP Queue 1 item 9)")
-
 
 def experiments_root() -> str:
     """The experiment directories' root: ``DISTAR_EXPERIMENTS_ROOT``, else
@@ -68,8 +78,19 @@ DEFAULT_LEARNER_CONFIG = Config(
             "grad_clip": {"type": "none", "threshold": 1.0},
             # one CRC'd blob per parameter shard (ROADMAP Queue 1 item 7)
             "sharded_ckpt": False,
-            # the profiler hook, every profile.freq iterations (item 9)
+            # the profiler hook: every profile.freq iterations capture
+            # profile.duration iterations of torch.profiler trace (0 = off)
             "profile": {"freq": 0, "duration": 2, "logdir": ""},
+            # live perf gauges (obs/perf.py): frames/s + step time always;
+            # perf.aot counts the step's flops (the MFU numerator) once, on
+            # a background thread ("auto" = on unless DISTAR_PERF_AOT=0);
+            # aot_compile also publishes the allocator's footprint
+            "perf": {"aot": "auto", "aot_compile": False, "mem_sample_every": 16},
+            # training-dynamics observatory (obs/dynamics.py): the tree is
+            # computed every step; every_n gates gauge EXPORT; anomalies
+            # write debounced black-box bundles that
+            # python -m distar_tpu_torch.tools.stepreplay re-executes
+            "dynamics": dict(DYNAMICS_DEFAULTS),
         },
     }
 )
@@ -106,13 +127,12 @@ class BaseLearner:
     _CAP_FN = None
     CKPT_ROLE = ""
     rank = 0  # one process
+    # the parameters' init seed, recorded in black-box bundles
+    init_prng_seed = 0
 
     def __init__(self, cfg: Optional[dict] = None, device=None):
         self.cfg = deep_merge_dicts(DEFAULT_LEARNER_CONFIG, cfg or {})
         lc = self.cfg.learner
-        if (lc.get("dynamics") or {}).get("enabled", True) and lc.get("dynamics"):
-            raise NotImplementedError("learner.dynamics: the training-dynamics tree is not ported "
-                                      "yet (ROADMAP Queue 1 item 9, obs/dynamics.py)")
         if lc.get("sharded_ckpt"):
             raise NotImplementedError("learner.sharded_ckpt: sharded checkpoints are not ported yet "
                                       "(ROADMAP Queue 1 item 7, parallel/ckpt.py)")
@@ -130,9 +150,26 @@ class BaseLearner:
         self._checkpointer = AsyncCheckpointer()
         self._ckpt_manager = CheckpointManager(os.path.join(root, "checkpoints"),
                                                role=lc.get("ckpt_role", "") or self.CKPT_ROLE)
+        prof = lc.get("profile", {}) or {}
         self.hooks: HookRegistry = default_hooks(
             save_freq=lc.save_freq, log_freq=lc.log_freq,
-            profile_freq=int(lc.get("profile", {}).get("freq", 0)))
+            profile_freq=int(prof.get("freq", 0)),
+            profile_duration=int(prof.get("duration", 2)),
+            profile_logdir=prof.get("logdir", "") or os.path.join(root, "profiles"))
+        pcfg = lc.get("perf", {}) or {}
+        aot = pcfg.get("aot", "auto")
+        if aot == "auto":
+            aot = os.environ.get("DISTAR_PERF_AOT", "1").lower() not in ("0", "false")
+        self._perf_aot = bool(aot)
+        self._perf = PerfMonitor(token=self.name, registry=self.metrics,
+                                 aot_compile=bool(pcfg.get("aot_compile", False)),
+                                 mem_sample_every=int(pcfg.get("mem_sample_every", 16)),
+                                 device=self.device)
+        self._dynamics = DynamicsMonitor(dict(lc.get("dynamics", {}) or {}), name=self.name,
+                                         registry=self.metrics,
+                                         blackbox_dir=os.path.join(root, "blackbox"))
+        self._profile_lock = threading.Lock()
+        self._profile_req: Optional[Dict[str, Any]] = None
         self._step_guard = SignalGuard()
         self._pending_save = False
         self._stop_requested = False
@@ -156,6 +193,37 @@ class BaseLearner:
             weight_decay=float(lc.get("weight_decay", 0.0) or 0.0),
             clip=GradClipConfig(**lc.grad_clip),
         )
+
+    def _dynamics_spec(self):
+        """The spec the train step computes the dynamics tree with; None
+        (``learner.dynamics.enabled`` false) builds the step without it."""
+        lc = self.cfg.learner
+        return tree_spec(lc.get("dynamics"), lc.get("grad_clip"))
+
+    # ------------------------------------------------------------------ perf
+    def _flop_loss(self, model, batch):  # pragma: no cover - abstract
+        """The step's loss on ``model`` and ``batch`` (both on the meta
+        device), for the flop count."""
+        raise NotImplementedError
+
+    def _flop_counter(self, meta_batch):
+        """A function that runs the step's forward and backward on a meta
+        copy of the model (same config, same kernel strings) and
+        ``meta_batch``: what ``obs.perf.count_flops`` counts."""
+        def run():
+            with torch.device("meta"):
+                model = type(self.model)(self.model_cfg)
+                params = [p for p in model.parameters() if p.requires_grad]
+                loss = self._flop_loss(model, meta_batch)
+                torch.autograd.grad(loss, params, allow_unused=True)
+        return run
+
+    def _perf_note_step(self, batch) -> None:
+        """``_train`` calls this with the step's batch every iteration; the
+        first call starts the flop count on a background thread (shapes
+        only: the batch is read as meta tensors here)."""
+        if self._perf_aot and not self._perf.counting:
+            self._perf.note_step(self._flop_counter(to_meta(batch)))
 
     def _cap(self, batch):
         """``_CAP_FN`` to ``learner.max_entities`` slots where that is set."""
@@ -284,9 +352,9 @@ class BaseLearner:
 
     # ----------------------------------------------------------------- admin
     def start_admin(self, port: int = 0):
-        """Serve the admin API (status, save_ckpt, and update_config /
-        reset_value where the learner has them); requests apply at the
-        iteration boundary."""
+        """Serve the admin API (status, save_ckpt, profile, and
+        update_config / reset_value where the learner has them); requests
+        apply at the iteration boundary."""
         from .admin import LearnerAdminServer
 
         self._admin = LearnerAdminServer(self, port=port)
@@ -302,11 +370,77 @@ class BaseLearner:
         hooks (the final checkpoint) still run."""
         self._stop_requested = True
 
+    # --------------------------------------------------------------- profile
     def request_profile(self, steps: int = 2, timeout_s: float = 600.0) -> dict:
-        raise NotImplementedError(PROFILE_NOT_PORTED)
+        """On-demand bounded capture (admin ``POST /profile?steps=N``): arm
+        a profiler session that the RUN LOOP starts and stops at iteration
+        boundaries, then block this (admin-thread) caller until the trace
+        is analysed. Returns the ranked bucket report; raises on timeout or
+        profiler failure."""
+        req = {"steps": max(1, int(steps)), "event": threading.Event(), "session": None,
+               "stop_at": None, "report": None, "error": None}
+        with self._profile_lock:
+            pending = self._profile_req
+            if pending is not None and not pending["event"].is_set():
+                raise RuntimeError("a profile capture is already in flight")
+            self._profile_req = req
+        if not req["event"].wait(timeout_s):
+            with self._profile_lock:
+                if self._profile_req is req:
+                    self._profile_req = None  # abandoned: unblock later arms
+            raise TimeoutError(f"profile did not complete within {timeout_s}s "
+                               f"(is the learner's run loop advancing?)")
+        if req["error"]:
+            raise RuntimeError(req["error"])
+        return req["report"]
 
     def _profile_tick(self) -> None:
-        raise NotImplementedError(PROFILE_NOT_PORTED)
+        """Run-loop leg of on-demand profiling: start the armed session at
+        this boundary, stop and analyse it once the requested steps
+        elapsed."""
+        req = self._profile_req
+        if req is None or req["event"].is_set():
+            return
+        if req["session"] is None:
+            from ..obs import ProfilerSession
+
+            logdir = os.path.join(self.save_dir, "profiles", f"ondemand_{self.last_iter.val}")
+            session = ProfilerSession(logdir, registry=self.metrics)
+            if not session.start():
+                req["error"] = f"profiler start failed (logdir {logdir!r})"
+                self._finish_profile(req)
+                return
+            req["session"] = session
+            req["stop_at"] = self.last_iter.val + req["steps"]
+            return
+        if self.last_iter.val < req["stop_at"]:
+            return
+        session = req["session"]
+        if not session.stop():
+            req["error"] = "profiler stop failed"
+            self._finish_profile(req)
+            return
+        try:
+            from ..obs import analyze_trace, render_markdown
+
+            report = analyze_trace(session.last_profile_path or session.logdir, steps=req["steps"])
+            report["markdown"] = render_markdown(report)
+            report["captured_steps"] = req["steps"]
+            report["last_iter"] = self.last_iter.val
+            report["perf"] = self._perf.snapshot()
+            busy = getattr(session._profiler, "device_busy_us", None)
+            if busy is not None:
+                report["profiler_device_busy_us"] = busy
+            req["report"] = report
+        except Exception as e:
+            req["error"] = f"trace analysis failed: {e!r}"
+        self._finish_profile(req)
+
+    def _finish_profile(self, req) -> None:
+        with self._profile_lock:
+            if self._profile_req is req:
+                self._profile_req = None
+        req["event"].set()
 
     # ------------------------------------------------------------------- run
     def run(self, max_iterations: Optional[int] = None) -> None:
@@ -327,6 +461,8 @@ class BaseLearner:
         # a gauge, not a histogram: a health rule reads the raw last value
         loss_gauge = self.metrics.gauge("distar_learner_loss",
                                         "last total_loss (NaN/Inf watchdog input)")
+        lc = self.cfg.learner
+        frames_per_iter = float((lc.get("batch_size") or 0) * (lc.get("unroll_len") or 0))
         self._stop_requested = False
 
         @auto_checkpoint(lambda: self.save(self.checkpoint_path(), sync=True), guard=self._step_guard)
@@ -338,27 +474,48 @@ class BaseLearner:
                 t_data = self.timer.value
                 self.log_buffer["data_time"] = t_data
                 self.hooks.call("before_iter", self)
+                # aux refs (the SL carry before its reset) for a bundle
+                self._dynamics.before_step(self)
                 with self._step_guard:  # the step and its log line, whole
                     with self.timer:
                         log_vars = self._train(data)
-                    self.last_iter.add(1)
                     t_train = self.timer.value
                     self.last_log = log_vars
                     self.log_buffer["train_time"] = t_train
                     self.log_buffer.update(log_vars)
                     if "total_loss" in log_vars:
                         loss_gauge.set(float(log_vars["total_loss"]))
+                    # detection + gauge export from the fetched host log;
+                    # the batch is read only if a bundle is written
+                    self._dynamics.on_step(self, log_vars, data)
+                    self.last_iter.add(1)
                     if self.last_iter.val % log_freq == 0:
                         scalars = {k: v for k, v in log_vars.items() if "/" not in k}
                         print(json.dumps({"learner": self.name, "iter": self.last_iter.val,
                                           "train_time": t_train, **scalars}), flush=True)
-                self.hooks.call("after_iter", self)
-                self._apply_pending_save()
+                # host-callback phase: the hook pass after the step
+                with self.timer:
+                    self.hooks.call("after_iter", self)
+                    self._apply_pending_save()
                 iters_total.inc()
                 step_time.observe(t_train)
                 data_wait.observe(t_data)
+                record_step_phases({"data_wait": t_data, "device_step": t_train,
+                                    "host_callback": self.timer.value}, registry=self.metrics)
+                self._perf.on_step(t_train, frames_per_iter)
+                self._profile_tick()
             self.hooks.call("after_run", self)
 
-        _run()
+        try:
+            _run()
+        finally:
+            # a profile armed while this was the run loop must not strand
+            # its admin-thread waiter once no more iterations will happen
+            req = self._profile_req
+            if req is not None and not req["event"].is_set():
+                if req.get("session") is not None:
+                    req["session"].stop()
+                req["error"] = "learner run ended before the capture completed"
+                self._finish_profile(req)
         global_stopwatch.report(registry=self.metrics)
         self._checkpointer.wait()  # drain the async writer before returning

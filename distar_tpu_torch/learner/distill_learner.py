@@ -8,20 +8,25 @@ through the masked per-head KL of ``losses.distill_loss``. The batch's
 student from a zero state of its own dims, built inside the step.
 
 Its checkpoints are ``student_iteration_<n>.ckpt`` under the role
-``student``, so a teacher's resume never picks a student's generation.
-Not ported yet: the ``distar_distill_*`` gauges and the FLOPs-derived cost
-ratio (ROADMAP Queue 1 item 9), which raise ``NotImplementedError``.
+``student``, so a teacher's resume never picks a student's generation. The
+``distar_distill_*`` gauges are the JAX learner's: the KL and each head's,
+the newest student and teacher generations, and, with
+``learner.teacher_flops_per_step``, the student/teacher step-cost ratio
+(the student's count from ``obs.perf.count_flops``).
 """
 from __future__ import annotations
 
 import os
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from ..actor.inference import to_device
 from ..losses import DistillLossConfig, compute_distill_loss
 from ..model import Model, init_params, student_model_config
+from ..obs.dynamics import DynamicsTree
+from ..obs.perf import count_flops, to_meta
 from ..parallel.grad_clip import global_norm
 from ..utils import deep_merge_dicts
 from .base_learner import DEFAULT_LEARNER_CONFIG, BaseLearner, host_scalars
@@ -44,6 +49,9 @@ DISTILL_LEARNER_DEFAULTS = deep_merge_dicts(
             "max_entities": None,
             # cascades into DistillLossConfig (temperature, head weights)
             "distill": {},
+            # when set, the learner publishes its FLOPs-derived step-cost
+            # ratio gauge (distar_distill_step_cost_ratio)
+            "teacher_flops_per_step": 0,
         },
         "model": {},
     },
@@ -75,17 +83,23 @@ def distill_loss(model: Model, loss_cfg: DistillLossConfig, batch, batch_size: i
 
 
 def make_distill_train_step(model: Model, loss_cfg: DistillLossConfig, optimizer,
-                            batch_size: int, unroll_len: int):
+                            batch_size: int, unroll_len: int, dynamics=None):
     """``train_step(batch) -> info``: the KL loss's info, ``grad_norm``
-    (before clipping) and the optimizer's update in place."""
+    (before clipping), with ``dynamics`` the training-dynamics tree, and
+    the optimizer's update in place."""
     params = optimizer.params
+    tree = DynamicsTree(model, params, dynamics) if dynamics is not None else None
 
     def train_step(batch):
         total, info = distill_loss(model, loss_cfg, batch, batch_size, unroll_len)
         grads = list(torch.autograd.grad(total, params, allow_unused=True, materialize_grads=True))
         info = {k: v.detach() for k, v in info.items()}
         info["grad_norm"] = global_norm(grads)
-        optimizer.step(grads)
+        if tree is not None:
+            info.update(tree.before_update(params, grads, batch))
+        update, lr = optimizer.step(grads)
+        if tree is not None:
+            info.update(tree.after_update(update, lr))
         return info
 
     return train_step
@@ -100,9 +114,6 @@ class DistillLearner(BaseLearner):
 
     def __init__(self, cfg: Optional[dict] = None, device=None):
         cfg = deep_merge_dicts(DISTILL_LEARNER_DEFAULTS, cfg or {})
-        if cfg.learner.get("teacher_flops_per_step"):
-            raise NotImplementedError("learner.teacher_flops_per_step: the step-cost gauge is not "
-                                      "ported yet (ROADMAP Queue 1 item 9, obs/perf.py)")
         self.model_cfg = student_model_config(cfg.get("model", {}))
         self.model_cfg.use_value_network = False
         self.loss_cfg = make_distill_loss_config(cfg.learner)
@@ -117,11 +128,48 @@ class DistillLearner(BaseLearner):
     def _setup_state(self) -> None:
         lc = self.cfg.learner
         self.model = Model(self.model_cfg)
-        init_params(self.model, 0)
+        init_params(self.model, self.init_prng_seed)
         self.model.to(self.device).train()
         self.optimizer = self._build_optimizer(self.model.parameters())
         self._train_step = make_distill_train_step(self.model, self.loss_cfg, self.optimizer,
-                                                   lc.batch_size, lc.unroll_len)
+                                                   lc.batch_size, lc.unroll_len,
+                                                   dynamics=self._dynamics_spec())
+        reg = self.metrics
+        self._g_kl = reg.gauge(
+            "distar_distill_kl",
+            "student-vs-teacher masked KL (unweighted sum over heads) at the "
+            "last distill step — the distill_divergence_runaway input")
+        self._g_head_kl = {}
+        self._g_student_gen = reg.gauge(
+            "distar_distill_student_generation",
+            "learner iteration of the newest published student checkpoint")
+        self._g_teacher_gen = reg.gauge(
+            "distar_distill_teacher_generation",
+            "newest teacher iteration observed in the training batches")
+        teacher_flops = float(lc.get("teacher_flops_per_step") or 0)
+        if teacher_flops > 0:
+            # the student's count on a batch of the fake loader's shapes
+            core = self.model_cfg.encoder.core_lstm
+            sample = dict(next(iter(FakeRLDataloader(lc.batch_size, lc.unroll_len,
+                                                     hidden_size=core.hidden_size,
+                                                     hidden_layers=core.num_layers))))
+            sample.pop("model_last_iter", None)
+            student_flops = count_flops(self._flop_counter(to_meta(
+                as_float32(self._strip_batch(self._cap(sample))))))
+            if student_flops:
+                reg.gauge(
+                    "distar_distill_step_cost_ratio",
+                    "student/teacher per-step cost ratio (FLOPs-derived; "
+                    "teacher side from learner.teacher_flops_per_step)",
+                ).set(student_flops / teacher_flops)
+
+    def _flop_loss(self, model, batch):
+        lc = self.cfg.learner
+        return distill_loss(model, self.loss_cfg, batch, lc.batch_size, lc.unroll_len)[0]
+
+    def save(self, path: str, sync: bool = False) -> None:
+        super().save(path, sync=sync)
+        self._g_student_gen.set(float(self.last_iter.val))
 
     def checkpoint_path(self) -> str:
         return os.path.join(self.save_dir, "checkpoints", f"student_iteration_{self.last_iter.val}.ckpt")
@@ -132,9 +180,20 @@ class DistillLearner(BaseLearner):
 
     def _train(self, data) -> Dict[str, Any]:
         data = dict(data)
-        for k in ("model_last_iter", "trace_span_ids", "trace_age_s"):
+        model_last_iter = np.asarray(data.pop("model_last_iter", 0.0))
+        for k in ("trace_span_ids", "trace_age_s"):
             data.pop(k, None)
-        data = self._strip_batch(self._cap(data))
-        log = host_scalars(self._train_step(to_device(as_float32(data), self.device)))
+        data = to_device(as_float32(self._strip_batch(self._cap(data))), self.device)
+        self._perf_note_step(data)
+        log = host_scalars(self._train_step(data))
+        self._g_kl.set(log["divergence"])
+        for head in ("action_type", "delay", "queued", "selected_units", "target_unit",
+                     "target_location"):
+            g = self._g_head_kl.get(head)
+            if g is None:
+                g = self._g_head_kl[head] = self.metrics.gauge(
+                    "distar_distill_head_kl", "per-action-head masked KL vs the teacher", head=head)
+            g.set(log[f"kl/{head}"])
+        self._g_teacher_gen.set(float(np.max(model_last_iter)))
         self._apply_pending_save()
         return log

@@ -6,9 +6,9 @@ priority (lower runs first); at the iteration positions a ``freq`` above 1
 runs it only when ``last_iter`` is a multiple of it. The stock set loads a
 checkpoint (``learner.load_path``), saves one every ``save_freq`` steps and
 at the end of a run, folds each step's scalars into the meters, shows them
-every ``log_freq`` steps and exports the metrics registry as JSON lines.
-The JAX package's ``ProfilerHook`` comes with ``obs/profiler.py`` (ROADMAP
-Queue 1 item 9): ``profile_freq`` above 0 raises until then.
+every ``log_freq`` steps and exports the metrics registry as JSON lines;
+with ``profile_freq`` above 0, ``ProfilerHook`` captures a
+``torch.profiler`` trace every ``profile_freq`` steps.
 """
 from __future__ import annotations
 
@@ -16,8 +16,6 @@ import os
 from typing import Callable, Dict, List
 
 POSITIONS = ("before_run", "before_iter", "after_iter", "after_run")
-PROFILER_NOT_PORTED = ("learner.profile.freq > 0: the profiler hook needs obs/profiler.py, which is "
-                       "not ported yet (ROADMAP Queue 1 item 9)")
 
 
 class Hook:
@@ -140,9 +138,52 @@ class MetricsExportHook(Hook):
         exporter.export(step=learner.last_iter.val)
 
 
-def default_hooks(save_freq: int = 1000, log_freq: int = 100, profile_freq: int = 0) -> HookRegistry:
-    if profile_freq > 0:
-        raise NotImplementedError(PROFILER_NOT_PORTED)
+class ProfilerHook(Hook):
+    """after_iter: a freq-gated device trace (``obs.ProfilerSession``):
+    every ``freq`` iterations start one, stop it ``duration`` iterations
+    later. Runs at every iteration (registry freq 1) because the stop edge
+    falls between gate points; the start gate is internal. Rank 0 only;
+    profiler failures are logged, never fatal, and after
+    ``MAX_CONSECUTIVE_FAILURES`` failed starts the hook retires itself."""
+
+    MAX_CONSECUTIVE_FAILURES = 3
+
+    def __init__(self, logdir: str, freq: int = 1000, duration: int = 2,
+                 priority: int = 90, profiler=None):
+        super().__init__("profiler", "after_iter", priority, freq=1)
+        assert freq > 0 and duration > 0
+        self._freq = freq
+        self._duration = duration
+        self._stop_at = None
+        self._consecutive_failures = 0
+        self.disabled = False
+        from ..obs import ProfilerSession
+
+        self.session = ProfilerSession(logdir, profiler=profiler)
+
+    def __call__(self, learner) -> None:
+        if learner.rank != 0 or self.disabled:
+            return
+        it = learner.last_iter.val
+        if self.session.active:
+            if it >= self._stop_at and self.session.stop():
+                learner.logger.info(f"profiler trace captured -> "
+                                    f"{self.session.last_profile_path or self.session.logdir}")
+        elif it % self._freq == 0:
+            if self.session.start():
+                self._stop_at = it + self._duration
+                self._consecutive_failures = 0
+            else:
+                self._consecutive_failures += 1
+                if self._consecutive_failures >= self.MAX_CONSECUTIVE_FAILURES:
+                    self.disabled = True
+                    learner.logger.info(
+                        f"profiler hook disabled after {self._consecutive_failures} consecutive "
+                        f"start failures (logdir {self.session.logdir!r} unwritable?)")
+
+
+def default_hooks(save_freq: int = 1000, log_freq: int = 100, profile_freq: int = 0,
+                  profile_duration: int = 2, profile_logdir: str = "") -> HookRegistry:
     reg = HookRegistry()
     reg.add(LoadCkptHook())
     reg.add(SaveCkptHook(freq=save_freq))
@@ -150,4 +191,6 @@ def default_hooks(save_freq: int = 1000, log_freq: int = 100, profile_freq: int 
     reg.add(LogReduceHook())
     reg.add(LogShowHook(freq=log_freq))
     reg.add(MetricsExportHook(freq=log_freq))
+    if profile_freq > 0:
+        reg.add(ProfilerHook(profile_logdir, freq=profile_freq, duration=profile_duration))
     return reg

@@ -13,8 +13,9 @@ prefetcher's placing (``learner.prefetch_depth``, default 2; 0 turns it
 off): the capped, float32 batch on the device from pinned memory on a side
 stream, ``model_last_iter`` and the trace fields left on the host.
 
-Not ported yet, each raising ``NotImplementedError``: ``shard_batch`` and
-meshes (ROADMAP Queue 1 item 7) and the training-dynamics tree (item 9).
+Each step also computes the training-dynamics tree (``obs/dynamics.py``;
+``learner.dynamics``). Not ported yet, raising ``NotImplementedError``:
+``shard_batch`` and meshes (ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ from ..actor.inference import to_device
 from ..losses import ReinforcementLossConfig, compute_rl_loss
 from ..model import Model, default_model_config, init_params
 from ..model.convert import flax_names, params_to_flax
+from ..obs.dynamics import DynamicsTree
 from ..parallel.grad_clip import global_norm, leaf_norms
 from ..utils import deep_merge_dicts
 from .base_learner import DEFAULT_LEARNER_CONFIG, BaseLearner, host_scalars
@@ -108,17 +110,21 @@ def rl_loss(model: Model, loss_cfg: ReinforcementLossConfig, batch, batch_size: 
 
 
 def make_rl_train_step(model: Model, loss_cfg: ReinforcementLossConfig, optimizer,
-                       batch_size: int, unroll_len: int, save_grad: bool = False):
+                       batch_size: int, unroll_len: int, save_grad: bool = False,
+                       dynamics=None):
     """``train_step(batch, only_update_value=False) -> info``: the full
     loss's info, its gradient (with ``only_update_value``, the gradient of
     ``td/total`` alone: the critic trains and every parameter outside its
     graph gets a zero gradient, so Adam with b1 = 0 leaves it as it was),
     ``info["grad_norm"]`` (the global norm before clipping), with
     ``save_grad`` the per-parameter norms of gradients and parameters under
-    the JAX learner's names, and the optimizer's update of
+    the JAX learner's names, with ``dynamics`` (an ``obs.DynamicsSpec``, or
+    None) the training-dynamics tree over the pre-step parameters, the raw
+    gradients, the update and the batch, and the optimizer's update of
     ``optimizer.params`` in place. The info values are detached 0-d tensors."""
     params = optimizer.params
     names = list(flax_names(model).values()) if save_grad else None
+    tree = DynamicsTree(model, params, dynamics) if dynamics is not None else None
 
     def train_step(batch, only_update_value: bool = False):
         total, info = rl_loss(model, loss_cfg, batch, batch_size, unroll_len)
@@ -129,7 +135,11 @@ def make_rl_train_step(model: Model, loss_cfg: ReinforcementLossConfig, optimize
         if save_grad:
             info.update(leaf_norms(dict(zip(names, grads)), "grad_norm"))
             info.update(leaf_norms(dict(zip(names, params)), "param_norm"))
-        optimizer.step(grads)
+        if tree is not None:
+            info.update(tree.before_update(params, grads, batch))
+        update, lr = optimizer.step(grads)
+        if tree is not None:
+            info.update(tree.after_update(update, lr))
         return info
 
     return train_step
@@ -165,7 +175,7 @@ class RLLearner(BaseLearner):
 
     def _setup_state(self) -> None:
         self.model = Model(self.model_cfg)
-        init_params(self.model, 0)  # the JAX learner's init_prng_seed
+        init_params(self.model, self.init_prng_seed)
         self.model.to(self.device).train()
         self._build_step()
 
@@ -175,7 +185,8 @@ class RLLearner(BaseLearner):
         self.optimizer = self._build_optimizer(self.model.parameters())
         self._train_step = make_rl_train_step(self.model, self.loss_cfg, self.optimizer,
                                               lc.batch_size, lc.unroll_len,
-                                              save_grad=lc.get("save_grad", False))
+                                              save_grad=lc.get("save_grad", False),
+                                              dynamics=self._dynamics_spec())
 
     def _place_batch(self, batch):
         """The prefetcher's placing: the capped batch, cast as the step
@@ -273,6 +284,15 @@ class RLLearner(BaseLearner):
             return True
         return False
 
+    def _dynamics_aux(self) -> Dict[str, Any]:
+        """Pre-step extras for a black-box bundle: the value-pretrain gate
+        the step is ABOUT to use (read before ``_train`` moves it)."""
+        return {"only_update_value": self._remaining_value_pretrain > 0}
+
+    def _flop_loss(self, model, batch):
+        lc = self.cfg.learner
+        return rl_loss(model, self.loss_cfg, batch, lc.batch_size, lc.unroll_len)[0]
+
     def _train(self, data) -> Dict[str, Any]:
         only_value = self.step_value_pretrain()
         data = dict(data)  # callers may reuse the batch dict
@@ -284,6 +304,7 @@ class RLLearner(BaseLearner):
         trace_age = data.pop("trace_age_s", None)
         if not on_device:
             data = to_device(as_float32(self._cap(data)), self.device)
+        self._perf_note_step(data)
         info = self._train_step(data, only_value)
         log = host_scalars(info)
         log["staleness/mean"] = float(staleness.mean())

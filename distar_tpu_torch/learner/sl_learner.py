@@ -23,6 +23,7 @@ from ..actor.inference import to_device, to_host
 from ..losses import SupervisedLossConfig, compute_sl_loss
 from ..model import Model, default_model_config, init_params
 from ..model.convert import flax_names
+from ..obs.dynamics import DynamicsTree
 from ..parallel.grad_clip import global_norm, leaf_norms
 from ..utils import deep_merge_dicts
 from .base_learner import DEFAULT_LEARNER_CONFIG, BaseLearner, host_scalars
@@ -66,14 +67,18 @@ def sl_loss(model: Model, loss_cfg: SupervisedLossConfig, batch, hidden_state, b
 
 
 def make_sl_train_step(model: Model, loss_cfg: SupervisedLossConfig, optimizer,
-                       batch_size: int, save_grad: bool = False):
+                       batch_size: int, save_grad: bool = False, dynamics=None):
     """``train_step(batch, hidden_state) -> (new hidden state, info)``: the
     loss, its gradient, ``info["grad_norm"]`` (the global norm before
     clipping), with ``save_grad`` the per-parameter norms of gradients and
-    parameters under the JAX learner's names, and the optimizer's update of
-    ``optimizer.params`` in place. The state returned is detached."""
+    parameters under the JAX learner's names, with ``dynamics`` (an
+    ``obs.DynamicsSpec``, or None) the training-dynamics tree over the
+    pre-step parameters, the raw gradients, the update and the batch, and
+    the optimizer's update of ``optimizer.params`` in place. The state
+    returned is detached."""
     params = optimizer.params
     names = list(flax_names(model).values()) if save_grad else None
+    tree = DynamicsTree(model, params, dynamics) if dynamics is not None else None
 
     def train_step(batch, hidden_state):
         total, info, out_state = sl_loss(model, loss_cfg, batch, hidden_state, batch_size)
@@ -82,7 +87,11 @@ def make_sl_train_step(model: Model, loss_cfg: SupervisedLossConfig, optimizer,
         if save_grad:
             info.update(leaf_norms(dict(zip(names, grads)), "grad_norm"))
             info.update(leaf_norms(dict(zip(names, params)), "param_norm"))
-        optimizer.step(grads)
+        if tree is not None:
+            info.update(tree.before_update(params, grads, batch))
+        update, lr = optimizer.step(grads)
+        if tree is not None:
+            info.update(tree.after_update(update, lr))
         return tuple((h.detach(), c.detach()) for h, c in out_state), info
 
     return train_step
@@ -111,12 +120,13 @@ class SLLearner(BaseLearner):
     def _setup_state(self) -> None:
         lc = self.cfg.learner
         self.model = Model(self.model_cfg)
-        init_params(self.model, 0)  # the JAX learner's init_prng_seed
+        init_params(self.model, self.init_prng_seed)
         self.model.to(self.device).train()
         self.hidden = self._zero_hidden()
         self.optimizer = self._build_optimizer(self.model.parameters())
         self._train_step = make_sl_train_step(self.model, self.loss_cfg, self.optimizer,
-                                              lc.batch_size, save_grad=lc.get("save_grad", False))
+                                              lc.batch_size, save_grad=lc.get("save_grad", False),
+                                              dynamics=self._dynamics_spec())
 
     @torch.no_grad()
     def evaluate(self, dataloader, max_batches: int = 0) -> Dict[str, float]:
@@ -152,6 +162,21 @@ class SLLearner(BaseLearner):
         out["_on_device"] = True
         return out
 
+    def _dynamics_aux(self) -> Dict[str, Any]:
+        """Pre-step extras for a black-box bundle: the LSTM carry BEFORE
+        this step's episode reset (a replay restores it and lets ``_train``
+        apply the reset from the batch's own ``new_episodes``). Tensor refs:
+        the copy happens only if a bundle is written."""
+        return {"hidden_state": self.hidden}
+
+    def _flop_loss(self, model, batch):
+        batch = dict(batch)
+        batch.pop("new_episodes", None)
+        batch.pop("traj_lens", None)
+        z = torch.zeros(self.cfg.learner.batch_size, model.cfg["encoder"]["core_lstm"]["hidden_size"])
+        hidden = tuple((z, z) for _ in range(model.cfg["encoder"]["core_lstm"]["num_layers"]))
+        return sl_loss(model, self.loss_cfg, batch, hidden, self.cfg.learner.batch_size)[0]
+
     def _train(self, data) -> Dict[str, float]:
         data = dict(data)  # callers may reuse the batch dict
         on_device = data.pop("_on_device", False)
@@ -166,6 +191,7 @@ class SLLearner(BaseLearner):
         batch = data if on_device else to_device(data, self.device)
         pre_step = {"batch": batch, "hidden_state": self.hidden, "new_episodes": new_episodes,
                     "traj_lens": traj_lens}
+        self._perf_note_step(batch)
         self.hidden, info = self._train_step(batch, self.hidden)
         log = host_scalars(info)
         if self.cfg.learner.get("debug_loss_spike", False):

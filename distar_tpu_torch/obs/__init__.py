@@ -13,9 +13,12 @@ engine with a debounced ok -> warning -> firing state machine
 (``HealthEvaluator``, ``default_rulebook``); a ``FlightRecorder`` crash
 bundle; and the waterfall analyzer. Surfaced through ``GET /healthz``,
 ``/alerts``, ``/timeseries``, ``/traces`` and ``/trace/<id>`` on the
-coordinator, the serve HTTP frontend and the replay admin. The learner
-diagnostics (the profiler, the perf monitor, the dynamics tree) are ROADMAP
-Queue 1 item 9, parts 4 and 5.
+coordinator, the serve HTTP frontend and the replay admin.
+
+Learner diagnostics: the ``torch.profiler`` session and its trace analyser
+(``profiler.py``, ``traceview.py``), the perf monitor's MFU and memory
+gauges (``perf.py``), and the training-dynamics tree, monitor and black-box
+bundles (``dynamics.py``).
 """
 from .exporters import (
     PROMETHEUS_CONTENT_TYPE,
@@ -60,9 +63,34 @@ from .tracestore import (
     set_trace_buffer,
 )
 from .waterfall import build_waterfall, render_listing, render_waterfall
+from .profiler import ProfilerSession, record_step_phases
+from .perf import (
+    PerfMonitor,
+    count_flops,
+    estimate_collective_bytes,
+    memory_report,
+    peak_flops,
+)
+from .traceview import analyze_trace, classify, render_markdown
 from .timeseries import RegistrySampler, TimeSeriesStore
 from .shipper import SERIALIZED_CONTENT_TYPE, TelemetryIngest, TelemetryShipper
 from .flightrecorder import FlightRecorder, get_flight_recorder, set_flight_recorder
+from .dynamics import (
+    ANOMALY_CLASSES,
+    BUNDLE_SCHEMA,
+    DYNAMICS_DEFAULTS,
+    DynamicsMonitor,
+    DynamicsSpec,
+    DynamicsTree,
+    bundle_summary,
+    config_digest,
+    dynamics_tree,
+    first_nonfinite,
+    list_bundles,
+    load_bundle,
+    split_tree,
+    tree_spec,
+)
 from .health import (
     FleetHealth,
     HealthEvaluator,
@@ -74,50 +102,66 @@ from .health import (
 )
 
 __all__ = [
-    "Counter",
-    "ExemplarStore",
-    "FleetHealth",
-    "FlightRecorder",
-    "Gauge",
-    "HealthEvaluator",
-    "HealthRule",
-    "Histogram",
-    "JsonlExporter",
-    "MetricsRegistry",
-    "PROMETHEUS_CONTENT_TYPE",
-    "RegistrySampler",
-    "SERIALIZED_CONTENT_TYPE",
-    "Span",
-    "TelemetryIngest",
-    "TelemetryShipper",
-    "TimeSeriesStore",
-    "TraceBuffer",
-    "TraceIngest",
+    "analyze_trace",
     "annotate",
     "annotate_active",
+    "ANOMALY_CLASSES",
     "build_waterfall",
+    "BUNDLE_SCHEMA",
+    "bundle_summary",
+    "classify",
+    "config_digest",
+    "count_flops",
+    "Counter",
     "current_trace",
     "default_rulebook",
+    "DYNAMICS_DEFAULTS",
+    "dynamics_tree",
+    "DynamicsMonitor",
+    "DynamicsSpec",
+    "DynamicsTree",
+    "estimate_collective_bytes",
+    "ExemplarStore",
     "finish_trace",
+    "first_nonfinite",
+    "FleetHealth",
+    "FlightRecorder",
     "format_traceparent",
+    "Gauge",
     "get_exemplar_store",
     "get_fleet_health",
     "get_flight_recorder",
     "get_registry",
     "get_trace_buffer",
     "handle_health_get",
+    "HealthEvaluator",
+    "HealthRule",
+    "Histogram",
     "hop_names",
     "init_fleet_health",
     "is_trace",
     "is_wire_ctx",
     "join_trace",
+    "JsonlExporter",
+    "list_bundles",
+    "load_bundle",
     "mark_hop",
+    "memory_report",
+    "MetricsRegistry",
     "mint_span_id",
     "note_exemplar",
     "parse_traceparent",
+    "peak_flops",
+    "PerfMonitor",
+    "ProfilerSession",
+    "PROMETHEUS_CONTENT_TYPE",
+    "record_step_phases",
+    "RegistrySampler",
     "render_listing",
+    "render_markdown",
     "render_prometheus",
     "render_waterfall",
+    "SERIALIZED_CONTENT_TYPE",
     "set_active_trace",
     "set_exemplar_store",
     "set_fleet_health",
@@ -125,9 +169,17 @@ __all__ = [
     "set_registry",
     "set_trace_buffer",
     "set_tracing",
+    "Span",
+    "split_tree",
     "start_trace",
+    "TelemetryIngest",
+    "TelemetryShipper",
+    "TimeSeriesStore",
     "trace_record",
+    "TraceBuffer",
+    "TraceIngest",
     "tracing_enabled",
+    "tree_spec",
     "unwrap_payload",
     "wire_ctx",
     "wrap_payload",

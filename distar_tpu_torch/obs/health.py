@@ -16,9 +16,8 @@ consecutive breached evaluations escalate to firing; recovery to ok needs
 therefore produces exactly one firing alert, not one per evaluation tick.
 
 ``default_rulebook`` is the JAX package's rule for rule, including the
-rules over gauges no port module publishes yet (``distar_perf_mfu`` and
-``distar_train_*``, the learner diagnostics of ROADMAP Queue 1 item 9,
-parts 4 and 5): with no data they never breach.
+learner's perf and training-dynamics rules over ``distar_perf_mfu``
+(``obs/perf.py``) and ``distar_train_*`` (``obs/dynamics.py``).
 
 ``FleetHealth`` bundles the subsystem (store, sampler, ingest, trace store,
 evaluator, flight recorder) behind one process-global handle that the HTTP
@@ -337,8 +336,8 @@ def default_rulebook(roles: Iterable[str] = ("learner", "actor", "coordinator",
         book.append(HealthRule(
             name="learner_mfu_collapse",
             # labelled family: one series per learner token, published by
-            # the perf monitor (obs/perf.py, not ported yet): no data, and
-            # no-data is not a breach
+            # the perf monitor (obs/perf.py); the gauge reads 0 until the
+            # flop count lands, as the JAX package's does
             metric="distar_perf_mfu", agg="last", op="<", threshold=0.02,
             window_s=stall_window_s, for_count=3, severity="warning",
             summary="measured MFU collapsed below 2% of the chip's peak — "
@@ -347,8 +346,8 @@ def default_rulebook(roles: Iterable[str] = ("learner", "actor", "coordinator",
         ))
         book.append(HealthRule(
             name="learner_grad_nonfinite",
-            # fed by the dynamics tree (obs/dynamics.py, not ported yet):
-            # the per-module census totals localize the origin
+            # fed by the dynamics tree (obs/dynamics.py): the per-module
+            # census totals localize the origin
             metric="distar_train_nonfinite_grads{module=total}",
             agg="last", op=">", threshold=0.0,
             window_s=stall_window_s, for_count=1,

@@ -24,8 +24,17 @@ plain XLA: attention recomputes the softmax in float32
 (``pallas_kernels.py:110-126``), each scatter gathers the output gradient at
 the clipped cells (``:202-207``, ``:287-294``). The backward launches no
 kernel, so ``launch_counts`` counts forward calls only.
+
+On the ``meta`` device inside ``counting_operations`` (the perf monitor's
+flop count, ``obs.perf.count_flops``) a wrapper computes nothing: it
+returns an empty result of the right shape and adds its own operation
+count, forward and backward, to the count in progress: ``masked_attention_flops`` and ``scatter_add_flops``, what the
+plain versions' ops read under that count, so a step's count is the same
+whatever implements a kernel.
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -72,6 +81,48 @@ def _dispatch(name: str, t: torch.Tensor) -> bool:
     if t.device.type != "cuda":
         raise RuntimeError(f"{name}: no kernel for device {t.device}")
     return False
+
+
+# ------------------------------------------------------ operation counts
+_tally = threading.local()
+
+
+class counting_operations:
+    """Context of a flop count on this thread: the wrappers' own counts,
+    on meta tensors, add to ``total``."""
+
+    def __enter__(self):
+        self._outer = getattr(_tally, "count", None)
+        _tally.count = self
+        self.total = 0
+        return self
+
+    def __exit__(self, *exc):
+        _tally.count = self._outer
+
+
+def _counted(t: torch.Tensor) -> bool:
+    """True for a meta tensor inside ``counting_operations`` (a meta tensor
+    outside one has no kernel, as any other device)."""
+    return t.device.type == "meta" and getattr(_tally, "count", None) is not None
+
+
+def _add_operations(n: int) -> None:
+    _tally.count.total += int(n)
+
+
+def masked_attention_flops(B: int, H: int, N: int, Dh: int, backward: bool = False) -> int:
+    """The plain attention's matmul flops: q k^T and p v, 2 B H N^2 Dh
+    each, forward; their four gradient matmuls backward. Softmax, mask and
+    scale count nothing, as in ``torch.utils.flop_counter``."""
+    return (8 if backward else 4) * B * H * N * N * Dh
+
+
+def scatter_add_flops(B: int, N: int, D: int) -> int:
+    """One add per element of the rows scattered (``index_add_``'s count
+    under ``obs.perf.count_flops``); the backward, a gather, counts
+    nothing."""
+    return B * N * D
 
 
 # --------------------------------------------------------------- attention
@@ -123,7 +174,11 @@ class _MaskedAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        return (*masked_attention_backward(*ctx.saved_tensors, dout.contiguous()), None)
+        q, k, v, mask = ctx.saved_tensors
+        if _counted(q):
+            _add_operations(masked_attention_flops(*q.shape, backward=True))
+            return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v), None
+        return (*masked_attention_backward(q, k, v, mask, dout.contiguous()), None)
 
 
 def masked_attention(q, k, v, mask):
@@ -138,6 +193,9 @@ def masked_attention(q, k, v, mask):
 
 
 def _masked_attention(q, k, v, mask):
+    if _counted(q):
+        _add_operations(masked_attention_flops(*q.shape))
+        return torch.empty_like(q)
     if _dispatch("masked_attention", q):
         return masked_attention_plain(q, k, v, mask)
     B, H, N, Dh = q.shape
@@ -208,6 +266,12 @@ def _scatter_kernel(name: str, embeddings, flat_idx, hw: int):
     return out
 
 
+def _scatter_meta(embeddings, hw: int):
+    B, N, D = embeddings.shape
+    _add_operations(scatter_add_flops(B, N, D))
+    return embeddings.new_empty(B, hw, D)
+
+
 def scatter_add_backward(flat_idx, dout, hw: int):
     """The JAX package's scatter backward, for both kernels: the gradient of
     row n of batch b is dout[b, clip(idx[b, n], 0, hw - 1)]. (The JAX one-hot
@@ -244,6 +308,8 @@ def scatter_add_connection(embeddings, flat_idx, hw: int):
 
 
 def _scatter_add_connection(embeddings, flat_idx, hw: int):
+    if _counted(embeddings):
+        return _scatter_meta(embeddings, hw)
     if _dispatch("scatter_add_connection", embeddings):
         return scatter_add_plain(embeddings, flat_idx, hw)
     return _scatter_kernel("scatter_add_connection", embeddings, flat_idx, hw)
@@ -259,6 +325,8 @@ def scatter_add_onehot(embeddings, flat_idx, hw: int):
 
 
 def _scatter_add_onehot(embeddings, flat_idx, hw: int):
+    if _counted(embeddings):
+        return _scatter_meta(embeddings, hw)
     if _dispatch("scatter_add_onehot", embeddings):
         return scatter_add_onehot_plain(embeddings, flat_idx, hw)
     return _scatter_kernel("scatter_add_onehot", embeddings, flat_idx, hw)

@@ -89,6 +89,35 @@ class GradClip:
         self.step += 1
 
 
+def clip_activation(grads: List[torch.Tensor], global_norm: torch.Tensor, clip_type: str,
+                    threshold: float):
+    """How much of the gradient signal the configured clip removes this
+    step, for the training-dynamics tree, as ``(fraction, active)`` 0-d
+    float32 tensors on the gradients' device (no host sync):
+
+      * ``norm``  — the fraction of the global L2 norm removed,
+        ``max(0, 1 - threshold/||g||)``; active when ``||g|| > threshold``;
+      * ``value`` — the fraction of gradient elements with ``|g| >
+        threshold``; active when any element is clipped;
+      * otherwise zeros (the EMA modes keep their limit in the optimizer
+        state, as in the JAX package, and report no guess).
+
+    ``grads`` are the raw gradients (before the clip)."""
+    zero = torch.zeros((), dtype=torch.float32, device=global_norm.device)
+    if clip_type == "norm":
+        gn = global_norm.float()
+        frac = (1.0 - threshold / gn.clamp(min=1e-12)).clamp(min=0.0)
+        return frac, (gn > threshold).float()
+    if clip_type == "value":
+        clipped = zero
+        total = 0
+        for g in grads:
+            clipped = clipped + (g.float().abs() > threshold).sum().float()
+            total += g.numel()
+        return clipped / max(float(total), 1.0), (clipped > 0).float()
+    return zero, zero.clone()
+
+
 def leaf_norms(named: Mapping[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
     """``{prefix/name: L2 norm}`` per tensor, for ``save_grad`` logging. The
     learner passes the JAX package's tree paths as names

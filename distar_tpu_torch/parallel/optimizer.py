@@ -26,7 +26,8 @@ from .grad_clip import GradClip, GradClipConfig
 
 class Optimizer:
     """The chain's state for a fixed list of parameters; ``step(grads)``
-    clips ``grads`` in place and updates the parameters in place. adamw when
+    clips ``grads`` in place, updates the parameters in place and returns
+    the update it applied. adamw when
     ``weight_decay`` > 0, else adam; defaults as the JAX package's
     ``build_optimizer`` (the RL learner's Adam, betas (0, 0.99), eps 1e-5)."""
 
@@ -54,7 +55,10 @@ class Optimizer:
         return self.learning_rate * self.decay_rate ** sum(c >= b for b in self.decay_boundaries)
 
     @torch.no_grad()
-    def step(self, grads: Sequence[torch.Tensor]) -> None:
+    def step(self, grads: Sequence[torch.Tensor]):
+        """One update; returns ``(update, lr)``: the parameters moved by
+        ``-lr * update`` (what optax's updates are, over ``-lr``), for the
+        training-dynamics tree's update norms."""
         grads = list(grads)
         self.clip.clip(grads)
         b1, b2 = self.b1, self.b2
@@ -70,8 +74,10 @@ class Optimizer:
         torch._foreach_div_(update, denom)
         if self.weight_decay > 0.0:
             torch._foreach_add_(update, self.params, alpha=self.weight_decay)
-        torch._foreach_add_(self.params, update, alpha=-self.lr(self.count))
+        lr = self.lr(self.count)
+        torch._foreach_add_(self.params, update, alpha=-lr)
         self.count = n
+        return update, lr
 
 
 build_optimizer = Optimizer

@@ -125,18 +125,31 @@ class MicroBatcher:
     # ------------------------------------------------------------- admission
     def submit(self, req: PendingRequest) -> None:
         """Admit a request or shed it (typed, never blocking)."""
+        err = self.submit_many([req])[0]
+        if err is not None:
+            raise err
+
+    def submit_many(self, reqs: List[PendingRequest]) -> List[Optional[ServeError]]:
+        """Admit a cycle of requests under one hold of the lock, so no
+        flush can take part of it: the lanes of one ``act_many`` share a
+        flush (and its noise draw) however slowly the caller built them.
+        Returns, per request, None (admitted) or the typed shed."""
+        out: List[Optional[ServeError]] = []
         with self._cond:
-            if self._draining or self._stopped:
-                self._c_shed["draining"].inc()
-                raise DrainingError("gateway is draining; not accepting requests")
-            if len(self._queue) >= self.capacity:
-                self._c_shed["shed_queue_full"].inc()
-                raise QueueFullError(
-                    f"request queue at capacity ({self.capacity}); retry with backoff"
-                )
-            self._queue.append(req)
+            for req in reqs:
+                if self._draining or self._stopped:
+                    self._c_shed["draining"].inc()
+                    out.append(DrainingError("gateway is draining; not accepting requests"))
+                elif len(self._queue) >= self.capacity:
+                    self._c_shed["shed_queue_full"].inc()
+                    out.append(QueueFullError(
+                        f"request queue at capacity ({self.capacity}); retry with backoff"))
+                else:
+                    self._queue.append(req)
+                    out.append(None)
             self._g_depth.set(len(self._queue))
             self._cond.notify()
+        return out
 
     def shed_count(self, reason: str) -> float:
         """Convenience for admission-control callers (gateway status)."""

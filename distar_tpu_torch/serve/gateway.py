@@ -207,7 +207,7 @@ class InferenceGateway:
             err = DrainingError("gateway is draining; sessions are migrating")
             return [err for _ in requests]
         results: List[Any] = [None] * len(requests)
-        pending: List[tuple] = []
+        admitted: List[tuple] = []
         for i, r in enumerate(requests):
             session_id = r["session_id"]
             # server-side span: JOINS the caller's trace when the request
@@ -233,12 +233,16 @@ class InferenceGateway:
                 deadline_ts=time.time() + timeout_s, ctx=ctx,
                 want_teacher=bool(r.get("want_teacher", False)),
             )
-            try:
-                self.batcher.submit(req)  # QueueFull/Draining shed here
-            except ShedError as e:
+            admitted.append((i, session_id, req))
+        # the whole cycle enters the queue at once (QueueFull/Draining shed
+        # here), so a slow admission above never splits it across flushes
+        pending: List[tuple] = []
+        sheds = self.batcher.submit_many([req for _, _, req in admitted])
+        for (i, session_id, req), e in zip(admitted, sheds):
+            if e is not None:
                 self._c_req["shed"].inc()
                 self.sessions.release(session_id)
-                finish_trace(ctx, "shed", outcome="shed")
+                finish_trace(req.ctx, "shed", outcome="shed")
                 results[i] = e
                 continue
             self._g_inflight.inc()

@@ -386,6 +386,28 @@ def test_drain_leaves_discovery_and_sessions_move():
         srv.stop()
 
 
+def test_a_cycle_lands_in_one_flush_however_slow_its_admission():
+    """The lanes of one ``act_many`` enter the batcher together: an
+    admission slower than ``max_delay_s`` between lanes (a loaded host)
+    does not split the cycle across flushes, so a flush's noise draw covers
+    the whole cycle as it would on an idle host."""
+    engine = pserve.MockModelEngine(4)
+    gw = pserve.InferenceGateway(engine, max_delay_s=0.02).start()
+    acquire = gw.sessions.acquire
+
+    def slow_acquire(session_id):
+        time.sleep(0.05)
+        return acquire(session_id)
+
+    gw.sessions.acquire = slow_acquire
+    try:
+        out = gw.act_many([{"session_id": f"s{i}", "obs": {"x": np.ones(1)}} for i in range(3)])
+        assert [o["session_step"] for o in out] == [1, 1, 1]
+        assert engine.forward_calls == 1
+    finally:
+        gw.drain_and_stop(5)
+
+
 @pytest.mark.parametrize("kind", ["gateway", "mux"])
 def test_register_gateway_installs_one_idempotent_deregister(kind):
     """``register_gateway(..., target=)`` makes the target's drain leave

@@ -51,9 +51,14 @@ def plain(tree):
 
 def stack(lib, slots=4, **gateway):
     """A mock gateway (with a teacher) behind both frontends, on a metrics
-    registry of its own."""
+    registry and a fleet-health handle of its own (a handle an earlier test
+    of the worker left may hold a firing rule: a learner's
+    ``distar_perf_mfu`` reads 0 until its flop count lands)."""
     serve, obs = LIBS[lib]
     obs.set_registry(obs.MetricsRegistry())
+    prev = obs.set_fleet_health(None)
+    if prev is not None:
+        prev.stop()
     engine = serve.MockModelEngine(slots, teacher_params={"version": "t0"})
     gw = serve.InferenceGateway(engine, **{"max_delay_s": 0.005, **gateway}).start()
     gw.load_version("v1", params={"version": "v1", "bias": 1.0}, activate=True)

@@ -46,6 +46,7 @@ from distar_tpu.losses import ReinforcementLossConfig as JRLConfig
 from distar_tpu.losses import compute_distill_loss as jax_distill_loss
 from distar_tpu.losses import compute_rl_loss as jax_rl_loss
 from distar_tpu.model import Model as JModel
+from distar_tpu.obs.dynamics import tree_spec as jax_tree_spec
 from distar_tpu.model.config import default_model_config as jax_default_config
 from distar_tpu.model.config import student_model_config as jax_student_config
 from distar_tpu.ops import rl as jrl
@@ -415,7 +416,7 @@ def rl_run():
     params = _j(params_to_flax(learners[-1].model))
     jm = JModel(_rl_cfg(False, "jax"))
     opt = jax_build_optimizer(LR, (0.0, 0.99), 1e-5, 0.0, JClipConfig("norm", 10.0))
-    step = jax_rl_step(jm, JRLConfig(), opt, B, T)
+    step = jax_rl_step(jm, JRLConfig(), opt, B, T, dynamics=jax_tree_spec({}, {"type": "norm", "threshold": 10.0}))
 
     def forward(p, b):
         flat = lambda t: jax.tree.map(lambda x: x.reshape((-1,) + x.shape[2:]), t)  # noqa: E731
@@ -624,7 +625,8 @@ def test_distill_step_matches_jax():
     jm = JModel(jcfg)
     core = jcfg.encoder.core_lstm
     opt = jax_build_optimizer(1e-3, (0.9, 0.99), 1e-5, 0.0, JClipConfig("norm", 10.0))
-    step = jax_distill_step(jm, JDistillConfig(), opt, B, T, core.hidden_size, core.num_layers)
+    step = jax_distill_step(jm, JDistillConfig(), opt, B, T, core.hidden_size, core.num_layers,
+                            dynamics=jax_tree_spec({}, {"type": "norm", "threshold": 10.0}))
     jb = _j({k: v for k, v in learner._strip_batch(batch).items() if k != "model_last_iter"})
     new, _, want = jax.jit(step)(params, opt.init(params), jb)
     before = {n: p.detach().clone() for n, p in learner.model.named_parameters()}
@@ -686,9 +688,6 @@ def test_learners_need_cuda_unless_told_cpu(monkeypatch, cls):
 
 @pytest.mark.parametrize("cls,call,item", [
     (RLLearner, lambda lrn: lrn.shard_batch({}), "item 7"),
-    (RLLearner, lambda lrn: lrn.request_profile(), "item 9"),
-    (RLLearner, lambda lrn: lrn._profile_tick(), "item 9"),
-    (DistillLearner, lambda lrn: lrn.request_profile(steps=1), "item 9"),
 ])
 def test_learner_parts_not_ported_raise(cls, call, item):
     learner = cls({"learner": {"batch_size": B, "unroll_len": T}, "model": SMALL_MODEL}, device="cpu")
@@ -696,16 +695,65 @@ def test_learner_parts_not_ported_raise(cls, call, item):
         call(learner)
 
 
+def _profile_while_running(lrn, steps):
+    import threading
+
+    loop = threading.Thread(target=lambda: lrn.run(10 ** 6), daemon=True)
+    loop.start()
+    try:
+        return lrn.request_profile(steps=steps, timeout_s=300)
+    finally:
+        lrn.request_stop()
+        loop.join(60)
+
+
+def _idle_profile_times_out(lrn):
+    with pytest.raises(TimeoutError, match="run loop advancing"):
+        lrn.request_profile(timeout_s=0.05)
+    return lrn._profile_req is None  # an abandoned request unblocks later arms
+
+
+@pytest.mark.parametrize("cls,call", [
+    (RLLearner, _idle_profile_times_out),
+    (RLLearner, lambda lrn: lrn._profile_tick() is None and lrn._profile_req is None),
+    (DistillLearner, lambda lrn: _profile_while_running(lrn, 1)["captured_steps"] == 1),
+])
+def test_learner_profile_parts_work_as_in_jax(cls, call, tmp_path, monkeypatch):
+    """``request_profile`` and ``_profile_tick``, as the JAX learner's: an
+    idle learner's request times out and is dropped, a tick with nothing
+    armed does nothing, a running learner answers the ranked report."""
+    monkeypatch.setenv("DISTAR_EXPERIMENTS_ROOT", str(tmp_path))
+    learner = cls({"learner": {"batch_size": B, "unroll_len": T, "log_freq": 100}, "model": SMALL_MODEL},
+                  device="cpu")
+    assert call(learner)
+
+
 @pytest.mark.parametrize("cls,learner_cfg,item", [
-    (RLLearner, {"dynamics": {"every_n": 10}}, "item 9"),
-    (DistillLearner, {"teacher_flops_per_step": 1e12}, "item 9"),
     (RLLearner, {"sharded_ckpt": True}, "item 7"),
-    (DistillLearner, {"profile": {"freq": 5}}, "item 9"),
 ])
 def test_learner_options_not_ported_raise(cls, learner_cfg, item):
     with pytest.raises(NotImplementedError, match=item):
         cls({"learner": {"batch_size": B, "unroll_len": T, **learner_cfg}, "model": SMALL_MODEL},
             device="cpu")
+
+
+def _ratio(lrn):
+    return lrn.metrics.snapshot()["distar_distill_step_cost_ratio"] > 0
+
+
+@pytest.mark.parametrize("cls,learner_cfg,check", [
+    (RLLearner, {"dynamics": {"every_n": 10}},
+     lambda lrn: lrn._dynamics.every_n == 10 and "dyn/grad_norm/total" in lrn._train(next(lrn._dataloader))),
+    (DistillLearner, {"teacher_flops_per_step": 1e12}, _ratio),
+    (DistillLearner, {"profile": {"freq": 5}},
+     lambda lrn: [h._freq for h in lrn.hooks._hooks["after_iter"] if h.name == "profiler"] == [5]),
+])
+def test_learner_options_work_as_in_jax(cls, learner_cfg, check):
+    """The options that raised before their modules were ported: the
+    dynamics block, the distillation step-cost ratio, the profiler hook."""
+    lrn = cls({"learner": {"batch_size": B, "unroll_len": T, **learner_cfg}, "model": SMALL_MODEL},
+              device="cpu")
+    assert check(lrn)
 
 
 def test_kernel_launch_counts_stay_zero_on_the_cpu(rl_run):

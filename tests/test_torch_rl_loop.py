@@ -381,6 +381,7 @@ def test_rl_train_roles_as_processes(tmp_path):
     import json
     import signal
     import time
+    import urllib.error
     import urllib.request
 
     env = dict(os.environ, PYTHONPATH=REPO, DISTAR_EXPERIMENTS_ROOT=str(tmp_path),
@@ -417,8 +418,16 @@ def test_rl_train_roles_as_processes(tmp_path):
         assert "learner done: 2 iters" in (tmp_path / "learner.log").read_text()
 
         def get(path):
-            with urllib.request.urlopen(f"http://{co}{path}", timeout=10) as r:
-                return json.loads(r.read())
+            try:
+                with urllib.request.urlopen(f"http://{co}{path}", timeout=10) as r:
+                    return json.loads(r.read())
+            except urllib.error.HTTPError as e:
+                # 503 while a rule fires: the learner's distar_perf_mfu reads 0
+                # (no flop count here), under learner_mfu_collapse's 2%, as the
+                # JAX learner's does
+                body = json.loads(e.read())
+                assert e.code == 503 and set(body["firing"]) <= {"learner_mfu_collapse"}, body
+                return body
 
         deadline = time.time() + 30
         while time.time() < deadline:
@@ -512,11 +521,27 @@ def test_replay_flags_take_their_working_path(argv, tmp_path, monkeypatch, capsy
                                              "--journal-dir", "none"], "item 10"),
     (["--env", "sc2"], "item 10"), (["--mesh", "dp=2"], "item 7"), (["--dist-method", "auto"], "item 7"),
     (["--journal-dir", "j"], "item 11"), (["--ha-peers", "a:1"], "item 11"),
-    (["--dynamics-every", "2"], "item 9"), (["--platform", "cpu"], "--device"),
+    (["--platform", "cpu"], "--device"),
 ])
 def test_unported_flags_raise_naming_their_item(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         rl_train.main(argv + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize("every,block", [
+    ("2", {"every_n": 2}), ("0", {"enabled": False}), (None, None)])
+def test_dynamics_every_sets_the_learner_block_as_the_jax_launcher(every, block):
+    """``--dynamics-every N``: the gauge-export stride; 0 turns the tree
+    off; absent, the config's block (the JAX launcher's ``_dynamics_cfg``)."""
+    from distar_tpu.bin import rl_train as jax_rl_train
+
+    import types
+
+    argv = ["--type", "learner"] + (["--dynamics-every", every] if every is not None else [])
+    args = rl_train.parser().parse_known_args(argv)[0]
+    jargs = types.SimpleNamespace(dynamics_every=args.dynamics_every)  # the JAX parser lives in its main()
+    learner = rl_train._learner_cfg(args, {})["learner"]
+    assert learner.get("dynamics") == block == jax_rl_train._dynamics_cfg(jargs).get("dynamics")
 
 
 SMALL_ALL = ["--type", "all", "--device", "cpu", "--iters", "2", "--env-num", "1", "--traj-len", "2",

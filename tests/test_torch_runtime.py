@@ -310,8 +310,11 @@ def test_hooks_run_in_priority_order_and_freq_gates_iter_positions_only():
 def test_hook_positions_are_validated_and_the_profiler_hook_raises():
     with pytest.raises(ValueError, match="mid_iter"):
         Hook("x", "mid_iter")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        default_hooks(profile_freq=10)
+    # profile_freq above 0 adds the profiler hook (it raised until obs/profiler.py was ported)
+    reg = default_hooks(profile_freq=10, profile_duration=3, profile_logdir="profiles")
+    (hook,) = [h for h in reg._hooks["after_iter"] if h.name == "profiler"]
+    assert (hook._freq, hook._duration, hook.session.logdir) == (10, 3, "profiles")
+    assert not [h for h in default_hooks()._hooks["after_iter"] if h.name == "profiler"]
 
 
 def test_save_hook_is_rank_gated_and_load_hook_skips_a_missing_path(tmp_path):
@@ -512,8 +515,11 @@ def test_admin_routes_queue_and_apply_at_the_boundary(tmp_path):
         assert not lrn._pending_save and ckpt.verify_checkpoint(lrn.checkpoint_path())
         assert _post(admin, "update_config", {"config": {}})["code"] == 404  # SL takes no patches
         assert _post(admin, "bogus")["code"] == 404
-        profile = _post(admin, "profile", {"steps": 1})
-        assert profile["code"] == 1 and "item 9" in profile["info"]
+        # a learner whose run loop is not advancing: the capture times out,
+        # answered as an error (as the JAX route answers it)
+        profile = _post(admin, "profile", {"steps": 1, "timeout_s": 0.2})
+        assert profile["code"] == 1 and "run loop advancing" in profile["info"]
+        assert "perf" in _post(admin, "status")["info"]
     finally:
         admin.stop()
 
@@ -619,9 +625,8 @@ def test_optimizer_state_matches_optax_both_ways(small_model, tmp_path, case):
 # ------------------------------- RL and student checkpoints, both packages
 def _cfg(root, **learner):
     return {"common": {"save_path": str(root)},
-            # the JAX learners' in-step dynamics tree off: the port has none
             "learner": {"batch_size": B, "unroll_len": T, "save_freq": 10 ** 9, "log_freq": 10 ** 9,
-                        "dynamics": {"enabled": False}, **learner},
+                        **learner},
             "model": SMALL_MODEL}
 
 

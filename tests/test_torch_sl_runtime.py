@@ -48,9 +48,8 @@ STEP_TOL = dict(rtol=1e-4, atol=1e-6)
 
 def _cfg(root, **learner):
     return {"common": {"save_path": str(root)},
-            # the JAX learners' in-step dynamics tree off: the port has none
             "learner": {"batch_size": B, "unroll_len": T, "save_freq": 10 ** 9, "log_freq": 10 ** 9,
-                        "dynamics": {"enabled": False}, **learner},
+                        **learner},
             "model": SMALL_MODEL}
 
 
@@ -144,7 +143,34 @@ def cross(tmp_path_factory):
     out["port_eval"] = pl.evaluate(psl.SLDataloader(ds, B, T, seed=2), max_batches=2)
     out["jax_log4"], out["port_log4"] = jl._train(batches[3]), pl._train(batches[3])
     out["jax_state4"], out["port_state4"] = _jax_state(jl), pl.state
+    # a NaN in a float observation field: the JAX learner's monitor writes
+    # its black-box bundle (the step is the one compiled above)
+    poisoned = {k: v for k, v in batches[0].items()}
+    poisoned["entity_info"] = dict(poisoned["entity_info"])
+    key = next(k for k in sorted(poisoned["entity_info"])
+               if np.asarray(poisoned["entity_info"][k]).dtype.kind == "f")
+    poisoned["entity_info"][key] = np.array(poisoned["entity_info"][key], copy=True)
+    poisoned["entity_info"][key].reshape(-1)[0] = np.nan
+    jl._dynamics.before_step(jl)
+    jl._dynamics.on_step(jl, jl._train(poisoned), poisoned)
+    out["jax_bundle"] = jl._dynamics.last_bundle_path
     return out
+
+
+def test_the_port_replays_a_jax_written_bundle(cross, tmp_path, monkeypatch):
+    """The JAX SL learner's black-box bundle (its config, optax state, carry
+    and batch) loads with the port's ``load_bundle`` and the port's
+    stepreplay reproduces the non-finite step on the CPU, the provenance
+    (the poisoned batch field) confirmed, two replays bit-equal."""
+    from distar_tpu_torch.obs.dynamics import load_bundle
+    from distar_tpu_torch.tools import stepreplay
+
+    monkeypatch.setenv("DISTAR_EXPERIMENTS_ROOT", str(tmp_path))
+    bundle = load_bundle(cross["jax_bundle"])
+    assert bundle["learner"] == "sllearner" and bundle["provenance"]["origin"] == "batch"
+    verdict = stepreplay.replay(bundle, params_from="bundle", runs=2, device="cpu")
+    assert verdict["nonfinite_reproduced"] is True and verdict["provenance_confirmed"] is True
+    assert verdict["deterministic"] is True and verdict["ok"] is True
 
 
 def test_port_restores_a_jax_sl_checkpoint_bit_for_bit(cross):
@@ -507,7 +533,18 @@ def test_bin_trains_on_a_remote_feed(tmp_path, capsys, monkeypatch):
 
 @pytest.mark.parametrize("argv,item", [
     (["--type", "replay_actor"], "item 10"),
-    (["--mesh", "dp=2"], "item 7"), (["--dynamics-every", "10"], "item 9")])
+    (["--mesh", "dp=2"], "item 7")])
 def test_bin_parts_not_ported_name_their_item(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         sl_train.main(argv + ["--device", "cpu"])
+
+
+def test_bin_dynamics_every_sets_the_export_stride(tmp_path):
+    """``--dynamics-every 1``: the learner's tree on, exported every step."""
+    lrn = sl_train.main(["--type", "learner", "--iters", "1", "--smoke-model", "--device", "cpu",
+                         "--batch-size", "2", "--traj-len", "2", "--no-health", "--save-path", str(tmp_path),
+                         "--dynamics-every", "1"])
+    assert lrn._dynamics.every_n == 1 and lrn.cfg.learner.dynamics.enabled
+    assert lrn.last_log["dyn/nonfinite_grads/total"] == 0.0
+    assert lrn.metrics.snapshot()["distar_train_grad_norm{module=total}"] == pytest.approx(
+        lrn.last_log["dyn/grad_norm/total"])

@@ -44,6 +44,7 @@ from conftest import SMALL_MODEL
 
 from distar_tpu.learner import data as jdata
 from distar_tpu.learner.sl_learner import make_sl_train_step as jax_train_step
+from distar_tpu.obs.dynamics import tree_spec as jax_tree_spec
 from distar_tpu.losses import SupervisedLossConfig as JLossConfig
 from distar_tpu.losses import compute_sl_loss as jax_sl_loss
 from distar_tpu.model import Model as JModel
@@ -171,7 +172,7 @@ def jax_run():
     cfg = jax_merge(jax_default_config(), SMALL_MODEL)
     jm = JModel(cfg)
     opt = jax_build_optimizer(1e-3, (0.9, 0.999), 1e-8, 1e-5, JClipConfig("norm", 1.0))
-    step = jax_train_step(jm, JLossConfig(), opt, B)
+    step = jax_train_step(jm, JLossConfig(), opt, B, dynamics=jax_tree_spec({}, {"type": "norm", "threshold": 1.0}))
     loss_fn = _jax_loss_fn(jm, B)
     both = jax.jit(lambda p, o, b, h: (step(p, o, b, h), jax.grad(loss_fn)(p, b, h)))
     H = cfg.encoder.core_lstm.hidden_size
@@ -524,9 +525,19 @@ def test_bin_learner_needs_cuda_unless_told_cpu(monkeypatch):
         sl_train.main(["--type", "learner", "--iters", "1", "--smoke-model"])
 
 
+def test_bin_dynamics_every_zero_turns_the_tree_off(tmp_path):
+    """``--dynamics-every 0``: the step without the tree (the JAX
+    launcher's off arm)."""
+    lrn = sl_train.main(["--type", "learner", "--iters", "1", "--smoke-model", "--device", "cpu",
+                         "--batch-size", "2", "--traj-len", "2", "--no-health", "--save-path", str(tmp_path),
+                         "--dynamics-every", "0"])
+    assert not lrn.cfg.learner.dynamics.enabled and not lrn._dynamics.enabled
+    assert "grad_norm" in lrn.last_log and not any(k.startswith("dyn/") for k in lrn.last_log)
+
+
 @pytest.mark.parametrize("argv,item", [
     (["--type", "replay_actor"], "Queue 1 item 10"), (["--mesh", "dp=2"], "Queue 1 item 7"),
-    (["--dynamics-every", "10"], "Queue 1 item 9"), (["--remote", "--mesh", "dp=2"], "Queue 1 item 7")])
+    (["--remote", "--mesh", "dp=2"], "Queue 1 item 7")])
 def test_bin_parts_not_ported_raise(argv, item):
     """The SL runtime (``--data``, ``--eval-data``, ``--remote``, the
     coordinator role) is ported; what is not raises naming its ROADMAP
