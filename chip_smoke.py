@@ -168,8 +168,9 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              in-process coordinator, the actor on 8 mock envs of 300 game
              loops with trajectories of 16 steps (weights refreshed every
              second), the RL learner on 4 x 16 batches of the actors'
-             trajectories for 3 iterations (8 before phase 11 came, 4
-             before the learner diagnostics; cut to keep the script in its time),
+             trajectories for 2 iterations (8 before phase 11 came, 4
+             before the learner diagnostics, 3 before the parallel phase;
+             cut to keep the script in its time),
              publishing its weights and its
              train-info every 2 (the launcher's 4 replaced by attaching the
              weight plane again). a. one actor job alone on a thread. b. the
@@ -347,12 +348,40 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              league`` runs this phase alone (after the build), a. and b.
              first.
 
+14. parallel — ``parallel/`` as a world of one, on the rl phase's batch.
+             a. an NCCL process group of one (backend, world size,
+             ``torch.cuda.nccl.version()``; an ``all_reduce`` gives its
+             input back). b. the flagship RL learner (kernel overlay, f32,
+             4 x 16) under ``make_mesh(MeshSpec(dp=1))``, one step from the
+             weights, batch and optimizer state of two unmeshed repeats:
+             the loss, every info scalar, the grad norm and the parameters
+             within twice the repeats' envelope (or 1e-6 relative where
+             they agree to the bit); 3 attention and 1 scatter launches,
+             read from zero; step ms, median of 3, beside the unmeshed. c.
+             its sharded checkpoint (params, mu, nu, count: 506 MB): a sync
+             save, ``verify_checkpoint``, a restore into an unmeshed learner
+             bit-equal; one flipped byte fails the generation and
+             ``resume_latest`` falls back a generation; the bytes, save
+             and restore s, and an async save's blocked time against its
+             write. d. 3 iterations of ``run()`` through ``ShardFeeder`` at
+             depth 2: the placed batches bit-equal to the host ones, the
+             mean wait against the step ms, the ``distar_feeder_*``
+             counts. e. ``Attention(impl='ring')`` at sp=1 at [68, 2, 512,
+             128] against 'pallas' and 'xla', and its backward against
+             autograd through the plain version, within ATTN_TOL. f. the
+             executor as processes at the smoke model, beside rl_loop's
+             untimed part: ``--mesh dp=1 --iters 2 --kill-after 1`` (exit
+             137, a durable generation), then ``--resume --save-freq 1``
+             (iteration 1 to 2, its REPORT, its generation verified).
+             ``python3 chip_smoke.py --only parallel`` runs this phase
+             alone.
+
 The line before the last is the ``kernels`` JSON (launches: the serve,
 serve-process, fleet (gateway A), SL, SL runtime, RL and distillation
 paths, the RL loop's and the replay loop's actor and learner together, the
 Anakin windows and learner steps, the league learner's windows and step and
-its arena batch, each read from zero around its run); the last line is
-``{"ok": true, "device": {...}}``.
+its arena batch, the meshed step and the feeder's run, each read from zero
+around its run); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -3720,12 +3749,14 @@ def phase_rl(device, smi, rng):
                       for what, gap in gaps.items()},
               "launches": launches, "launches_by_path": paths, "diagnostics": diagnostics, "laps": laps}
     print(json.dumps({"rl": result}))
+    result["batch"] = batch  # the parallel phase's, after the print
     return launches, result
 
 
 # ----------------------------------------------------------------- RL loop
 LOOP_ENV_NUM, LOOP_EPISODE_LOOPS = 8, 300  # the actor: 8 mock envs of 300 game loops
-LOOP_ITERS = 3  # the learner: RL_B x RL_T batches from the actors (8 until the replay phase came, 4 until the diagnostics)
+LOOP_ITERS = 2  # the learner: RL_B x RL_T batches from the actors (8 until the replay phase came, 4 until the
+# diagnostics, 3 until the parallel phase: the second publication comes at iteration 2 either way)
 LOOP_PUBLISH_FREQ = 2  # send_model_freq and send_train_info_freq
 LOOP_REFRESH_S = 1.0  # the actor's model_update_interval_s: jobs last a few seconds
 LOOP_PROCESS_ITERS = 4  # the learner process: 4 steps of 4 x 4
@@ -6025,6 +6056,256 @@ def league_summary(league):
             "in_process_arena_batch_s": ip["arena_batch_s"], "seconds": league["seconds"]}
 
 
+# ---------------------------------------------------------------- parallel
+# b.'s floor where two unmeshed repeats agree to the bit: a meshed step on a
+# world of one runs the unmeshed step's code (every collective is skipped),
+# so it may part from it only as two repeats part (the card's backward does
+# not repeat bit for bit, ``rl_gap``)
+PAR_FLOOR = 1e-6
+
+
+def executor_processes(tmp, device):
+    """f. ``python -m distar_tpu_torch.parallel.executor --mesh dp=1`` on the
+    card at the smoke model, as processes: ``--iters 2 --kill-after 1``
+    (exit 137 with a durable generation), then ``--resume --save-freq 1``
+    of that directory (iteration 1 to 2, its REPORT line, its newest
+    sharded generation verified)."""
+    from distar_tpu_torch.parallel.ckpt import is_sharded_checkpoint
+    from distar_tpu_torch.utils.checkpoint import CheckpointManager, verify_checkpoint
+
+    t0 = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": REPO, "DISTAR_PERF_AOT": "0"}
+
+    def run(name, *extra):
+        log = os.path.join(tmp, f"executor_{name}.log")
+        with open(log, "w") as f:
+            proc = subprocess.run([sys.executable, "-m", "distar_tpu_torch.parallel.executor", "--mesh", "dp=1",
+                                   *extra], cwd=REPO, env=env, stdout=f, stderr=subprocess.STDOUT, timeout=600)
+        text = open(log).read()
+        reports = [json.loads(ln[len("REPORT "):]) for ln in text.splitlines() if ln.startswith("REPORT ")]
+        return proc.returncode, (reports[0] if reports else None), text
+
+    out = {}
+    save = os.path.join(tmp, "executor")
+    rc, _, text = run("killed", "--iters", "2", "--kill-after", "1", "--save-dir", save)
+    gens = CheckpointManager(os.path.join(save, "checkpoints")).generations()
+    check(rc == 137 and gens and gens[0]["step"] == 1 and verify_checkpoint(gens[0]["path"]),
+          f"executor --kill-after 1: rc {rc}, generations {gens}\n{text[-3000:]}")
+    rc, report, text = run("resumed", "--iters", "2", "--resume", "--save-freq", "1", "--save-dir", save)
+    check(rc == 0 and report is not None and report["start_iter"] == 1 and report["iters"] == 2
+          and report["resumed_from"] == gens[0]["path"]
+          and report["mesh"] == {"dp": 1, "fsdp": 1, "tp": 1, "sp": 1},
+          f"executor --resume: rc {rc}, report {report}\n{text[-3000:]}")
+    gen = CheckpointManager(os.path.join(save, "checkpoints")).generations()[0]
+    check(gen["step"] == 2 and is_sharded_checkpoint(gen["path"]) and verify_checkpoint(gen["path"]),
+          f"executor generation {gen} does not verify")
+    out["report"] = report
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def same_state(a, b):
+    """Every array leaf of two learner states bit-equal (their flax trees)."""
+    import numpy as np
+
+    la, lb = array_leaves(a), array_leaves(b)
+    return len(la) == len(lb) and all(
+        np.asarray(x).shape == np.asarray(y).shape
+        and np.array_equal(np.asarray(x).reshape(-1).view(np.uint8), np.asarray(y).reshape(-1).view(np.uint8))
+        for x, y in zip(la, lb))
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def phase_parallel(device, smi, tmp, batch, executor_job=None):
+    """``parallel/`` on the card (module docstring, phase 14): a world of
+    one. Returns the launch counts of its meshed paths and the
+    measurements."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from distar_tpu_torch.learner import RLLearner
+    from distar_tpu_torch.learner.data import as_float32
+    from distar_tpu_torch.model.convert import learner_state_to_flax
+    from distar_tpu_torch.ops import kernels as K
+    from distar_tpu_torch.parallel import MeshSpec, make_mesh
+    from distar_tpu_torch.parallel.dist import dist_init
+    from distar_tpu_torch.parallel.ring_attention import ring_self_attention
+    from distar_tpu_torch.utils.checkpoint import CheckpointCorruptError, load_checkpoint, verify_checkpoint
+
+    laps, out, launches = Laps(), {}, {}
+    # a. the process group
+    info = dist_init(method="single_node", device="cuda")
+    x = torch.arange(8, dtype=torch.float32, device=device)
+    y = x.clone()
+    dist.all_reduce(y)
+    check(info["backend"] == "nccl" and info["world_size"] == 1 and torch.equal(x, y),
+          f"process group {info}: all_reduce gave {y.tolist()}")
+    out["group"] = {**info, "nccl": ".".join(map(str, torch.cuda.nccl.version()))}
+    print(f"parallel a: process group {out['group']}, all_reduce of a world of one gives its input back")
+    laps("a group")
+
+    # b. the meshed flagship step against two unmeshed repeats
+    mesh = make_mesh(MeshSpec(dp=1))
+    cfg = {"learner": {"batch_size": RL_B, "unroll_len": RL_T, "sharded_ckpt": True},
+           "model": overlay(*STRINGS["pallas"])}
+    refs = [rl_learner(device) for _ in range(2)]
+    meshed = RLLearner(cfg, device=device, mesh=mesh)
+    logs = [lrn._train(batch) for lrn in refs]
+    K.reset_launch_counts()
+    log_m = meshed._train(batch)
+    launches["meshed step"] = dict(K.launch_counts)
+    want = {"masked_attention": meshed.model_cfg.encoder.entity.layer_num, "scatter_add_connection": 1,
+            "scatter_add_onehot": 0}
+    check(launches["meshed step"] == want, f"meshed step launches {launches['meshed step']}, want {want}")
+    worst = {}
+    for k in log_m:
+        a, b, m = logs[0][k], logs[1][k], log_m[k]
+        tol = max(2 * abs(a - b), PAR_FLOOR * max(1.0, abs(a)))
+        worst[k] = abs(m - a) / tol
+        check(abs(m - a) <= tol, f"meshed step {k}: {m} against {a} (repeat {b}), tolerance {tol:.3g}")
+    env = rel_dist(params_of(refs[1]), params_of(refs[0]))
+    dist_p = rel_dist(params_of(meshed), params_of(refs[0]))
+    check(dist_p <= max(2 * env, PAR_FLOOR), f"meshed params {dist_p:.3g} from unmeshed, envelope {env:.3g}")
+    ms, all_ms = step_times({"meshed": meshed, "unmeshed": refs[0]}, batch, rounds=3, warmup=1)
+    out["step"] = {"meshed_ms": ms["meshed"], "unmeshed_ms": ms["unmeshed"], "params_dist": dist_p,
+                   "params_envelope": env, "worst_scalar_share_of_tolerance": max(worst.values())}
+    print(f"parallel b ({smi}): meshed dp=1 step against two unmeshed repeats: {len(log_m)} scalars within "
+          f"max(2 x envelope, {PAR_FLOOR:g} rel) (worst {max(worst.values()):.3g} of it), params {dist_p:.3g} "
+          f"(envelope {env:.3g}); step ms median of 3: meshed {ms['meshed']:.2f} unmeshed {ms['unmeshed']:.2f} "
+          f"(all {json.dumps(all_ms)}); launches {launches['meshed step']}")
+    laps("b step")
+
+    # c. the sharded checkpoint at the flagship: params, mu, nu and count
+    ck = os.path.join(tmp, "parallel_ckpt")
+    first = os.path.join(ck, "iteration_1.ckpt")
+    t0 = time.perf_counter()
+    meshed.save(first, sync=True)
+    save_s = time.perf_counter() - t0
+    check(verify_checkpoint(first), f"{first} does not verify")
+    nbytes = dir_bytes(first)
+    fresh = refs[1]  # an unmeshed learner one step away: the restore replaces all of it
+    t0 = time.perf_counter()
+    fresh.restore(first)
+    restore_s = time.perf_counter() - t0
+    check(same_state(learner_state_to_flax(fresh.model, fresh.optimizer),
+                     learner_state_to_flax(meshed.model, meshed.optimizer)),
+          "a sharded checkpoint restored into an unmeshed learner is not bit-equal")
+    # async: the loop's blocked time against the write's
+    meshed._train(batch)
+    meshed.last_iter.update(2)
+    second = os.path.join(ck, "iteration_2.ckpt")
+    t0 = time.perf_counter()
+    meshed.save(second)
+    blocked_s = time.perf_counter() - t0
+    meshed._checkpointer.wait()
+    write_s = time.perf_counter() - t0
+    gens = [g["path"] for g in meshed.checkpoint_manager.generations()]
+    check(gens[:2] == [second, first], f"generations {gens}")
+    shard = max((f for f in os.listdir(second) if f.endswith(".shard")),
+                key=lambda f: os.path.getsize(os.path.join(second, f)))
+    with open(os.path.join(second, shard), "r+b") as f:
+        f.seek(40)
+        byte = f.read(1)
+        f.seek(40)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    try:
+        load_checkpoint(second)
+        check(False, f"{second} with a flipped byte loads")
+    except CheckpointCorruptError:
+        pass
+    back = refs[0]
+    back._ckpt_manager = meshed.checkpoint_manager
+    check(back.resume_latest() == first, "resume_latest did not fall back past the corrupt generation")
+    out["ckpt"] = {"bytes": nbytes, "save_s": save_s, "restore_s": restore_s, "async_blocked_s": blocked_s,
+                   "async_write_s": write_s, "shards": len([f for f in os.listdir(first) if f.endswith(".shard")])}
+    print(f"parallel c ({smi}): sharded checkpoint {nbytes} B in {out['ckpt']['shards']} shards, sync save "
+          f"{save_s:.2f} s, restore into an unmeshed learner {restore_s:.2f} s (bit-equal); async save blocked "
+          f"the loop {blocked_s:.3f} s of its {write_s:.2f} s; a flipped byte in {shard} fails the generation "
+          f"and resume_latest falls back to {os.path.basename(first)}")
+    del fresh, back, refs
+    laps("c checkpoint")
+
+    # d. run() through the ShardFeeder at depth 2, placed batches held to the host ones
+    placed, host = [], []
+    real_place = meshed._place_batch
+
+    def place(b):
+        host.append(as_float32(meshed._cap({k: v for k, v in b.items() if k != "model_last_iter"})))
+        out_b = real_place(b)
+        placed.append(out_b)
+        return out_b
+
+    meshed._place_batch = place
+    meshed.cfg.learner["prefetch_depth"] = 2
+    meshed.cfg.learner["save_freq"] = 10 ** 9
+    meshed.set_dataloader(iter([batch] * 6))
+    before = {k: v for k, v in meshed.metrics.snapshot().items() if k.startswith("distar_feeder_")}
+    K.reset_launch_counts()
+    meshed.run(meshed.last_iter.val + 3)
+    launches["run through the feeder"] = dict(K.launch_counts)
+    feeder = meshed._dataloader
+    from distar_tpu_torch.parallel import ShardFeeder
+
+    check(isinstance(feeder, ShardFeeder), f"the learner's prefetch wrapper is {type(feeder).__name__}")
+    stats = feeder.stats()
+    feeder.close()
+    for h, p in zip(host, placed):
+        for want_leaf, got_leaf in zip(array_leaves(h), array_leaves({key: p[key] for key in h})):
+            check(np.array_equal(np.asarray(want_leaf), got_leaf.cpu().numpy()),
+                  "a placed batch differs from the host's")
+    counts = {k: v - before.get(k, 0) for k, v in meshed.metrics.snapshot().items()
+              if k.startswith("distar_feeder_batches_total")}
+    check(stats["batches"] == 3, f"feeder stats {stats}")
+    out["feeder"] = {**stats, "counts": counts, "step_ms": ms["meshed"]}
+    print(f"parallel d ({smi}): 3 iterations of run() through the ShardFeeder at depth 2: mean wait "
+          f"{stats['wait_s_mean'] * 1e3:.3f} ms against a {ms['meshed']:.2f} ms step, place "
+          f"{stats['place_s_mean'] * 1e3:.2f} ms; {len(placed)} placed batches bit-equal to the host ones; "
+          f"counts {counts}; launches {launches['run through the feeder']}")
+    del meshed
+    laps("d feeder")
+
+    # e. ring attention at sp=1 at the RL shape against 'pallas' and 'xla'
+    rng = np.random.default_rng(14)
+    B, H, N, Dh = RL_B * (RL_T + 1), 2, 512, 128
+    q, k, v = (torch.tensor(rng.standard_normal((B, H, N, Dh)), dtype=torch.float32, device=device)
+               for _ in range(3))
+    mask = torch.tensor(np.arange(N)[None, :] < rng.integers(1, N + 1, size=(B, 1)), device=device)
+    got = ring_self_attention(q, k, v, mask, None)
+    err = {"pallas": float((got - K.masked_attention(q, k, v, mask)).abs().max()),
+           "xla": float((got - K.masked_attention_plain(q, k, v, mask, upcast=False)).abs().max())}
+    dout = torch.tensor(rng.standard_normal((B, H, N, Dh)), dtype=torch.float32, device=device)
+    grads = []
+    for fn in (lambda *t: ring_self_attention(*t, mask, None),
+               lambda *t: K.masked_attention_plain(*t, mask, upcast=False)):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        (fn(*leaves) * dout).sum().backward()
+        grads.append([t.grad for t in leaves])
+    err["grad"] = max(float((a - b).abs().max()) for a, b in zip(*grads))
+    for key, e in err.items():
+        check(e <= ATTN_TOL["float32"], f"ring attention against {key}: max abs err {e}")
+    out["ring_max_abs_err"] = err
+    print(f"parallel e: Attention(impl='ring') at sp=1 [{B}, {H}, {N}, {Dh}] f32: max abs err {json.dumps(err)} "
+          f"(tolerance {ATTN_TOL['float32']:g})")
+    del q, k, v, got, grads
+    laps("e ring")
+
+    if executor_job is not None:
+        out["executor"] = executor_job.result()
+        print(f"parallel f: executor processes {json.dumps(out['executor'])}")
+        laps("f executor wait")
+    from distar_tpu_torch.parallel.dist import dist_close
+
+    dist_close()
+    out["seconds"] = dict(laps)
+    print(f"parallel seconds by part: {json.dumps(laps)}")
+    total = {name: sum(c.get(name, 0) for c in launches.values()) for name in want}
+    return total, out
+
+
 def smi_line():
     try:
         return subprocess.run(
@@ -6038,8 +6319,9 @@ def main(argv=None) -> int:
     only = None
     argv = sys.argv[1:] if argv is None else argv
     if argv:
-        if argv[:1] != ["--only"] or len(argv) != 2 or argv[1] not in ("league", "health", "diagnostics"):
-            print("usage: python3 chip_smoke.py [--only league|health|diagnostics]", file=sys.stderr)
+        if argv[:1] != ["--only"] or len(argv) != 2 or argv[1] not in ("league", "health", "diagnostics",
+                                                                       "parallel"):
+            print("usage: python3 chip_smoke.py [--only league|health|diagnostics|parallel]", file=sys.stderr)
             return 2
         only = argv[1]
     try:
@@ -6101,6 +6383,19 @@ def main(argv=None) -> int:
             print(f"phase seconds: {json.dumps(phase_s)}")
             print(f"launches: league {league_launches}")
             print(json.dumps({"league": league_summary(league), "kernel_max_abs_err": league["kernel_max_abs_err"]}))
+            print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                      "count": torch.cuda.device_count()}}))
+            return 0
+        if only == "parallel":  # phase 14 alone, its executor processes beside its in-process part
+            from distar_tpu_torch.learner import random_rl_batch
+
+            job = Background(lambda: executor_processes(tmp, device)).start()
+            par_launches, par = phase_parallel(device, smi, tmp, random_rl_batch(RL_B, RL_T,
+                                                                                np.random.default_rng(0)), job)
+            mark("parallel")
+            print(f"phase seconds: {json.dumps(phase_s)}")
+            print(f"launches: parallel {par_launches}")
+            print(json.dumps({"parallel": par}))
             print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                       "count": torch.cuda.device_count()}}))
             return 0
@@ -6193,8 +6488,10 @@ def main(argv=None) -> int:
         # model, and the league phase's processes (league-run, the arena)
         jaxenv_job = Background(lambda: jaxenv_smoke_run(device, tmp))
         league_job = Background(lambda: league_processes(tmp, device))
+        # and the parallel phase's executor processes
+        executor_job = Background(lambda: executor_processes(tmp, device))
         loop_launches, rl_loop = phase_rl_loop(device, smi, tmp, untimed=[replay_jobs[1], jaxenv_job],
-                                               processes=[replay_jobs[0], league_job])
+                                               processes=[replay_jobs[0], league_job, executor_job])
         # ended before the replay loop, whose launch counts it would disturb
         jaxenv_run = jaxenv_job.result()
         mark("rl_loop")
@@ -6222,17 +6519,24 @@ def main(argv=None) -> int:
         # league learner and an arena batch in process
         league_launches, league = phase_league(device, smi, tmp, anakin, league_procs)
         mark("league")
+
+        # 14. parallel/: a world of one on the rl phase's batch; its executor
+        # processes ran beside the rl loop
+        parallel_launches, parallel = phase_parallel(device, smi, tmp, rl.pop("batch"), executor_job)
+        mark("parallel")
         print(f"phase seconds: {json.dumps(phase_s)}")
         print(f"launches: serve {launches}, serve process {process_launches}, serve fleet (gateway A) "
               f"{fleet_launches}, train {train_launches}, sl runtime {runtime_launches}, rl and distill "
               f"{rl_launches}, rl loop (actor and learner) {loop_launches}, health drill (actor and learner) "
               f"{rl_loop['health_launches']}, replay loop (actor and learner) "
               f"{replay_launches}, anakin (windows and learner steps) {anakin_launches}, league (a learner's "
-              f"windows with the away seat, its step and an arena batch) {league_launches}")
+              f"windows with the away seat, its step and an arena batch) {league_launches}, parallel (the "
+              f"meshed step and run() through the feeder) {parallel_launches}")
         launches = {name: launches[name] + process_launches[name] + fleet_launches[name] + train_launches[name]
                     + runtime_launches[name] + rl_launches[name] + loop_launches[name]
                     + rl_loop["health_launches"][name] + replay_launches[name]
-                    + anakin_launches[name] + league_launches[name] for name in build.KERNELS}
+                    + anakin_launches[name] + league_launches[name] + parallel_launches[name]
+                    for name in build.KERNELS}
 
         # 9. the kernels line; max_abs_err over the serve shapes and the f32
         # SL, RL and student training shapes
@@ -6283,6 +6587,8 @@ def main(argv=None) -> int:
                           "anakin_window_idle_share": anakin["steady_window"]["idle_share"],
                           "anakin_head_to_head_s": {k: v["seconds"] for k, v in anakin["head_to_head"].items()},
                           "league": league_summary(league),
+                          "parallel": {k: parallel[k] for k in ("group", "step", "ckpt", "feeder",
+                                                                 "ring_max_abs_err", "executor", "seconds")},
                           "phase_seconds": phase_s, "seconds": time.perf_counter() - t_start}))
         print(json.dumps(line))
     except Exception as e:  # every phase failure fails the run

@@ -108,10 +108,20 @@ block cascades over the learner defaults (as ``bin/sl_train.py``'s does);
 ``learner.batch_size``/``unroll_len`` and ``actor.env_num``/``traj_len``
 stand where ``--batch-size``, ``--traj-len`` and ``--env-num`` are not given.
 
+The learner on a mesh (``parallel/``): ``--mesh dp=K,fsdp=M,tp=N,sp=S``
+builds a live mesh over the ranks of the process group for ``--type
+learner`` and ``league-learner`` (league-run passes it on) and turns on
+sharded checkpoints unless ``--no-sharded-ckpt``; ``--dist-method``
+(``single_node``, ``auto``, ``slurm``, ``explicit`` with
+``--dist-coordinator-address``, ``--dist-num-processes``,
+``--dist-process-id``) forms the group (NCCL on CUDA, gloo with ``--device
+cpu``); ``--host-devices N`` runs ``--type learner`` as N gloo ranks on the
+CPU (implies ``--device cpu``), each pulling its own rows of every batch.
+
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP Queue 1
-item (``NOT_PORTED``): the SC2 env, meshes and ``jax.distributed``, the
-coordinator's HA (``--journal-dir``, ``--ha-*``), the league-run's actor-slot
-fleets (``--league-actors-per-player`` above 0).
+item (``NOT_PORTED``): the SC2 env, the coordinator's HA (``--journal-dir``,
+``--ha-*``), the league-run's actor-slot fleets (``--league-actors-per-player``
+above 0).
 
 ``--dynamics-every N`` sets the learners' training-dynamics gauge-export
 stride (``learner.dynamics.every_n``); 0 turns the tree off, as in the JAX
@@ -134,18 +144,12 @@ from ..league import League, LeagueAPIServer, RemoteLeague
 from ..resilience import AlertRemediator, RestartPolicy, Supervisor, supervise_call
 from ..utils import read_config
 
-_MESH = "meshes, sharded checkpoints and jax.distributed are not ported yet (ROADMAP Queue 1 item 7)"
 _HA = "the coordinator's HA is not ported yet (ROADMAP Queue 1 item 11, comm/ha.py)"
 _FLEET = "the league-run's actor-slot fleets are not ported yet (ROADMAP Queue 1 item 10, fleet/)"
 
 # role or flag prefix of the JAX launcher -> why it raises here
 NOT_PORTED = {
     "--env sc2": "the SC2 env is not ported yet (ROADMAP Queue 1 item 10, envs/sc2/)",
-    "--mesh": _MESH,
-    "--host-devices": _MESH,
-    "--sharded-ckpt": _MESH,
-    "--no-sharded-ckpt": _MESH,
-    "--dist-": _MESH,
     "--ha-": _HA,
     "--platform": "the JAX backend switch; the port picks its device with --device",
 }
@@ -220,7 +224,13 @@ def _dynamics_cfg(args, learner: Optional[dict] = None) -> dict:
 
 
 def _learner_cfg(args, model_cfg: dict, load_path: str = "") -> dict:
+    """The learner config of the flags; ``--mesh`` implies the sharded
+    checkpoint layout unless ``--sharded-ckpt``/``--no-sharded-ckpt`` (or
+    the config's learner block) says otherwise, as in the JAX launcher."""
     user = _user_cfg(args).get("learner", {})
+    sharded = getattr(args, "sharded_ckpt", None)
+    if sharded is None:
+        sharded = user.get("sharded_ckpt", bool(getattr(args, "mesh", "")))
     return {
         "common": {"experiment_name": args.experiment_name,
                    **({"save_path": args.save_path} if args.save_path else {})},
@@ -230,6 +240,7 @@ def _learner_cfg(args, model_cfg: dict, load_path: str = "") -> dict:
             **user,
             "batch_size": args.batch_size,
             "unroll_len": args.traj_len,
+            "sharded_ckpt": bool(sharded),
             **({"load_path": load_path} if load_path else {}),
             **_dynamics_cfg(args, user),
         },
@@ -237,15 +248,46 @@ def _learner_cfg(args, model_cfg: dict, load_path: str = "") -> dict:
     }
 
 
-def _make_learner(args, model_cfg: dict, load_path: str = ""):
-    """The RL learner of ``--pipeline``, or with ``--distill`` the student
-    tier's ``DistillLearner`` on the same batch stream."""
+def _dist_from_args(args) -> dict:
+    """Form the default process group the ``--dist-*`` flags describe
+    (``single_node``: a world of one), on ``--device``."""
+    from ..parallel.dist import dist_init
+
+    method = getattr(args, "dist_method", "single_node")
+    return dist_init(method=method, coordinator_address=getattr(args, "dist_coordinator_address", "") or None,
+                     num_processes=getattr(args, "dist_num_processes", None),
+                     process_id=getattr(args, "dist_process_id", None), device=args.device)
+
+
+def _mesh_from_args(args):
+    """``--mesh dp=K,fsdp=M,tp=N,sp=S`` -> a live mesh over the ranks of
+    the process group (formed by ``_dist_from_args`` if none is); None
+    without the flag. A fully given spec claims exactly that many ranks;
+    ``MeshConfigError`` when they do not factor."""
+    if not getattr(args, "mesh", ""):
+        return None
+    import torch.distributed as dist
+
+    from ..parallel import MeshSpec, make_mesh
+
+    _dist_from_args(args)
+    spec = MeshSpec.parse(args.mesh)
+    ranks = list(range(dist.get_world_size()))
+    return make_mesh(spec, ranks[:spec.total()] if spec.dp != -1 else None)
+
+
+def _make_learner(args, model_cfg: dict, load_path: str = "", mesh=None):
+    """The RL learner of ``--pipeline`` on ``mesh`` (default: ``--mesh``'s),
+    or with ``--distill`` the student tier's ``DistillLearner`` on the same
+    batch stream (unsharded, as in the JAX launcher)."""
     cfg = _learner_cfg(args, model_cfg, load_path=load_path)
     if args.distill:
         from ..learner import DistillLearner
 
         return DistillLearner(cfg, device=args.device)
-    return plugins.load_component(args.pipeline, "RLLearner")(cfg, device=args.device)
+    mesh = mesh if mesh is not None else _mesh_from_args(args)
+    cls = plugins.load_component(args.pipeline, "RLLearner")
+    return cls(cfg, device=args.device, **({"mesh": mesh} if mesh is not None else {}))
 
 
 def _plane_cfg(args) -> dict:
@@ -436,10 +478,10 @@ def _learner_replay_client(args, addrs: str):
                                transport=args.transport)
 
 
-def _replay_loader(args, addrs: str, player_id: str):
+def _replay_loader(args, addrs: str, player_id: str, rows: Optional[int] = None):
     from ..learner.rl_dataloader import ReplayDataLoader
 
-    return ReplayDataLoader(_learner_replay_client(args, addrs), player_id, args.batch_size)
+    return ReplayDataLoader(_learner_replay_client(args, addrs), player_id, rows or args.batch_size)
 
 
 @dataclasses.dataclass
@@ -618,38 +660,72 @@ def _addr(s: str):
     return host or "127.0.0.1", int(port)
 
 
+def _learner_rank(rank: int, argv: list) -> None:
+    """One gloo rank of ``--type learner --host-devices N`` (the group is
+    formed by ``parallel.dist.spawn_ranks``)."""
+    args = parser().parse_known_args(argv)[0]
+    _resolve_args(args)
+    args.host_devices, args.device = 0, "cpu"
+    run_learner(args).scalar_sink.close()  # its writer thread must not outlive the rank's exit
+
+
 def run_learner(args):
     from ..learner.rl_dataloader import RLDataLoader
 
+    if args.host_devices:
+        from ..parallel.dist import spawn_ranks
+
+        argv = list(getattr(args, "argv", []))
+        codes = spawn_ranks(_learner_rank, args.host_devices, argv, timeout_s=7 * 24 * 3600.0)
+        bad = [c for c in codes if c != 0]
+        if bad:
+            raise SystemExit(bad[0] if bad[0] is not None else 1)
+        return None
+    info = _dist_from_args(args) if (args.mesh or args.dist_method != "single_node") else {
+        "rank": 0, "world_size": 1}
+    mesh = _mesh_from_args(args)
+    if mesh is None and info["world_size"] > 1:
+        from ..parallel import MeshSpec, make_mesh
+
+        mesh = make_mesh(MeshSpec())  # the JAX learner's default: dp over every rank
+    lead = info["rank"] == 0
     league = RemoteLeague(*_addr(args.league_addr)) if args.league_addr else None
     adapter = Adapter(coordinator_addr=_addr(args.coordinator_addr))
     health = _init_health(args, roles=("learner", "trace") + (("distill",) if args.distill else ()),
-                          source=f"{'distill' if args.distill else 'learner'}:{args.player_id}:0",
+                          source=f"{'distill' if args.distill else 'learner'}:{args.player_id}:"
+                                 f"{info['rank']}",
                           shipper_addr=_addr(args.coordinator_addr))
     metrics = _maybe_serve_metrics(args)
     model_cfg = _model_cfg(args)
     load_path = ""
     if league is not None:
-        reply = league.register_learner(args.player_id, rank=0, world_size=1)
+        reply = league.register_learner(args.player_id, rank=info["rank"], world_size=info["world_size"])
         # resume from the league-assigned player checkpoint where it exists
         ckpt = reply.get("checkpoint_path", "")
         if ckpt and os.path.exists(ckpt):
             load_path = ckpt
-    learner = _make_learner(args, model_cfg, load_path=load_path)
+    learner = _make_learner(args, model_cfg, load_path=load_path, mesh=mesh)
     if not load_path and not args.no_supervise:
         # a restarted learner process picks up its own latest pointer
         path = learner.resume_latest()
-        print(f"rl_train resume: {path or 'cold'} iter {learner.last_iter.val}", flush=True)
+        if lead:
+            print(f"rl_train resume: {path or 'cold'} iter {learner.last_iter.val}", flush=True)
+    # on several ranks each batch block pulls its own rows (the multi-host
+    # path): the loaders' batch is the block's share of the mesh the
+    # learner fitted, and a block's tp x sp replicas train on what its
+    # first rank pulls
+    local, rows = info["world_size"] > 1, learner.local_batch_size
     if args.replay_addr:
         # batches from the replay table(s) instead of the pull cache
-        learner.set_dataloader(_replay_loader(args, args.replay_addr, args.player_id))
+        learner.set_dataloader(_replay_loader(args, args.replay_addr, args.player_id, rows), local=local)
     else:
-        learner.set_dataloader(RLDataLoader(adapter, args.player_id, args.batch_size))
-    if not args.distill:
+        learner.set_dataloader(RLDataLoader(adapter, args.player_id, rows), local=local)
+    if not args.distill and lead:
         learner.attach_comm(adapter, args.player_id, league=league)
     _run_learner_supervised(args, learner, args.iters)
     _close_health(health, metrics)
-    print(f"learner done: {learner.last_iter.val} iters", flush=True)
+    if lead:
+        print(f"learner done: {learner.last_iter.val} iters", flush=True)
     return learner
 
 
@@ -925,7 +1001,9 @@ def build_league_learner(args):
         cfg["common"].get("save_path") or os.path.join(experiments_root(), args.experiment_name),
         player_id)
     cfg["learner"]["ckpt_role"] = player_id
-    learner = plugins.load_component(args.pipeline, "RLLearner")(cfg, device=args.device)
+    mesh = _mesh_from_args(args)
+    learner = plugins.load_component(args.pipeline, "RLLearner")(
+        cfg, device=args.device, **({"mesh": mesh} if mesh is not None else {}))
     learner.cfg.learner["prefetch_depth"] = 0
     jcfg, scfg = _jaxenv_cfgs(args)
     runner = AnakinRunner(learner.model, batch_size=args.batch_size, unroll_len=args.traj_len,
@@ -1004,6 +1082,8 @@ def run_league_run(args) -> dict:
              "--experiment-name", args.experiment_name, *_model_flags(args)]
     if args.device:
         extra += ["--device", args.device]
+    if args.mesh:
+        extra += ["--mesh", args.mesh]
     if args.no_health:
         extra += ["--no-health"]
     if args.no_supervise:
@@ -1052,6 +1132,21 @@ def parser() -> argparse.ArgumentParser:
                    help="default_model_config() at full width and depth")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; raises without CUDA unless 'cpu')")
+    p.add_argument("--mesh", default="",
+                   help="learner device mesh, e.g. 'dp=2,fsdp=2' over the process group's ranks "
+                        "(--type learner, league-learner; implies sharded checkpoints)")
+    p.add_argument("--sharded-ckpt", action="store_true", default=None,
+                   help="checkpoint as one CRC'd blob per parameter shard + manifest (default: on "
+                        "with --mesh)")
+    p.add_argument("--no-sharded-ckpt", dest="sharded_ckpt", action="store_false")
+    p.add_argument("--host-devices", type=int, default=0,
+                   help="--type learner as N gloo ranks on the CPU (implies --device cpu)")
+    p.add_argument("--dist-method", default="single_node",
+                   choices=["auto", "slurm", "single_node", "explicit"])
+    p.add_argument("--dist-coordinator-address", default="",
+                   help="host:port of rank 0's store (explicit mode)")
+    p.add_argument("--dist-num-processes", type=int, default=None)
+    p.add_argument("--dist-process-id", type=int, default=None)
     p.add_argument("--port", type=int, default=0, help="coordinator and league roles: listen port")
     p.add_argument("--lease-s", type=float, default=0.0,
                    help="coordinator role: default registration lease (0: none)")
@@ -1176,8 +1271,20 @@ def _refuse_not_ported(args, unknown) -> None:
 
 
 def main(argv: Optional[Sequence[str]] = None):
+    argv = list(sys.argv[1:] if argv is None else argv)
     args, unknown = parser().parse_known_args(argv)
     _refuse_not_ported(args, unknown)
+    if args.dist_method == "explicit" and not (args.dist_coordinator_address and args.dist_num_processes is not None
+                                               and args.dist_process_id is not None):
+        raise SystemExit("--dist-method explicit requires --dist-coordinator-address, "
+                         "--dist-num-processes and --dist-process-id")
+    if args.host_devices:
+        if args.type != "learner":
+            raise SystemExit("--host-devices runs --type learner as N gloo ranks on the CPU")
+        # the ranks' own argv: this one without --host-devices N
+        args.argv = [a for i, a in enumerate(argv)
+                     if a != "--host-devices" and not a.startswith("--host-devices=")
+                     and (i == 0 or argv[i - 1] != "--host-devices")]
     if args.type not in ROLES:
         raise SystemExit(f"rl_train: --type must be one of {', '.join(ROLES)}, got {args.type!r}")
     if args.journal_dir and not (args.type == "league-run" and args.journal_dir.lower() == "none"):

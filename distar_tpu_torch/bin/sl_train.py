@@ -28,10 +28,16 @@ and trace rules, its crash bundles land under ``<save-path>/flight``, and
 with ``--remote`` it ships its snapshots to ``--coordinator-addr`` every
 5 s.
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP Queue
-1 item: the replay actor role (it needs the SC2 replay decoder), and meshes
-and sharded checkpoints (``--mesh``). ``--dynamics-every`` is the JAX
-launcher's (``rl_train._dynamics_cfg``).
+``--mesh dp=K,fsdp=M,tp=N,sp=S`` trains on a live mesh over the process
+group's ranks and turns on sharded checkpoints unless ``--no-sharded-ckpt``;
+``--host-devices N`` runs the learner as N gloo ranks on the CPU (implies
+``--device cpu``; with the fake dataloader or ``--data`` every rank reads
+the same global batches and takes its rows, with ``--remote`` each pulls
+its own). Only rank 0 prints.
+
+Not ported yet, raising ``NotImplementedError`` with its ROADMAP Queue 1
+item: the replay actor role (it needs the SC2 replay decoder).
+``--dynamics-every`` is the JAX launcher's (``rl_train._dynamics_cfg``).
 
 ``--config`` takes what the JAX launcher's does, a YAML file, and also a JSON
 file or an inline JSON object. Its ``model`` block replaces the smoke model
@@ -55,12 +61,12 @@ from ..learner.sl_dataloader import ReplayDataset, SLDataloader
 from ..ops import kernels
 from ..resilience import RestartPolicy, supervise_call
 from ..utils import read_config
-from .rl_train import _close_health, _dynamics_cfg, _init_health, _on_stop_signals, _restore_signals
+from .rl_train import (_close_health, _dynamics_cfg, _init_health, _mesh_from_args, _on_stop_signals,
+                       _restore_signals)
 
 NOT_PORTED = {
     "--type replay_actor": "the replay actor role needs the SC2 replay decoder, not ported yet "
                            "(ROADMAP Queue 1 item 10)",
-    "--mesh": "meshes and sharded checkpoints are not ported yet (ROADMAP Queue 1 item 7)",
 }
 
 # the JAX launchers' smoke model (distar_tpu/bin/rl_train.py SMOKE_MODEL)
@@ -91,6 +97,10 @@ def build_learner(args, dataloader: Optional[Iterable] = None) -> SLLearner:
     learner_cfg = user_cfg.get("learner", {})
     batch_size = args.batch_size or int(learner_cfg.get("batch_size", 2))
     unroll_len = args.traj_len or int(learner_cfg.get("unroll_len", 8))
+    sharded = args.sharded_ckpt
+    if sharded is None:
+        sharded = learner_cfg.get("sharded_ckpt", bool(args.mesh))
+    mesh = _mesh_from_args(args)
     lrn = SLLearner(
         {
             "common": {"experiment_name": args.experiment_name,
@@ -101,11 +111,13 @@ def build_learner(args, dataloader: Optional[Iterable] = None) -> SLLearner:
                 **learner_cfg,
                 "batch_size": batch_size,
                 "unroll_len": unroll_len,
+                "sharded_ckpt": bool(sharded),
                 **_dynamics_cfg(args, learner_cfg),
             },
             "model": user_cfg.get("model", SMOKE_MODEL if args.smoke_model else {}),
         },
         device=args.device,
+        mesh=mesh,
     )
     if dataloader is not None:
         lrn.set_dataloader(dataloader)
@@ -117,7 +129,11 @@ def build_learner(args, dataloader: Optional[Iterable] = None) -> SLLearner:
 
         host, _, port = args.coordinator_addr.rpartition(":")
         adapter = Adapter(coordinator_addr=(host or "127.0.0.1", int(port)))
-        lrn.set_dataloader(RemoteSLDataloader(adapter, batch_size, unroll_len))
+        # on several ranks each batch block pulls its own trajectories (its
+        # share of the mesh the learner fitted), and a block's tp x sp
+        # replicas train on what its first rank pulls
+        local = lrn.mesh is not None and lrn.mesh.devices.size > 1
+        lrn.set_dataloader(RemoteSLDataloader(adapter, lrn.local_batch_size, unroll_len), local=local)
     if args.eval_data:
         eval_freq = args.eval_freq or max(args.iters // 8, 1)
         eval_batches = max(args.eval_batches, 1)  # 0 would drain an endless sampler
@@ -145,11 +161,13 @@ def learner(args, dataloader: Optional[Iterable] = None) -> SLLearner:
     health = _init_health(args, roles=("learner", "trace"), source="sl_learner",
                           shipper_addr=(host or "127.0.0.1", int(port)) if args.remote else None)
     lrn = build_learner(args, dataloader)
+    lead = lrn.rank == 0
     if not args.no_supervise:
         path = lrn.resume_latest()
         skipped = lrn.metrics.snapshot().get("distar_resilience_ckpt_fallbacks_total", 0)
-        print(f"sl_train resume: {path or 'cold'} iter {lrn.last_iter.val} skipped {int(skipped)}",
-              flush=True)
+        if lead:
+            print(f"sl_train resume: {path or 'cold'} iter {lrn.last_iter.val} skipped {int(skipped)}",
+                  flush=True)
     if args.admin_port is not None:
         admin = lrn.start_admin(port=args.admin_port)
         print(f"learner admin on http://{admin.host}:{admin.port}/learner/status", flush=True)
@@ -167,10 +185,18 @@ def learner(args, dataloader: Optional[Iterable] = None) -> SLLearner:
                        on_restart=resume)
     _close_health(health)
     log = lrn.last_log
-    print(f"sl_train done: {lrn.last_iter.val} iters, loss={log.get('total_loss', float('nan')):.4f}, "
-          f"action_type_acc={log.get('action_type_acc', float('nan')):.4f}, "
-          f"launches={json.dumps(kernels.launch_counts)}", flush=True)
+    if lead:
+        print(f"sl_train done: {lrn.last_iter.val} iters, loss={log.get('total_loss', float('nan')):.4f}, "
+              f"action_type_acc={log.get('action_type_acc', float('nan')):.4f}, "
+              f"launches={json.dumps(kernels.launch_counts)}", flush=True)
     return lrn
+
+
+def _learner_rank(rank: int, argv: list) -> None:
+    """One gloo rank of ``--host-devices N``."""
+    args = parser().parse_args(argv)
+    args.host_devices, args.device = 0, "cpu"
+    learner(args).scalar_sink.close()  # its writer thread must not outlive the rank's exit
 
 
 def coordinator(args) -> None:
@@ -231,7 +257,15 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--no-health", action="store_true",
                    help="no fleet health: no time-series sampler, rulebook, telemetry shipping or crash "
                         "recorder")
-    p.add_argument("--mesh", default="", help=NOT_PORTED["--mesh"])
+    p.add_argument("--mesh", default="",
+                   help="device mesh, e.g. 'dp=2,fsdp=2', over the process group's ranks (implies "
+                        "sharded checkpoints)")
+    p.add_argument("--host-devices", type=int, default=0,
+                   help="run the learner as N gloo ranks on the CPU (implies --device cpu)")
+    p.add_argument("--sharded-ckpt", action="store_true", default=None,
+                   help="checkpoint as one CRC'd blob per parameter shard + manifest (default: on "
+                        "with --mesh)")
+    p.add_argument("--no-sharded-ckpt", dest="sharded_ckpt", action="store_false")
     p.add_argument("--dynamics-every", type=int, default=None,
                    help="training-dynamics gauge-export stride (learner dynamics.every_n); 0 turns the "
                         "in-step tree off; default: the learner config's")
@@ -239,12 +273,24 @@ def parser() -> argparse.ArgumentParser:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Optional[SLLearner]:
+    import sys
+
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parser().parse_args(argv)
-    for flag, given in (("--type replay_actor", args.type == "replay_actor"), ("--mesh", args.mesh)):
-        if given:
-            raise NotImplementedError(f"{flag}: {NOT_PORTED[flag]}")
+    if args.type == "replay_actor":
+        raise NotImplementedError(f"--type replay_actor: {NOT_PORTED['--type replay_actor']}")
     if args.type == "coordinator":
         coordinator(args)
+        return None
+    if args.host_devices:
+        from ..parallel.dist import spawn_ranks
+
+        ranks_argv = [a for i, a in enumerate(argv) if a != "--host-devices"
+                      and not a.startswith("--host-devices=") and (i == 0 or argv[i - 1] != "--host-devices")]
+        codes = spawn_ranks(_learner_rank, args.host_devices, ranks_argv, timeout_s=7 * 24 * 3600.0)
+        bad = [c for c in codes if c != 0]
+        if bad:
+            raise SystemExit(bad[0] if bad[0] is not None else 1)
         return None
     return learner(args)
 

@@ -20,8 +20,17 @@ learner), the step phases, and an on-demand profile
 (``request_profile``, the admin ``profile`` route) started and stopped at
 iteration boundaries.
 
-Not ported yet, raising ``NotImplementedError`` with its ROADMAP Queue 1
-item: sharded checkpoints (item 7).
+On a mesh (``mesh=``, ``parallel.make_mesh``) the learner is one rank of
+the ``torch.distributed`` group: ``rank`` is the process rank, the batch
+is cut to this rank's rows, gradients are summed over the batch extent and
+the optimizer state is split by ``parallel.spmd.ShardPlan``; the step
+equals the single-process step on the whole batch. With
+``learner.sharded_ckpt`` checkpoints are ``parallel.ckpt`` directories:
+the snapshot is taken in the foreground (each rank its own shards), the
+blobs are written on the async writer, rank 0 writes the manifest after a
+barrier and alone records the ``latest`` pointer; a restore onto another
+mesh shape counts ``distar_ckpt_reshards_total``. The prefetch wrapper is
+``parallel.ShardFeeder``.
 """
 from __future__ import annotations
 
@@ -44,6 +53,8 @@ from ..obs import (
 )
 from ..obs.perf import to_meta
 from ..parallel import GradClipConfig, build_optimizer
+from ..parallel.mesh import ONE_DEVICE
+from ..parallel.spmd import make_plan
 from ..utils import Config, EasyTimer, build_logger, deep_merge_dicts
 from ..utils.checkpoint import (
     AsyncCheckpointer,
@@ -76,7 +87,8 @@ DEFAULT_LEARNER_CONFIG = Config(
             "load_path": "",
             "max_iterations": 10 ** 9,
             "grad_clip": {"type": "none", "threshold": 1.0},
-            # one CRC'd blob per parameter shard (ROADMAP Queue 1 item 7)
+            # one CRC'd blob per parameter shard + layout manifest
+            # (parallel/ckpt.py), restorable onto any mesh; --mesh turns it on
             "sharded_ckpt": False,
             # the profiler hook: every profile.freq iterations capture
             # profile.duration iterations of torch.profiler trace (0 = off)
@@ -126,17 +138,15 @@ class BaseLearner:
 
     _CAP_FN = None
     CKPT_ROLE = ""
-    rank = 0  # one process
     # the parameters' init seed, recorded in black-box bundles
     init_prng_seed = 0
 
-    def __init__(self, cfg: Optional[dict] = None, device=None):
+    def __init__(self, cfg: Optional[dict] = None, device=None, mesh=None):
         self.cfg = deep_merge_dicts(DEFAULT_LEARNER_CONFIG, cfg or {})
         lc = self.cfg.learner
-        if lc.get("sharded_ckpt"):
-            raise NotImplementedError("learner.sharded_ckpt: sharded checkpoints are not ported yet "
-                                      "(ROADMAP Queue 1 item 7, parallel/ckpt.py)")
         self.device = resolve_device(device)
+        self.mesh = self._fit_mesh(mesh)
+        self.rank = self.mesh.rank if self.mesh is not None else 0
         root = self.cfg.common.save_path or os.path.join(experiments_root(),
                                                          self.cfg.common.experiment_name)
         self.save_dir = root
@@ -174,19 +184,55 @@ class BaseLearner:
         self._pending_save = False
         self._stop_requested = False
         self._dataloader = None
+        self._local_rows = False
+        self._feed = None  # spmd.ReplicaFeed of a per-rank loader under tp x sp
         self._setup_dataloader()
         self._setup_state()
+        if self.mesh is not None:
+            # the analytic per-step collective estimate from the live mesh
+            self._perf.set_collectives(self.mesh, list(self.model.parameters()))
 
     @property
     def name(self) -> str:
         return type(self).__name__.lower()
 
+    def _fit_mesh(self, mesh):
+        """``mesh`` shrunk (``shrink_dp``) until its batch extent divides
+        ``learner.batch_size``, declared as the context mesh (ring
+        attention reads its sp group); None stays None."""
+        from ..parallel.mesh import MeshConfigError, batch_sharding, set_context_mesh, shrink_dp
+
+        if mesh is None:
+            return None
+        B = int(self.cfg.learner.get("batch_size") or 1)
+        fitted = shrink_dp(mesh, B)
+        if fitted is not mesh:
+            print(f"batch {B} not divisible by mesh dp={mesh.shape['dp']}; shrunk to "
+                  f"dp={fitted.shape['dp']} (other axes preserved)", flush=True)
+        if fitted.coords is None:
+            raise MeshConfigError(f"rank {fitted.rank} is outside the mesh {fitted.shape} that "
+                                  f"batch {B} fits")
+        batch_sharding(fitted, batch_size=B)
+        set_context_mesh(fitted)
+        return fitted
+
+    @property
+    def local_batch_size(self) -> int:
+        """The rows of each batch this rank trains on."""
+        from ..parallel.mesh import dp_extent
+
+        B = int(self.cfg.learner.batch_size)
+        return B if self.mesh is None else B // dp_extent(self.mesh)
+
     def _build_optimizer(self, params: Iterable[torch.Tensor]):
         """learning_rate, betas, eps, weight_decay and the ``grad_clip``
-        block of the learner config, through ``parallel.build_optimizer``."""
+        block of the learner config, through ``parallel.build_optimizer``;
+        on a mesh that splits parameters, with its ``ShardPlan``."""
         lc = self.cfg.learner
+        params = list(params)
         return build_optimizer(
             params,
+            plan=make_plan(self.model, params, self.mesh),
             learning_rate=lc.learning_rate,
             betas=tuple(lc.get("betas", (0.0, 0.99))),
             eps=lc.get("eps", 1e-5),
@@ -244,15 +290,72 @@ class BaseLearner:
     def checkpoint_path(self) -> str:
         return os.path.join(self.save_dir, "checkpoints", f"iteration_{self.last_iter.val}.ckpt")
 
+    def _sharded_state(self) -> dict:
+        """``state`` for a sharded checkpoint, taken without a collective:
+        the parameters whole, the moments as this rank's blocks
+        (``parallel.ckpt.LocalShard`` in flax layout) where the optimizer is
+        split, whole otherwise."""
+        from ..model.convert import flax_layout, params_to_flax
+        from ..parallel.ckpt import LocalShard
+
+        opt = self.optimizer
+        if opt.plan is None:
+            return self.state
+        names = {id(p): n for n, p in self.model.named_parameters()}
+        trees = [params_to_flax(self.model)]
+        for blocks in (opt.mu, opt.nu):
+            tree: dict = {}
+            for p, block in zip(opt.params, blocks):
+                path, perm = flax_layout(self.model, names[id(p)])
+                data = block.detach() if perm is None else block.detach().permute(perm)
+                shape = p.shape if perm is None else tuple(p.shape[d] for d in perm)
+                node = tree.setdefault("params", {})
+                for k in path[:-1]:
+                    node = node.setdefault(k, {})
+                node[path[-1]] = LocalShard(data.float().cpu().numpy(), shape)
+            trees.append(tree)
+        return learner_state_to_flax(self.model, opt, trees=tuple(trees))
+
+    def _ckpt_barrier(self) -> None:
+        group = getattr(self.mesh, "ckpt_group", None)
+        if group is not None:
+            import torch.distributed as dist
+
+            dist.barrier(group=group)
+
     def save(self, path: str, sync: bool = False) -> None:
         """Checkpoint the learner state with ``{"last_iter"}``. By default
         (``learner.async_save``) the host copy is taken here and the write
         runs on a background thread; ``sync`` writes before returning. The
-        ``latest`` pointer names ``path`` only once its bytes are durable."""
+        ``latest`` pointer names ``path`` only once its bytes are durable,
+        and only rank 0 records it. With ``learner.sharded_ckpt`` the
+        checkpoint is a ``parallel.ckpt`` directory (every rank its shards);
+        a whole checkpoint on a mesh is written by rank 0 alone."""
+        from ..parallel import ckpt as sharded
+
         step = self.last_iter.val
-        self._checkpointer.save(path, self, metadata={"last_iter": step},
-                                snapshot_fn=lambda learner: learner.state,
-                                on_complete=lambda p: self._ckpt_manager.record(p, step=step))
+        lead = self.rank == 0
+
+        def publish(p):
+            if lead:
+                self._ckpt_manager.record(p, step=step)
+
+        if self.cfg.learner.get("sharded_ckpt", False):
+            def snapshot(learner):
+                return sharded.snapshot_sharded(learner._sharded_state(), learner.mesh or ONE_DEVICE)
+
+            def write(p, snap, meta):
+                sharded.write_sharded(p, snap, meta, barrier=self._ckpt_barrier)
+                publish(p)
+                self._ckpt_barrier()  # no rank returns before the generation is published
+            on_complete = None
+        else:
+            def snapshot(learner):
+                return learner.state
+            write = None if lead else (lambda p, snap, meta: None)
+            on_complete = publish
+        self._checkpointer.save(path, self, metadata={"last_iter": step}, snapshot_fn=snapshot,
+                                write_fn=write, on_complete=on_complete)
         if sync or not self.cfg.learner.get("async_save", True):
             self._checkpointer.wait()
 
@@ -265,6 +368,13 @@ class BaseLearner:
         target = self.state
         out = load_checkpoint(path, target=target)
         self._validate_restored(path, out["state"], target)
+        saved = (out.get("sharding_layout") or {}).get("mesh_shape")
+        live = dict((self.mesh or ONE_DEVICE).shape)
+        if saved and dict(saved) != live:
+            # the resharding restore: host-global arrays placed on another layout
+            self.metrics.counter("distar_ckpt_reshards_total",
+                                 "sharded checkpoints restored onto a different mesh shape").inc()
+            self.logger.info(f"resharding restore: checkpoint mesh {saved} -> live mesh {live}")
         load_learner_state(out["state"], self.model, self.optimizer)
         self.last_iter.update(out["metadata"].get("last_iter", 0))
 
@@ -326,20 +436,39 @@ class BaseLearner:
     def _place_batch(self, batch):  # overridden by learners that prefetch
         return batch
 
-    def set_dataloader(self, it) -> None:
+    def set_dataloader(self, it, local: bool = False) -> None:
         """Train on ``it`` from the next step (a prefetcher of the old
-        loader is closed)."""
+        loader is closed). ``local``: on a mesh, its batches are this
+        rank's rows already (each rank pulls its own, the multi-host path
+        of ``parallel.assemble_global``), not global batches to cut."""
+        from ..parallel.spmd import replica_feed
+
         if isinstance(self._dataloader, DevicePrefetcher):
             self._dataloader.close()
-        self._dataloader = iter(it)
+        self._local_rows = local
+        # ranks that differ only in tp or sp train on one batch: of a
+        # per-rank loader only the block's first rank reads
+        self._feed = replica_feed(self.mesh, self.device) if local else None
+        self._dataloader = iter(it) if self._feed is None or self._feed.lead else None
+
+    def _next_batch(self):
+        """The next batch of the dataloader (on a tp x sp replica of a
+        per-rank loader, the one its block's first rank read)."""
+        if self._feed is None:
+            return next(self._dataloader)
+        return self._feed.next(self._dataloader)
 
     def _maybe_enable_prefetch(self) -> None:
-        """Wrap the dataloader in a ``DevicePrefetcher`` placing batches with
-        ``_place_batch`` ``learner.prefetch_depth`` (default 2; 0 turns it
-        off) ahead. A prefetcher spent by an error is replaced by a new one
+        """Wrap the dataloader in a ``parallel.ShardFeeder`` placing batches
+        with ``_place_batch`` ``learner.prefetch_depth`` (default 2; 0 turns
+        it off) ahead. A feeder spent by an error is replaced by a new one
         on the same source, so a resumed run reads on."""
+        from ..parallel.feeder import ShardFeeder
+
         depth = int(self.cfg.learner.get("prefetch_depth", 2))
         current = self._dataloader
+        if current is None:  # a replica that reads no loader of its own
+            return
         if isinstance(current, DevicePrefetcher):
             if not current.failed:
                 return
@@ -347,8 +476,8 @@ class BaseLearner:
             self._dataloader = current.source
         if depth <= 0 or type(self)._place_batch is BaseLearner._place_batch:
             return
-        self._dataloader = DevicePrefetcher(self._dataloader, self._place_batch, depth=depth,
-                                            device=self.device)
+        self._dataloader = ShardFeeder(self._dataloader, self._place_batch, depth=depth,
+                                       token=self.name, device=self.device)
 
     # ----------------------------------------------------------------- admin
     def start_admin(self, port: int = 0):
@@ -470,7 +599,7 @@ class BaseLearner:
             self.hooks.call("before_run", self)
             while self.last_iter.val < max_iterations and not self._stop_requested:
                 with self.timer:
-                    data = next(self._dataloader)
+                    data = self._next_batch()
                 t_data = self.timer.value
                 self.log_buffer["data_time"] = t_data
                 self.hooks.call("before_iter", self)
@@ -489,7 +618,7 @@ class BaseLearner:
                     # the batch is read only if a bundle is written
                     self._dynamics.on_step(self, log_vars, data)
                     self.last_iter.add(1)
-                    if self.last_iter.val % log_freq == 0:
+                    if self.last_iter.val % log_freq == 0 and self.rank == 0:
                         scalars = {k: v for k, v in log_vars.items() if "/" not in k}
                         print(json.dumps({"learner": self.name, "iter": self.last_iter.val,
                                           "train_time": t_train, **scalars}), flush=True)

@@ -99,7 +99,7 @@ def make_distill_train_step(model: Model, loss_cfg: DistillLossConfig, optimizer
             info.update(tree.before_update(params, grads, batch))
         update, lr = optimizer.step(grads)
         if tree is not None:
-            info.update(tree.after_update(update, lr))
+            info.update(tree.after_update(optimizer.whole(update), lr))
         return info
 
     return train_step
@@ -107,12 +107,13 @@ def make_distill_train_step(model: Model, loss_cfg: DistillLossConfig, optimizer
 
 class DistillLearner(BaseLearner):
     """The student-tier learner on one device (``device=None``: CUDA, or
-    raise)."""
+    raise). ``mesh`` is accepted, as the JAX learner accepts it for the
+    launchers' sake, and not used: the student's step runs unsharded."""
 
     _CAP_FN = staticmethod(cap_entities_rl)
     CKPT_ROLE = "student"
 
-    def __init__(self, cfg: Optional[dict] = None, device=None):
+    def __init__(self, cfg: Optional[dict] = None, device=None, mesh=None):
         cfg = deep_merge_dicts(DISTILL_LEARNER_DEFAULTS, cfg or {})
         self.model_cfg = student_model_config(cfg.get("model", {}))
         self.model_cfg.use_value_network = False

@@ -70,17 +70,20 @@ class LoadCkptHook(Hook):
 
 
 class SaveCkptHook(Hook):
-    """after_iter every ``freq`` steps, and after_run: save a checkpoint."""
+    """after_iter every ``freq`` steps, and after_run: rank 0 saves a
+    checkpoint. On a mesh every rank saves: each writes its shards of a
+    sharded checkpoint, and rank 0 alone a whole one (``BaseLearner.save``)."""
 
     def __init__(self, position="after_iter", priority=20, freq=1000):
         super().__init__("save_ckpt", position, priority, freq)
 
     def __call__(self, learner) -> None:
-        if learner.rank != 0:
+        if learner.rank != 0 and getattr(learner, "mesh", None) is None:
             return
         path = learner.checkpoint_path()
         learner.save(path)
-        learner.logger.info(f"saved checkpoint {path}")
+        if learner.rank == 0:
+            learner.logger.info(f"saved checkpoint {path}")
 
 
 class LogShowHook(Hook):

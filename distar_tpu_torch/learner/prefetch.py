@@ -1,9 +1,9 @@
 """Host-to-device prefetch: the next batch is collated and copied while the
 current step trains.
 
-Counterpart of ``distar_tpu.learner.prefetch`` (the JAX learner wraps its
-loader in ``parallel.feeder.ShardFeeder``, ROADMAP Queue 1 item 7; on one
-device the port's learner uses this class). A producer thread pulls host
+Counterpart of ``distar_tpu.learner.prefetch``; the learners wrap their
+loader in its subclass ``parallel.ShardFeeder`` (the JAX learners' wrapper,
+with the ``distar_feeder_*`` series). A producer thread pulls host
 batches and places them, at most ``depth`` ahead. On CUDA the placing is
 ``place_on``: each array is copied into pinned host memory and sent with
 ``non_blocking=True`` on a side stream of the prefetcher's own, and an

@@ -14,8 +14,10 @@ off): the capped, float32 batch on the device from pinned memory on a side
 stream, ``model_last_iter`` and the trace fields left on the host.
 
 Each step also computes the training-dynamics tree (``obs/dynamics.py``;
-``learner.dynamics``). Not ported yet, raising ``NotImplementedError``:
-``shard_batch`` and meshes (ROADMAP Queue 1 item 7).
+``learner.dynamics``). On a mesh (``mesh=``) ``shard_batch`` takes this
+rank's rows (B over dp x fsdp; T stays whole on every rank), the model
+runs on them, and its outputs and the loss's inputs are gathered back to
+the whole batch before the loss (``parallel.spmd``).
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from ..model import Model, default_model_config, init_params
 from ..model.convert import flax_names, params_to_flax
 from ..obs.dynamics import DynamicsTree
 from ..parallel.grad_clip import global_norm, leaf_norms
+from ..parallel.spmd import all_reduce_sum, gather_rows, reduce_info, take_rows
 from ..utils import deep_merge_dicts
 from .base_learner import DEFAULT_LEARNER_CONFIG, BaseLearner, host_scalars
 from .hooks import LambdaHook
@@ -81,9 +84,11 @@ def flatten_time(tree):
 
 
 def rl_loss(model: Model, loss_cfg: ReinforcementLossConfig, batch, batch_size: int,
-            unroll_len: int):
+            unroll_len: int, mesh=None):
     """(total loss, info) of one RL batch; ``info["td/total"]`` is the
-    critic's loss alone."""
+    critic's loss alone. On a ``mesh`` ``batch`` holds this rank's
+    ``batch_size`` rows, and the loss is the whole batch's (its inputs
+    gathered over the batch extent along B)."""
     value_feature = batch.get("value_feature")
     out = model.rl_forward(
         flatten_time(batch["spatial_info"]), flatten_time(batch["entity_info"]),
@@ -106,12 +111,13 @@ def rl_loss(model: Model, loss_cfg: ReinforcementLossConfig, batch, batch_size: 
     }
     if loss_cfg.use_dapo:
         inputs["successive_logit"] = batch["successive_logit"]
+    inputs = gather_rows(inputs, 1, mesh)
     return compute_rl_loss(inputs, dataclasses.replace(loss_cfg, only_update_value=False))
 
 
 def make_rl_train_step(model: Model, loss_cfg: ReinforcementLossConfig, optimizer,
                        batch_size: int, unroll_len: int, save_grad: bool = False,
-                       dynamics=None):
+                       dynamics=None, mesh=None):
     """``train_step(batch, only_update_value=False) -> info``: the full
     loss's info, its gradient (with ``only_update_value``, the gradient of
     ``td/total`` alone: the critic trains and every parameter outside its
@@ -125,11 +131,14 @@ def make_rl_train_step(model: Model, loss_cfg: ReinforcementLossConfig, optimize
     params = optimizer.params
     names = list(flax_names(model).values()) if save_grad else None
     tree = DynamicsTree(model, params, dynamics) if dynamics is not None else None
+    batch_group = mesh.group("batch") if mesh is not None else None
 
     def train_step(batch, only_update_value: bool = False):
-        total, info = rl_loss(model, loss_cfg, batch, batch_size, unroll_len)
+        total, info = rl_loss(model, loss_cfg, batch, batch_size, unroll_len, mesh=mesh)
         loss = info["td/total"] if only_update_value else total
         grads = list(torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True))
+        # each rank's rows' share, summed: the whole batch's gradient
+        all_reduce_sum(grads, batch_group)
         info = {k: torch.as_tensor(v).detach() for k, v in info.items()}
         info["grad_norm"] = global_norm(grads)
         if save_grad:
@@ -137,9 +146,10 @@ def make_rl_train_step(model: Model, loss_cfg: ReinforcementLossConfig, optimize
             info.update(leaf_norms(dict(zip(names, params)), "param_norm"))
         if tree is not None:
             info.update(tree.before_update(params, grads, batch))
+            reduce_info(info, "dyn/nonfinite_batch/", mesh)
         update, lr = optimizer.step(grads)
         if tree is not None:
-            info.update(tree.after_update(update, lr))
+            info.update(tree.after_update(optimizer.whole(update), lr))
         return info
 
     return train_step
@@ -151,11 +161,12 @@ def _is_critic(name: str) -> bool:
 
 
 class RLLearner(BaseLearner):
-    """The league-RL learner on one device (``device=None``: CUDA, or raise)."""
+    """The league-RL learner on one device (``device=None``: CUDA, or
+    raise), or one rank of a ``mesh``."""
 
     _CAP_FN = staticmethod(cap_entities_rl)
 
-    def __init__(self, cfg: Optional[dict] = None, device=None):
+    def __init__(self, cfg: Optional[dict] = None, device=None, mesh=None):
         cfg = deep_merge_dicts(RL_LEARNER_DEFAULTS, cfg or {})
         self.model_cfg = deep_merge_dicts(default_model_config(), cfg.get("model", {}))
         self.model_cfg.use_value_network = True
@@ -164,7 +175,7 @@ class RLLearner(BaseLearner):
         self._pending_config_patch = None
         self._pending_value_reset = False
         self._last_span_ids = []
-        super().__init__(cfg, device)
+        super().__init__(cfg, device, mesh=mesh)
 
     # ------------------------------------------------------------ state init
     def _setup_dataloader(self) -> None:
@@ -184,9 +195,9 @@ class RLLearner(BaseLearner):
         lc = self.cfg.learner
         self.optimizer = self._build_optimizer(self.model.parameters())
         self._train_step = make_rl_train_step(self.model, self.loss_cfg, self.optimizer,
-                                              lc.batch_size, lc.unroll_len,
+                                              self.local_batch_size, lc.unroll_len,
                                               save_grad=lc.get("save_grad", False),
-                                              dynamics=self._dynamics_spec())
+                                              dynamics=self._dynamics_spec(), mesh=self.mesh)
 
     def _place_batch(self, batch):
         """The prefetcher's placing: the capped batch, cast as the step
@@ -197,14 +208,31 @@ class RLLearner(BaseLearner):
         for k in ("trace_span_ids", "trace_age_s"):
             if k in batch:
                 host[k] = batch.pop(k)
-        out = place_on(as_float32(self._cap(batch)), self.device)
+        out = self.shard_batch(self._cap(batch))
         out.update(host)
         out["_on_device"] = True
         return out
 
+    def _rows(self, batch):
+        """This rank's rows of a global host batch: B is axis 1 of the
+        time-major leaves and axis 0 of ``hidden_state`` (the whole batch
+        without a mesh; the batch as it is from a ``local`` loader)."""
+        if self.mesh is None:
+            return batch
+        B, local = int(self.cfg.learner.batch_size), self._local_rows
+        batch = dict(batch)
+        hidden = batch.pop("hidden_state", None)
+        out = take_rows(batch, 1, self.mesh, B, local)
+        if hidden is not None:
+            out["hidden_state"] = take_rows(hidden, 0, self.mesh, B, local)
+        return out
+
     def shard_batch(self, batch):
-        raise NotImplementedError("shard_batch: meshes and sharded batches are not ported yet "
-                                  "(ROADMAP Queue 1 item 7, parallel/)")
+        """Place a host batch for this rank: its rows (B over dp x fsdp,
+        as ``parallel.assemble_global`` cuts it; T stays whole, sp splits
+        only attention), cast as the step casts it, on the device (from
+        pinned memory on CUDA)."""
+        return place_on(as_float32(self._rows(batch)), self.device)
 
     def attach_comm(self, adapter, player_id: str, league=None, send_model_freq: int = 4,
                     send_train_info_freq: int = 4, model_accept_count: int = 8) -> None:
@@ -290,8 +318,7 @@ class RLLearner(BaseLearner):
         return {"only_update_value": self._remaining_value_pretrain > 0}
 
     def _flop_loss(self, model, batch):
-        lc = self.cfg.learner
-        return rl_loss(model, self.loss_cfg, batch, lc.batch_size, lc.unroll_len)[0]
+        return rl_loss(model, self.loss_cfg, batch, self.local_batch_size, self.cfg.learner.unroll_len)[0]
 
     def _train(self, data) -> Dict[str, Any]:
         only_value = self.step_value_pretrain()
@@ -303,7 +330,7 @@ class RLLearner(BaseLearner):
         span_ids = data.pop("trace_span_ids", None)
         trace_age = data.pop("trace_age_s", None)
         if not on_device:
-            data = to_device(as_float32(self._cap(data)), self.device)
+            data = to_device(as_float32(self._rows(self._cap(data))), self.device)
         self._perf_note_step(data)
         info = self._train_step(data, only_value)
         log = host_scalars(info)

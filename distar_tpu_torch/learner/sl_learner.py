@@ -10,6 +10,11 @@ Beside the step: ``evaluate`` (the held-out metric pass), ``_place_batch``
 (the prefetcher's placing) and, with ``learner.debug_loss_spike``, the
 loss-spike guard, which dumps a step's inputs and a checkpoint when a loss
 term jumps or goes non-finite.
+
+On a mesh (``mesh=``) each rank takes its trajectories' rows (the flat
+rows b*T + t of its block of B, and its carry), and the logits and the
+labels are gathered back to the whole batch before the loss, so every
+masked mean divides by the whole batch's count (``parallel.spmd``).
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ from ..model import Model, default_model_config, init_params
 from ..model.convert import flax_names
 from ..obs.dynamics import DynamicsTree
 from ..parallel.grad_clip import global_norm, leaf_norms
+from ..parallel.spmd import all_reduce_sum, gather_rows, reduce_info, take_rows
 from ..utils import deep_merge_dicts
 from .base_learner import DEFAULT_LEARNER_CONFIG, BaseLearner, host_scalars
 from .data import FakeSLDataloader, cap_entities
@@ -56,18 +62,23 @@ SL_LEARNER_DEFAULTS = deep_merge_dicts(
 )
 
 
-def sl_loss(model: Model, loss_cfg: SupervisedLossConfig, batch, hidden_state, batch_size: int):
-    """(total loss, info, the LSTM's final state) of one SL batch."""
+def sl_loss(model: Model, loss_cfg: SupervisedLossConfig, batch, hidden_state, batch_size: int,
+            mesh=None):
+    """(total loss, info, the LSTM's final state) of one SL batch. On a
+    ``mesh`` ``batch`` holds this rank's ``batch_size`` trajectories, and
+    the loss is the whole batch's (logits and labels gathered over the
+    batch extent); the state stays this rank's."""
     logits, out_state = model.sl_forward(
         batch["spatial_info"], batch["entity_info"], batch["scalar_info"], batch["entity_num"],
         batch["action_info"], batch["selected_units_num"], hidden_state, batch_size)
-    total, info = compute_sl_loss(logits, batch["action_info"], batch["action_mask"],
-                                  batch["selected_units_num"], batch["entity_num"], loss_cfg)
+    inputs = gather_rows((logits, batch["action_info"], batch["action_mask"],
+                          batch["selected_units_num"], batch["entity_num"]), 0, mesh)
+    total, info = compute_sl_loss(*inputs, loss_cfg)
     return total, info, out_state
 
 
 def make_sl_train_step(model: Model, loss_cfg: SupervisedLossConfig, optimizer,
-                       batch_size: int, save_grad: bool = False, dynamics=None):
+                       batch_size: int, save_grad: bool = False, dynamics=None, mesh=None):
     """``train_step(batch, hidden_state) -> (new hidden state, info)``: the
     loss, its gradient, ``info["grad_norm"]`` (the global norm before
     clipping), with ``save_grad`` the per-parameter norms of gradients and
@@ -75,46 +86,51 @@ def make_sl_train_step(model: Model, loss_cfg: SupervisedLossConfig, optimizer,
     ``obs.DynamicsSpec``, or None) the training-dynamics tree over the
     pre-step parameters, the raw gradients, the update and the batch, and
     the optimizer's update of ``optimizer.params`` in place. The state
-    returned is detached."""
+    returned is detached. On a ``mesh`` the gradient shares are summed over
+    the batch extent, as in the RL step."""
     params = optimizer.params
     names = list(flax_names(model).values()) if save_grad else None
     tree = DynamicsTree(model, params, dynamics) if dynamics is not None else None
+    batch_group = mesh.group("batch") if mesh is not None else None
 
     def train_step(batch, hidden_state):
-        total, info, out_state = sl_loss(model, loss_cfg, batch, hidden_state, batch_size)
+        total, info, out_state = sl_loss(model, loss_cfg, batch, hidden_state, batch_size, mesh=mesh)
         grads = list(torch.autograd.grad(total, params, allow_unused=True, materialize_grads=True))
+        all_reduce_sum(grads, batch_group)
         info["grad_norm"] = global_norm(grads)
         if save_grad:
             info.update(leaf_norms(dict(zip(names, grads)), "grad_norm"))
             info.update(leaf_norms(dict(zip(names, params)), "param_norm"))
         if tree is not None:
             info.update(tree.before_update(params, grads, batch))
+            reduce_info(info, "dyn/nonfinite_batch/", mesh)
         update, lr = optimizer.step(grads)
         if tree is not None:
-            info.update(tree.after_update(update, lr))
+            info.update(tree.after_update(optimizer.whole(update), lr))
         return tuple((h.detach(), c.detach()) for h, c in out_state), info
 
     return train_step
 
 
 class SLLearner(BaseLearner):
-    """The SL learner on one device (``device=None``: CUDA, or raise)."""
+    """The SL learner on one device (``device=None``: CUDA, or raise), or
+    one rank of a ``mesh``."""
 
     _CAP_FN = staticmethod(cap_entities)
 
-    def __init__(self, cfg: Optional[dict] = None, device=None):
+    def __init__(self, cfg: Optional[dict] = None, device=None, mesh=None):
         cfg = deep_merge_dicts(SL_LEARNER_DEFAULTS, cfg or {})
         self.model_cfg = deep_merge_dicts(default_model_config(), cfg.get("model", {}))
         self.loss_cfg = SupervisedLossConfig(label_smooth=cfg.learner.label_smooth)
-        super().__init__(cfg, device)
+        super().__init__(cfg, device, mesh=mesh)
 
     def _setup_dataloader(self) -> None:
         lc = self.cfg.learner
         self._dataloader = iter(FakeSLDataloader(lc.batch_size, lc.unroll_len))
 
-    def _zero_hidden(self):
+    def _zero_hidden(self, rows: Optional[int] = None):
         core = self.model_cfg.encoder.core_lstm
-        z = torch.zeros(self.cfg.learner.batch_size, core.hidden_size, device=self.device)
+        z = torch.zeros(rows or self.local_batch_size, core.hidden_size, device=self.device)
         return tuple((z, z) for _ in range(core.num_layers))
 
     def _setup_state(self) -> None:
@@ -125,8 +141,24 @@ class SLLearner(BaseLearner):
         self.hidden = self._zero_hidden()
         self.optimizer = self._build_optimizer(self.model.parameters())
         self._train_step = make_sl_train_step(self.model, self.loss_cfg, self.optimizer,
-                                              lc.batch_size, save_grad=lc.get("save_grad", False),
-                                              dynamics=self._dynamics_spec())
+                                              self.local_batch_size,
+                                              save_grad=lc.get("save_grad", False),
+                                              dynamics=self._dynamics_spec(), mesh=self.mesh)
+
+    def _rows(self, data):
+        """This rank's rows of a global host batch: its block of the B
+        trajectories, i.e. of the flat rows b*T + t and of the [B] fields
+        (the whole batch without a mesh; the batch as it is from a
+        ``local`` loader)."""
+        if self.mesh is None:
+            return data
+        lc, local = self.cfg.learner, self._local_rows
+        B, T = int(lc.batch_size), int(lc.unroll_len)
+        flat = take_rows({k: v for k, v in data.items() if k not in ("new_episodes", "traj_lens")},
+                         0, self.mesh, B * T, local)
+        flat.update(take_rows({k: data[k] for k in ("new_episodes", "traj_lens") if k in data},
+                              0, self.mesh, B, local))
+        return flat
 
     @torch.no_grad()
     def evaluate(self, dataloader, max_batches: int = 0) -> Dict[str, float]:
@@ -143,7 +175,7 @@ class SLLearner(BaseLearner):
             batch.pop("new_episodes", None)
             batch.pop("traj_lens", None)
             total, info, _ = sl_loss(self.model, self.loss_cfg, to_device(batch, self.device),
-                                     self._zero_hidden(), B)
+                                     self._zero_hidden(B), B)
             info["total_loss"] = total
             for k, v in host_scalars(info).items():
                 sums[k] = sums.get(k, 0.0) + v
@@ -155,7 +187,7 @@ class SLLearner(BaseLearner):
     def _place_batch(self, data):
         """The prefetcher's placing: the capped batch on the device (from
         pinned memory on CUDA), the host fields kept as numpy."""
-        data = self._cap(dict(data))
+        data = self._rows(self._cap(dict(data)))
         host = {k: np.asarray(data.pop(k)) for k in ("new_episodes", "traj_lens") if k in data}
         out = place_on(data, self.device)
         out.update(host)
@@ -173,15 +205,15 @@ class SLLearner(BaseLearner):
         batch = dict(batch)
         batch.pop("new_episodes", None)
         batch.pop("traj_lens", None)
-        z = torch.zeros(self.cfg.learner.batch_size, model.cfg["encoder"]["core_lstm"]["hidden_size"])
+        z = torch.zeros(self.local_batch_size, model.cfg["encoder"]["core_lstm"]["hidden_size"])
         hidden = tuple((z, z) for _ in range(model.cfg["encoder"]["core_lstm"]["num_layers"]))
-        return sl_loss(model, self.loss_cfg, batch, hidden, self.cfg.learner.batch_size)[0]
+        return sl_loss(model, self.loss_cfg, batch, hidden, self.local_batch_size)[0]
 
     def _train(self, data) -> Dict[str, float]:
         data = dict(data)  # callers may reuse the batch dict
         on_device = data.pop("_on_device", False)
         if not on_device:
-            data = self._cap(data)
+            data = self._rows(self._cap(data))
         new_episodes = np.asarray(data.pop("new_episodes"))
         traj_lens = data.pop("traj_lens", None)
         if new_episodes.any():

@@ -89,22 +89,32 @@ def params_from_flax(params: Mapping, model: torch.nn.Module = None) -> Dict[str
     return state
 
 
-def _flax_leaf(model: torch.nn.Module, name: str):
-    """(flax path, function of the torch tensor giving the flax array) of
-    parameter ``name`` of ``model``."""
+def flax_layout(model: torch.nn.Module, name: str):
+    """(flax path, dim permutation) of parameter ``name`` of ``model``: the
+    flax array is the torch tensor's ``permute(perm)`` (flax dim k is torch
+    dim ``perm[k]``)."""
     *mods, leaf = name.split(".")
     owner = model.get_submodule(".".join(mods))
     if leaf == "weight":
         if isinstance(owner, torch.nn.Linear):
-            return (*mods, "kernel"), lambda t: t.T
+            return (*mods, "kernel"), (1, 0)
         if isinstance(owner, torch.nn.Conv2d):
-            return (*mods, "kernel"), lambda t: t.permute(2, 3, 1, 0)
+            return (*mods, "kernel"), (2, 3, 1, 0)
         if isinstance(owner, torch.nn.LayerNorm):
-            return (*mods, "scale"), lambda t: t
+            return (*mods, "scale"), None
         if isinstance(owner, torch.nn.Embedding):
-            return (*mods, "embedding"), lambda t: t
+            return (*mods, "embedding"), None
         raise ValueError(f"no flax leaf for {name} ({type(owner).__name__})")
-    return (*mods, leaf), lambda t: t
+    return (*mods, leaf), None
+
+
+def _flax_leaf(model: torch.nn.Module, name: str):
+    """(flax path, function of the torch tensor giving the flax array) of
+    parameter ``name`` of ``model``."""
+    path, perm = flax_layout(model, name)
+    if perm is None:
+        return path, lambda t: t
+    return path, lambda t: t.permute(perm)
 
 
 def flax_names(model: torch.nn.Module) -> Dict[str, str]:
@@ -191,17 +201,24 @@ def _ema_kind(optimizer) -> str:
     return kind if kind in ("max_norm", "momentum_norm") else ""
 
 
-def learner_state_to_flax(model: torch.nn.Module, optimizer) -> dict:
+def learner_state_to_flax(model: torch.nn.Module, optimizer, trees=None) -> dict:
     """``{"params", "opt_state"}`` of a port learner (its ``model`` and
     ``parallel.Optimizer``) as the JAX learner of the same optimizer config
-    holds it, in numpy copies: what a checkpoint of either package stores."""
+    holds it, in numpy copies: what a checkpoint of either package stores.
+    ``trees`` gives the (params, mu, nu) flax trees to place in it instead
+    (the sharded snapshot's blocks); by default the moments are whole (an
+    optimizer sharded over a mesh gathers them: every rank must call)."""
     names = _param_names(model, optimizer)
     count = np.array(optimizer.count, np.int32)
 
     def moments(tensors):
         return params_to_flax(model, dict(zip(names, tensors)))
 
-    inner = [(count, moments(optimizer.mu), moments(optimizer.nu))]
+    if trees is None:
+        mu, nu = optimizer.moments()
+        trees = (params_to_flax(model), moments(mu), moments(nu))
+    params, mu_tree, nu_tree = trees
+    inner = [(count, mu_tree, nu_tree)]
     if optimizer.weight_decay > 0.0:
         inner.append(())
     inner.append((count,) if optimizer.warmup_steps > 0 or optimizer.decay_boundaries else ())
@@ -218,7 +235,7 @@ def learner_state_to_flax(model: torch.nn.Module, optimizer) -> dict:
             ema = _nest({flax[name]: np.array(e) for name, e in zip(names, ema)})
         last = 0.0 if clip.last_norm is None else float(clip.last_norm)
         clip_state = (ema, np.array(clip.step, np.int32), np.array(last, np.float32))
-    return {"params": params_to_flax(model), "opt_state": (clip_state, tuple(inner))}
+    return {"params": params, "opt_state": (clip_state, tuple(inner))}
 
 
 @torch.no_grad()
@@ -231,10 +248,8 @@ def load_learner_state(state: Mapping, model: torch.nn.Module, optimizer) -> Non
     model.load_state_dict(params_from_flax(state["params"], model))
     clip_state, inner = _seq(state["opt_state"])
     count, mu, nu = _seq(_seq(inner)[0])
-    for dst, tree in ((optimizer.mu, mu), (optimizer.nu, nu)):
-        loaded = params_from_flax(tree, model)
-        for t, name in zip(dst, names):
-            t.copy_(loaded[name])
+    optimizer.load_moments(*([loaded[name] for name in names]
+                             for loaded in (params_from_flax(mu, model), params_from_flax(nu, model))))
     optimizer.count = int(np.asarray(count))
     kind, clip = _ema_kind(optimizer), optimizer.clip
     if kind:

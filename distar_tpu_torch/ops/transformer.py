@@ -9,8 +9,9 @@ is cut into heads, giving [B, H, N, Dh] attention tensors.
 ``impl``: 'xla' is the plain torch path, differentiated by autograd;
 'pallas' calls ``kernels.masked_attention`` (the CUDA kernel on CUDA
 tensors, its plain version on CPU tensors; the JAX package's recompute
-backward either way); 'ring' needs the context-parallel mesh, which the
-port does not have yet.
+backward either way); 'ring' is ``parallel.ring_self_attention`` over the
+context mesh's sp ranks (``parallel.set_context_mesh``; a ring of one
+without it).
 """
 from __future__ import annotations
 
@@ -49,7 +50,10 @@ class Attention(nn.Module):
         if self.impl == "pallas":
             out = kernels.masked_attention(q, k, v, mask)
         elif self.impl == "ring":
-            raise NotImplementedError("attention impl 'ring' needs the parallel/ slice of the port")
+            from ..parallel.mesh import get_context_mesh
+            from ..parallel.ring_attention import ring_self_attention
+
+            out = ring_self_attention(q, k, v, mask, get_context_mesh())
         else:
             out = kernels.masked_attention_plain(q, k, v, mask, upcast=False)
         out = out.transpose(1, 2).reshape(B, N, self.head_num * self.head_dim)

@@ -16,8 +16,10 @@ on a background one; ``CheckpointManager`` keeps the ``latest.json``
 pointer over the newest generations, whose schema both packages read and
 write; ``auto_checkpoint`` saves on an exception, SIGTERM or SIGINT.
 
-Sharded checkpoint directories (``sharding.json``) raise: they come with
-ROADMAP Queue 1 item 7.
+Sharded checkpoint directories (``sharding.json``, ``parallel.ckpt``) are
+routed there by ``verify_checkpoint`` and ``load_checkpoint`` (which then
+also returns the ``sharding_layout``), so the manager's pointer and its
+corrupt-generation fallback cover them too.
 """
 from __future__ import annotations
 
@@ -67,15 +69,12 @@ def _manifest_path(path: str) -> str:
     return path + ".manifest"
 
 
-def _refuse_sharded(path: str) -> None:
+def _is_sharded(path: str) -> bool:
+    """A sharded checkpoint directory (its manifest is there)."""
     try:
-        sharded = storage.exists(path.rstrip("/") + "/sharding.json")
+        return storage.exists(path.rstrip("/") + "/sharding.json")
     except (OSError, ValueError):
-        return
-    if sharded:
-        raise NotImplementedError(
-            f"{path} is a sharded checkpoint directory; sharded checkpoints come with the "
-            f"port's parallel/ (ROADMAP Queue 1 item 7)")
+        return False
 
 
 def _host(tree):
@@ -149,10 +148,14 @@ def verify_checkpoint(path: str) -> bool:
     """True when ``path`` exists and its bytes match its manifest (a
     checkpoint without one only has to exist). Never raises."""
     try:
-        _refuse_sharded(path)
+        if _is_sharded(path):
+            from ..parallel import ckpt as sharded
+
+            sharded.verify_sharded(path)
+            return True
         _verify_blob(path, storage.read_bytes(path))
         return True
-    except (CheckpointCorruptError, OSError, ValueError, NotImplementedError):
+    except (CheckpointCorruptError, OSError, ValueError):
         return False
 
 
@@ -162,8 +165,12 @@ def load_checkpoint(path: str, target: Any = None, verify: bool = True) -> Dict:
     bytes that do not decode raise ``CheckpointCorruptError``. Lists and
     tuples come back as ``{"__seq_<i>": ...}`` dicts, as from the JAX
     package (``_from_seq`` undoes one level); given a ``target`` tree, the
-    state is restored into its structure (``_partial_restore``)."""
-    _refuse_sharded(path)
+    state is restored into its structure (``_partial_restore``). A sharded
+    directory is read by ``parallel.ckpt.restore_sharded``."""
+    if _is_sharded(path):
+        from ..parallel import ckpt as sharded
+
+        return sharded.restore_sharded(path, target=target, verify=verify)
     blob = storage.read_bytes(path)
     if verify:
         _verify_blob(path, blob)
@@ -224,16 +231,20 @@ class AsyncCheckpointer:
 
     def save(self, path: str, state: Any, metadata: Optional[Dict] = None,
              on_complete: Optional[Callable[[str], None]] = None,
-             snapshot_fn: Optional[Callable[[Any], Any]] = None) -> str:
+             snapshot_fn: Optional[Callable[[Any], Any]] = None,
+             write_fn: Optional[Callable[[str, Any, Optional[Dict]], Any]] = None) -> str:
         """``snapshot_fn(state)`` makes the host copy (default: a copy of
         every array leaf); the learner passes a function that converts to
-        the JAX package's layout on the way."""
+        the JAX package's layout on the way. ``write_fn(path, snapshot,
+        metadata)`` writes it (default: one blob; the sharded layout passes
+        ``parallel.ckpt.write_sharded``)."""
         self.wait()  # join before the snapshot: one host copy at a time
         host_state = (snapshot_fn or _host)(state)
+        writer = write_fn or _write_checkpoint
 
         def write():
             try:
-                _write_checkpoint(path, host_state, metadata)
+                writer(path, host_state, metadata)
                 if on_complete is not None:
                     on_complete(path)
             except BaseException as e:  # noqa: BLE001 - raised by the next wait() or save()

@@ -241,9 +241,11 @@ def test_storage_schemes_and_sharded_directories(tmp_path):
     assert storage.exists("mem://ckpt/a.manifest")
     with pytest.raises(NotImplementedError, match="item 10"):
         storage.read_bytes("gs://bucket/x")
+    # a directory with a manifest routes to the sharded reader: a manifest
+    # naming no skeleton is a corrupt generation, typed
     (tmp_path / "sharded").mkdir()
     (tmp_path / "sharded" / "sharding.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ckpt.CheckpointCorruptError, match="skeleton"):
         ckpt.load_checkpoint(str(tmp_path / "sharded"))
     assert not ckpt.verify_checkpoint(str(tmp_path / "sharded"))
 

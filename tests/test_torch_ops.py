@@ -166,9 +166,13 @@ def test_transformer_with_embedding_fc(rng):
 
 
 def test_ring_attention_waits_for_the_parallel_slice(rng):
-    tm = tops.Attention(8, 4, 2, 8, impl="ring")
-    with pytest.raises(NotImplementedError):
-        tm(torch.zeros(1, 4, 8))
+    """The parallel slice came: 'ring' without an sp mesh is a ring of one,
+    equal to 'xla' on the same weights (tests/test_torch_parallel*.py hold
+    it over ranks)."""
+    tm, xla = tops.Attention(8, 4, 2, 8, impl="ring"), tops.Attention(8, 4, 2, 8, impl="xla")
+    xla.load_state_dict(tm.state_dict())
+    x = torch.tensor(rng.standard_normal((1, 4, 8)).astype(np.float32))
+    np.testing.assert_allclose(tm(x).detach().numpy(), xla(x).detach().numpy(), **TOL)
 
 
 def test_attention_pool(rng):

@@ -42,8 +42,10 @@ PKGS = {"port": pr, "jax": jr}
 
 
 class Clock:
-    """``time.time`` for both stores (each calls it through the ``time``
-    module): advanced by the script, so staleness is exact."""
+    """``time.time`` and ``time.monotonic`` for both stores (each calls
+    them through the ``time`` module): advanced by the script, so
+    staleness is exact and a refused wait's blocked seconds read 0 however
+    loaded the host (the limiter counts waits over 0.5 ms)."""
 
     def __init__(self):
         self.now = 1_000_000.0
@@ -76,6 +78,7 @@ def _run_script(pkg, sampler, ops, clock, monkeypatch):
     """The script through one package's store; every outcome recorded
     (an inadmissible op records its typed error's code)."""
     monkeypatch.setattr(time, "time", clock)
+    monkeypatch.setattr(time, "monotonic", clock)
     spi = 1.0 if sampler == "fifo" else 2.0
     cfg = pkg.TableConfig(max_size=6, sampler=sampler, samples_per_insert=spi, min_size_to_sample=2,
                           error_buffer=3.0, max_staleness_s=7.0, seed=5, priority_exponent=0.8)

@@ -519,13 +519,26 @@ def test_replay_flags_take_their_working_path(argv, tmp_path, monkeypatch, capsy
 @pytest.mark.parametrize("argv,item", [
     (["--type", "league-run"], "item 11"), (["--type", "league-run", "--league-actors-per-player", "1",
                                              "--journal-dir", "none"], "item 10"),
-    (["--env", "sc2"], "item 10"), (["--mesh", "dp=2"], "item 7"), (["--dist-method", "auto"], "item 7"),
+    (["--env", "sc2"], "item 10"),
+    (["--type", "learner", "--coordinator-addr", "127.0.0.1:1", "--mesh", "dp=2"], "does not factor"),
+    (["--dist-method", "explicit"], "explicit requires"),
     (["--journal-dir", "j"], "item 11"), (["--ha-peers", "a:1"], "item 11"),
     (["--platform", "cpu"], "--device"),
 ])
 def test_unported_flags_raise_naming_their_item(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
-        rl_train.main(argv + ["--device", "cpu"])
+    """What is not ported raises naming its ROADMAP item; the mesh flags
+    (item 7, ported) refuse what they cannot do, typed: dp=2 on a world
+    of one process, ``--dist-method explicit`` without its address, world
+    and rank."""
+    from distar_tpu_torch.parallel import MeshConfigError
+    from distar_tpu_torch.parallel.dist import dist_close
+
+    error = {"does not factor": MeshConfigError, "explicit requires": SystemExit}.get(item, NotImplementedError)
+    try:
+        with pytest.raises(error, match=item):
+            rl_train.main(argv + ["--device", "cpu"])
+    finally:
+        dist_close()
 
 
 @pytest.mark.parametrize("every,block", [

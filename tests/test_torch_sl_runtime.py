@@ -533,10 +533,18 @@ def test_bin_trains_on_a_remote_feed(tmp_path, capsys, monkeypatch):
 
 @pytest.mark.parametrize("argv,item", [
     (["--type", "replay_actor"], "item 10"),
-    (["--mesh", "dp=2"], "item 7")])
+    (["--mesh", "dp=2", "--no-health"], "does not factor")])
 def test_bin_parts_not_ported_name_their_item(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
-        sl_train.main(argv + ["--device", "cpu"])
+    """The replay actor raises naming its ROADMAP item; ``--mesh`` (item 7,
+    ported) refuses dp=2 on a world of one process, typed."""
+    from distar_tpu_torch.parallel import MeshConfigError
+    from distar_tpu_torch.parallel.dist import dist_close
+
+    try:
+        with pytest.raises(MeshConfigError if "--mesh" in argv else NotImplementedError, match=item):
+            sl_train.main(argv + ["--device", "cpu"])
+    finally:
+        dist_close()
 
 
 def test_bin_dynamics_every_sets_the_export_stride(tmp_path):

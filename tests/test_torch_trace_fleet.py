@@ -262,13 +262,18 @@ def test_e2e_two_gateway_fleet_waterfall_and_exemplar_alert(registry, buffer, ex
             procs.append(proc)
         obs_tree = {"x": np.zeros((4, 4), np.float32)}
         fc = FleetClient(gateway_map=GatewayMap.parse(",".join(addrs)), timeout_s=15.0)
+        # a request is slow by the gateway that served it (the session's
+        # pin), not by the client's clock: on a loaded host a request to
+        # the fast gateway can take 20 ms too
         slow_tids, fast = [], 0
         for i in range(20):
             sid = f"e2e-{i}"
+            slowed = fc.router.gateway_for(sid) == addrs[1]
             for _step in range(2):
                 t0 = time.perf_counter()
                 out = fc.act(sid, obs_tree)
-                if time.perf_counter() - t0 > 0.02:
+                if slowed:
+                    assert time.perf_counter() - t0 >= 0.03, "the slowed gateway answered inside its delay"
                     slow_tids.append(out["trace_id"])
                 else:
                     fast += 1
