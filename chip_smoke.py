@@ -230,7 +230,9 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              task with ``AlertRemediator(supervisor, {"actor_env_starvation":
              "actor"})`` as ``--type all`` runs it, and every mock env's next
              step delayed 3 s (``ChaosInjector.wrap`` patched over
-             ``MockEnv.step``): ``actor_env_starvation`` fires exactly once
+             ``MockEnv.step``): the rules evaluated once a 2 s window is
+             sampled, then nothing fires over a window of steady steps, and
+             ``actor_env_starvation`` fires exactly once after the stall
              (a job's start, the only gap in a running actor's env steps,
              lasts about as long as the 2 s window, so the actor's first job
              is under way before the stall), the task restarts
@@ -316,17 +318,28 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              overlay, f32) at docs/league.md's quickstart sizes (2 lanes x 3
              steps, 2 units a squad, episodes of 8 steps). a. ``rl_train
              --type league-run --league-players MP0,EP0,ME0 --league-rounds
-             1 --journal-dir none`` as a process (the quickstart's 2 rounds
-             cut to 1 to keep the script in its time): three learner
+             1 --league-actors-per-player 1`` as a process (the quickstart's
+             2 rounds cut to 1 to keep the script in its time), journaled
+             to its default ``<save-path>/league_journal``: three learner
              processes on the card; exit 0, ``LEAGUE-RUN-DONE`` with
              ``ok``, every learner at rc 0, a snapshot minted, an
              off-diagonal payoff cell with games, no orphaned job, each
-             learner's first window pure and its round shown. b. ``--type coordinator --arena-store``
-             and ``--type arena`` (MP0's lineage of a., 3 batches of 8
-             episodes) as processes: exit 0, both anchors and an MP0
-             generation rated, the artifact written, the last batch resent
-             (all duplicates), and a restarted coordinator serving the same
-             ratings from its store. a. and b. run on a thread during
+             learner's first window pure and its round shown, each fleet
+             ``actors-<player>`` holding one member and drained to none.
+             Then, in this process with no learner running, the journal
+             cold-booted by an ``HAState`` (its final snapshot) and replayed
+             record by record from its first: both digests equal the run's;
+             the records, the journal's bytes, the replay seconds and a
+             durable (fsync'd) and a flushed append's ms on this disk.
+             b. ``--type coordinator --arena-store --journal-dir`` (the
+             primary), a second ``--ha-role standby --ha-peers <primary>``
+             beside it, and ``--type arena`` (MP0's lineage of a., 3
+             batches of 8 episodes) as processes on the address list of
+             both: exit 0, both anchors and an MP0 generation rated, the
+             artifact written, the last batch resent (all duplicates); the
+             primary SIGKILLed, the standby promoted within its takeover
+             grace (the seconds printed), serving the same ratings, and the
+             resent batch deduplicated there too. a. and b. run on a thread during
              phase 10's untimed part (``league_processes``), joined before
              phase 11: their seconds and the used memory are read beside
              rl_loop's processes and checks, not on an idle card. c. in
@@ -4528,9 +4541,9 @@ def phase_health(device, smi, tmp, loop, args, batch, baseline=None):
     recorder, reg = get_flight_recorder(), get_registry()
     transitions = []
 
-    def install():
+    def install(start=True):
         fleet = init_fleet_health(default_rulebook(("learner", "actor"), stall_window_s=HEALTH_STALL_WINDOW_S),
-                                  sample_interval_s=HEALTH_SAMPLE_S, eval_interval_s=HEALTH_EVAL_S)
+                                  start=start, sample_interval_s=HEALTH_SAMPLE_S, eval_interval_s=HEALTH_EVAL_S)
         fleet.evaluator.add_transition_callback(lambda e: transitions.append((time.perf_counter(), e)))
         return fleet
 
@@ -4694,12 +4707,19 @@ def phase_health(device, smi, tmp, loop, args, batch, baseline=None):
         steps0 = env_steps()
         wait_for(lambda: env_steps() > steps0 + LOOP_ENV_NUM, 180, "health: the actor's env steps flowing")
         del transitions[:]
-        fleet = install()
-        AlertRemediator(supervisor, {"actor_env_starvation": "actor"}).attach(fleet.evaluator)
-        # a window's worth of history first: over a shorter one a pause of a
-        # few samples between env steps reads as a (transient) stall
+        # a window's worth of history sampled before the rules are evaluated,
+        # as in a fleet that has been running: over a shorter one the rule
+        # reads two equal samples as a stall, so a pause of 0.6 s at the
+        # install (a job's start, a slow flush) fired it (seen on the card)
+        fleet = install(start=False)
+        fleet.sampler.start()
         t_fleet = time.perf_counter()
-        wait_for(lambda: time.perf_counter() - t_fleet > HEALTH_STALL_WINDOW_S
+        wait_for(lambda: time.perf_counter() - t_fleet > HEALTH_STALL_WINDOW_S, 30, "health: a window sampled")
+        AlertRemediator(supervisor, {"actor_env_starvation": "actor"}).attach(fleet.evaluator)
+        fleet.start()
+        # then a window evaluated with the env steps flowing: nothing fires
+        t_eval = time.perf_counter()
+        wait_for(lambda: time.perf_counter() - t_eval > HEALTH_STALL_WINDOW_S
                  and state("actor_env_starvation") == "ok", 30, "health: the actor's env steps recorded, ok")
         check(not firings("actor_env_starvation") and not restarts,
               f"health: actor_env_starvation before the stall: {history()}")
@@ -4732,6 +4752,7 @@ def phase_health(device, smi, tmp, loop, args, batch, baseline=None):
         all_pts = fleet.store.points("distar_env_steps_total", window_s=120.0)["local"]
         rises = [p for a_, p in zip(all_pts, all_pts[1:]) if p[1] > a_[1]]
         gaps = [b_[0] - a_[0] for a_, b_ in zip(rises, rises[1:])]
+        gaps_before = [b_[0] - a_[0] for a_, b_ in zip(rises, rises[1:]) if b_[0] <= wall_stall]
 
         # the coordinator's store and the wire, read after the drill
         ships = {"learner": ship_timings("learner:health", (srv.host, srv.port)),
@@ -4778,6 +4799,7 @@ def phase_health(device, smi, tmp, loop, args, batch, baseline=None):
             "seconds": drill_s, "last_job_join_s": join_s,
             "nan_fire_s": fire_s, "stall_fire_s": stall_fire_s, "stall_to_restart_s": restart_s,
             "env_steps_per_s_after_restart": rate_after, "max_env_step_gap_s": max(gaps or [0.0]),
+            "max_env_step_gap_before_stall_s": max(gaps_before or [0.0]),
             "healthz_ms": {"p50": statistics.median(hz_ms_all), "max": max(hz_ms_all)},
             "dump_s": dump_s, "bundle_bytes": bundle_bytes, "blackbox": blackbox, "ship": ships,
             "ingest_ms": {"p50": statistics.median(ingest_ms), "max": max(ingest_ms)}, "store": store,
@@ -5690,15 +5712,61 @@ def wait_for_line(proc, log, text, timeout=120):
     raise SmokeFailure(f"{log}: no '{text}' within {timeout} s")
 
 
+def journal_append_ms(tmp, n=64):
+    """Median ms of a durable (fsync'd) and of a flushed journal append of a
+    league-report-sized record on this disk, ``n`` each."""
+    from distar_tpu_torch.comm.ha import Journal
+
+    journal = Journal(os.path.join(tmp, "journal_append"))
+    body = {"job_id": "J1", "learner_id": "MP0@1", "matches": [
+        {"key": f"J1e{i}", "home": "MP0", "away": "EP0", "round": 0, "winner": "home", "game_steps": 8.0,
+         "duration_s": 0.0} for i in range(2)]}
+    out = {}
+    try:
+        for durable in (True, False):
+            ms = []
+            for _ in range(n):
+                t0 = time.perf_counter()
+                journal.append("league_report", body, durable=durable)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            out["durable" if durable else "flushed"] = statistics.median(ms)
+    finally:
+        journal.close()
+    return out
+
+
+def league_journal_replay(save, digest):
+    """a.'s journal cold-booted in this process with no learner running: an
+    ``HAState`` on its newest snapshot, and every record applied from the
+    first; each digest must equal the run's ``LEAGUE-RUN-DONE``."""
+    from distar_tpu_torch.league.runtime.runner import economy_digest, replay_control_plane
+
+    journal = os.path.join(save, "league_journal")
+    files = sorted(os.listdir(journal))
+    out = {"bytes": dir_bytes(journal), "files": files}
+    want = {k: digest[k] for k in ("jobs_by_branch", "snapshot_mints", "historical_players", "assignments_pending",
+                                   "orphaned_jobs", "off_diagonal_pairs", "matches_total")}
+    for name, wal_only in (("snapshot", False), ("records", True)):
+        # the run's roster, seed, lease and job TTL (rl_train's league-run)
+        service, store, info = replay_control_plane(journal, LEAGUE_PLAYERS, lease_s=30.0, job_ttl_s=600.0,
+                                                    wal_only=wal_only)
+        got = economy_digest(service, store)
+        check(got == want, f"league: the journal replayed from its {name} reads {got}, the run {want}")
+        out[name] = info
+    return out
+
+
 def league_run_process(tmp):
     """a. ``rl_train --type league-run`` on the card: the control plane in
-    its process, a learner process per player. Returns (the run's numbers,
+    its process, journaled, a learner process per player, an actor slot a
+    player; then its journal cold-booted here. Returns (the run's numbers,
     the save path)."""
     save = os.path.join(tmp, "league")
     t0 = time.perf_counter()
     proc, log = rl_train_process(tmp, "league_run", [
         "--type", "league-run", *league_model_flags(), "--league-players", ",".join(LEAGUE_PLAYERS),
-        "--league-rounds", str(LEAGUE_ROUNDS), *LEAGUE_SIZES, "--journal-dir", "none", "--save-path", save])
+        "--league-rounds", str(LEAGUE_ROUNDS), *LEAGUE_SIZES, "--league-actors-per-player", "1",
+        "--save-path", save])
     used = []
     try:
         while proc.poll() is None and time.perf_counter() - t0 < LEAGUE_TIMEOUT_S:
@@ -5728,59 +5796,91 @@ def league_run_process(tmp):
         for r in range(1, LEAGUE_ROUNDS + 1):
             check(f"league-learner {pid}: round {r}/{LEAGUE_ROUNDS}" in text, f"league-run: {pid} round {r} missing")
     spawn = next(ln for ln in text.splitlines() if ln.startswith("league-run: seconds from spawn to exit "))
+    check("(journal=on)" in text, "league-run: the control plane was not journaled")
+    fleets = {f"actors-{p}": 1 for p in sorted(LEAGUE_PLAYERS)}
+    check(f"league-run: actor fleets held {json.dumps(fleets)}, left {json.dumps({k: 0 for k in fleets})}" in text,
+          f"league-run: the actor fleets {[ln for ln in text.splitlines() if 'actor fleets' in ln]}")
     out = {"wall_s": wall_s, "learner_s": json.loads(spawn.split("exit ", 1)[1]), "digest": digest,
-           "used_memory_mib": {"max": max(used) if used else None, "samples": len(used)}}
+           "used_memory_mib": {"max": max(used) if used else None, "samples": len(used)},
+           "journal": league_journal_replay(save, digest), "journal_append_ms": journal_append_ms(tmp)}
     print(f"league: a. rl_train --type league-run, {len(LEAGUE_PLAYERS)} learner processes on the card: "
           f"{json.dumps(out)}")
     return out, save
 
 
+# a standby promotes after this long without the primary's feed
+HA_TAKEOVER_GRACE_S = 1.0
+# and within it plus the tail loop's 0.25 s wait and a refused probe or two
+HA_PROMOTE_SLACK_S = 1.5
+
+
 def arena_coordinator(tmp):
-    """``--type coordinator --arena-store`` as a process, started (it needs
-    nothing of a.) while a. runs. Returns (its argv, Popen, log path, port)."""
+    """``--type coordinator --arena-store --journal-dir`` as a process (the
+    primary of an HA pair), started (it needs nothing of a.) while a. runs.
+    Returns (Popen, log path, port)."""
     port = free_port()
-    argv = ["--type", "coordinator", "--port", str(port), "--arena-store", os.path.join(tmp, "arena_store.pkl")]
-    return (argv, *rl_train_process(tmp, "arena_coordinator", argv), port)
+    return (*rl_train_process(tmp, "arena_coordinator", [
+        "--type", "coordinator", "--port", str(port), "--arena-store", os.path.join(tmp, "arena_store.pkl"),
+        "--journal-dir", os.path.join(tmp, "arena_journal")]), port)
 
 
 def arena_processes(tmp, save, device, coordinator):
     """b. ``--type arena`` as a process on the MP0 lineage of a., against
-    ``coordinator`` (``arena_coordinator``); the resent last batch dedups,
-    and a restarted coordinator serves the same ratings from the store."""
+    the HA pair of ``coordinator`` (``arena_coordinator``) and a standby
+    started here, on the address list of both; the resent last batch
+    dedups; the primary SIGKILLed, the standby promotes and serves the same
+    ratings, and dedups the resent batch again."""
     import urllib.request
 
     from distar_tpu_torch.arena import match_key
     from distar_tpu_torch.comm.coordinator import coordinator_request
+    from distar_tpu_torch.comm.ha import probe_ha_status
 
     artifact = os.path.join(tmp, "arena.json")
-    co_argv, co, co_log, port = coordinator
-    store_path = co_argv[-1]
+    co, co_log, port = coordinator
+    port2 = free_port()
+    spec = f"127.0.0.1:{port},127.0.0.1:{port2}"
 
-    def ratings():
-        with urllib.request.urlopen(f"http://127.0.0.1:{port}/arena/ratings", timeout=10) as r:
+    def ratings(at):
+        with urllib.request.urlopen(f"http://127.0.0.1:{at}/arena/ratings", timeout=10) as r:
             return json.loads(r.read())
 
     def stop(proc, log, what):
         proc.terminate()
         check(proc.wait(timeout=60) == 0, f"{what}: exit {proc.returncode} on SIGTERM: {open(log).read()[-2000:]}")
 
+    def role(at):
+        return (probe_ha_status(f"127.0.0.1:{at}", timeout=2.0) or {}).get("role")
+
     t0 = time.perf_counter()
     procs = [co]
     try:
+        check("coordinator HA: role=primary epoch=1" in wait_for_line(co, co_log, "coordinator HA:"),
+              f"arena: the primary coordinator {open(co_log).read()[-2000:]}")
         wait_for_line(co, co_log, "coordinator serving on")
+        # the standby joins the live primary (started after it: a standby
+        # that reaches no primary within its grace leads)
+        standby, standby_log = rl_train_process(tmp, "arena_coordinator_standby", [
+            "--type", "coordinator", "--port", str(port2), "--arena-store",
+            os.path.join(tmp, "arena_store_standby.pkl"), "--journal-dir", os.path.join(tmp, "arena_journal_standby"),
+            "--ha-role", "standby", "--ha-peers", f"127.0.0.1:{port}", "--ha-takeover-grace-s",
+            str(HA_TAKEOVER_GRACE_S)])
+        procs.append(standby)
         t1 = time.perf_counter()
         arena, arena_log = rl_train_process(tmp, "arena", [
-            "--type", "arena", "--coordinator-addr", f"127.0.0.1:{port}",
+            "--type", "arena", "--coordinator-addr", spec,
             "--arena-ckpt-dir", os.path.join(save, "MP0", "checkpoints"), "--arena-roles", "MP0",
             "--arena-episodes", str(ARENA_EPISODES), "--arena-batches", str(ARENA_BATCHES),
             "--arena-artifact", artifact, *league_model_flags(), *LEAGUE_SIZES[4:]])
         procs.append(arena)
+        check("coordinator HA: role=standby" in wait_for_line(standby, standby_log, "coordinator HA:"),
+              f"arena: the standby coordinator {open(standby_log).read()[-2000:]}")
         check(arena.wait(timeout=300) == 0, f"arena: exit {arena.returncode}: {open(arena_log).read()[-3000:]}")
         arena_s = time.perf_counter() - t1
         batches = [ln for ln in open(arena_log).read().splitlines() if ln.startswith("arena: ")]
         check(len(batches) == ARENA_BATCHES, f"arena: {len(batches)} batches: {batches}")
         doc = json.load(open(artifact))
-        got = ratings()
+        got = ratings(port)
         gens = [p for p, i in got["players"].items() if p.startswith("MP0:") and i["games"] > 0]
         check(all(got["players"].get(a, {}).get("anchor") for a in ("attack_nearest", "idle")) and gens
               and got["matches_total"] == ARENA_BATCHES * ARENA_EPISODES,
@@ -5791,31 +5891,46 @@ def arena_processes(tmp, save, device, coordinator):
         resend = [{"key": match_key(last["home"], last["away"], last["round"], i), "home": last["home"],
                    "away": last["away"], "round": last["round"], "winner": "draw", "game_steps": 1,
                    "duration_s": 0.0} for i in range(last["episodes"])]
-        ack = coordinator_request("127.0.0.1", port, "arena_report", {"matches": resend})["info"]
-        check(ack == {"applied": 0, "duplicates": last["episodes"]}, f"arena: the resent batch {ack}")
-        before = ratings()
+        ack = coordinator_request(spec, None, "arena_report", {"matches": resend})
+        check(ack["info"] == {"applied": 0, "duplicates": last["episodes"]} and ack["role"] == "primary"
+              and ack["epoch"] == 1, f"arena: the resent batch {ack}")
+        before = ratings(port)
         check(before["duplicates_total"] == got["duplicates_total"] + last["episodes"]
               and before["matches_total"] == got["matches_total"], f"arena: after the resend {before}")
-        stop(co, co_log, "arena coordinator")
-        check("arena store journaled on shutdown" in open(co_log).read(), "arena: no journal on shutdown")
+        # every acknowledged record is on the standby (semi-synchronous)
+        pst, sst = probe_ha_status(f"127.0.0.1:{port}"), probe_ha_status(f"127.0.0.1:{port2}")
+        check(pst["followers"] == 1 and sst["role"] == "standby" and sst["seq"] == pst["seq"],
+              f"arena: the pair before the kill: primary {pst}, standby {sst}")
+        co.kill()
+        co.wait()
         t2 = time.perf_counter()
-        co, co_log = rl_train_process(tmp, "arena_coordinator_again", co_argv)
-        procs.append(co)
-        wait_for_line(co, co_log, "coordinator serving on")
-        restart_s = time.perf_counter() - t2
-        check(f"arena store resumed from {store_path}" in open(co_log).read(), "arena: the store did not resume")
-        check(ratings() == before, "arena: the restarted coordinator serves other ratings")
-        stop(co, co_log, "arena coordinator (restarted)")
+        while role(port2) != "primary":
+            check(time.perf_counter() - t2 < HA_TAKEOVER_GRACE_S + 30, "arena: the standby never promoted")
+            time.sleep(0.02)
+        promote_s = time.perf_counter() - t2
+        check(promote_s < HA_TAKEOVER_GRACE_S + HA_PROMOTE_SLACK_S,
+              f"arena: the standby promoted {promote_s:.2f} s after the kill (grace {HA_TAKEOVER_GRACE_S} s)")
+        after = ratings(port2)
+        check(after == before, f"arena: the promoted standby serves other ratings: {after} against {before}")
+        again = coordinator_request(spec, None, "arena_report", {"matches": resend})
+        check(again["info"] == {"applied": 0, "duplicates": last["episodes"]} and again["role"] == "primary"
+              and again["epoch"] == 2, f"arena: the resent batch on the promoted standby {again}")
+        stop(standby, standby_log, "arena coordinator (promoted standby)")
+        text = open(standby_log).read()
+        check("coordinator journal snapshotted on shutdown" in text and "arena store journaled on shutdown" in text,
+              f"arena: the promoted standby's shutdown {text[-2000:]}")
     finally:
         for proc in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    out = {"seconds": time.perf_counter() - t0, "arena_process_s": arena_s, "coordinator_restart_s": restart_s,
+    out = {"seconds": time.perf_counter() - t0, "arena_process_s": arena_s, "standby_promote_s": promote_s,
+           "takeover_grace_s": HA_TAKEOVER_GRACE_S, "resend_after_failover": again["info"],
            "batch_s": [e["duration_s"] for e in doc["ledger"]], "matches_per_s": doc["matches_per_s"],
            "pairs": [(e["home"], e["away"]) for e in doc["ledger"]], "rated_generations": sorted(gens),
            "resend": ack, "skill": doc.get("arena")}
-    print(f"league: b. rl_train --type coordinator --arena-store and --type arena as processes: {json.dumps(out)}")
+    print(f"league: b. rl_train --type coordinator --arena-store --journal-dir, a standby and --type arena as "
+          f"processes: {json.dumps(out)}")
     return out
 
 
@@ -5831,8 +5946,8 @@ def league_processes(tmp, device):
     try:
         run, save_dir = league_run_process(tmp)
     except BaseException:
-        coordinator[1].kill()
-        coordinator[1].wait()
+        coordinator[0].kill()
+        coordinator[0].wait()
         raise
     run["script_reserved_mib"] = reserved_mib
     return run, arena_processes(tmp, save_dir, device, coordinator), save_dir
@@ -6053,7 +6168,12 @@ def league_summary(league):
             "control_plane_ms": {k: statistics.median(v) for k, v in ip["control_plane_ms"].items()},
             "sync_save_s": [x["s"] for x in ip["saves"] if x["sync"]], "peak_memory_gb": ip["peak_memory_gb"],
             "arena_batch_s": league["arena"]["batch_s"], "arena_matches_per_s": league["arena"]["matches_per_s"],
-            "in_process_arena_batch_s": ip["arena_batch_s"], "seconds": league["seconds"]}
+            "in_process_arena_batch_s": ip["arena_batch_s"],
+            "journal": {"bytes": league["league_run"]["journal"]["bytes"],
+                        "records": league["league_run"]["journal"]["records"]["records"],
+                        "replay_s": {k: league["league_run"]["journal"][k]["seconds"] for k in ("snapshot", "records")},
+                        "append_ms": league["league_run"]["journal_append_ms"]},
+            "standby_promote_s": league["arena"]["standby_promote_s"], "seconds": league["seconds"]}
 
 
 # ---------------------------------------------------------------- parallel

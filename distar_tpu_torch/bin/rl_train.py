@@ -8,8 +8,10 @@
     python -m distar_tpu_torch.bin.rl_train --type all --replay --smoke-model --device cpu --iters 2
     python -m distar_tpu_torch.bin.rl_train --type replay --port 0 --replay-spill-dir D
     python -m distar_tpu_torch.bin.rl_train --anakin --env jaxenv --smoke-model --device cpu --iters 2
-    python -m distar_tpu_torch.bin.rl_train --type league-run --smoke-model --device cpu --journal-dir none
+    python -m distar_tpu_torch.bin.rl_train --type league-run --smoke-model --device cpu --league-actors-per-player 1
     python -m distar_tpu_torch.bin.rl_train --type coordinator --port 8422 --arena-store S
+    python -m distar_tpu_torch.bin.rl_train --type coordinator --port 8422 --journal-dir J1
+    python -m distar_tpu_torch.bin.rl_train --type coordinator --port 8423 --journal-dir J2 --ha-peers H:8422
     python -m distar_tpu_torch.bin.rl_train --type arena --coordinator-addr H:8422 --arena-ckpt-dir D
 
 Counterpart of ``distar_tpu.bin.rl_train``, on CUDA unless ``--device``
@@ -26,7 +28,14 @@ says otherwise. Roles:
                (the actor routes by consistent hash, the learner fans in),
                or with ``--replay-fast-path`` the colocated store with no
                server, and the learner samples them (``ReplayDataLoader``).
-  coordinator  the metadata broker (``comm.CoordinatorServer``) on ``--port``.
+  coordinator  the metadata broker (``comm.CoordinatorServer``) on ``--port``;
+               with ``--journal-dir`` it journals every mutating route
+               (``comm/ha.py``), replays the journal when it starts, and
+               serves the follower feed on ``--ha-port``: ``--ha-role auto``
+               (the default) probes ``--ha-peers`` and joins a live primary
+               as its standby, else leads; a standby promotes itself after
+               ``--ha-takeover-grace-s`` without the primary. SIGTERM
+               journals a last snapshot.
   league       the league's HTTP API (``league.LeagueAPIServer``) on ``--port``.
   learner      the learner against a remote coordinator and league: it
                registers with the league, restores the league's checkpoint
@@ -46,10 +55,13 @@ says otherwise. Roles:
                process and one ``league-learner`` subprocess per player of
                ``--league-players``; ends with ``LEAGUE-RUN-DONE {digest}``
                and exits 1 unless every learner exited 0, a snapshot was
-               minted and an off-diagonal payoff cell holds games. The JAX
-               launcher journals it by default (the coordinator's HA, ROADMAP
-               Queue 1 item 11): here it runs only with ``--journal-dir
-               none``, its un-journaled switch.
+               minted and an off-diagonal payoff cell holds games. It
+               journals the control plane to ``--journal-dir`` (default
+               ``<save-path>/league_journal``; ``none`` runs it
+               un-journaled), and with ``--league-actors-per-player N``
+               seeds an actor-slot fleet of N members per player
+               (``fleet.FleetSupervisor``) that the payoff-driven
+               reassigner rebalances once the learners are done.
   league-learner  one league player's learner against ``--coordinator-addr``:
                ``--league-rounds`` matchmade rounds of the fused Anakin
                rollout with the opponent on the away seat, the RL step,
@@ -64,7 +76,9 @@ says otherwise. Roles:
 
 With ``--replay-addr`` (one ``host:port``, a comma-separated shard fleet,
 or ``discover``) the learner samples its batches from the store and the
-actor pushes its trajectories there.
+actor pushes its trajectories there. ``--coordinator-addr`` takes an HA
+address list (``h1:p1,h2:p2``): every client of the coordinator follows
+leadership across failovers.
 
 ``--env jaxenv`` puts the actors on the micro-battle world's host env
 (``envs.jaxenv.JaxMicroBattleEnv``, ``--jaxenv-units`` a squad,
@@ -118,10 +132,8 @@ sharded checkpoints unless ``--no-sharded-ckpt``; ``--dist-method``
 cpu``); ``--host-devices N`` runs ``--type learner`` as N gloo ranks on the
 CPU (implies ``--device cpu``), each pulling its own rows of every batch.
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP Queue 1
-item (``NOT_PORTED``): the SC2 env, the coordinator's HA (``--journal-dir``,
-``--ha-*``), the league-run's actor-slot fleets (``--league-actors-per-player``
-above 0).
+Not ported yet, raising ``NotImplementedError`` with its ROADMAP Queue 1
+item (``NOT_PORTED``): the SC2 env.
 
 ``--dynamics-every N`` sets the learners' training-dynamics gauge-export
 stride (``learner.dynamics.every_n``); 0 turns the tree off, as in the JAX
@@ -144,13 +156,9 @@ from ..league import League, LeagueAPIServer, RemoteLeague
 from ..resilience import AlertRemediator, RestartPolicy, Supervisor, supervise_call
 from ..utils import read_config
 
-_HA = "the coordinator's HA is not ported yet (ROADMAP Queue 1 item 11, comm/ha.py)"
-_FLEET = "the league-run's actor-slot fleets are not ported yet (ROADMAP Queue 1 item 10, fleet/)"
-
 # role or flag prefix of the JAX launcher -> why it raises here
 NOT_PORTED = {
     "--env sc2": "the SC2 env is not ported yet (ROADMAP Queue 1 item 10, envs/sc2/)",
-    "--ha-": _HA,
     "--platform": "the JAX backend switch; the port picks its device with --device",
 }
 
@@ -652,10 +660,14 @@ def run_anakin(args):
 
 
 def _addr(s: str):
-    """``"host:port"`` -> ``(host, port)``."""
+    """``"host:port"`` -> ``(host, port)``; an HA address list
+    (``"h1:p1,h2:p2"``) -> ``(list, None)``, which ``coordinator_request``
+    resolves with leadership failover (a list that does not parse raises
+    ``ValueError``)."""
     if "," in s:
-        raise NotImplementedError(f"{s}: coordinator address lists are the coordinator's HA, "
-                                  "not ported yet (ROADMAP Queue 1 item 11)")
+        from ..comm.ha import format_addrs, parse_addrs
+
+        return format_addrs(parse_addrs(s)), None
     host, _, port = s.rpartition(":")
     return host or "127.0.0.1", int(port)
 
@@ -864,7 +876,7 @@ def run_coordinator(args) -> None:
     done = threading.Event()
     previous = _on_stop_signals(done.set)
     health = _init_health(args, roles=FLEET_RULE_ROLES, source="coordinator",
-                          sigterm_bundle=not args.arena_store)
+                          sigterm_bundle=not (args.arena_store or args.journal_dir))
     store = None
     if args.arena_store:
         from ..arena import ArenaStore, set_arena_store
@@ -875,8 +887,23 @@ def run_coordinator(args) -> None:
         store.start_autosave(interval_s=args.league_autosave_s or 30.0)
         set_arena_store(store)
     co = Coordinator(default_lease_s=args.lease_s or None)
+    server = CoordinatorServer(coordinator=co, port=args.port)
+    ha_state = None
+    if args.journal_dir:
+        # the HA broker: every mutating route journaled, the journal
+        # replayed first, the follower feed served; with --ha-peers,
+        # leadership by lease and epoch fencing
+        from ..comm.ha import HAState
+
+        ha_state = HAState(co, args.journal_dir, advertise=args.ha_advertise or f"127.0.0.1:{server.port}",
+                           feed_port=args.ha_port, peers=[p for p in (args.ha_peers or "").split(",") if p],
+                           role=args.ha_role, takeover_grace_s=args.ha_takeover_grace_s)
+        ha_state.boot()
+        server.attach_ha(ha_state)
+        print(f"coordinator HA: role={ha_state.role} epoch={ha_state.epoch} journal={args.journal_dir} "
+              f"feed=:{ha_state.feed_port}", flush=True)
     try:
-        _serve_until_signal(CoordinatorServer(coordinator=co, port=args.port), "coordinator", done=done)
+        _serve_until_signal(server, "coordinator", done=done)
     finally:
         if store is not None:
             from ..arena import set_arena_store
@@ -885,6 +912,10 @@ def run_coordinator(args) -> None:
             store.save()
             set_arena_store(None)
             print("arena store journaled on shutdown", flush=True)
+        if ha_state is not None:
+            ha_state.final_snapshot()
+            ha_state.stop()
+            print("coordinator journal snapshotted on shutdown", flush=True)
     _close_health(health)
     _restore_signals(previous)
 
@@ -963,15 +994,22 @@ def run_arena(args):
 
 def _fetch_arena_ratings(args) -> Optional[dict]:
     """GET /arena/ratings from the coordinator for the artifact ledger;
-    None when the store isn't hosted there (artifact stays throughput-only)."""
+    None when the store isn't hosted there (artifact stays throughput-only).
+    An HA address list is asked from its believed primary on (the JAX
+    launcher builds a URL of the list itself, which answers nothing)."""
     import urllib.request
 
-    host, port = _addr(args.coordinator_addr)
-    try:
-        with urllib.request.urlopen(f"http://{host}:{port}/arena/ratings", timeout=10.0) as resp:
-            return json.loads(resp.read())
-    except Exception:  # noqa: BLE001 - the artifact is written without ratings
-        return None
+    from ..comm.ha import parse_addrs, targets_for
+
+    addrs = parse_addrs(args.coordinator_addr)
+    first = targets_for(addrs).active() if len(addrs) > 1 else addrs[0]
+    for host, port in [first] + [a for a in addrs if a != first]:
+        try:
+            with urllib.request.urlopen(f"http://{host}:{port}/arena/ratings", timeout=10.0) as resp:
+                return json.loads(resp.read())
+        except Exception:  # noqa: BLE001 - the next address, else no ratings
+            continue
+    return None
 
 
 def build_league_learner(args):
@@ -1066,17 +1104,21 @@ def run_league_run(args) -> dict:
     model flags (docs/league.md quickstart). Returns the digest; exits 1
     unless every learner exited 0, at least one historical snapshot was
     minted from a checkpoint generation, and the payoff matrix has real
-    off-diagonal entries. Only un-journaled (``--journal-dir none``): the
-    JAX launcher's default journal is the coordinator's HA."""
+    off-diagonal entries. The control plane is journaled to
+    ``--journal-dir`` (default ``<save-path>/league_journal``; ``none``:
+    un-journaled); ``--league-actors-per-player N`` above 0 seeds each
+    player's actor-slot fleet with N members and runs the payoff-driven
+    reassigner over them."""
     from ..league.runtime.runner import LeagueRunner
     from ..learner.base_learner import experiments_root
 
-    if args.journal_dir.lower() != "none":
-        where = args.journal_dir or "<save-path>/league_journal, the default"
-        raise NotImplementedError(f"--type league-run journals to {where}: {_HA}; pass --journal-dir none "
-                                  "to run the economy un-journaled")
     player_ids = [s.strip() for s in args.league_players.split(",") if s.strip()]
     save_path = args.save_path or os.path.join(experiments_root(), args.experiment_name)
+    journal = args.journal_dir
+    if not journal:
+        journal = os.path.join(save_path, "league_journal")
+    elif journal.lower() == "none":
+        journal = ""  # the economy un-journaled
     extra = ["--batch-size", str(args.batch_size), "--traj-len", str(args.traj_len),
              "--jaxenv-units", str(args.jaxenv_units), "--jaxenv-episode-len", str(args.jaxenv_episode_len),
              "--experiment-name", args.experiment_name, *_model_flags(args)]
@@ -1089,16 +1131,21 @@ def run_league_run(args) -> dict:
     if args.no_supervise:
         extra += ["--no-supervise"]
     runner = LeagueRunner(
-        player_ids=player_ids, save_path=save_path,
+        player_ids=player_ids, save_path=save_path, journal_dir=journal,
         arena_store_path=os.path.join(save_path, "arena_store.pkl"),
         lease_s=args.lease_s or 30.0,
         # first-round asks sit behind each learner's process start and
         # model build; a short TTL would count those as orphans
         job_ttl_s=600.0,
         learner_argv_extra=extra, rounds=args.league_rounds,
-        iters_per_round=args.league_iters_per_round)
+        iters_per_round=args.league_iters_per_round,
+        actors_per_player=args.league_actors_per_player,
+        reassign=args.league_actors_per_player > 0)
     digest = runner.run(port=args.port)
     print(f"league-run: seconds from spawn to exit {json.dumps(runner.learner_s)}", flush=True)
+    if args.league_actors_per_player > 0:
+        print(f"league-run: actor fleets held {json.dumps(runner.fleets_held)}, "
+              f"left {json.dumps(runner.fleets_left)}", flush=True)
     if not digest.get("ok"):
         raise SystemExit(1)
     return digest
@@ -1150,8 +1197,28 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--port", type=int, default=0, help="coordinator and league roles: listen port")
     p.add_argument("--lease-s", type=float, default=0.0,
                    help="coordinator role: default registration lease (0: none)")
+    p.add_argument("--journal-dir", default="",
+                   help="--type coordinator: write-ahead-journal directory (comm/ha.py): every mutating "
+                        "route journaled, replayed on restart, tailed by standbys ('': the in-memory "
+                        "broker); --type league-run: default <save-path>/league_journal, 'none' runs the "
+                        "economy un-journaled")
+    p.add_argument("--ha-role", default="auto", choices=("auto", "primary", "standby"),
+                   help="coordinator HA role: auto probes --ha-peers and joins a live primary as its "
+                        "standby, else leads")
+    p.add_argument("--ha-peers", default="",
+                   help="comma list of the peer coordinators' host:port (the other members of the HA set)")
+    p.add_argument("--ha-port", type=int, default=0,
+                   help="journal follower-feed TCP port (0: ephemeral; peers read it from GET "
+                        "/coordinator/ha)")
+    p.add_argument("--ha-advertise", default="",
+                   help="host:port this coordinator advertises to peers and clients (default "
+                        "127.0.0.1:--port)")
+    p.add_argument("--ha-takeover-grace-s", type=float, default=3.0,
+                   help="a standby promotes after this long without contact from the primary's feed")
     p.add_argument("--league-addr", default="", help="host:port of the league role")
-    p.add_argument("--coordinator-addr", default="", help="host:port of the coordinator role")
+    p.add_argument("--coordinator-addr", default="",
+                   help="host:port of the coordinator role (an HA set: 'h1:p1,h2:p2', followed across "
+                        "failovers)")
     p.add_argument("--player-id", default="MP0")
     p.add_argument("--pipeline", default="default",
                    help="learner implementation: 'default' or an importable module (plugins.py)")
@@ -1221,9 +1288,6 @@ def parser() -> argparse.ArgumentParser:
                    help="no crash-restart supervision and no resume from the latest checkpoint")
     p.add_argument("--restart-max", type=int, default=5)
     p.add_argument("--restart-window-s", type=float, default=300.0)
-    p.add_argument("--journal-dir", default="",
-                   help="--type league-run: 'none' runs the economy un-journaled (the only value ported; "
-                        "the journal is the coordinator's HA, ROADMAP Queue 1 item 11)")
     p.add_argument("--league-resume", default="",
                    help="--type league: resume file, loaded on start when present (either package's), "
                         "then autosaved")
@@ -1238,8 +1302,9 @@ def parser() -> argparse.ArgumentParser:
                         "-> report -> checkpoint generation -> train-info)")
     p.add_argument("--league-iters-per-round", type=int, default=1, help="optimizer steps per round")
     p.add_argument("--league-actors-per-player", type=int, default=0,
-                   help="--type league-run: actor-slot fleets per player (above 0 raises: fleet/, "
-                        "ROADMAP Queue 1 item 10)")
+                   help="--type league-run: seed each player's elastic actor-slot fleet with this many "
+                        "members and run the payoff-driven reassigner over them (0: no actor fleets; the "
+                        "learners roll out on the device)")
     p.add_argument("--arena-ckpt-dir", default="",
                    help="--type arena: checkpoint directory whose CheckpointManager generations form "
                         "the model roster")
@@ -1287,10 +1352,6 @@ def main(argv: Optional[Sequence[str]] = None):
                      and (i == 0 or argv[i - 1] != "--host-devices")]
     if args.type not in ROLES:
         raise SystemExit(f"rl_train: --type must be one of {', '.join(ROLES)}, got {args.type!r}")
-    if args.journal_dir and not (args.type == "league-run" and args.journal_dir.lower() == "none"):
-        raise NotImplementedError(f"--journal-dir: {_HA}")
-    if args.league_actors_per_player > 0:
-        raise NotImplementedError(f"--league-actors-per-player: {_FLEET}")
     _resolve_args(args)
     if args.anakin:
         if args.env and args.env != "jaxenv":

@@ -1,8 +1,9 @@
 """The data plane: wire format, native shuttle, shared-memory rings,
 coordinator, discovery and the actor-learner ``Adapter``.
 
-Counterpart of ``distar_tpu.comm``. The coordinator's high availability
-(``comm/ha.py``) comes with ROADMAP Queue 1 item 11.
+Counterpart of ``distar_tpu.comm``, with the coordinator's high
+availability (``comm/ha.py``: the journal, the warm standby, epoch
+fencing and the multi-address client).
 """
 from . import shuttle
 from .adapter import Adapter

@@ -21,10 +21,18 @@ serializer's codec) into the process fleet health's store and trace store,
 and an endpoint that leaves (its lease lapses, or it unregisters) takes
 its shipped series and traces with it (``add_evict_callback``); the
 fleet-health GET routes answer from the same handle
-(``obs.handle_health_get``). The coordinator's high availability (``comm/ha.py``: journaled state, leader
-failover, the multi-address client) is item 11: ``attach_ha`` and an
-address list given to ``coordinator_request`` raise
-``NotImplementedError``.
+(``obs.handle_health_get``). ``GET /autoscaler`` answers from the
+process's ``fleet.Autoscaler`` where one runs (404 where none does).
+
+High availability (``comm/ha.py``): ``attach_ha`` routes every POST
+through an ``HAState`` (journaled before the reply, a standby answering
+the typed ``not_leader`` envelope, every reply stamped with the epoch and
+role) and ``GET /coordinator/ha`` answers its status; the broker's
+``apply_register``/``apply_heartbeat`` (re-aged from a record's time),
+``state_snapshot`` and ``restore_state`` are its replay hooks. Given an
+address list (``"h1:p1,h2:p2"``), ``coordinator_request`` follows
+leadership across failovers: ``not_leader`` redirects, stale epochs
+fenced, and an ambiguous ack on a non-idempotent route raised typed.
 """
 from __future__ import annotations
 
@@ -33,9 +41,6 @@ import threading
 import time
 from collections import defaultdict, deque
 from typing import Dict, Optional
-
-#: the ROADMAP item that brings the surfaces not ported yet
-HA_ITEM = "ROADMAP Queue 1 item 11"
 
 
 class Coordinator:
@@ -79,23 +84,38 @@ class Coordinator:
 
     def register(self, token: str, ip: str, port: int, meta: Optional[dict] = None,
                  lease_s: Optional[float] = None) -> bool:
+        return self.apply_register(token, ip, port, meta, lease_s=lease_s)
+
+    def apply_register(self, token: str, ip: str, port: int, meta: Optional[dict] = None,
+                       lease_s: Optional[float] = None, record_ts: Optional[float] = None) -> bool:
+        """``register`` with the journal replay's re-aging hook: ``record_ts``
+        (the record's wall time) anchors both the record's timestamp and the
+        lease, so a replayed registration whose lease lapsed during the
+        outage expires on the first sweep instead of getting a fresh one."""
         lease_s = self._default_lease_s if lease_s is None else lease_s
+        now = time.time()
+        ts = now if record_ts is None else record_ts
         with self._lock:
-            self._records[token].append({"ip": ip, "port": port, "meta": meta or {}, "ts": time.time()})
+            self._records[token].append({"ip": ip, "port": port, "meta": meta or {}, "ts": ts})
             if lease_s is not None:
-                self._leases[f"{ip}:{port}"] = time.monotonic() + lease_s
+                self._leases[f"{ip}:{port}"] = time.monotonic() + lease_s - (now - ts)
             return True
 
     def heartbeat(self, ip: str, port: int, lease_s: Optional[float] = None) -> bool:
         """Refresh an endpoint's lease. True when the broker still holds
         records for it; False tells the producer its records are gone
         (broker restarted, or evicted) and it must register again."""
+        return self.apply_heartbeat(ip, port, lease_s=lease_s)
+
+    def apply_heartbeat(self, ip: str, port: int, lease_s: Optional[float] = None,
+                        record_ts: Optional[float] = None) -> bool:
         lease_s = self._default_lease_s if lease_s is None else lease_s
+        age = 0.0 if record_ts is None else max(0.0, time.time() - record_ts)
         key = f"{ip}:{port}"
         with self._lock:
             self._sweep_leases()
             if lease_s is not None:
-                self._leases[key] = time.monotonic() + lease_s
+                self._leases[key] = time.monotonic() + lease_s - age
             from ..obs import get_registry
 
             get_registry().counter(
@@ -206,6 +226,29 @@ class Coordinator:
             self._sweep_leases()
             return {token: self._filtered_len(q, max_age_s) for token, q in self._records.items()}
 
+    def state_snapshot(self) -> dict:
+        """The whole broker state in journal- and wire-safe form (HA
+        snapshots and the follower feed). Leases cross the process boundary
+        as remaining seconds: a monotonic reading means nothing in another
+        process, and a wall time would bring back the clock-step hazard."""
+        with self._lock:
+            mono = time.monotonic()
+            return {"records": {t: [dict(r) for r in q] for t, q in self._records.items() if q},
+                    "strikes": dict(self._strikes),
+                    "lease_remaining": {k: exp - mono for k, exp in self._leases.items()}}
+
+    def restore_state(self, state: dict) -> None:
+        """Adopt a ``state_snapshot()`` whole (journal recovery, or a
+        standby receiving the leader's snapshot)."""
+        with self._lock:
+            self._records = defaultdict(lambda: deque(maxlen=self._maxlen))
+            for token, recs in (state.get("records") or {}).items():
+                self._records[token].extend(dict(r) for r in recs)
+            self._strikes = defaultdict(int)
+            self._strikes.update(state.get("strikes") or {})
+            mono = time.monotonic()
+            self._leases = {k: mono + float(rem) for k, rem in (state.get("lease_remaining") or {}).items()}
+
     def publish_metrics(self, registry=None) -> None:
         """Refresh the ``distar_coordinator_queue_depth{token=...}`` gauges
         and the strike gauge; the /metrics route calls this at scrape time."""
@@ -224,14 +267,20 @@ class CoordinatorServer:
     """HTTP wrapper: ``POST /coordinator/<route>`` with a JSON body (the
     ``telemetry`` route: a serialized one) answers ``{"code": 0, "info":
     ...}`` (1 with the error's repr when the route raised, 404 for an
-    unknown route); ``GET /metrics`` is the Prometheus scrape, and the
-    fleet-health routes answer JSON."""
+    unknown route, 2 ``not_leader`` with a ``leader`` hint from an HA
+    standby; under HA every reply carries ``epoch`` and ``role``); ``GET
+    /metrics`` is the Prometheus scrape, and the fleet-health routes answer
+    JSON."""
 
     def __init__(self, coordinator: Optional[Coordinator] = None, host="127.0.0.1", port=0):
         from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
         self.coordinator = coordinator or Coordinator()
         co = self.coordinator
+        # HA is attached after construction (attach_ha): HAState advertises
+        # this server's bound port; the box lets the handlers see it
+        ha_box: dict = {"ha": None}
+        self._ha_box = ha_box
 
         def _ingest_telemetry(msg: dict) -> int:
             # fold shipped snapshots into the process fleet store: the broker
@@ -297,8 +346,18 @@ class CoordinatorServer:
             return getattr(service, method)(body)
 
         def _hosted_snapshot(path: str):
-            """The GET snapshot of the arena store or league service this
-            process hosts at ``path``; None when it hosts none (404)."""
+            """The GET snapshot at ``path`` of what this process hosts: the
+            HA state (role, epoch, journal seq, feed address, lag), the
+            autoscaler, the league service or the arena store; None when it
+            hosts none (404)."""
+            if path == "/coordinator/ha":
+                ha_state = ha_box["ha"]
+                return None if ha_state is None else ha_state.status()
+            if path == "/autoscaler":
+                from ..fleet import get_autoscaler
+
+                scaler = get_autoscaler()
+                return None if scaler is None else scaler.status()
             if path == "/league/status":
                 from ..league.runtime import get_league_service
 
@@ -328,7 +387,8 @@ class CoordinatorServer:
                 if path == "/metrics":
                     write_scrape_response(self, refresh=co.publish_metrics)
                     return
-                if path in ("/league/status", "/arena/ratings", "/arena/payoff"):
+                if path in ("/league/status", "/arena/ratings", "/arena/payoff", "/coordinator/ha",
+                            "/autoscaler"):
                     snap = _hosted_snapshot(path)
                     if snap is not None:
                         write_json_response(self, snap)
@@ -360,13 +420,29 @@ class CoordinatorServer:
                     else:
                         body = json.loads(raw or b"{}")
                     fn = routes.get(name)
+                    ha_state = ha_box["ha"]
                     if fn is None:
                         payload = {"code": 404, "info": f"no route {name}"}
+                    elif ha_state is not None:
+                        from .ha import NotLeader
+
+                        try:
+                            payload = {"code": 0, "info": ha_state.dispatch(name, body, fn)}
+                        except NotLeader as e:
+                            # the typed redirect: clients follow the hint
+                            payload = {"code": 2, "info": "not_leader", "leader": e.leader}
+                            outcome = "not_leader"
                     else:
                         payload = {"code": 0, "info": fn(body)}
                 except Exception as e:
                     payload = {"code": 1, "info": repr(e)}
                     outcome = "error"
+                ha_state = ha_box["ha"]
+                if ha_state is not None:
+                    # the fencing stamp: a deposed primary's answers are
+                    # detectably stale
+                    payload.setdefault("epoch", ha_state.epoch)
+                    payload.setdefault("role", ha_state.role)
                 data = json.dumps(payload, default=str).encode()
                 self.send_response(200)
                 self.send_header("Content-Type", "application/json")
@@ -382,8 +458,14 @@ class CoordinatorServer:
         self._thread: Optional[threading.Thread] = None
 
     def attach_ha(self, ha_state) -> None:
-        raise NotImplementedError(f"coordinator high availability (comm/ha.py) is not ported yet "
-                                  f"({HA_ITEM})")
+        """Route request dispatch through a booted :class:`comm.ha.HAState`:
+        POSTs follow its journal and leadership contract and every reply is
+        stamped with the epoch. Attach before ``start()``."""
+        self._ha_box["ha"] = ha_state
+
+    @property
+    def ha(self):
+        return self._ha_box["ha"]
 
     def start(self):
         self._thread = threading.Thread(target=self._server.serve_forever, daemon=True)
@@ -420,24 +502,70 @@ def _coordinator_request_once(host: str, port: int, route: str, body: Optional[d
         raise CommError(f"{op} @ {host}:{port} failed: {e!r}", op=op, cause=e) from e
 
 
+def _failover_request_once(targets, route: str, body: Optional[dict], timeout: float) -> dict:
+    """One attempt against the believed primary of an address set: a
+    transport failure rotates the target (an ambiguous ack on a
+    non-idempotent route raises typed instead), a ``not_leader`` reply
+    follows the leadership hint, and a reply whose epoch is below the
+    highest seen is discarded; each raised as a typed retryable so the
+    retry policy drives the redirect loop."""
+    from ..resilience import CommError
+    from . import ha as _ha
+
+    host, port = targets.active()
+    addr = f"{host}:{port}"
+    try:
+        reply = _coordinator_request_once(host, port, route, body, timeout)
+    except CommError as e:
+        targets.rotate((host, port))
+        if route not in _ha.IDEMPOTENT_ROUTES and _ha.is_ambiguous(e):
+            # the primary died between send and reply: an ``ask`` may have
+            # popped a record whose reply was lost, and a retry on the
+            # standby would pop a second one
+            raise _ha.AmbiguousAckError(route, addr, cause=e) from e
+        raise
+    epoch = reply.get("epoch")
+    if epoch is not None:
+        epoch = int(epoch)
+        if targets.is_stale(epoch):
+            # a deposed primary still answering: fence it out
+            from ..obs import get_registry
+
+            get_registry().counter(
+                "distar_coordinator_ha_stale_replies_total",
+                "replies discarded for carrying a deposed primary's epoch").inc()
+            targets.rotate((host, port))
+            raise _ha.StaleEpochError(addr, epoch, targets.max_epoch)
+        targets.note_epoch(epoch)
+    if reply.get("code") == 2 and reply.get("info") == "not_leader":
+        targets.follow(str(reply.get("leader") or ""), (host, port))
+        raise _ha.NotLeaderError(addr, str(reply.get("leader") or ""), int(epoch if epoch is not None else -1))
+    return reply
+
+
 def coordinator_request(host: str, port: Optional[int], route: str, body: Optional[dict] = None,
                         timeout=10.0, policy=None):
-    """Broker RPC to one coordinator under the resilience retry policy
+    """Broker RPC under the resilience retry policy
     (``resilience.DEFAULT_COMM_POLICY`` rides through a broker restart of
     a few seconds; ``resilience.NO_RETRY`` makes one attempt). Raises
     ``resilience.CommError`` once the policy is exhausted.
 
-    An address list (``"h1:p1,h2:p2"`` as ``host`` with ``port=None``) is
-    the JAX package's HA client, not ported yet: NotImplementedError."""
+    An HA fleet passes an address list, ``"h1:p1,h2:p2"`` as ``host`` with
+    ``port=None`` (or in ``host`` with any port): the call follows
+    leadership across failovers (``not_leader`` redirects, epoch fencing,
+    ``comm.ha.AmbiguousAckError`` for a non-idempotent route whose ack was
+    lost). A list that does not parse raises ``ValueError``; a single
+    address behaves as ``(host, port)``."""
     from ..resilience import DEFAULT_COMM_POLICY, retry_call
 
+    op = f"coordinator:{route}"
     if port is None or (isinstance(host, str) and "," in host):
-        spec = host if port is None else f"{host}:{port}"
-        addrs = [a for a in str(spec).split(",") if a.strip()]
-        if len(addrs) != 1:
-            raise NotImplementedError(f"coordinator address list {spec!r}: the HA client "
-                                      f"(comm/ha.py) is not ported yet ({HA_ITEM})")
-        host, _, p = addrs[0].strip().rpartition(":")
-        host, port = host or "127.0.0.1", int(p)
+        from . import ha as _ha
+
+        addrs = _ha.parse_addrs(host if port is None else f"{host}:{port}")
+        if len(addrs) > 1:
+            return retry_call(_failover_request_once, _ha.targets_for(addrs), route, body, timeout,
+                              op=op, policy=policy or DEFAULT_COMM_POLICY)
+        host, port = addrs[0]
     return retry_call(_coordinator_request_once, host, port, route, body, timeout,
-                      op=f"coordinator:{route}", policy=policy or DEFAULT_COMM_POLICY)
+                      op=op, policy=policy or DEFAULT_COMM_POLICY)

@@ -12,8 +12,9 @@ heartbeating. ``serve.fleet.discovery.register_gateway`` (token
 After such a re-registration the keep-alive also asks every telemetry
 shipper of the process to resend its whole snapshot
 (``obs.shipper.request_resync_all``), so the restarted broker does not show
-the source stale until the next ship. A coordinator address list (the HA
-client) is ROADMAP Queue 1 item 11 and raises in ``coordinator_request``.
+the source stale until the next ship. A coordinator address list (an HA
+pair, ``"h1:p1,h2:p2"``) passes through to ``coordinator_request``, which
+follows leadership across failovers.
 """
 from __future__ import annotations
 

@@ -85,9 +85,8 @@ class RemoteLeagueService:
     one; bodies carry the idempotency handles (``learner_id``, ``seq``,
     match ``key``) that make retries safe on the journaled side.
 
-    ``addr`` is a single ``host:port``; the JAX package's HA comma list
-    (``"h1:p1,h2:p2"``) raises ``NotImplementedError`` naming ROADMAP Queue 1
-    item 11, as ``coordinator_request`` does.
+    ``addr`` is a single ``host:port`` or an HA comma list
+    (``"h1:p1,h2:p2"``: requests follow leadership across failovers).
     """
 
     def __init__(self, addr: str, timeout: float = 30.0, policy=None):

@@ -10,9 +10,9 @@ drives the fleet machinery (``FleetSupervisor.scale_up`` /
 ``scale_down`` — graceful LIFO drain, ``min_members`` floor) to match.
 
 Counterpart of ``distar_tpu.league.runtime.reassign``. It takes any
-supervisor with ``actual``/``scale_up``/``scale_down``; the port's
-``fleet/supervisor.py`` is ROADMAP Queue 1 item 10, so the league-run
-launcher does not build actor fleets yet.
+supervisor with ``actual``/``scale_up``/``scale_down``: league-run's
+actor-slot fleets under ``fleet.FleetSupervisor``
+(``runner.build_actor_fleets``), or a stub in tests.
 
 Everything is read from public surfaces: the payoff cells come from
 ``ArenaStore.payoff_snapshot()`` (or an injected probe for tests), the

@@ -13,14 +13,16 @@ the two processes of a league deployment:
   generation, and stream train-info (which is where historical snapshots
   get minted server-side).
 * :class:`LeagueRunner` — the ``rl_train --type league-run`` parent: hosts
-  the coordinator (LeagueService + ArenaStore) in process, spawns one
-  learner subprocess per active player, and summarises the economy
-  (payoff matrix, mints, jobs-by-branch) on exit.
+  the coordinator (LeagueService + ArenaStore + optional HA journal) in
+  process, spawns one learner subprocess per active player, optionally
+  runs the payoff-driven actor reassigner over actor-slot fleets
+  (``build_actor_fleets``), and summarises the economy (payoff matrix,
+  mints, jobs-by-branch) on exit. ``replay_control_plane`` cold-boots the
+  control plane a run journaled, and ``economy_digest`` reads the digest
+  both compare.
 
-Departures from the JAX package: the opponent slot holds a model, not a
-parameter tree (ROADMAP Queue 3 item 18); the coordinator's HA journal
-(``journal_dir``) and the actor-slot fleets (``build_actor_fleets``) raise
-naming their ROADMAP Queue 1 items, 11 and 10.
+Departure from the JAX package: the opponent slot holds a model, not a
+parameter tree (ROADMAP Queue 3 item 18).
 
 Model publication rides the existing serving surface: a
 :class:`LeaguePublisher` pushes every new checkpoint generation into the
@@ -41,11 +43,6 @@ from typing import Dict, List, Optional, Sequence
 #: default league roster for a small self-play economy: one main agent and
 #: two exploiter classes (the three-learner quickstart in docs/league.md)
 DEFAULT_PLAYERS = ("MP0", "EP0", "ME0")
-
-_FLEET_ITEM = ("actor-slot fleets need fleet/supervisor.py, which is not ported yet "
-               "(ROADMAP Queue 1 item 10)")
-_HA_ITEM = ("the league-run journal needs the coordinator's HA (comm/ha.py), which is not "
-            "ported yet (ROADMAP Queue 1 item 11)")
 
 
 def league_cfg(player_ids: Sequence[str],
@@ -273,9 +270,98 @@ def league_actor_cmd(player_id: str, coordinator: str = ""):
 
 def build_actor_fleets(player_ids: Sequence[str], actors_per_player: int = 1,
                        coordinator: str = "", min_actors: int = 1):
-    """The JAX package's actor-slot fleets under a ``FleetSupervisor``: the
-    supervisor is ROADMAP Queue 1 item 10, so this raises."""
-    raise NotImplementedError(_FLEET_ITEM)
+    """A started ``FleetSupervisor`` with one actor-slot fleet per player
+    (fleet name ``actors-<player>``), plus the fleet->player map the
+    :class:`~.reassign.PayoffReassigner` takes."""
+    from ...fleet.supervisor import FleetSupervisor, SubprocessFleet
+
+    supervisor = FleetSupervisor()
+    fleet_players = {}
+    for pid in player_ids:
+        name = f"actors-{pid}"
+        fleet = SubprocessFleet(
+            name, "actor", league_actor_cmd(pid, coordinator),
+            drain_timeout_s=1.0, min_members=min_actors)
+        supervisor.add_fleet(fleet)
+        fleet_players[name] = pid
+        supervisor.scale_up(name, actors_per_player)
+    supervisor.start()
+    return supervisor, fleet_players
+
+
+def economy_digest(service, store) -> dict:
+    """What ``LEAGUE-RUN-DONE`` reports of the control plane: jobs by
+    branch, mints, the historical roster, pending and orphaned
+    assignments, off-diagonal payoff pairs with games, matches. A cold
+    replay of the run's journal must read the same."""
+    status = service.status()
+    payoff = store.payoff_snapshot()
+    off_diag = sum(1 for cell in payoff.get("cells", [])
+                   if cell.get("a") != cell.get("b") and cell.get("games", 0) > 0)
+    return {
+        "jobs_by_branch": status["jobs_by_branch"],
+        "snapshot_mints": status["snapshot_mints"],
+        "historical_players": status["historical_players"],
+        "assignments_pending": status["assignments_pending"],
+        "orphaned_jobs": status["orphaned_jobs"],
+        "off_diagonal_pairs": off_diag,
+        "matches_total": store.matches_total,
+    }
+
+
+def replay_control_plane(journal_dir: str, player_ids: Sequence[str] = DEFAULT_PLAYERS,
+                         seed: int = 0, lease_s: float = 30.0, job_ttl_s: float = 180.0,
+                         wal_only: bool = False):
+    """Cold-boot the control plane a league-run journaled under
+    ``journal_dir``, with no learner running: a fresh ``LeagueService``
+    (the run's roster, seed, lease and job TTL) and ``ArenaStore``.
+
+    By default an ``HAState`` boots as primary on the journal (its newest
+    snapshot, then the records after it; the boot journals a leadership
+    record). ``wal_only`` instead applies every record of the journal from
+    its first, through ``comm.ha.apply_record``, leaving the journal as it
+    is; it raises ``JournalCorruptError`` when the journal's history does
+    not reach back to its first record (compacted) or has a gap.
+
+    The service and store are installed as the process's own while the
+    records apply (a replayed ``league_report`` forwards its matches to
+    the process's arena store, as the live route did) and put back after.
+    Returns ``(service, store, info)``: ``info`` holds the records replayed
+    and the seconds taken."""
+    import glob
+
+    from ...arena import ArenaStore, get_arena_store, set_arena_store
+    from ...comm import Coordinator
+    from ...comm.ha import HAState, Journal, JournalCorruptError, apply_record
+    from .service import LeagueService, get_league_service, set_league_service
+
+    store = ArenaStore()
+    service = LeagueService(league_cfg(player_ids), seed=seed, lease_s=lease_s, job_ttl_s=job_ttl_s)
+    previous = get_arena_store(), get_league_service()
+    set_arena_store(store)
+    set_league_service(service)
+    t0 = time.perf_counter()
+    try:
+        if wal_only:
+            segments = sorted(glob.glob(os.path.join(glob.escape(journal_dir), "wal.*.log")))
+            records = [rec for seg in segments for rec in Journal._scan(seg)]
+            seqs = [int(rec["seq"]) for rec in records]
+            if seqs != list(range(1, len(seqs) + 1)):
+                raise JournalCorruptError(f"{journal_dir}: the records do not run from seq 1 without a gap")
+            co = Coordinator()
+            for rec in records:
+                apply_record(co, rec, arena_store=store, league_service=service)
+            replayed = len(records)
+        else:
+            ha_state = HAState(Coordinator(), journal_dir, role="primary",
+                               arena_store_fn=lambda: store, league_service_fn=lambda: service)
+            replayed = len(ha_state.journal.recover()[1])
+            ha_state.boot()
+            ha_state.stop()
+    finally:
+        set_arena_store(previous[0])
+        set_league_service(previous[1])
+    return service, store, {"records": replayed, "seconds": time.perf_counter() - t0}
 
 
 # -------------------------------------------------------------------- runner
@@ -283,13 +369,15 @@ class LeagueRunner:
     """The league-run parent process: coordinator + matchmaker + N learners.
 
     Hosts the :class:`~.service.LeagueService` (and an ``ArenaStore``)
-    inside a ``CoordinatorServer``. Learner subprocesses are spawned
-    through ``python -m distar_tpu_torch.bin.rl_train --type
+    inside a ``CoordinatorServer``; with ``journal_dir`` the whole control
+    plane rides the HA journal (``comm/ha.py``), so killing and restarting
+    this process replays the league exactly. Learner subprocesses are
+    spawned through ``python -m distar_tpu_torch.bin.rl_train --type
     league-learner`` (one per active player, each its own process on the
-    card) and awaited; ``run()`` returns the final digest and prints it.
-    ``journal_dir`` (the JAX package's HA journal) and
-    ``actors_per_player`` above 0 raise naming ROADMAP Queue 1 items 11 and
-    10.
+    card) and awaited. With ``actors_per_player`` above 0 each player gets
+    an actor-slot fleet of that many members, and with ``reassign`` the
+    ``PayoffReassigner`` rebalances them once the learners are done.
+    ``run()`` returns the final digest and prints it.
     """
 
     def __init__(self, player_ids: Sequence[str] = DEFAULT_PLAYERS,
@@ -300,12 +388,9 @@ class LeagueRunner:
                  rounds: int = 2, iters_per_round: int = 1,
                  actors_per_player: int = 0, reassign: bool = False,
                  env: Optional[dict] = None):
-        if journal_dir:
-            raise NotImplementedError(f"LeagueRunner(journal_dir=...): {_HA_ITEM}")
-        if int(actors_per_player) > 0:
-            raise NotImplementedError(f"LeagueRunner(actors_per_player > 0): {_FLEET_ITEM}")
         self.player_ids = list(player_ids)
         self.save_path = save_path
+        self.journal_dir = journal_dir
         self.arena_store_path = arena_store_path
         self.seed = int(seed)
         self.lease_s = float(lease_s)
@@ -313,17 +398,25 @@ class LeagueRunner:
         self.learner_argv_extra = list(learner_argv_extra or [])
         self.rounds = int(rounds)
         self.iters_per_round = int(iters_per_round)
+        self.actors_per_player = int(actors_per_player)
+        self.reassign = bool(reassign)
         self.env = dict(env) if env else None
         self.server = None
+        self.ha_state = None
         self.store = None
         self.service = None
+        self.supervisor = None
+        #: actor-slot fleet -> active members when the learners are done,
+        #: and -> members left once the fleets are stopped
+        self.fleets_held: Dict[str, int] = {}
+        self.fleets_left: Dict[str, int] = {}
         self.procs: Dict[str, subprocess.Popen] = {}
         self.learner_s: Dict[str, float] = {}  # spawn to exit, per player
 
     # ----------------------------------------------------------- control plane
     def start_control_plane(self, port: int = 0) -> str:
-        """Coordinator + ArenaStore + LeagueService. Returns the address
-        learners connect to."""
+        """Coordinator + ArenaStore + LeagueService (+ HA journal). Returns
+        the address learners connect to."""
         from ...arena import ArenaStore, set_arena_store
         from ...comm import Coordinator, CoordinatorServer
         from .service import LeagueService, set_league_service
@@ -336,11 +429,22 @@ class LeagueRunner:
             league_cfg(self.player_ids), seed=self.seed,
             lease_s=self.lease_s, job_ttl_s=self.job_ttl_s)
         set_league_service(self.service)
-        self.server = CoordinatorServer(coordinator=Coordinator(), port=port)
+        co = Coordinator()
+        self.server = CoordinatorServer(coordinator=co, port=port)
+        if self.journal_dir:
+            from ...comm.ha import HAState
+
+            self.ha_state = HAState(
+                co, self.journal_dir,
+                arena_store_fn=lambda: self.store,
+                league_service_fn=lambda: self.service)
+            self.ha_state.boot()
+            self.server.attach_ha(self.ha_state)
         self.server.start()
         addr = f"127.0.0.1:{self.server.port}"
         # analysis: allow(no-print) — launcher stdout: the address line operators read to reach the control plane
-        print(f"league-run control plane on {addr} (journal=off)", flush=True)
+        print(f"league-run control plane on {addr} "
+              f"(journal={'on' if self.journal_dir else 'off'})", flush=True)
         return addr
 
     # --------------------------------------------------------------- learners
@@ -399,32 +503,36 @@ class LeagueRunner:
             time.sleep(0.05)
         return {pid: codes[pid] for pid in self.procs}
 
+    # ------------------------------------------------------------ reassigner
+    def _reassign_step(self):
+        from .reassign import PayoffReassigner
+
+        if self.supervisor is None:
+            return {}
+        total = sum(self.supervisor.actual(n) for n in self.supervisor.fleets())
+        fleet_players = {n: n.split("actors-", 1)[1] for n in self.supervisor.fleets()}
+        reassigner = PayoffReassigner(
+            self.supervisor, fleet_players, total_actors=total,
+            payoff_fn=self.store.payoff_snapshot, service=self.service)
+        return reassigner.step()
+
     # -------------------------------------------------------------------- run
     def run(self, port: int = 0, timeout_s: float = 1800.0) -> dict:
         addr = self.start_control_plane(port=port)
+        if self.actors_per_player > 0:
+            self.supervisor, _ = build_actor_fleets(
+                self.player_ids, self.actors_per_player, coordinator=addr)
         try:
             self.spawn_learners(addr)
             codes = self.wait_learners(timeout_s=timeout_s)
-            status = self.service.status()
-            payoff = self.store.payoff_snapshot()
-            off_diag = sum(
-                1 for cell in payoff.get("cells", [])
-                if cell.get("a") != cell.get("b")
-                and cell.get("games", 0) > 0)
-            digest = {
-                "learner_rc": codes,
-                "jobs_by_branch": status["jobs_by_branch"],
-                "snapshot_mints": status["snapshot_mints"],
-                "historical_players": status["historical_players"],
-                "assignments_pending": status["assignments_pending"],
-                "orphaned_jobs": status["orphaned_jobs"],
-                "off_diagonal_pairs": off_diag,
-                "matches_total": self.store.matches_total,
-                "reassign_moves": {},
-            }
+            if self.supervisor is not None:
+                self.fleets_held = {n: self.supervisor.actual(n) for n in self.supervisor.fleets()}
+            moves = self._reassign_step() if self.reassign else {}
+            economy = economy_digest(self.service, self.store)
+            digest = {"learner_rc": codes, **economy, "reassign_moves": moves}
             ok = (all(c == 0 for c in codes.values())
-                  and status["snapshot_mints"] >= 1
-                  and off_diag >= 1)
+                  and economy["snapshot_mints"] >= 1
+                  and economy["off_diagonal_pairs"] >= 1)
             digest["ok"] = ok
             # analysis: allow(no-print) — the machine-parseable verdict line the acceptance harness greps for
             print("LEAGUE-RUN-DONE " + json.dumps(digest), flush=True)
@@ -437,8 +545,17 @@ class LeagueRunner:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+        if self.supervisor is not None:
+            fleets = {n: self.supervisor.fleet(n) for n in self.supervisor.fleets()}
+            self.supervisor.stop()
+            self.fleets_left = {n: len(f.members()) for n, f in fleets.items()}
+            self.supervisor = None
         if self.arena_store_path and self.store is not None:
             self.store.save()
+        if self.ha_state is not None:
+            self.ha_state.final_snapshot()
+            self.ha_state.stop()
+            self.ha_state = None
         if self.server is not None:
             self.server.stop()
             self.server = None

@@ -1,9 +1,9 @@
 """Coordinator-hosted league service: the matchmaking control plane.
 
 Counterpart of ``distar_tpu.league.runtime.service``. The coordinator's
-write-ahead journal that replays these routes (``comm/ha.py``) is ROADMAP
-Queue 1 item 11; until it lands the service is un-journaled, and the
-replay-safety below is what that journal will rely on.
+write-ahead journal (``comm/ha.py``) journals its mutating routes and
+replays them through ``comm.ha.apply_record`` with each record's clock;
+the replay-safety below is what that relies on.
 
 The seed :class:`~distar_tpu_torch.league.league.League` is transport-agnostic
 and deterministic given its RNG — but it draws from the *module-level*

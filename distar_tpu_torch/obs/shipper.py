@@ -51,13 +51,25 @@ def request_resync_all(reason: str) -> int:
     return len(shippers)
 
 
+_FAILOVER_HOOK_INSTALLED = False
+
+
 def _install_failover_hook() -> None:
-    """Where the JAX package subscribes, once, to the HA client's
-    coordinator failovers (``comm.ha.add_failover_listener``) so shippers
-    resync the moment a new primary is adopted. The port has no HA client
-    yet (``comm/ha.py``, ROADMAP Queue 1 item 11), so this subscribes
-    nothing; discovery's heartbeat resync still reaches every shipper
-    through ``request_resync_all``."""
+    """Once a process: subscribe to the HA client's coordinator failovers
+    (``comm.ha.add_failover_listener``) so shippers resync the moment a new
+    primary is adopted. Lazy and best-effort (obs stays importable without
+    comm)."""
+    global _FAILOVER_HOOK_INSTALLED
+    with _ACTIVE_LOCK:
+        if _FAILOVER_HOOK_INSTALLED:
+            return
+        _FAILOVER_HOOK_INSTALLED = True
+    try:
+        from ..comm import ha
+
+        ha.add_failover_listener(lambda _targets: request_resync_all("failover"))
+    except Exception:  # noqa: BLE001 - telemetry must not break on comm's shape
+        pass
 
 
 class TelemetryIngest:
@@ -139,7 +151,9 @@ class TelemetryShipper:
     """Background thread pushing registry snapshots to the coordinator.
 
     ``coordinator_addr=(host, port)`` ships over HTTP with the comm
-    serializer as the body codec; ``ingest=TelemetryIngest`` short-circuits
+    serializer as the body codec (``("h1:p1,h2:p2", None)``, an HA
+    address list, ships to its believed primary and follows failovers);
+    ``ingest=TelemetryIngest`` short-circuits
     in-process. Shipping is best-effort: a dead broker counts an error and
     the loop keeps going — telemetry must never take the fleet down with it.
     """
@@ -154,11 +168,6 @@ class TelemetryShipper:
         assert (coordinator_addr is None) != (ingest is None), \
             "exactly one of coordinator_addr / ingest"
         assert interval_s > 0
-        if coordinator_addr is not None and (
-                coordinator_addr[1] is None or "," in str(coordinator_addr[0])):
-            raise NotImplementedError(
-                f"telemetry to a coordinator address list {coordinator_addr[0]!r}: the HA "
-                "client (comm/ha.py) is not ported yet (ROADMAP Queue 1 item 11)")
         self.source = str(source)
         self.interval_s = interval_s
         self._addr = coordinator_addr
@@ -226,6 +235,19 @@ class TelemetryShipper:
             from ..resilience import CommError
 
             host, port = self._addr
+            targets = None
+            if port is None or (isinstance(host, str) and "," in host):
+                # an HA fleet: ship to the believed primary of the address
+                # set, sharing the process's leadership view with every
+                # other coordinator client (comm.ha's failover state)
+                from ..comm import ha as _ha
+
+                addrs = _ha.parse_addrs(host if port is None else f"{host}:{port}")
+                if len(addrs) > 1:
+                    targets = _ha.targets_for(addrs)
+                    host, port = targets.active()
+                else:
+                    host, port = addrs[0]
             req = urllib.request.Request(
                 f"http://{host}:{port}/coordinator/telemetry",
                 data=serializer.dumps(msg),
@@ -240,10 +262,18 @@ class TelemetryShipper:
                 decoded = json.loads(reply)
             except (urllib.error.URLError, ConnectionError, TimeoutError,
                     OSError, ValueError) as e:
+                if targets is not None:
+                    targets.rotate((host, port))
                 raise CommError(
                     f"telemetry ship @ {host}:{port} failed: {e!r}",
                     op="telemetry_ship", cause=e,
                 ) from e
+            if decoded.get("code") == 2 and targets is not None:
+                # a standby answered: adopt its leadership hint and let the
+                # retry policy ship again to the new primary (telemetry is
+                # ephemeral by contract, so a lost tick costs nothing)
+                targets.follow(str(decoded.get("leader") or ""), (host, port))
+                raise CommError(f"telemetry ship @ {host}:{port}: not_leader", op="telemetry_ship")
             if decoded.get("code") != 0:
                 raise RuntimeError(f"telemetry ingest rejected: {decoded!r}")
             n = int(decoded.get("info") or 0)

@@ -288,15 +288,22 @@ def test_coordinator_discovery_and_metrics_scrape():
 
 
 def test_unported_coordinator_parts_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        pcoord.coordinator_request("127.0.0.1:1,127.0.0.1:2", None, "peers", {"token": "t"})
-    with pytest.raises(NotImplementedError, match="item 11"):
-        pdisc.discover_endpoints("127.0.0.1:1,127.0.0.1:2", "t")
+    """Nothing of the coordinator is left unported: an address list (the HA
+    client) rotates past a dead first address to a live one, for
+    ``coordinator_request`` and discovery alike; a server starts with no HA
+    attached; the routes a process hosts nothing for answer as the JAX
+    coordinator's do."""
+    from distar_tpu_torch.comm import ha
+
     srv = pcoord.CoordinatorServer(port=0)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        srv.attach_ha(object())
+    assert srv.ha is None
     srv.start()
     try:
+        spec = f"127.0.0.1:1,{srv.host}:{srv.port}"
+        assert pcoord.coordinator_request(spec, None, "peers", {"token": "t"})["info"] == []
+        ha.reset_targets()
+        assert pdisc.discover_endpoints(spec, "t") == []
+        ha.reset_targets()
         # the arena and league routes answer as the JAX coordinator's do
         # when the process hosts no store and no service; so does telemetry
         # ingest, a malformed message refused and a JSON one folded

@@ -40,6 +40,8 @@ from distar_tpu_torch.serve import fleet as pfleet
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIDS = [f"sess-{i}" for i in range(2000)]
 TOL = dict(atol=2e-4, rtol=1e-3)
+# the JAX reference gateway's first act compiles its forward
+JAX_ACT_TIMEOUT_S = 300.0
 LIBS = {"port": (pserve, pfleet), "jax": (jserve, jfleet)}
 
 
@@ -526,7 +528,11 @@ def test_small_model_fleet_answers_like_the_jax_gateway(tmp_path):
         for addr in set(owners.values()):
             mine = [i for i, s in enumerate(sids) if owners[s] == addr]
             for t in range(n_steps):
-                want = jgw.act_many([{"session_id": sids[i], "obs": obs[i][t]} for i in mine])
+                # the first call compiles the JAX forward, which on a loaded
+                # host runs past the gateway's 10 s default: a timeout that
+                # covers the compile (nothing compared changes)
+                want = jgw.act_many([{"session_id": sids[i], "obs": obs[i][t]} for i in mine],
+                                    timeout_s=JAX_ACT_TIMEOUT_S)
                 for i, w in zip(mine, want):
                     np.testing.assert_allclose(served[t][i]["logit"]["action_type"],
                                                np.asarray(w["logit"]["action_type"]), **TOL)

@@ -397,12 +397,20 @@ def test_shipper_loop_counts_errors_resyncs_and_recovers(registry, fleet):
             snap = registry.snapshot()
             assert snap[key] == 1.0 and snap["distar_obs_shipper_resyncs_total{reason=recovered}"] == 1.0
             assert "actor:2" in fleet.store.sources()
+            # an HA address list: the dead first address is rotated past
+            from distar_tpu_torch.comm import ha
+            from distar_tpu_torch.resilience import CommError
+
+            listed = TelemetryShipper("actor:3", coordinator_addr=(f"127.0.0.1:1,{srv.host}:{srv.port}", None),
+                                      interval_s=99, registry=registry)
+            with pytest.raises(CommError):
+                listed.ship_once()
+            assert listed.ship_once() >= 1 and "actor:3" in fleet.store.sources()
+            ha.reset_targets()
         finally:
             srv.stop()
     finally:
         ship.stop()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TelemetryShipper("x", coordinator_addr=("127.0.0.1:1,127.0.0.1:2", None))
 
 
 def route_script(host, port):

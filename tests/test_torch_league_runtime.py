@@ -8,18 +8,23 @@ the JAX package's, on the CPU.
   same replies — jobs by branch, reports, mints, resets — and the same
   ``state_digest``; the port's loads a resume file the JAX league wrote
   (``utils.pickles``) and matchmakes on from it as the JAX one does.
-* Mirrors of every test of tests/test_league_runtime.py, apart from the
-  ``comm.ha.apply_record`` replay (the coordinator's HA, ROADMAP Queue 1
-  item 11); ``build_actor_fleets`` raises naming item 10 (``fleet/``), where
-  the JAX test spawns fleets.
+* Mirrors of every test of tests/test_league_runtime.py: the
+  ``comm.ha.apply_record`` replay of a journal reaches the live digest,
+  the same records replay a JAX service to the same digest, and
+  ``build_actor_fleets`` spawns actor-slot fleets and drains them.
 * The loop: the live self-play slot is re-read every window; a frozen
   opponent is a port ``Model`` loaded from the job's checkpoint; one
   league learner runs in process against a control plane over HTTP.
-* ``rl_train --type league-run --smoke-model --device cpu --journal-dir
-  none`` runs two learner processes to ``LEAGUE-RUN-DONE`` with ``ok``.
+* ``rl_train --type league-run --smoke-model --device cpu
+  --league-actors-per-player 1`` runs two learner processes to
+  ``LEAGUE-RUN-DONE`` with ``ok``, journaled to its default
+  ``<save-path>/league_journal``, one actor slot a player held and drained;
+  a cold replay of the journal (the ``HAState`` boot, and every record from
+  the first) reads the run's digest.
 """
 import json
 import os
+import time
 import urllib.request
 from types import SimpleNamespace
 
@@ -52,8 +57,10 @@ from distar_tpu_torch.league.runtime.runner import (
     LeaguePublisher,
     LeagueRunner,
     build_actor_fleets,
+    economy_digest,
     league_actor_cmd,
     league_cfg,
+    replay_control_plane,
 )
 from distar_tpu_torch.model import Model, default_model_config, init_params
 from distar_tpu_torch.model.convert import params_to_flax
@@ -323,8 +330,8 @@ def test_report_dedups_league_payoff_by_match_key(registry, arena_global):
 # ----------------------------------------------------------------- durability
 def test_state_blob_reconstructs_digest(registry, arena_global):
     """The snapshot path of recovery (state_blob/load_state) lands on an
-    identical structural digest; the journal-replay path is the
-    coordinator's HA (ROADMAP Queue 1 item 11)."""
+    identical structural digest (the journal path:
+    ``test_journal_replay_reconstructs_digest``)."""
     store = ArenaStore()
     set_arena_store(store)
     svc_a = _service(seed=23)
@@ -531,22 +538,109 @@ def test_league_publisher_publishes_and_ignores_unknown_players():
     assert loaded == ["/ckpt/g1.ckpt"]
 
 
-def test_build_actor_fleets_and_the_journal_name_their_items(tmp_path):
-    """The JAX runner's actor-slot fleets need ``fleet/`` (ROADMAP Queue 1
-    item 10) and its journal the coordinator's HA (item 11); the member
-    command is ported as it is."""
-    with pytest.raises(NotImplementedError, match="item 10"):
-        build_actor_fleets(("MP0", "EP0"), actors_per_player=2)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        LeagueRunner(("MP0",), actors_per_player=1)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        LeagueRunner(("MP0",), journal_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="--journal-dir none"):
-        rl_train.main(["--type", "league-run", "--device", "cpu"])
+def test_journal_replay_reconstructs_digest(registry, arena_global):
+    """The replay half of the JAX test: the scripted sequence, journaled as
+    the coordinator journals its league routes (route, body, the record's
+    clock), replayed through ``comm.ha.apply_record`` into a fresh service
+    and arena store, lands on the live digest and the live arena ledger;
+    the JAX ``apply_record`` replays the same records into a JAX service to
+    the same digest."""
+    from distar_tpu.comm.ha import apply_record as japply
+    from distar_tpu_torch.comm.ha import apply_record
+
+    routes = {"register_learner": "league_register", "ask_job": "league_ask", "report": "league_report",
+              "train_info": "league_train_info"}
+    journal = []
+
+    class Journaled:
+        """The service as the coordinator's dispatch sees it: each mutating
+        call journaled with its clock before it applies."""
+
+        def __init__(self, svc):
+            self.svc = svc
+
+        def status(self, now=None):
+            return self.svc.status(now=now)
+
+        def __getattr__(self, method):
+            def call(body, now):
+                journal.append({"route": routes[method], "body": body, "ts": now})
+                return getattr(self.svc, method)(body, now=now)
+            return call
+
+    store_a = ArenaStore()
+    set_arena_store(store_a)
+    svc_a = _service(seed=23)
+    np.random.seed(5)
+    _drive(Journaled(svc_a))
+    digest_a = svc_a.state_digest()
+    assert digest_a["job_seq"] == 11 and len(digest_a["minted"]) == 6
+    store_c = ArenaStore()
+    set_arena_store(store_c)
+    svc_c = _service(seed=23)
+    for rec in journal:
+        apply_record(None, rec, league_service=svc_c)
+    assert svc_c.state_digest() == digest_a
+    # the forwarded reports landed in the replica's arena ledger too
+    assert store_c.matches_total == store_a.matches_total
+    assert store_c.ratings_snapshot() == store_a.ratings_snapshot()
+    jarena.set_arena_store(jarena.ArenaStore())
+    svc_j = _service(seed=23, lib=jruntime)
+    for rec in journal:
+        japply(None, rec, league_service=svc_j)
+    assert svc_j.state_digest() == digest_a
+
+
+def test_build_actor_fleets_spawns_and_drains(registry):
+    """Real actor-slot fleets: one a player, the ready line's handshake
+    carries the player id, scale_down drains gracefully, ``stop`` reaps."""
+    supervisor, fleet_players = build_actor_fleets(("MP0", "EP0"), actors_per_player=2)
+    try:
+        assert fleet_players == {"actors-MP0": "MP0", "actors-EP0": "EP0"}
+        assert supervisor.actual("actors-MP0") == 2
+        member = supervisor.fleet("actors-MP0").members()[0]
+        assert member.meta["player"] == "MP0"
+        supervisor.scale_down("actors-EP0", 1)
+        deadline = time.monotonic() + 10.0
+        while supervisor.actual("actors-EP0") > 1 and time.monotonic() < deadline:
+            time.sleep(0.1)
+        assert supervisor.actual("actors-EP0") == 1
+        # the floor: min_actors (1) holds against a further scale-down
+        assert supervisor.scale_down("actors-EP0", 1) == []
+    finally:
+        supervisor.stop()
+    assert all(len(supervisor.fleet(n).members()) == 0 for n in supervisor.fleets())
+    assert not member.alive
+
+
+def test_league_actor_cmd_and_cfg_are_the_jax_ones():
     build = league_actor_cmd("MP0")
     assert build(0)[1:3] == jrunner.league_actor_cmd("MP0")(0)[1:3]
     assert build(0)[-1] == jrunner.league_actor_cmd("MP0")(0)[-1]
     assert league_cfg(ROSTER) == jrunner.league_cfg(ROSTER)
+
+
+@pytest.mark.parametrize("flag,want", [(None, "league_journal"), ("none", ""), ("j", "j")])
+def test_league_run_journal_flag_resolves_as_the_jax_launcher(monkeypatch, tmp_path, flag, want):
+    """``--journal-dir``: absent, ``<save-path>/league_journal``; ``none``,
+    un-journaled; a path, that path. ``--league-actors-per-player N`` seeds
+    N actor slots a player with the reassigner on."""
+    seen = {}
+
+    class Runner:
+        def __init__(self, **kw):
+            seen.update(kw)
+            self.learner_s, self.fleets_held, self.fleets_left = {}, {}, {}
+
+        def run(self, port=0):
+            return {"ok": True}
+
+    monkeypatch.setattr("distar_tpu_torch.league.runtime.runner.LeagueRunner", Runner)
+    argv = ["--type", "league-run", "--device", "cpu", "--save-path", str(tmp_path),
+            "--league-actors-per-player", "2"] + (["--journal-dir", flag] if flag else [])
+    rl_train.main(argv)
+    assert seen["journal_dir"] == (os.path.join(str(tmp_path), want) if flag is None else want)
+    assert seen["actors_per_player"] == 2 and seen["reassign"] is True
 
 
 # -------------------------------------------------------------------- the loop
@@ -610,18 +704,37 @@ def test_league_learner_runs_in_process_against_a_control_plane(registry, arena_
         runner.shutdown()
 
 
-def test_league_run_on_the_cpu(tmp_path, capfd, monkeypatch):
+def test_league_run_on_the_cpu(tmp_path, capfd, monkeypatch, registry, arena_global):
     """``rl_train --type league-run``: the control plane in this process and
     a learner process per player (MP0, EP0), two rounds each; LEAGUE-RUN-DONE
     with ``ok``: every learner at rc 0, snapshots minted, off-diagonal
     payoff cells with games, no orphaned job. The runner gives each learner
     its share of the cores (with a thread per core each, two processes on
-    the CPU took about 240 s here, 12-16 s with their share)."""
+    the CPU took about 240 s here, 12-16 s with their share). The control
+    plane is journaled to the default ``<save-path>/league_journal`` and
+    each player's actor-slot fleet holds one member until it drains to
+    none; a cold replay of the journal, with no learner running, reads the
+    run's digest, from the final snapshot and from every record."""
     monkeypatch.delenv("OMP_NUM_THREADS", raising=False)
     digest = rl_train.main(["--type", "league-run", "--smoke-model", "--device", "cpu", "--league-players",
-                            "MP0,EP0", "--league-rounds", "2", "--journal-dir", "none", "--save-path",
-                            str(tmp_path)] + SIZES)
+                            "MP0,EP0", "--league-rounds", "2", "--league-actors-per-player", "1",
+                            "--save-path", str(tmp_path)] + SIZES)
     out = capfd.readouterr().out
+    assert "league-run control plane on 127.0.0.1:" in out and "(journal=on)" in out
+    assert 'league-run: actor fleets held {"actors-EP0": 1, "actors-MP0": 1}, left {"actors-EP0": 0, ' \
+           '"actors-MP0": 0}' in out
+    assert digest["reassign_moves"] == {"actors-MP0": 0, "actors-EP0": 0}
+    journal = os.path.join(str(tmp_path), "league_journal")
+    want = {k: digest[k] for k in ("jobs_by_branch", "snapshot_mints", "historical_players", "assignments_pending",
+                                   "orphaned_jobs", "off_diagonal_pairs", "matches_total")}
+    records = {}
+    for wal_only in (False, True):
+        svc, store, info = replay_control_plane(journal, ("MP0", "EP0"), lease_s=30.0, job_ttl_s=600.0,
+                                                wal_only=wal_only)
+        assert economy_digest(svc, store) == want, wal_only
+        records[wal_only] = info["records"]
+    assert records[False] == 0  # the run's final snapshot covers every record
+    assert records[True] >= 2 * (1 + 2 * 3)  # a register, then an ask, report and train-info a round
     assert digest["ok"] and digest["learner_rc"] == {"MP0": 0, "EP0": 0}
     assert digest["snapshot_mints"] >= 1 and digest["off_diagonal_pairs"] >= 1 and digest["orphaned_jobs"] == 0
     line = next(ln for ln in out.splitlines() if ln.startswith("LEAGUE-RUN-DONE "))

@@ -517,12 +517,9 @@ def test_replay_flags_take_their_working_path(argv, tmp_path, monkeypatch, capsy
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--type", "league-run"], "item 11"), (["--type", "league-run", "--league-actors-per-player", "1",
-                                             "--journal-dir", "none"], "item 10"),
     (["--env", "sc2"], "item 10"),
     (["--type", "learner", "--coordinator-addr", "127.0.0.1:1", "--mesh", "dp=2"], "does not factor"),
     (["--dist-method", "explicit"], "explicit requires"),
-    (["--journal-dir", "j"], "item 11"), (["--ha-peers", "a:1"], "item 11"),
     (["--platform", "cpu"], "--device"),
 ])
 def test_unported_flags_raise_naming_their_item(argv, item):
