@@ -259,12 +259,13 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              ``bin/rl_train.py --type all --replay`` builds it
              (``rl_train.build_all``) at the flagship (kernel overlay, f32):
              rl_loop's league, actor (8 mock envs of 300 game loops,
-             trajectories of 16) and learner (4 x 16, 4 iterations, prefetch
+             trajectories of 16) and learner (4 x 16, 2 iterations, 4 until phase
+             15 came; prefetch
              depth 2), and between them one ``ReplayServer`` on loopback,
              transport auto (its rings sized for a flagship trajectory where
              /dev/shm has room), sampler uniform, samples-per-insert 4, spill
              on. Checked: the store's inserts are the actor's acknowledged
-             pushes; its samples the learner's 16 and at most what the
+             pushes; its samples the learner's 8 and at most what the
              prefetcher drew ahead; the limiter's ratio within its buffer at
              every insert and sample; every sampled trajectory bit-equal to
              one pushed (a sha256 of its leaves a push); both kernels
@@ -389,12 +390,38 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              ``python3 chip_smoke.py --only parallel`` runs this phase
              alone.
 
+15. sc2 — the SC2 side over a fake install (``fake_sc2.write_fake_install``
+             in the script's temp dir: ``Versions/Base75689/SC2_x64`` runs the
+             port's fake binary; ``SC2PATH`` points at it). b. the flagship
+             (kernel overlay, f32) in an ``Actor`` on ``make_sc2_env`` with
+             ``player_ids [agent, bot7]``: one fake process launched through
+             ``run_configs`` and ``sc_process``, one job of SC2_EPISODE_LOOPS
+             game loops, its trajectories pushed; launches exactly one
+             attention a layer and one scatter a policy flush and a teacher
+             forward, read from zero around the job. c. fake replays decoded
+             by ``ReplayDecoder`` (the install's binary launched per
+             version) in a ``ReplayActor`` into an in-script coordinator,
+             then two steps of a flagship ``SLLearner`` on batches of a
+             ``RemoteSLDataloader`` (3 attention and 1 scatter launches a
+             step). Each kernel's first call captured on both paths against
+             its plain version. d. on a thread beside phases 12-14, the
+             entry points as processes on the smoke model:
+             ``rl_train --type all --env sc2`` for one iteration (both
+             agents on a fake server process through ``DISTAR_SC2_PORT``),
+             ``sl_train --type replay_actor`` feeding ``sl_train --remote``
+             (2 steps), ``play.py --game_type agent_vs_bot``. Printed: the
+             env's observe + ``transform_obs`` ms, policy flush and teacher
+             ms, decisions/s, decoded steps/s, SL step ms and losses, the
+             processes' seconds and the script's wait on them.
+             ``python3 chip_smoke.py --only sc2`` runs this phase alone.
+
 The line before the last is the ``kernels`` JSON (launches: the serve,
 serve-process, fleet (gateway A), SL, SL runtime, RL and distillation
 paths, the RL loop's and the replay loop's actor and learner together, the
 Anakin windows and learner steps, the league learner's windows and step and
-its arena batch, the meshed step and the feeder's run, each read from zero
-around its run); the last line is ``{"ok": true, "device": {...}}``.
+its arena batch, the meshed step and the feeder's run, the SC2 actor's
+flushes and the SL steps on decoded replays, each read from zero around its
+run); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -4855,7 +4882,8 @@ def hold_loop_batch(device, batch, loss_fn, dist, what="rl loop batch"):
 
 
 # ------------------------------------------------------------------ replay
-REPLAY_ITERS = 4  # the replay loop's learner: RL_B x RL_T batches from the store (8 until the health drill, 6 until the diagnostics)
+REPLAY_ITERS = 2  # the replay loop's learner: RL_B x RL_T batches from the store (4 until the sc2 phase came, 8 until
+# the health drill, 6 until the diagnostics)
 REPLAY_SPI = 4.0  # --replay-spi: each trajectory sampled about four times
 REPLAY_SMALL_ITERS = 2  # the smaller runs: smoke model, 2 x 4 batches
 # the 2-shard run: the ring sends each insert to a shard by the hash of a
@@ -6426,6 +6454,369 @@ def phase_parallel(device, smi, tmp, batch, executor_job=None):
     return total, out
 
 
+SC2_BUILD = 75689  # the fake replays' build (4.10.0), the fake install's Versions/Base75689
+SC2_EPISODE_LOOPS = 1600  # b.: game_steps_per_episode; the flagship's delays make it a few dozen decisions
+SC2_TRAJ_LEN = 8  # b.: the actor's trajectory length
+SC2_REPLAYS = 2  # c.: fake replays, each decoded for both players
+SC2_REPLAY_ACTIONS = 40  # c.: actions a replay, 10 loops apart
+SC2_SL_T = 16  # c.: the SL learner's unroll (batch 2); 2 steps
+SC2_SL_ITERS = 2
+SC2_PROC_REPLAY_ACTIONS = 132  # d.: the bin's decoder keeps trajectories of 128 steps or more
+SC2_PROCESS_TIMEOUT_S = 420
+SC2_LOOP_EPISODE = 3000  # d.: rl_train's episodes; a job gives the learner's one iteration its two trajectories
+
+
+def fake_replay(n_actions, loops_between, seed=0):
+    """A fake replay in the form the fake binary plays back
+    (tests/test_replay_decoder.py's ``make_replay``): alternating
+    build-at-a-point, train and attack-a-unit commands of player 1's units;
+    player 1 wins."""
+    from distar_tpu_torch.lib import actions as ACT
+
+    gab = {a["name"]: a["general_ability_id"] for a in ACT.ACTIONS}
+    actions, loop = [], 10
+    for i in range(n_actions):
+        unit = [10000 + (i + seed) % 8]
+        kind = i % 3
+        if kind == 0:
+            actions.append((loop, gab["Build_Hatchery_pt"], unit, (20.0 + i % 50, 30.0)))
+        elif kind == 1:
+            actions.append((loop, gab["Train_Drone_quick"], unit, None))
+        else:
+            actions.append((loop, gab["Attack_unit"], unit, 20001))
+        loop += loops_between
+    return {"base_build": SC2_BUILD, "game_version": "4.10.0", "data_version": "FAKE",
+            "map_name": "KairosJunction", "game_duration_loops": loop + 50,
+            "players": [{"player_id": 1, "race": 2, "mmr": 4800, "apm": 160, "result": 1},
+                        {"player_id": 2, "race": 2, "mmr": 4600, "apm": 140, "result": 2}],
+            "actions": actions}
+
+
+def write_replays(root, n, n_actions, loops_between):
+    import pickle
+
+    os.makedirs(root, exist_ok=True)
+    for i in range(n):
+        with open(os.path.join(root, f"r{i}.SC2Replay"), "wb") as f:
+            pickle.dump(fake_replay(n_actions, loops_between, seed=i), f)
+    return root
+
+
+def sc2_install(tmp):
+    """a. An SC2 install in the script's temp dir whose binary is the port's
+    fake (``Versions/Base75689/SC2_x64`` runs ``python3 -m
+    distar_tpu_torch.envs.sc2.fake_sc2 "$@"`` with the checkout on
+    PYTHONPATH); ``SC2PATH`` points at it, so ``run_configs.get()``,
+    ``sc_process`` and the launcher run as they would on a real install."""
+    from distar_tpu_torch.envs.sc2.fake_sc2 import write_fake_install
+
+    root = write_fake_install(os.path.join(tmp, "StarCraftII"), REPO)
+    os.environ["SC2PATH"] = root
+    return root
+
+
+def sc2_processes(tmp, device):
+    """d. The SC2 entry points as processes on the smoke model, over the
+    fake install: ``rl_train --type all --env sc2`` for one iteration (both
+    agents of the league's job in one game of a fake server process,
+    through ``DISTAR_SC2_PORT``, as two real clients share one game; one
+    job's episode of SC2_LOOP_EPISODE loops feeds the iteration: a next
+    job's clients could not join the fake's game under way, ROADMAP Queue
+    3 item 59), ``sl_train --type replay_actor`` (the bin's default decoder,
+    launching the install's binary) feeding a ``sl_train --remote`` learner
+    of 2 steps through an in-script coordinator, and ``play.py --game_type
+    agent_vs_bot``. Runs on a thread beside other work; launches nothing in
+    this process."""
+    from distar_tpu_torch.comm import CoordinatorServer
+
+    out, t_all = {}, time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=REPO, PYTHONUNBUFFERED="1", DISTAR_PERF_AOT="0")
+
+    def run(name, module, argv, extra_env=None):
+        log = os.path.join(tmp, f"sc2_{name}.log")
+        t0 = time.perf_counter()
+        with open(log, "w") as f:
+            proc = subprocess.run([sys.executable, "-u", "-m", module, *argv], cwd=REPO, stdout=f,
+                                  stderr=subprocess.STDOUT, env=dict(env, **(extra_env or {})),
+                                  timeout=SC2_PROCESS_TIMEOUT_S)
+        text = open(log).read()
+        check(proc.returncode == 0, f"sc2 {name} exited {proc.returncode}: {text[-3000:]}")
+        out[name] = {"seconds": time.perf_counter() - t0}
+        return text
+
+    port = free_port()
+    server_log = os.path.join(tmp, "sc2_fake_server.log")
+    with open(server_log, "w") as f:
+        server = subprocess.Popen([sys.executable, "-m", "distar_tpu_torch.envs.sc2.fake_sc2", "-listen",
+                                   "127.0.0.1", "-port", str(port)], cwd=REPO, env=env, stdout=f,
+                                  stderr=subprocess.STDOUT)
+    try:
+        wait_for_line(server, server_log, "fake_sc2 listening", timeout=60)
+        text = run("rl_train", "distar_tpu_torch.bin.rl_train", [
+            "--type", "all", "--env", "sc2", "--smoke-model", "--device", device.type, "--iters", "1",
+            "--env-num", "1", "--traj-len", "2", "--batch-size", "2", "--no-health",
+            "--save-path", os.path.join(tmp, "sc2_rl_train"),
+            "--config", json.dumps({"env": {"map_name": "KairosJunction", "game_steps_per_episode": SC2_LOOP_EPISODE}})],
+            {"DISTAR_SC2_PORT": str(port)})
+        check("rl_train done: 1 iters" in text, f"sc2 rl_train: {text[-2000:]}")
+        out["rl_train"]["done"] = next(ln for ln in text.splitlines() if ln.startswith("rl_train done"))
+    finally:
+        server.terminate()
+        server.wait(timeout=30)
+
+    # the learner first: a replay actor serves its pushes from its own
+    # process, so what it pushed just before it exits is gone unless a
+    # learner has pulled it; two epochs of one replay give the learner its
+    # two trajectories (one a batch row) well before the actor's last push
+    replays = write_replays(os.path.join(tmp, "sc2_proc_replays"), 1, SC2_PROC_REPLAY_ACTIONS, 8)
+    co = CoordinatorServer()
+    co.start()
+    learner_log = os.path.join(tmp, "sc2_sl_train_remote.log")
+    try:
+        addr = f"{co.host}:{co.port}"
+        t0 = time.perf_counter()
+        with open(learner_log, "w") as f:
+            learner = subprocess.Popen([
+                sys.executable, "-u", "-m", "distar_tpu_torch.bin.sl_train", "--remote", "--coordinator-addr",
+                addr, "--device", device.type, "--iters", "2", "--batch-size", "2", "--traj-len", "8",
+                "--no-supervise", "--no-health", "--save-path", os.path.join(tmp, "sc2_sl")],
+                cwd=REPO, stdout=f, stderr=subprocess.STDOUT, env=env)
+        try:
+            text = run("replay_actor", "distar_tpu_torch.bin.sl_train", [
+                "--type", "replay_actor", "--replays", replays, "--epochs", "2", "--coordinator-addr", addr,
+                "--no-health", "--no-supervise"])
+            done = next((ln for ln in text.splitlines() if ln.startswith("replay_actor done")), "")
+            check(done == "replay_actor done: pushed=4 empty=0 failed=0", f"sc2 replay_actor: {text[-2000:]}")
+            wait_ok(learner, learner_log, "sc2 sl_train --remote", timeout=SC2_PROCESS_TIMEOUT_S)
+        finally:
+            if learner.poll() is None:
+                learner.kill()
+                learner.wait(timeout=30)
+        text = open(learner_log).read()
+        done = next((ln for ln in text.splitlines() if ln.startswith("sl_train done")), "")
+        check(done.startswith("sl_train done: 2 iters"), f"sc2 sl_train --remote: {text[-2000:]}")
+        out["sl_train_remote"] = {"seconds": time.perf_counter() - t0, "done": done}
+    finally:
+        co.stop()
+
+    text = run("play", "distar_tpu_torch.bin.play", [
+        "--game_type", "agent_vs_bot", "--model2", "bot7", "--no-realtime", "--smoke-model", "--game-count", "1",
+        "--device", device.type])
+    last = text.strip().splitlines()[-1]
+    check(last.startswith("games=1 side0_winrate=1.00"), f"sc2 play.py agent_vs_bot: {text[-2000:]}")
+    out["play"]["result"] = last
+    out["seconds"] = time.perf_counter() - t_all
+    print(f"sc2 d.: the entry points as processes (smoke model): {json.dumps(out)}")
+    return out
+
+
+def phase_sc2(device, smi, tmp, processes=None):
+    """The SC2 side at the flagship (module docstring, phase 15): b. the
+    actor on a fake game, c. the two-pass decoder into the SL learner, d.
+    (``processes``, a ``Background`` started before the anakin phase, else
+    here) the entry points as processes. Returns the launch
+    counts of b. and c. and the measurements."""
+    import numpy as np
+    import torch
+
+    from distar_tpu_torch.actor import Actor, BatchedInference
+    from distar_tpu_torch.comm import Adapter, CoordinatorServer
+    from distar_tpu_torch.envs.replay_decoder import ReplayDecoder
+    from distar_tpu_torch.envs.sc2.launcher import make_sc2_env
+    from distar_tpu_torch.learner import SLLearner
+    from distar_tpu_torch.learner.replay_actor import RemoteSLDataloader, ReplayActor
+    from distar_tpu_torch.ops import build
+    from distar_tpu_torch.ops import kernels as K
+
+    t_phase, laps, out = time.perf_counter(), Laps(), {}
+    if not os.environ.get("SC2PATH", "").startswith(tmp):
+        sc2_install(tmp)
+    if processes is None:
+        processes = Background(lambda: sc2_processes(tmp, device)).start()
+
+    # instruments, outside the port: each kernel's first call on each side
+    # captured, the flushes and the env's observe + transform timed
+    captured, side, flushes, teacher_ms, observe_ms = {}, {"now": None}, [], [], []
+    real = {"attention": K.masked_attention, "scatter": K.scatter_add_connection,
+            "sample": BatchedInference.sample, "teacher": BatchedInference.teacher_logits}
+
+    def attention(q, k, v, mask):
+        key = (side["now"], "masked_attention")
+        if side["now"] and key not in captured:
+            captured[key] = [t.detach().clone() for t in (q, k, v, mask)]
+        return real["attention"](q, k, v, mask)
+
+    def scatter(emb, idx, hw):
+        key = (side["now"], "scatter_add_connection")
+        if side["now"] and key not in captured:
+            captured[key] = (emb.detach().clone(), idx.clone(), hw)
+        return real["scatter"](emb, idx, hw)
+
+    def sample(self, prepared, active=None, noise=None):
+        t0 = time.perf_counter()
+        got = real["sample"](self, prepared, active, noise)  # ends in the device-to-host copy
+        flushes.append((time.perf_counter() - t0) * 1e3)
+        return got
+
+    def teacher(self, *args, **kw):
+        t0 = time.perf_counter()
+        got = real["teacher"](self, *args, **kw)  # its logits copied to the host
+        teacher_ms.append((time.perf_counter() - t0) * 1e3)
+        return got
+
+    def sc2_env():
+        env = make_sc2_env({"env": {"map_name": "KairosJunction", "player_ids": ["agent", "bot7"],
+                                    "races": ["zerg", "zerg"], "game_steps_per_episode": SC2_EPISODE_LOOPS}})
+        observe = env._observe
+
+        def timed_observe(target):
+            t0 = time.perf_counter()
+            got = observe(target)
+            observe_ms.append((time.perf_counter() - t0) * 1e3)
+            return got
+
+        env._observe = timed_observe
+        return env
+
+    class Pushed:
+        def __init__(self):
+            self.trajectories = []
+
+        def push(self, token, data, **kw):
+            self.trajectories.append((token, data))
+
+        def pull(self, token, block=False):
+            return None
+
+    launches = {}
+    K.masked_attention, K.scatter_add_connection = attention, scatter
+    BatchedInference.sample, BatchedInference.teacher_logits = sample, teacher
+    try:
+        # b. the flagship actor plays one job on a fake game (one fake
+        # process launched through run_configs and sc_process, the agent
+        # against bot7)
+        pushed = Pushed()
+        actor = Actor(cfg={"actor": {"env_num": 1, "traj_len": SC2_TRAJ_LEN}}, adapter=pushed,
+                      model_cfg=overlay("pallas", "pallas"), env_fn=sc2_env, device=device)
+        job = {"player_ids": ["agent"], "send_data_players": ["agent"], "update_players": [],
+               "teacher_player_ids": ["none"], "branch": "eval", "env_info": {"map_name": "KairosJunction"},
+               "opponent_id": "bot7"}
+        laps("b build")
+        K.reset_launch_counts()
+        side["now"] = "actor flush"
+        t0 = time.perf_counter()
+        results = actor.run_job(episodes=1, job=job)
+        torch.cuda.synchronize()
+        game_s = time.perf_counter() - t0
+        side["now"] = None
+        launches["actor"] = {n: K.launch_counts[n] for n in build.KERNELS}
+        decisions = len(flushes)
+        check(len(results) == 1 and results[0]["0"]["opponent_id"] == "bot7"
+              and results[0]["game_steps"] >= SC2_EPISODE_LOOPS,
+              f"sc2 b.: results {results}")
+        check(decisions >= 12 and pushed.trajectories, f"sc2 b.: {decisions} decisions, "
+              f"{len(pushed.trajectories)} trajectories pushed")
+        # traj_len steps and the next one, which bootstraps the value
+        check(all(token == "agenttraj" and len(traj) == SC2_TRAJ_LEN + 1 for token, traj in pushed.trajectories),
+              f"sc2 b.: pushed {[(token, len(traj)) for token, traj in pushed.trajectories]}")
+        layers, forwards = actor.model_cfg.encoder.entity.layer_num, decisions + len(teacher_ms)
+        check(launches["actor"] == {"masked_attention": layers * forwards, "scatter_add_connection": forwards,
+                                    "scatter_add_onehot": 0},
+              f"sc2 b.: launches {launches['actor']} for {decisions} flushes and {len(teacher_ms)} teacher "
+              f"forwards of {layers} layers")
+        out["actor"] = {
+            "decisions": decisions, "game_loops": results[0]["game_steps"], "seconds": game_s,
+            "decisions_per_s": decisions / game_s, "trajectories_pushed": len(pushed.trajectories),
+            "flush_ms": {"median": statistics.median(flushes[1:] or flushes), "first": flushes[0]},
+            "teacher_forwards": len(teacher_ms),
+            "teacher_ms_median": statistics.median(teacher_ms) if teacher_ms else None,
+            "env_observe_ms": {"median": statistics.median(observe_ms), "n": len(observe_ms)},
+            "winloss": results[0]["0"]["winloss"]}
+        print(f"sc2 b. ({smi}): the flagship actor on a fake game (agent vs bot7, {SC2_EPISODE_LOOPS} loops): "
+              f"{json.dumps(out['actor'])}, launches {launches['actor']}")
+        del actor
+        laps("b actor game")
+
+        # c. the two-pass decoder (over the install's binary) into a
+        # coordinator, and a flagship SL learner on a RemoteSLDataloader
+        replays = write_replays(os.path.join(tmp, "sc2_replays"), SC2_REPLAYS, SC2_REPLAY_ACTIONS, 10)
+        co = CoordinatorServer()
+        co.start()
+        try:
+            addr = (co.host, co.port)
+            decoded_steps = []
+
+            def decoder():
+                dec = ReplayDecoder(cfg={"minimum_action_length": SC2_SL_T})
+                run = dec.run
+
+                def counted(path, player):
+                    traj = run(path, player)
+                    decoded_steps.append(len(traj or ()))
+                    return traj
+
+                dec.run = counted
+                return dec
+
+            t0 = time.perf_counter()
+            replay_actor = ReplayActor(replays, adapter_factory=lambda: Adapter(coordinator_addr=addr),
+                                       decoder_factory=decoder, ntasks=1, proc_id=0)
+            replay_actor.run()
+            decode_s = time.perf_counter() - t0
+            check(replay_actor.pushed == 2 * SC2_REPLAYS and replay_actor.failed == 0,
+                  f"sc2 c.: pushed {replay_actor.pushed}, empty {replay_actor.empty}, failed {replay_actor.failed}")
+            laps("c decode")
+            lrn = SLLearner({"learner": {"batch_size": 2, "unroll_len": SC2_SL_T},
+                             "model": overlay("pallas", "pallas")}, device=device)
+            loader = RemoteSLDataloader(Adapter(coordinator_addr=addr), 2, SC2_SL_T, pull_timeout=60.0)
+            batches = [next(loader) for _ in range(SC2_SL_ITERS)]
+            laps("c learner build")
+            K.reset_launch_counts()
+            side["now"] = "sl step"
+            logs, step_ms = [], []
+            for batch in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logs.append(lrn._train(batch))  # ends in the copy of its scalars to the host
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            side["now"] = None
+            launches["sl"] = {n: K.launch_counts[n] for n in build.KERNELS}
+        finally:
+            co.stop()
+        check(all(finite(lg) for lg in logs), f"sc2 c.: SL logs {logs}")
+        check(launches["sl"] == {"masked_attention": 3 * SC2_SL_ITERS, "scatter_add_connection": SC2_SL_ITERS,
+                                 "scatter_add_onehot": 0}, f"sc2 c.: SL launches {launches['sl']}")
+        check(int(np.asarray(batches[0]["entity_num"]).max()) > 8, "sc2 c.: the decoded batch holds no units")
+        out["decode"] = {"replays": SC2_REPLAYS, "trajectories": replay_actor.pushed,
+                         "steps": sum(decoded_steps), "seconds": decode_s,
+                         "steps_per_s": sum(decoded_steps) / decode_s}
+        out["sl"] = {"batch": [2, SC2_SL_T], "step_ms": step_ms, "losses": [lg["total_loss"] for lg in logs],
+                     "action_type_acc": [lg.get("action_type_acc") for lg in logs]}
+        print(f"sc2 c. ({smi}): decoded {json.dumps(out['decode'])}; the flagship SL learner on the decoded "
+              f"replays: {json.dumps(out['sl'])}, launches {launches['sl']}")
+        del lrn, batches
+        laps("c sl steps")
+    finally:
+        K.masked_attention, K.scatter_add_connection = real["attention"], real["scatter"]
+        BatchedInference.sample, BatchedInference.teacher_logits = real["sample"], real["teacher"]
+
+    # the path's kernels on their captured inputs against the plain versions
+    check({k for k in captured} == {(s, n) for s in ("actor flush", "sl step")
+                                     for n in ("masked_attention", "scatter_add_connection")},
+          f"sc2: captured {sorted(captured)}")
+    out["kernel_max_abs_err"] = path_kernels_against_plain(K, captured, "sc2")
+    laps("kernels against plain")
+    t0 = time.perf_counter()
+    out["processes"] = processes.result()
+    out["processes_wait_s"] = time.perf_counter() - t0
+    laps("processes wait")
+    out["seconds"] = time.perf_counter() - t_phase
+    out["laps"] = dict(laps)
+    print(f"sc2 seconds by part: {json.dumps(laps)}; waited {out['processes_wait_s']:.1f} s on the processes")
+    total = {n: launches["actor"][n] + launches["sl"][n] for n in build.KERNELS}
+    return total, out
+
+
 def smi_line():
     try:
         return subprocess.run(
@@ -6440,8 +6831,8 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv:
         if argv[:1] != ["--only"] or len(argv) != 2 or argv[1] not in ("league", "health", "diagnostics",
-                                                                       "parallel"):
-            print("usage: python3 chip_smoke.py [--only league|health|diagnostics|parallel]", file=sys.stderr)
+                                                                       "parallel", "sc2"):
+            print("usage: python3 chip_smoke.py [--only league|health|diagnostics|parallel|sc2]", file=sys.stderr)
             return 2
         only = argv[1]
     try:
@@ -6503,6 +6894,15 @@ def main(argv=None) -> int:
             print(f"phase seconds: {json.dumps(phase_s)}")
             print(f"launches: league {league_launches}")
             print(json.dumps({"league": league_summary(league), "kernel_max_abs_err": league["kernel_max_abs_err"]}))
+            print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                      "count": torch.cuda.device_count()}}))
+            return 0
+        if only == "sc2":  # phase 15 alone, its processes beside its in-process part
+            sc2_launches, sc2 = phase_sc2(device, smi, tmp)
+            mark("sc2")
+            print(f"phase seconds: {json.dumps(phase_s)}")
+            print(f"launches: sc2 {sc2_launches}")
+            print(json.dumps({"sc2": sc2}))
             print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                       "count": torch.cuda.device_count()}}))
             return 0
@@ -6631,6 +7031,12 @@ def main(argv=None) -> int:
         mark("league processes and stepreplay wait")
         phase_s["f: stepreplay (beside replay)"] = round(rl_loop["health"]["stepreplay"]["seconds"], 1)
 
+        # the SC2 entry points as processes over the fake install, beside
+        # the phases from here on, whose host is idler than rl_loop's
+        # untimed part
+        sc2_install(tmp)
+        sc2_job = Background(lambda: sc2_processes(tmp, device)).start()
+
         # 12. the Anakin loop: the micro-battle world and the flagship on the card
         anakin_launches, anakin = phase_anakin(device, smi, tmp, rl_loop, jaxenv_run)
         mark("anakin")
@@ -6644,6 +7050,11 @@ def main(argv=None) -> int:
         # processes ran beside the rl loop
         parallel_launches, parallel = phase_parallel(device, smi, tmp, rl.pop("batch"), executor_job)
         mark("parallel")
+
+        # 15. the SC2 side: the flagship actor on a fake game, the decoder
+        # into the SL learner; its processes ran beside phases 12-14
+        sc2_launches, sc2 = phase_sc2(device, smi, tmp, sc2_job)
+        mark("sc2")
         print(f"phase seconds: {json.dumps(phase_s)}")
         print(f"launches: serve {launches}, serve process {process_launches}, serve fleet (gateway A) "
               f"{fleet_launches}, train {train_launches}, sl runtime {runtime_launches}, rl and distill "
@@ -6651,12 +7062,13 @@ def main(argv=None) -> int:
               f"{rl_loop['health_launches']}, replay loop (actor and learner) "
               f"{replay_launches}, anakin (windows and learner steps) {anakin_launches}, league (a learner's "
               f"windows with the away seat, its step and an arena batch) {league_launches}, parallel (the "
-              f"meshed step and run() through the feeder) {parallel_launches}")
+              f"meshed step and run() through the feeder) {parallel_launches}, sc2 (the actor's flushes on a "
+              f"fake game and the SL steps on decoded replays) {sc2_launches}")
         launches = {name: launches[name] + process_launches[name] + fleet_launches[name] + train_launches[name]
                     + runtime_launches[name] + rl_launches[name] + loop_launches[name]
                     + rl_loop["health_launches"][name] + replay_launches[name]
                     + anakin_launches[name] + league_launches[name] + parallel_launches[name]
-                    for name in build.KERNELS}
+                    + sc2_launches[name] for name in build.KERNELS}
 
         # 9. the kernels line; max_abs_err over the serve shapes and the f32
         # SL, RL and student training shapes
@@ -6666,7 +7078,8 @@ def main(argv=None) -> int:
                 **{f"replay {k}": v for k, v in replay["kernel_max_abs_err"].items()},
                 **{f"health {k}": v for k, v in rl_loop["health"]["kernel_max_abs_err"].items()},
                 **{f"anakin {k}": v for k, v in anakin["kernel_max_abs_err"].items()},
-                **{f"league {k}": v for k, v in league["kernel_max_abs_err"].items()}}
+                **{f"league {k}": v for k, v in league["kernel_max_abs_err"].items()},
+                **{f"sc2 {k}": v for k, v in sc2["kernel_max_abs_err"].items()}}
         for name, rec in records.items():
             rec["max_abs_err"] = max([rec["max_abs_err"]] + [
                 err for key, err in errs.items()
@@ -6709,6 +7122,8 @@ def main(argv=None) -> int:
                           "league": league_summary(league),
                           "parallel": {k: parallel[k] for k in ("group", "step", "ckpt", "feeder",
                                                                  "ring_max_abs_err", "executor", "seconds")},
+                          "sc2": {k: sc2[k] for k in ("actor", "decode", "sl", "processes", "processes_wait_s",
+                                                      "seconds")},
                           "phase_seconds": phase_s, "seconds": time.perf_counter() - t_start}))
         print(json.dumps(line))
     except Exception as e:  # every phase failure fails the run

@@ -132,8 +132,12 @@ sharded checkpoints unless ``--no-sharded-ckpt``; ``--dist-method``
 cpu``); ``--host-devices N`` runs ``--type learner`` as N gloo ranks on the
 CPU (implies ``--device cpu``), each pulling its own rows of every batch.
 
-Not ported yet, raising ``NotImplementedError`` with its ROADMAP Queue 1
-item (``NOT_PORTED``): the SC2 env.
+``--env sc2`` (or ``env.type: sc2``) plays real games through the SC2
+client stack (``envs/sc2/``): ``make_sc2_env`` over the config's env block
+(``map_name``, ``player_ids`` such as ``[agent, bot7]``, ``races``,
+``game_steps_per_episode``, ...), on the install ``SC2PATH`` names, as the
+JAX launcher does. ``NOT_PORTED`` names the JAX launcher's flags that raise
+``NotImplementedError`` here.
 
 ``--dynamics-every N`` sets the learners' training-dynamics gauge-export
 stride (``learner.dynamics.every_n``); 0 turns the tree off, as in the JAX
@@ -158,7 +162,6 @@ from ..utils import read_config
 
 # role or flag prefix of the JAX launcher -> why it raises here
 NOT_PORTED = {
-    "--env sc2": "the SC2 env is not ported yet (ROADMAP Queue 1 item 10, envs/sc2/)",
     "--platform": "the JAX backend switch; the port picks its device with --device",
 }
 
@@ -203,19 +206,26 @@ def _jaxenv_cfgs(args):
 
 def _env_fn(args):
     """The env factory: ``--env`` wins, then the config's ``env.type``: the
-    mock env (default) or ``jaxenv``, the micro-battle world through its
-    host env on ``--device``."""
+    mock env (default), ``sc2``, real games through the client stack
+    (``envs.sc2.launcher.make_sc2_env`` over the rest of the config's env
+    block; the install is ``SC2PATH``'s), or ``jaxenv``, the micro-battle
+    world through its host env on ``--device``."""
     from ..envs import MockEnv
 
-    env_type = args.env or dict(_user_cfg(args).get("env", {})).get("type", "mock")
+    env_cfg = dict(_user_cfg(args).get("env", {}))
+    env_type = args.env or env_cfg.get("type", "mock")
+    env_cfg.pop("type", None)
+    if env_type == "sc2":
+        from ..envs.sc2.launcher import make_sc2_env
+
+        return lambda: make_sc2_env({"env": env_cfg})
     if env_type == "jaxenv":
         from ..envs.jaxenv import JaxMicroBattleEnv
 
         jcfg, scfg = _jaxenv_cfgs(args)
         return lambda: JaxMicroBattleEnv(jcfg, scfg, device=args.device)
     if env_type != "mock":
-        raise NotImplementedError(f"--env {env_type}: " + NOT_PORTED.get(
-            f"--env {env_type}", "only the mock and jaxenv envs are ported"))
+        raise SystemExit(f"--env {env_type}: one of mock, sc2, jaxenv")
     return lambda: MockEnv(episode_game_loops=args.episode_game_loops)
 
 
@@ -1162,9 +1172,9 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--traj-len", type=int, default=None, help="default: the config's, else 4")
     p.add_argument("--env-num", type=int, default=None, help="default: the config's, else 2")
     p.add_argument("--episode-game-loops", type=int, default=300)
-    p.add_argument("--env", default="",
-                   help="mock (default) or jaxenv (the micro-battle world's host env); overrides the "
-                        "config's env.type")
+    p.add_argument("--env", default="", choices=("", "mock", "sc2", "jaxenv"),
+                   help="mock (default), sc2 (real games on SC2PATH's install) or jaxenv (the "
+                        "micro-battle world's host env); overrides the config's env.type")
     p.add_argument("--anakin", action="store_true",
                    help="train the learner from the jaxenv Anakin loop on the device (implies --env "
                         "jaxenv; replaces the actor plane)")

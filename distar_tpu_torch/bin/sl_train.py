@@ -17,6 +17,14 @@ says otherwise. Roles:
                again and trains on, within ``--restart-max`` restarts in
                ``--restart-window-s``. SIGTERM and SIGINT save a checkpoint
                before the process exits.
+  replay_actor decode the replays of ``--replays`` (a list file or a
+               directory of ``.SC2Replay`` files; ``--epochs`` passes,
+               ``--num-workers`` decoder threads) with the pipeline's
+               ``ReplayDecoder`` (``--pipeline``, by default
+               ``envs.replay_decoder.ReplayDecoder`` on the SC2 install
+               ``SC2PATH`` names) and push both players' trajectories to
+               ``--coordinator-addr``, where a ``--remote`` learner pulls
+               them; it ends with ``replay_actor done: ...``.
   coordinator  the metadata broker (``comm.CoordinatorServer``), evaluating
                the learner, actor, coordinator and trace rules over what
                the fleet ships; SIGTERM dumps a flight bundle, then stops it.
@@ -35,8 +43,6 @@ group's ranks and turns on sharded checkpoints unless ``--no-sharded-ckpt``;
 the same global batches and takes its rows, with ``--remote`` each pulls
 its own). Only rank 0 prints.
 
-Not ported yet, raising ``NotImplementedError`` with its ROADMAP Queue 1
-item: the replay actor role (it needs the SC2 replay decoder).
 ``--dynamics-every`` is the JAX launcher's (``rl_train._dynamics_cfg``).
 
 ``--config`` takes what the JAX launcher's does, a YAML file, and also a JSON
@@ -63,11 +69,6 @@ from ..resilience import RestartPolicy, supervise_call
 from ..utils import read_config
 from .rl_train import (_close_health, _dynamics_cfg, _init_health, _mesh_from_args, _on_stop_signals,
                        _restore_signals)
-
-NOT_PORTED = {
-    "--type replay_actor": "the replay actor role needs the SC2 replay decoder, not ported yet "
-                           "(ROADMAP Queue 1 item 10)",
-}
 
 # the JAX launchers' smoke model (distar_tpu/bin/rl_train.py SMOKE_MODEL)
 SMOKE_MODEL = {
@@ -199,6 +200,42 @@ def _learner_rank(rank: int, argv: list) -> None:
     learner(args).scalar_sink.close()  # its writer thread must not outlive the rank's exit
 
 
+def replay_actor(args) -> "ReplayActor":
+    """Decode ``--replays`` and push the trajectories to the coordinator,
+    under supervision unless ``--no-supervise`` (the JAX launcher's
+    ``_replay_actor``); returns the finished ``ReplayActor``."""
+    import os
+
+    from .. import plugins
+    from ..comm import Adapter
+    from ..learner.replay_actor import ReplayActor
+    from .rl_train import _addr, _restart_policy
+
+    # no replay rules yet: shipping makes decode throughput visible in the
+    # coordinator's fleet view
+    health = _init_health(args, roles=("trace",), source=f"replay_actor:{os.getpid()}",
+                          shipper_addr=_addr(args.coordinator_addr))
+    decoder_cls = plugins.load_component(args.pipeline, "ReplayDecoder")
+    addr = _addr(args.coordinator_addr)
+    done = []
+
+    def run_actor():
+        actor = ReplayActor(replays=args.replays, adapter_factory=lambda: Adapter(coordinator_addr=addr),
+                            decoder_factory=lambda: decoder_cls(cfg={}), num_workers=args.num_workers,
+                            epochs=args.epochs)
+        actor.run()
+        done.append(actor)
+
+    if args.no_supervise:
+        run_actor()
+    else:
+        supervise_call(run_actor, op="replay_actor", policy=_restart_policy(args))
+    _close_health(health)
+    actor = done[-1]
+    print(f"replay_actor done: pushed={actor.pushed} empty={actor.empty} failed={actor.failed}", flush=True)
+    return actor
+
+
 def coordinator(args) -> None:
     """Serve the coordinator until SIGTERM or SIGINT, under the rulebook of
     the fleet it brokers."""
@@ -254,6 +291,12 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--coordinator-addr", default="127.0.0.1:8422")
     p.add_argument("--remote", action="store_true",
                    help="train on trajectories replay actors push to the coordinator at --coordinator-addr")
+    p.add_argument("--replays", default="", help="--type replay_actor: replay list file or directory")
+    p.add_argument("--num-workers", type=int, default=1, help="--type replay_actor: decoder threads")
+    p.add_argument("--epochs", type=int, default=1, help="--type replay_actor: passes over the replays")
+    p.add_argument("--pipeline", default="default",
+                   help="--type replay_actor: the pipeline whose ReplayDecoder decodes ('default' or "
+                        "an importable custom-pipeline module, plugins.py)")
     p.add_argument("--no-health", action="store_true",
                    help="no fleet health: no time-series sampler, rulebook, telemetry shipping or crash "
                         "recorder")
@@ -278,7 +321,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[SLLearner]:
     argv = list(sys.argv[1:] if argv is None else argv)
     args = parser().parse_args(argv)
     if args.type == "replay_actor":
-        raise NotImplementedError(f"--type replay_actor: {NOT_PORTED['--type replay_actor']}")
+        replay_actor(args)
+        return None
     if args.type == "coordinator":
         coordinator(args)
         return None

@@ -1,8 +1,9 @@
 """SL replay actor: sharded replay decode feeding remote SL learners.
 
 Counterpart of ``distar_tpu.learner.replay_actor``. ``ReplayActor`` takes
-its ``decoder_factory`` as the JAX one does (the SC2 ``ReplayDecoder`` is
-not ported yet, ROADMAP Queue 1 item 10), and pushes over the port's
+its ``decoder_factory`` as the JAX one does (``bin/sl_train.py --type
+replay_actor`` hands it the pipeline's ``ReplayDecoder``, by default
+``envs.replay_decoder.ReplayDecoder``), and pushes over the port's
 ``Adapter`` on the JAX package's token, so either package's learner pulls
 either package's trajectories.
 

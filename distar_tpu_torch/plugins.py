@@ -1,8 +1,8 @@
 """Pipeline plugin registry: per-pipeline component resolution.
 
 Counterpart of ``distar_tpu.plugins``; the default pipeline resolves to this
-package's components. Its ``ReplayDecoder`` is not ported yet (ROADMAP
-Queue 1 item 10) and raises ``NotImplementedError``.
+package's components, the SC2 ``ReplayDecoder``
+(``envs.replay_decoder``) among them.
 
 Role of the reference's agent plugin system (reference:
 distar/agent/import_helper.py:1-19 resolves ``distar.agent.<pipeline>`` to
@@ -39,6 +39,7 @@ _DEFAULTS = {
     "Agent": ("distar_tpu_torch.actor.agent", "Agent"),
     "RLLearner": ("distar_tpu_torch.learner", "RLLearner"),
     "SLLearner": ("distar_tpu_torch.learner", "SLLearner"),
+    "ReplayDecoder": ("distar_tpu_torch.envs.replay_decoder", "ReplayDecoder"),
 }
 
 
@@ -79,9 +80,6 @@ def load_component(pipeline, component: str):
             f"unknown component {component!r}; one of {COMPONENTS}"
         )
     if is_default(pipeline):
-        if component == "ReplayDecoder":
-            raise NotImplementedError("ReplayDecoder: the replay decoder is not ported yet "
-                                      "(ROADMAP Queue 1 item 10, envs/replay_decoder.py)")
         mod_name, attr = _DEFAULTS[component]
         return getattr(importlib.import_module(mod_name), attr)
     if pipeline == "bot":

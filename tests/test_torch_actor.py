@@ -599,11 +599,13 @@ def test_replay_push_to_an_unreachable_store_is_dropped_and_counted(policy_weigh
     assert failures() == before + 1
 
 
-def test_play_mock_games_print_the_jax_report(tmp_path, capsys, policy_weights):
+def test_play_mock_games_print_the_jax_report(tmp_path, capsys, policy_weights, monkeypatch):
     """``bin/play.py --game_type mock``: two games between a checkpoint the
     port wrote (``--model1``, a learner's tree with value towers) and the
-    seeded weights, the JAX launcher's report line; the SC2 game types and
-    LAN games raise naming item 10."""
+    seeded weights, the JAX launcher's report line; without an SC2 install
+    the SC2 game types and the LAN host exit naming SC2PATH (the games run
+    in tests/test_torch_sc2_env.py); reference ``.pth`` checkpoints raise
+    naming item 10."""
     import re
 
     from distar_tpu_torch.bin import play
@@ -623,10 +625,14 @@ def test_play_mock_games_print_the_jax_report(tmp_path, capsys, policy_weights):
     assert len(results) == 2
     last = capsys.readouterr().out.strip().splitlines()[-1]
     assert re.fullmatch(r"games=2 side0_winrate=\d\.\d\d side1_winrate=\d\.\d\d ties=\d", last), last
-    for argv in (["--game_type", "agent_vs_bot"], ["--game_type", "mock", "--lan", "h:1"], ["--lan-host"],
-                 ["--game_type", "mock", "--map", "KairosJunction"]):
-        with pytest.raises(NotImplementedError, match="item 10"):
+    # the SC2 game types and the LAN host need an install (SC2PATH); the mock
+    # game type takes the SC2 flags and plays, as the JAX launcher does
+    monkeypatch.setenv("SC2PATH", str(tmp_path / "no_install"))
+    for argv in (["--game_type", "agent_vs_bot"], ["--lan-host"]):
+        with pytest.raises(SystemExit, match="set the SC2PATH"):
             play.main(argv + ["--device", "cpu"])
+    for argv in (["--game_type", "mock", "--lan", "h:1"], ["--game_type", "mock", "--map", "KairosJunction"]):
+        assert len(play.main(argv + ["--device", "cpu", "--episode-game-loops", "60"])) == 1
     with pytest.raises(NotImplementedError, match="item 10"):
         play.load_params("ref.pth", cfg)
 
@@ -638,8 +644,7 @@ def test_scripted_side_against_a_model_side(policy_weights):
     from distar_tpu_torch import plugins
 
     assert plugins.load_component("default", "RLLearner").__module__.startswith("distar_tpu_torch")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        plugins.load_component("default", "ReplayDecoder")
+    assert plugins.load_component("default", "ReplayDecoder").__module__ == "distar_tpu_torch.envs.replay_decoder"
     adapter = Capture()
     actor = Actor(cfg={"actor": {"env_num": 1, "traj_len": 2}}, adapter=adapter, model_cfg=SMALL_MODEL,
                   device="cpu", env_fn=lambda: MockEnv(episode_game_loops=60, seed=2),

@@ -1,16 +1,19 @@
 """The port stands alone: no module of distar_tpu_torch/ and neither of the
 port's root scripts (chip_smoke.py, attention_variants.py, loop_gap_probe.py) imports jax,
-flax, optax or anything of the JAX package distar_tpu, nor msgpack or lz4,
-which the GPU machine lacks (the port reads and writes checkpoints and
-frames with its own codecs); zstandard and tensorboardX only under an
-ImportError guard, as the JAX serializer and scalar sink import them."""
+flax, optax or anything of the JAX package distar_tpu, nor msgpack, lz4 or
+websocket (websocket-client), which the GPU machine lacks (the port reads
+and writes checkpoints and frames with its own codecs, and speaks to SC2
+through its own websocket client, ``envs/sc2/wsclient.py``); zstandard and
+tensorboardX only under an ImportError guard, as the JAX serializer and
+scalar sink import them. (google.protobuf, which the SC2 stack's vendored
+``_proto_gen`` needs, is on the GPU machine.)"""
 import ast
 import os
 
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "distar_tpu", "msgpack", "lz4")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "distar_tpu", "msgpack", "lz4", "websocket")
 GUARDED = ("zstandard", "tensorboardX")  # optional: imported only inside try / except ImportError
 ROOT_SCRIPTS = ("chip_smoke.py", "attention_variants.py", "loop_gap_probe.py")
 
@@ -77,7 +80,14 @@ def test_port_has_modules():
                    "envs/jaxenv/core.py", "envs/jaxenv/obs.py", "envs/jaxenv/host.py",
                    "envs/jaxenv/winrate.py", "envs/jaxenv/anakin.py", "utils/pickles.py",
                    "arena/__init__.py", "arena/store.py", "arena/evaluator.py", "league/runtime/__init__.py",
-                   "league/runtime/service.py", "league/runtime/reassign.py", "league/runtime/runner.py"):
+                   "league/runtime/service.py", "league/runtime/reassign.py", "league/runtime/runner.py",
+                   "envs/sc2/__init__.py", "envs/sc2/proto.py", "envs/sc2/wsclient.py",
+                   "envs/sc2/portpicker_compat.py", "envs/sc2/protocol.py", "envs/sc2/remote_controller.py",
+                   "envs/sc2/fake_sc2.py", "envs/sc2/sc_process.py", "envs/sc2/maps.py",
+                   "envs/sc2/run_configs.py", "envs/sc2/replay_header.py", "envs/sc2/launcher.py",
+                   "envs/sc2/lan.py", "envs/sc2/_proto_gen/sc2api_pb2.py", "envs/features.py",
+                   "envs/dummy_obs.py", "envs/sc2_env.py", "envs/replay_decoder.py", "bin/gen_z.py",
+                   "bin/sc2_tools.py"):
         assert os.path.join("distar_tpu_torch", module) in files
     # the data plane's native library is the port's own copy of the source
     assert os.path.exists(os.path.join(REPO, "distar_tpu_torch", "comm", "native", "shuttle.cpp"))

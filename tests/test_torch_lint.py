@@ -42,3 +42,15 @@ def test_the_metric_lint_sees_the_ports_anakin_and_env_series():
     assert {"distar_anakin_env_steps_per_s", "distar_anakin_batches_total", "distar_anakin_window_seconds",
             "distar_env_episodes_total", "distar_env_head2head_win_rate",
             "distar_rollout_plane_backend"} <= names
+
+
+def test_the_lints_scan_the_sc2_stack():
+    """The SC2 client stack and the decoder are under the same lints: the
+    decoder's throughput series are registered under the JAX names, and
+    the socket lint reads the port's websocket client and fake server."""
+    names = _tool("lint_metric_names").registered_names(PORT)
+    assert {"distar_replay_decoded_total", "distar_replay_decoded_steps_total", "distar_replay_decode_seconds",
+            "distar_replay_decode_steps_per_s", "distar_replay_decode_errors_total"} <= names
+    sc2 = os.path.join(PORT, "envs", "sc2")
+    assert _tool("lint_sockets").find_offences(sc2) == []
+    assert _tool("lint_no_print").find_bare_prints(sc2) == []

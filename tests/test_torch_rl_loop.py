@@ -517,7 +517,6 @@ def test_replay_flags_take_their_working_path(argv, tmp_path, monkeypatch, capsy
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--env", "sc2"], "item 10"),
     (["--type", "learner", "--coordinator-addr", "127.0.0.1:1", "--mesh", "dp=2"], "does not factor"),
     (["--dist-method", "explicit"], "explicit requires"),
     (["--platform", "cpu"], "--device"),

@@ -532,11 +532,10 @@ def test_bin_trains_on_a_remote_feed(tmp_path, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--type", "replay_actor"], "item 10"),
     (["--mesh", "dp=2", "--no-health"], "does not factor")])
 def test_bin_parts_not_ported_name_their_item(argv, item):
-    """The replay actor raises naming its ROADMAP item; ``--mesh`` (item 7,
-    ported) refuses dp=2 on a world of one process, typed."""
+    """``--mesh`` (item 7, ported) refuses dp=2 on a world of one process,
+    typed."""
     from distar_tpu_torch.parallel import MeshConfigError
     from distar_tpu_torch.parallel.dist import dist_close
 

@@ -536,13 +536,13 @@ def test_bin_dynamics_every_zero_turns_the_tree_off(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--type", "replay_actor"], "Queue 1 item 10"), (["--mesh", "dp=2", "--no-health"], "does not factor"),
+    (["--mesh", "dp=2", "--no-health"], "does not factor"),
     (["--remote", "--mesh", "dp=2", "--no-health"], "does not factor")])
 def test_bin_parts_not_ported_raise(argv, item):
     """The SL runtime (``--data``, ``--eval-data``, ``--remote``, the
-    coordinator role) is ported; what is not raises naming its ROADMAP
-    item; ``--mesh`` (item 7, ported) refuses dp=2 on a world of one
-    process, typed, before it reaches the coordinator."""
+    coordinator and replay actor roles) is ported; ``--mesh`` (item 7,
+    ported) refuses dp=2 on a world of one process, typed, before it
+    reaches the coordinator."""
     from distar_tpu_torch.parallel import MeshConfigError
     from distar_tpu_torch.parallel.dist import dist_close
 
