@@ -222,7 +222,10 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              steps (f.: its capture ms and bytes printed, and
              ``python -m distar_tpu_torch.tools.stepreplay`` replays it on
              the card as a process: ``ok``, non-finite reproduced,
-             provenance confirmed, bit for bit), ``/healthz`` answers 503
+             provenance confirmed, bit for bit; ``python -m
+             distar_tpu_torch.tools.opsctl dynamics --dir`` lists it and
+             ``--inspect`` names the port's stepreplay, exit 0 each, as the
+             JAX ``opsctl`` exits on the same directory), ``/healthz`` answers 503
              while they fire, a ``dump`` holds the transitions and the NaN
              ``distar_learner_loss``; the learner state from before the
              poison put back, 3 clean steps, both rules ok.
@@ -326,7 +329,11 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              ``ok``, every learner at rc 0, a snapshot minted, an
              off-diagonal payoff cell with games, no orphaned job, each
              learner's first window pure and its round shown, each fleet
-             ``actors-<player>`` holding one member and drained to none.
+             ``actors-<player>`` holding one member and drained to none;
+             while it runs, ``python -m distar_tpu_torch.tools.opsctl``
+             ``status``, ``league`` and ``arena`` against its coordinator
+             (``--port``), each exiting as the JAX ``opsctl`` does (status:
+             0, 1 or 2 as the ``status`` it printed; the others 0).
              Then, in this process with no learner running, the journal
              cold-booted by an ``HAState`` (its final snapshot) and replayed
              record by record from its first: both digests equal the run's;
@@ -383,10 +390,13 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              counts. e. ``Attention(impl='ring')`` at sp=1 at [68, 2, 512,
              128] against 'pallas' and 'xla', and its backward against
              autograd through the plain version, within ATTN_TOL. f. the
-             executor as processes at the smoke model, beside rl_loop's
-             untimed part: ``--mesh dp=1 --iters 2 --kill-after 1`` (exit
-             137, a durable generation), then ``--resume --save-freq 1``
-             (iteration 1 to 2, its REPORT, its generation verified).
+             executor's kill and resume at the smoke model, beside rl_loop's
+             untimed part, as ``python -m distar_tpu_torch.tools.chaos
+             multichip-drill --mesh dp=1 --resume-mesh dp=1 --host-devices
+             0 --iters 2 --kill-after 1`` (the executor killed with 137
+             after its sharded save at iteration 1, resumed from that
+             generation to 2: ``finished unassisted``, the verdict's keys,
+             the newest generation sharded and verified).
              ``python3 chip_smoke.py --only parallel`` runs this phase
              alone.
 
@@ -398,7 +408,12 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              ``run_configs`` and ``sc_process``, one job of SC2_EPISODE_LOOPS
              game loops, its trajectories pushed; launches exactly one
              attention a layer and one scatter a policy flush and a teacher
-             forward, read from zero around the job. c. fake replays decoded
+             forward, read from zero around the job. Its weights come from a
+             reference-layout ``.pth``: the seeded policy written through
+             ``ref_convert.reference_state_dict`` and loaded through
+             ``bin/play.load_params`` (``ref_convert.convert_model``, then
+             the weight bridge), bit for bit the seeded state dict; the
+             write and the load's seconds printed. c. fake replays decoded
              by ``ReplayDecoder`` (the install's binary launched per
              version) in a ``ReplayActor`` into an in-script coordinator,
              then two steps of a flagship ``SLLearner`` on batches of a
@@ -409,7 +424,11 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              ``rl_train --type all --env sc2`` for one iteration (both
              agents on a fake server process through ``DISTAR_SC2_PORT``),
              ``sl_train --type replay_actor`` feeding ``sl_train --remote``
-             (2 steps), ``play.py --game_type agent_vs_bot``. Printed: the
+             (2 steps), ``bin/replay_fleet.py`` over the same replays
+             through the install's ``ReplayDecoder`` (its report line),
+             ``play.py --game_type agent_vs_bot --model1`` a smoke-size
+             reference ``.pth``, and ``bin/observe.py --endpoint --frames``
+             attached to a live fake game (3 PPM frames). Printed: the
              env's observe + ``transform_obs`` ms, policy flush and teacher
              ms, decisions/s, decoded steps/s, SL step ms and losses, the
              processes' seconds and the script's wait on them.
@@ -513,6 +532,25 @@ def device_ms(fn, iters=20, warmup=3):
     ms = start.elapsed_time(end) / iters
     print(f"device_ms: the profiler saw no device activity in 3 sessions; CUDA events: {ms:.4f} ms a call")
     return ms, {"cuda_events_ms": ms}
+
+
+def events_ms(fn, iters=20, warmup=3):
+    """ms per call of ``fn`` between two CUDA events around ``iters``
+    back-to-back calls: the device's busy time and the gaps the host leaves
+    it, a cross-check of ``device_ms`` that no activity of the call can
+    escape."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def bound(nbytes, flops, peak=PEAK_F32_FLOPS, passes=1.0):
@@ -802,6 +840,23 @@ def phase_kernels(device, rng):
     (emb, idx), e1, e2 = cases["uniform"]
     nbytes = emb.numel() * 4 + idx.numel() * 4 + sB * hw * sD * 4
     b_ms, b_by = bound(nbytes, emb.numel())
+    # the library yardstick by activity: its zero fill writes the whole map
+    # (sB * hw * sD * 4 bytes, a bound of its own), so a reading without the
+    # fill's activity, or under the map's write time, missed it
+    fill_bound_ms = sB * hw * sD * 4 / PEAK_BYTES_PER_S * 1e3
+    sessions = [device_ms(index_add_call(emb, idx, hw))]
+    while sessions[-1][0] < fill_bound_ms and len(sessions) < 3:
+        sessions.append(device_ms(index_add_call(emb, idx, hw)))
+    lib_ms, lib_per = sessions[-1]
+    ev_ms = events_ms(index_add_call(emb, idx, hw))
+    print(f"library index_add_ uniform {sB}x{sN}x{sD} hw={hw}: device ms per call by session "
+          f"{[round(m, 5) for m, _ in sessions]}, the last by activity "
+          + json.dumps({k[:60]: round(v, 5) for k, v in lib_per.items()})
+          + f"; CUDA events {ev_ms:.5f} ms a call; the zero fill's bytes alone bound it at {fill_bound_ms:.5f} ms")
+    if lib_ms < fill_bound_ms:
+        print("library index_add_: every profiler session read under the zero fill's bound (an activity "
+              "missed); library_ms is the CUDA events' time")
+        lib_ms = ev_ms
     for name, err, plain in zip(names, (e1, e2), (K.scatter_add_plain, K.scatter_add_onehot_plain)):
         line = 156 if name == "scatter_add_connection" else 231
         fn = getattr(K, name)
@@ -810,7 +865,7 @@ def phase_kernels(device, rng):
             "max_abs_err": err, "replaces": f"distar_tpu/ops/pallas_kernels.py:{line}",
             "source": f"distar_tpu_torch/ops/csrc/{name}.cu", "bound_ms": b_ms, "bound_by": b_by,
             "ms": ms, "plain_ms": device_ms(lambda: plain(emb, idx, hw), iters=3, warmup=1)[0],
-            "library_ms": device_ms(index_add_call(emb, idx, hw))[0]}
+            "library_ms": lib_ms}
         print(f"kernel {name} uniform: device ms per call by activity "
               + json.dumps({k[:60]: round(v, 5) for k, v in per.items()}))
     for case in SCATTER_CASES[1:]:
@@ -4528,7 +4583,36 @@ def stepreplay_process(tmp, bundle_path):
           and verdict["deterministic"] and verdict["device"].startswith("cuda"), f"stepreplay: {verdict}")
     verdict["seconds"] = time.perf_counter() - t0
     print(f"f. python -m distar_tpu_torch.tools.stepreplay on the drill's bundle, on the card: {json.dumps(verdict)}")
+    verdict["opsctl_dynamics"] = opsctl_dynamics(tmp, bundle_path)
     return verdict
+
+
+def opsctl(tmp, name, *argv, timeout=120):
+    """``python -m distar_tpu_torch.tools.opsctl`` as a process: (exit
+    code, its standard output, seconds)."""
+    t0 = time.perf_counter()
+    log = os.path.join(tmp, f"opsctl_{name}.log")
+    with open(log, "w") as f:
+        rc = subprocess.run([sys.executable, "-m", "distar_tpu_torch.tools.opsctl", *argv], cwd=REPO,
+                            env={**os.environ, "PYTHONPATH": REPO}, stdout=f, stderr=subprocess.DEVNULL,
+                            timeout=timeout).returncode
+    return rc, open(log).read(), time.perf_counter() - t0
+
+
+def opsctl_dynamics(tmp, bundle_path):
+    """``opsctl dynamics --dir`` on the drill's black-box directory lists
+    its bundle, and ``--inspect`` names the port's stepreplay; exit 0 each,
+    as the JAX ``opsctl`` exits on a directory holding a bundle."""
+    bundle_id = os.path.basename(bundle_path)
+    rc, text, list_s = opsctl(tmp, "dynamics", "dynamics", "--dir", os.path.dirname(bundle_path))
+    check(rc == 0 and bundle_id in text, f"opsctl dynamics: exit {rc}: {text[-2000:]}")
+    rc, text, inspect_s = opsctl(tmp, "dynamics_inspect", "dynamics", "--dir", os.path.dirname(bundle_path),
+                                 "--inspect", bundle_id)
+    check(rc == 0 and f"replay: python -m distar_tpu_torch.tools.stepreplay --bundle {bundle_path}" in text,
+          f"opsctl dynamics --inspect: exit {rc}: {text[-2000:]}")
+    out = {"list_s": list_s, "inspect_s": inspect_s}
+    print(f"f. python -m distar_tpu_torch.tools.opsctl dynamics on the drill's bundle: {json.dumps(out)}")
+    return out
 
 
 def phase_health(device, smi, tmp, loop, args, batch, baseline=None):
@@ -5789,18 +5873,29 @@ def league_run_process(tmp):
     its process, journaled, a learner process per player, an actor slot a
     player; then its journal cold-booted here. Returns (the run's numbers,
     the save path)."""
+    import urllib.request
+
     save = os.path.join(tmp, "league")
     t0 = time.perf_counter()
+    port = free_port()
     proc, log = rl_train_process(tmp, "league_run", [
         "--type", "league-run", *league_model_flags(), "--league-players", ",".join(LEAGUE_PLAYERS),
         "--league-rounds", str(LEAGUE_ROUNDS), *LEAGUE_SIZES, "--league-actors-per-player", "1",
-        "--save-path", save])
-    used = []
+        "--save-path", save, "--port", str(port)])
+    used, ops = [], None
     try:
         while proc.poll() is None and time.perf_counter() - t0 < LEAGUE_TIMEOUT_S:
             mib = used_memory_mib()
             if mib is not None:
                 used.append(mib)
+            if ops is None:
+                try:  # the control plane serves: the operator's CLI against it, once
+                    with urllib.request.urlopen(f"http://127.0.0.1:{port}/league/status", timeout=5) as r:
+                        ready = bool(json.loads(r.read()).get("registered_learners"))
+                except (OSError, ValueError):
+                    ready = False
+                if ready:
+                    ops = league_run_opsctl(tmp, f"127.0.0.1:{port}")
             time.sleep(1.0)
         if proc.poll() is None:
             proc.kill()
@@ -5823,6 +5918,7 @@ def league_run_process(tmp):
               f"league-run: {pid}'s first window not shown pure")
         for r in range(1, LEAGUE_ROUNDS + 1):
             check(f"league-learner {pid}: round {r}/{LEAGUE_ROUNDS}" in text, f"league-run: {pid} round {r} missing")
+    check(ops is not None, "league-run: its coordinator never answered /league/status with a learner")
     spawn = next(ln for ln in text.splitlines() if ln.startswith("league-run: seconds from spawn to exit "))
     check("(journal=on)" in text, "league-run: the control plane was not journaled")
     fleets = {f"actors-{p}": 1 for p in sorted(LEAGUE_PLAYERS)}
@@ -5830,10 +5926,35 @@ def league_run_process(tmp):
           f"league-run: the actor fleets {[ln for ln in text.splitlines() if 'actor fleets' in ln]}")
     out = {"wall_s": wall_s, "learner_s": json.loads(spawn.split("exit ", 1)[1]), "digest": digest,
            "used_memory_mib": {"max": max(used) if used else None, "samples": len(used)},
-           "journal": league_journal_replay(save, digest), "journal_append_ms": journal_append_ms(tmp)}
+           "journal": league_journal_replay(save, digest), "journal_append_ms": journal_append_ms(tmp),
+           "opsctl": ops}
     print(f"league: a. rl_train --type league-run, {len(LEAGUE_PLAYERS)} learner processes on the card: "
           f"{json.dumps(out)}")
     return out, save
+
+
+def league_run_opsctl(tmp, addr):
+    """``opsctl status``, ``league`` and ``arena`` against the league-run's
+    coordinator: each exits as the JAX ``opsctl`` does (status: 0 for ok,
+    1 for warning, else 2, by the ``status`` it printed; league and arena:
+    0)."""
+    out = {}
+    rc, text, sec = opsctl(tmp, "status", "status", "--addr", addr)
+    said = next((ln.split()[1] for ln in text.splitlines() if ln.startswith("status: ")), None)
+    check(said is not None and rc == {"ok": 0, "warning": 1}.get(said, 2),
+          f"opsctl status against the league-run: exit {rc}: {text[-2000:]}")
+    out["status"] = {"rc": rc, "status": said, "seconds": sec}
+    rc, text, sec = opsctl(tmp, "league", "league", "--addr", addr)
+    check(rc == 0 and text.startswith("league  (") and all(p in text for p in LEAGUE_PLAYERS),
+          f"opsctl league against the league-run: exit {rc}: {text[-2000:]}")
+    out["league"] = {"rc": rc, "seconds": sec}
+    rc, text, sec = opsctl(tmp, "arena", "arena", "--addr", addr)
+    check(rc == 0 and text.startswith("arena scoreboard"), f"opsctl arena against the league-run: exit {rc}: "
+          f"{text[-2000:]}")
+    out["arena"] = {"rc": rc, "seconds": sec}
+    print(f"league: a. python -m distar_tpu_torch.tools.opsctl against the league-run's coordinator: "
+          f"{json.dumps(out)}")
+    return out
 
 
 # a standby promotes after this long without the primary's feed
@@ -6213,43 +6334,39 @@ PAR_FLOOR = 1e-6
 
 
 def executor_processes(tmp, device):
-    """f. ``python -m distar_tpu_torch.parallel.executor --mesh dp=1`` on the
-    card at the smoke model, as processes: ``--iters 2 --kill-after 1``
-    (exit 137 with a durable generation), then ``--resume --save-freq 1``
-    of that directory (iteration 1 to 2, its REPORT line, its newest
-    sharded generation verified)."""
+    """f. the executor's kill and resume at the smoke model as ``python -m
+    distar_tpu_torch.tools.chaos multichip-drill --mesh dp=1 --resume-mesh
+    dp=1 --host-devices 0 --iters 2 --kill-after 1`` on the card: the
+    executor killed with 137 after its sharded save at iteration 1, resumed
+    from that generation to iteration 2 unassisted; its verdict, and the
+    newest generation sharded and verified."""
     from distar_tpu_torch.parallel.ckpt import is_sharded_checkpoint
     from distar_tpu_torch.utils.checkpoint import CheckpointManager, verify_checkpoint
 
     t0 = time.perf_counter()
     env = {**os.environ, "PYTHONPATH": REPO, "DISTAR_PERF_AOT": "0"}
-
-    def run(name, *extra):
-        log = os.path.join(tmp, f"executor_{name}.log")
-        with open(log, "w") as f:
-            proc = subprocess.run([sys.executable, "-m", "distar_tpu_torch.parallel.executor", "--mesh", "dp=1",
-                                   *extra], cwd=REPO, env=env, stdout=f, stderr=subprocess.STDOUT, timeout=600)
-        text = open(log).read()
-        reports = [json.loads(ln[len("REPORT "):]) for ln in text.splitlines() if ln.startswith("REPORT ")]
-        return proc.returncode, (reports[0] if reports else None), text
-
-    out = {}
-    save = os.path.join(tmp, "executor")
-    rc, _, text = run("killed", "--iters", "2", "--kill-after", "1", "--save-dir", save)
-    gens = CheckpointManager(os.path.join(save, "checkpoints")).generations()
-    check(rc == 137 and gens and gens[0]["step"] == 1 and verify_checkpoint(gens[0]["path"]),
-          f"executor --kill-after 1: rc {rc}, generations {gens}\n{text[-3000:]}")
-    rc, report, text = run("resumed", "--iters", "2", "--resume", "--save-freq", "1", "--save-dir", save)
-    check(rc == 0 and report is not None and report["start_iter"] == 1 and report["iters"] == 2
-          and report["resumed_from"] == gens[0]["path"]
-          and report["mesh"] == {"dp": 1, "fsdp": 1, "tp": 1, "sp": 1},
-          f"executor --resume: rc {rc}, report {report}\n{text[-3000:]}")
-    gen = CheckpointManager(os.path.join(save, "checkpoints")).generations()[0]
-    check(gen["step"] == 2 and is_sharded_checkpoint(gen["path"]) and verify_checkpoint(gen["path"]),
-          f"executor generation {gen} does not verify")
-    out["report"] = report
-    out["seconds"] = time.perf_counter() - t0
-    return out
+    drill = os.path.join(tmp, "multichip_drill")
+    log = os.path.join(tmp, "multichip_drill.log")
+    with open(log, "w") as f, open(log + ".err", "w") as err:
+        rc = subprocess.run([sys.executable, "-m", "distar_tpu_torch.tools.chaos", "multichip-drill", "--dir", drill,
+                             "--mesh", "dp=1", "--resume-mesh", "dp=1", "--host-devices", "0", "--iters", "2",
+                             "--kill-after", "1", "--restart-max", "1", "--timeout-s", "600",
+                             "--device", device.type], cwd=REPO, env=env, stdout=f, stderr=err,
+                            timeout=1200).returncode
+    said = open(log).read()
+    lines, text = said.strip().splitlines(), said + open(log + ".err").read()[-2000:]
+    check(rc == 0 and len(lines) >= 2 and "finished unassisted" in lines[-1],
+          f"chaos multichip-drill: exit {rc}: {text[-3000:]}")
+    verdict = json.loads(lines[-2])
+    check(verdict["final_iters"] == 2 and verdict["resume_start_iter"] == 1 and verdict["restarts"] == 1
+          and verdict["killed_after"] == 1 and verdict["resumed_from"].endswith("iteration_1.ckpt")
+          and verdict["mesh_resumed"] == {"dp": 1, "fsdp": 1, "tp": 1, "sp": 1},
+          f"chaos multichip-drill: verdict {verdict}")
+    gen = CheckpointManager(os.path.join(drill, "exp", "checkpoints")).generations()[0]
+    check(is_sharded_checkpoint(gen["path"]) and verify_checkpoint(gen["path"]),
+          f"chaos multichip-drill: the newest generation {gen} does not verify")
+    print(f"parallel f: chaos multichip-drill on the card: {lines[-1]}")
+    return {"verdict": verdict, "newest_generation_step": gen["step"], "seconds": time.perf_counter() - t0}
 
 
 def same_state(a, b):
@@ -6466,6 +6583,28 @@ SC2_PROCESS_TIMEOUT_S = 420
 SC2_LOOP_EPISODE = 3000  # d.: rl_train's episodes; a job gives the learner's one iteration its two trajectories
 
 
+def reference_pth(path, model_overrides, seed):
+    """A policy-only model of ``model_overrides`` with ``init_params``
+    weights of ``seed``, written as a reference-layout ``.pth`` through
+    ``ref_convert.reference_state_dict`` (the inverse of the rules the
+    tests use). Returns (the model config, the seeded state dict, seconds)."""
+    import torch
+
+    from distar_tpu_torch.model import Model, default_model_config, init_params
+    from distar_tpu_torch.model.convert import params_to_flax
+    from distar_tpu_torch.model.ref_convert import reference_state_dict
+    from distar_tpu_torch.utils import deep_merge_dicts
+
+    t0 = time.perf_counter()
+    cfg = deep_merge_dicts(default_model_config(), model_overrides)
+    cfg.use_value_network = False
+    model = Model(cfg)
+    init_params(model, seed)
+    sd = reference_state_dict(params_to_flax(model)["params"], cfg)
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, path)
+    return cfg, model.state_dict(), time.perf_counter() - t0
+
+
 def fake_replay(n_actions, loops_between, seed=0):
     """A fake replay in the form the fake binary plays back
     (tests/test_replay_decoder.py's ``make_replay``): alternating
@@ -6525,10 +6664,10 @@ def sc2_processes(tmp, device):
     3 item 59), ``sl_train --type replay_actor`` (the bin's default decoder,
     launching the install's binary) feeding a ``sl_train --remote`` learner
     of 2 steps through an in-script coordinator, and ``play.py --game_type
-    agent_vs_bot``. Runs on a thread beside other work; launches nothing in
-    this process."""
-    from distar_tpu_torch.comm import CoordinatorServer
-
+    agent_vs_bot --model1`` a smoke-size reference ``.pth``, with
+    ``bin/replay_fleet.py`` over the replay actor's replays and
+    ``bin/observe.py`` on a live fake game. Runs on a thread beside other
+    work; launches nothing in this process."""
     out, t_all = {}, time.perf_counter()
     env = dict(os.environ, PYTHONPATH=REPO, PYTHONUNBUFFERED="1", DISTAR_PERF_AOT="0")
 
@@ -6543,6 +6682,37 @@ def sc2_processes(tmp, device):
         check(proc.returncode == 0, f"sc2 {name} exited {proc.returncode}: {text[-3000:]}")
         out[name] = {"seconds": time.perf_counter() - t0}
         return text
+
+    replays = write_replays(os.path.join(tmp, "sc2_proc_replays"), 1, SC2_PROC_REPLAY_ACTIONS, 8)
+
+    def tools():
+        """The operator's tools, on a thread of their own beside the rest:
+        the replay actor's replay through bin/replay_fleet.py and the bin's
+        decoder, and bin/observe.py on a live fake game."""
+        text = run("replay_fleet", "distar_tpu_torch.bin.replay_fleet", [
+            "--replays", replays, "--workers", "1", "--rss-interval", "1", "--pipeline", "default"])
+        report = json.loads(text.strip().splitlines()[-1])
+        check(report["decoder"] == "sc2" and report["replays"] == 1 and report["trajectories"] == 2
+              and report["failed_decodes"] == 0 and report["frames"] > 0, f"sc2 replay_fleet: {report}")
+        out["replay_fleet"].update({k: report[k] for k in ("value", "frames", "trajectories", "wall_s", "rss")})
+        out["observe"] = observe_live_game(tmp, env)
+
+    tool_job = Background(tools).start()
+    try:
+        sc2_chain(run, out, env, replays, device, tmp)
+    finally:
+        tool_job.result()
+    out["seconds"] = time.perf_counter() - t_all
+    print(f"sc2 d.: the entry points as processes (smoke model): {json.dumps(out)}")
+    return out
+
+
+def sc2_chain(run, out, env, replays, device, tmp):
+    """sc2_processes' entry points, one after another: rl_train --env sc2
+    over a fake server, the replay actor into a --remote learner, play.py
+    with a smoke .pth."""
+    from distar_tpu_torch.bin.sl_train import SMOKE_MODEL
+    from distar_tpu_torch.comm import CoordinatorServer
 
     port = free_port()
     server_log = os.path.join(tmp, "sc2_fake_server.log")
@@ -6568,7 +6738,6 @@ def sc2_processes(tmp, device):
     # process, so what it pushed just before it exits is gone unless a
     # learner has pulled it; two epochs of one replay give the learner its
     # two trajectories (one a batch row) well before the actor's last push
-    replays = write_replays(os.path.join(tmp, "sc2_proc_replays"), 1, SC2_PROC_REPLAY_ACTIONS, 8)
     co = CoordinatorServer()
     co.start()
     learner_log = os.path.join(tmp, "sc2_sl_train_remote.log")
@@ -6599,15 +6768,56 @@ def sc2_processes(tmp, device):
     finally:
         co.stop()
 
+    pth = os.path.join(tmp, "sc2_smoke.pth")
+    reference_pth(pth, SMOKE_MODEL, 1)
     text = run("play", "distar_tpu_torch.bin.play", [
-        "--game_type", "agent_vs_bot", "--model2", "bot7", "--no-realtime", "--smoke-model", "--game-count", "1",
-        "--device", device.type])
+        "--game_type", "agent_vs_bot", "--model1", pth, "--model2", "bot7", "--no-realtime", "--smoke-model",
+        "--game-count", "1", "--device", device.type])
     last = text.strip().splitlines()[-1]
-    check(last.startswith("games=1 side0_winrate=1.00"), f"sc2 play.py agent_vs_bot: {text[-2000:]}")
+    check(last.startswith("games=1 side0_winrate=1.00"), f"sc2 play.py agent_vs_bot --model1 x.pth: {text[-2000:]}")
     out["play"]["result"] = last
-    out["seconds"] = time.perf_counter() - t_all
-    print(f"sc2 d.: the entry points as processes (smoke model): {json.dumps(out)}")
-    return out
+
+
+def observe_live_game(tmp, env, frames=3):
+    """``python -m distar_tpu_torch.bin.observe --endpoint --frames``
+    attached to a game under way on a fake server process (the game
+    created and joined here, as the first of two connections): ``frames``
+    PPM frames and its count line."""
+    from distar_tpu_torch.envs.sc2.proto import sc_pb
+    from distar_tpu_torch.envs.sc2.remote_controller import RemoteController
+
+    t0 = time.perf_counter()
+    port = free_port()
+    server_log = os.path.join(tmp, "sc2_observe_server.log")
+    with open(server_log, "w") as f:
+        server = subprocess.Popen([sys.executable, "-m", "distar_tpu_torch.envs.sc2.fake_sc2", "-listen",
+                                   "127.0.0.1", "-port", str(port)], cwd=REPO, env=env, stdout=f,
+                                  stderr=subprocess.STDOUT)
+    try:
+        wait_for_line(server, server_log, "fake_sc2 listening", timeout=60)
+        c = RemoteController("127.0.0.1", port, timeout_seconds=30)
+        create = sc_pb.RequestCreateGame()
+        create.local_map.map_path = "FakeMap.SC2Map"
+        create.player_setup.add(type=sc_pb.Participant)
+        create.player_setup.add(type=sc_pb.Computer, race=2, difficulty=7)
+        c.create_game(create)
+        c.join_game(sc_pb.RequestJoinGame(options=sc_pb.InterfaceOptions(raw=True, score=True), race=2))
+        d = os.path.join(tmp, "sc2_observe_frames")
+        log = os.path.join(tmp, "sc2_observe.log")
+        with open(log, "w") as f:
+            rc = subprocess.run([sys.executable, "-m", "distar_tpu_torch.bin.observe", "--endpoint",
+                                 f"127.0.0.1:{port}", "--count", str(frames), "--interval", "0.05", "--frames", d],
+                                cwd=REPO, env=env, stdout=f, stderr=subprocess.STDOUT, timeout=120).returncode
+        text = open(log).read()
+        names = sorted(os.listdir(d)) if os.path.isdir(d) else []
+        check(rc == 0 and len(names) == frames and f"{frames} frames written to {d}" in text
+              and all(open(os.path.join(d, n), "rb").read(3) == b"P6 " for n in names),
+              f"sc2 observe: exit {rc}, frames {names}: {text[-2000:]}")
+        c.close()
+    finally:
+        server.terminate()
+        server.wait(timeout=30)
+    return {"frames": len(names), "seconds": time.perf_counter() - t0}
 
 
 def phase_sc2(device, smi, tmp, processes=None):
@@ -6620,6 +6830,8 @@ def phase_sc2(device, smi, tmp, processes=None):
     import torch
 
     from distar_tpu_torch.actor import Actor, BatchedInference
+    from distar_tpu_torch.actor.actor import ACTOR_DEFAULTS
+    from distar_tpu_torch.bin import play
     from distar_tpu_torch.comm import Adapter, CoordinatorServer
     from distar_tpu_torch.envs.replay_decoder import ReplayDecoder
     from distar_tpu_torch.envs.sc2.launcher import make_sc2_env
@@ -6688,6 +6900,21 @@ def phase_sc2(device, smi, tmp, processes=None):
         def pull(self, token, block=False):
             return None
 
+    # b.'s weights: the actor's seeded policy as a reference .pth, loaded
+    # the way play.py --model1 x.pth loads it
+    pth = os.path.join(tmp, "sc2_flagship.pth")
+    pth_cfg, seeded, write_s = reference_pth(pth, overlay("pallas", "pallas"), ACTOR_DEFAULTS["actor"]["seed"])
+    t0 = time.perf_counter()
+    state = play.load_params(pth, pth_cfg)
+    out["pth"] = {"write_s": write_s, "load_params_s": time.perf_counter() - t0, "bytes": os.path.getsize(pth),
+                  "tensors": len(state)}
+    check(set(state) == set(seeded) and all(state[k].dtype == v.dtype and torch.equal(state[k], v)
+                                            for k, v in seeded.items()),
+          "sc2 b.: the .pth's converted state dict is not the seeded one")
+    print(f"sc2 b.: the flagship's seeded policy through a reference .pth, bit for bit: {json.dumps(out['pth'])}")
+    del seeded
+    laps("b pth")
+
     launches = {}
     K.masked_attention, K.scatter_add_connection = attention, scatter
     BatchedInference.sample, BatchedInference.teacher_logits = sample, teacher
@@ -6697,7 +6924,8 @@ def phase_sc2(device, smi, tmp, processes=None):
         # against bot7)
         pushed = Pushed()
         actor = Actor(cfg={"actor": {"env_num": 1, "traj_len": SC2_TRAJ_LEN}}, adapter=pushed,
-                      model_cfg=overlay("pallas", "pallas"), env_fn=sc2_env, device=device)
+                      model_cfg=overlay("pallas", "pallas"), env_fn=sc2_env, device=device,
+                      player_params={"agent": state})
         job = {"player_ids": ["agent"], "send_data_players": ["agent"], "update_players": [],
                "teacher_player_ids": ["none"], "branch": "eval", "env_info": {"map_name": "KairosJunction"},
                "opponent_id": "bot7"}
@@ -7122,8 +7350,8 @@ def main(argv=None) -> int:
                           "league": league_summary(league),
                           "parallel": {k: parallel[k] for k in ("group", "step", "ckpt", "feeder",
                                                                  "ring_max_abs_err", "executor", "seconds")},
-                          "sc2": {k: sc2[k] for k in ("actor", "decode", "sl", "processes", "processes_wait_s",
-                                                      "seconds")},
+                          "sc2": {k: sc2[k] for k in ("pth", "actor", "decode", "sl", "processes",
+                                                      "processes_wait_s", "seconds")},
                           "phase_seconds": phase_s, "seconds": time.perf_counter() - t_start}))
         print(json.dumps(line))
     except Exception as e:  # every phase failure fails the run

@@ -17,12 +17,12 @@ agent (``envs.sc2.lan``). The game-free ``mock`` mode runs the same
 ``Actor`` on ``MockEnv``s.
 
 ``--model1``/``--model2`` are checkpoints the port (or the JAX package)
-wrote, loaded with ``utils.checkpoint.load_params`` and taken to the
-policy-only model through ``model.convert.policy_params_from_flax``; a side
-without one plays on the actor's seeded weights. The last line is the JAX
-launcher's ``report``: ``games=N side0_winrate=.. side1_winrate=.. ties=..``.
-Reference ``.pth`` checkpoints raise ``NotImplementedError`` naming ROADMAP
-Queue 1 item 10 (``model/ref_convert.py``, not ported yet).
+wrote, loaded with ``utils.checkpoint.load_params``, or reference torch
+``.pth``/``.pt`` state dicts, converted by ``model.ref_convert.convert_model``;
+either is taken to the policy-only model through
+``model.convert.policy_params_from_flax``. A side without one plays on the
+actor's seeded weights. The last line is the JAX launcher's ``report``:
+``games=N side0_winrate=.. side1_winrate=.. ties=..``.
 """
 from __future__ import annotations
 
@@ -43,7 +43,6 @@ from ..model.convert import policy_params_from_flax
 from ..utils import deep_merge_dicts
 
 GAME_TYPES = ("agent_vs_agent", "agent_vs_bot", "human_vs_agent", "mock")
-_PTH = "reference .pth checkpoints need model/ref_convert.py, not ported yet (ROADMAP Queue 1 item 10)"
 
 
 def find_sc2() -> str:
@@ -63,16 +62,25 @@ def find_sc2() -> str:
 
 def load_params(path: str, model_cfg) -> dict:
     """A checkpoint's params as a ``state_dict`` of the policy-only model of
-    ``model_cfg`` (a learner checkpoint's value towers dropped)."""
+    ``model_cfg`` (a learner checkpoint's value towers dropped); reference
+    torch ``.pth`` checkpoints convert on the fly
+    (``model.ref_convert.convert_model``)."""
     if path.endswith((".pth", ".pt")):
-        raise NotImplementedError(f"{path}: {_PTH}")
-    from ..utils.checkpoint import load_params as load_native_params
+        from ..model.ref_convert import convert_model
 
+        sd = torch.load(path, map_location="cpu")
+        sd = sd.get("model", sd)
+        params = convert_model({k: v.numpy() if torch.is_tensor(v) else v for k, v in sd.items()},
+                               model_cfg)
+    else:
+        from ..utils.checkpoint import load_params as load_native_params
+
+        params = load_native_params(path)
     cfg = deep_merge_dicts(model_cfg, {})
     cfg.use_value_network = False
     with torch.device("meta"):
         shape_model = Model(cfg)
-    return policy_params_from_flax(load_native_params(path), shape_model)
+    return policy_params_from_flax(params, shape_model)
 
 
 def side_name(path: str, default: str) -> str:

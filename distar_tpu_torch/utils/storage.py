@@ -9,10 +9,12 @@ Schemes:
   * plain paths and ``file://`` -> ``LocalBackend`` (unique tmp, fsync,
     rename, and the rename itself fsynced)
   * ``mem://``                  -> ``MemBackend`` (a process-local dict; tests)
+  * ``gs://``                   -> ``GcsBackend``, a stub whose every call
+                                   raises ``RuntimeError`` with the wiring a
+                                   deployment needs
 
-Any other scheme (the JAX package's ``gs://`` stub, a registered pod
-backend) raises ``NotImplementedError``: those backends come with ROADMAP
-Queue 1 item 10.
+``register_backend(scheme, backend)`` adds a scheme (a pod's object store);
+an unregistered one raises ``ValueError``, as the JAX package's does.
 """
 from __future__ import annotations
 
@@ -171,7 +173,51 @@ class MemBackend(StorageBackend):
             return sorted(k for k in self._blobs if k.startswith(prefix))
 
 
-_BACKENDS: Dict[str, StorageBackend] = {"file": LocalBackend(), "mem": MemBackend()}
+class GcsBackend(StorageBackend):
+    """``gs://`` stub: the client library is not a dependency, so every
+    call raises with the wiring a deployment needs."""
+
+    _HINT = (
+        "gs:// storage needs the google-cloud-storage client, which is not "
+        "bundled. Install it in your deployment image and register a real "
+        "backend: storage.register_backend('gs', YourGcsBackend())."
+    )
+
+    def _unavailable(self):
+        try:
+            import google.cloud.storage  # noqa: F401
+        except ImportError as e:
+            raise RuntimeError(self._HINT) from e
+        raise RuntimeError(
+            "google-cloud-storage is importable but the bundled GcsBackend "
+            "is a stub; register a real backend via register_backend()."
+        )
+
+    def write_bytes(self, path, data):
+        self._unavailable()
+
+    def read_bytes(self, path):
+        self._unavailable()
+
+    def exists(self, path):
+        self._unavailable()
+
+    def delete(self, path):
+        self._unavailable()
+
+    def list(self, prefix):
+        self._unavailable()
+
+
+_BACKENDS: Dict[str, StorageBackend] = {
+    "file": LocalBackend(),
+    "mem": MemBackend(),
+    "gs": GcsBackend(),
+}
+
+
+def register_backend(scheme: str, backend: StorageBackend) -> None:
+    _BACKENDS[scheme] = backend
 
 
 def resolve(path: str) -> Tuple[StorageBackend, str]:
@@ -180,9 +226,7 @@ def resolve(path: str) -> Tuple[StorageBackend, str]:
         scheme, rest = path.split("://", 1)
         backend = _BACKENDS.get(scheme)
         if backend is None:
-            raise NotImplementedError(
-                f"storage scheme {scheme}:// is not ported (file and mem:// are); other "
-                f"backends come with ROADMAP Queue 1 item 10")
+            raise ValueError(f"no storage backend registered for {scheme}://")
         return backend, rest
     return _BACKENDS["file"], path
 

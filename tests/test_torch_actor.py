@@ -604,8 +604,9 @@ def test_play_mock_games_print_the_jax_report(tmp_path, capsys, policy_weights, 
     port wrote (``--model1``, a learner's tree with value towers) and the
     seeded weights, the JAX launcher's report line; without an SC2 install
     the SC2 game types and the LAN host exit naming SC2PATH (the games run
-    in tests/test_torch_sc2_env.py); reference ``.pth`` checkpoints raise
-    naming item 10."""
+    in tests/test_torch_sc2_env.py); a reference ``.pth`` of the same
+    learner (``ref_convert.reference_state_dict``, value towers and all)
+    loads to the same policy weights and plays."""
     import re
 
     from distar_tpu_torch.bin import play
@@ -633,8 +634,15 @@ def test_play_mock_games_print_the_jax_report(tmp_path, capsys, policy_weights, 
             play.main(argv + ["--device", "cpu"])
     for argv in (["--game_type", "mock", "--lan", "h:1"], ["--game_type", "mock", "--map", "KairosJunction"]):
         assert len(play.main(argv + ["--device", "cpu", "--episode-game-loops", "60"])) == 1
-    with pytest.raises(NotImplementedError, match="item 10"):
-        play.load_params("ref.pth", cfg)
+    from distar_tpu_torch.model.ref_convert import reference_state_dict
+
+    pth = str(tmp_path / "ref.pth")
+    torch.save({k: torch.from_numpy(v)
+                for k, v in reference_state_dict(params_to_flax(learner_model), cfg).items()}, pth)
+    loaded = play.load_params(pth, deep_merge_dicts(default_model_config(), SMALL_MODEL))
+    assert set(loaded) == set(want) and all(torch.equal(loaded[k], want[k]) for k in want)
+    assert len(play.main(["--game_type", "mock", "--device", "cpu", "--model1", pth, "--smoke-model",
+                          "--episode-game-loops", "60"])) == 1
 
 
 def test_scripted_side_against_a_model_side(policy_weights):

@@ -605,6 +605,37 @@ def test_rule_state_machine_debounce_nan_loss_and_stall(registry, recorder):
     assert kinds.count("alert") == len(ev.alerts()["history"])
 
 
+#: a learner's shipped ``distar_learner_iterations_total`` (seconds from its
+#: first ship, value) from a loaded host: eight ships of 0 while it waits
+#: for the actor's first trajectories, then its two steps and its exit
+WAITING_LEARNER = [(0.0, 0.0), (1.003, 0.0), (2.017, 0.0), (3.027, 0.0), (4.039, 0.0), (5.055, 0.0),
+                   (6.122, 0.0), (7.135, 0.0), (8.144, 1.0), (8.775, 2.0)]
+
+
+@pytest.mark.parametrize("lib_name", ["port", "jax"])
+def test_stall_fires_on_a_learner_waiting_for_its_first_batch(lib_name, registry, recorder, clock):
+    """The ships of a learner that waits for data, evaluated as the
+    coordinator does (every 2 s, the stock rulebook): both packages fire
+    ``learner_step_stall`` on the flat zeros and hold it firing until the
+    second evaluation after the counter moves, so a ``/healthz`` read just
+    after the learner's exit may still list it."""
+    lib = {"port": obs, "jax": jobs}[lib_name]
+    store = lib.TimeSeriesStore()
+    ev = lib.HealthEvaluator(store, lib.default_rulebook(("learner",)),
+                             registry=lib.get_registry(), recorder=lib.get_flight_recorder())
+    states, ships, t = [], list(WAITING_LEARNER), 0.5
+    while t < 14.0:
+        while ships and ships[0][0] <= t:
+            ts, v = ships.pop(0)
+            store.record("distar_learner_iterations_total", v, ts=T0 + ts, source="learner:MP0:0")
+        clock[0] = T0 + t
+        ev.evaluate_once(now=T0 + t)
+        states.append((t, ev.alerts()["rules"]["learner_step_stall"]["state"]))
+        t += 2.0
+    assert states == [(0.5, "ok"), (2.5, "warning"), (4.5, "warning"), (6.5, "firing"),
+                      (8.5, "firing"), (10.5, "ok"), (12.5, "ok")], states
+
+
 def test_rule_no_data_is_not_a_breach(registry):
     store = TimeSeriesStore()
     ev = HealthEvaluator(store, [HealthRule(name="r", metric="distar_never_registered", op="stalled")],

@@ -87,7 +87,9 @@ def test_port_has_modules():
                    "envs/sc2/run_configs.py", "envs/sc2/replay_header.py", "envs/sc2/launcher.py",
                    "envs/sc2/lan.py", "envs/sc2/_proto_gen/sc2api_pb2.py", "envs/features.py",
                    "envs/dummy_obs.py", "envs/sc2_env.py", "envs/replay_decoder.py", "bin/gen_z.py",
-                   "bin/sc2_tools.py"):
+                   "bin/sc2_tools.py", "model/ref_convert.py", "bin/download_model.py",
+                   "bin/replay_fleet.py", "bin/observe.py", "tools/opsctl.py", "tools/chaos.py",
+                   "tools/dynamics_overhead.py"):
         assert os.path.join("distar_tpu_torch", module) in files
     # the data plane's native library is the port's own copy of the source
     assert os.path.exists(os.path.join(REPO, "distar_tpu_torch", "comm", "native", "shuttle.cpp"))

@@ -2,9 +2,10 @@
 replay_decoder.py``), ``bin/gen_z.py`` and ``sl_train --type replay_actor``
 against the JAX package's, on the CPU.
 
-* Counterparts of tests/test_replay_decoder.py (all but the fleet report,
-  ``bin/replay_fleet.py``, not ported), tests/test_gen_z_cli.py and
-  tests/test_plugins.py's decoder resolution, on the port's modules.
+* Counterparts of tests/test_replay_decoder.py (the fleet report of
+  ``bin/replay_fleet.py`` too, and its ``--pipeline`` run through the
+  port's ``ReplayDecoder`` over a fake install), tests/test_gen_z_cli.py
+  and tests/test_plugins.py's decoder resolution, on the port's modules.
 * Parity: ``ReplayDecoder.run`` and ``decode_z`` on the same fake replays,
   both players, each package over its own stack; the decoder draws the
   last step's delay from the global ``random``, which is seeded before each
@@ -478,3 +479,59 @@ def test_sl_train_replay_actor_feeds_a_remote_learner(tmp_path, monkeypatch, cap
         assert not lrn._dataloader._thread.is_alive()
     finally:
         co.stop()
+
+
+def test_replay_fleet_report(tmp_path):
+    """The fleet ops CLI: sharded decode over ReplayActor with a frames/s
+    and RSS-slope report; failures counted, not fatal."""
+    from distar_tpu_torch.bin.replay_fleet import _FakeDecoder, process_tree_rss_mb, run_fleet
+
+    for i in range(5):
+        (tmp_path / f"r{i}.SC2Replay").touch()
+    (tmp_path / "corrupt.SC2Replay").touch()
+    report = run_fleet(
+        str(tmp_path), workers=3,
+        decoder_factory=lambda: _FakeDecoder(steps_per_replay=16),
+        rss_interval_s=0.2,
+    )
+    assert report["replays"] == 6
+    assert report["trajectories"] == 10  # 5 good replays x 2 players
+    assert report["failed_decodes"] == 2
+    assert report["frames"] == 160
+    assert report["value"] > 0
+    assert report["rss"]["peak_mb"] >= report["rss"]["start_mb"] * 0.5
+    assert report["decoder"].startswith("fake")
+    assert process_tree_rss_mb() > 10  # this test process alone
+    # SLURM-style sharding: two tasks split the list without overlap
+    r0 = run_fleet(str(tmp_path), workers=1, ntasks=2, proc_id=0,
+                   decoder_factory=lambda: _FakeDecoder(4), rss_interval_s=1.0)
+    r1 = run_fleet(str(tmp_path), workers=1, ntasks=2, proc_id=1,
+                   decoder_factory=lambda: _FakeDecoder(4), rss_interval_s=1.0)
+    assert r0["replays"] + r1["replays"] == 6
+
+
+def test_replay_fleet_cli_decodes_through_the_fake_install(tmp_path):
+    """``python -m distar_tpu_torch.bin.replay_fleet --pipeline default``:
+    the port's ``ReplayDecoder`` (via ``plugins``) launches the fake
+    install's binary and decodes both players of each replay; the report
+    line carries the JAX report's keys."""
+    import subprocess
+    import sys
+
+    install = fake_sc2.write_fake_install(str(tmp_path / "SC2"), REPO)
+    replays = tmp_path / "replays"
+    replays.mkdir()
+    for i in range(2):
+        (replays / f"r{i}.SC2Replay").write_bytes(pickle.dumps(make_replay(n_actions=132, loops_between=8)))
+    out = subprocess.run(
+        [sys.executable, "-m", "distar_tpu_torch.bin.replay_fleet", "--replays", str(replays),
+         "--workers", "1", "--rss-interval", "0.5", "--pipeline", "default"],
+        cwd=REPO, capture_output=True, text=True, timeout=240,
+        env=dict(os.environ, PYTHONPATH=REPO, SC2PATH=install, OMP_NUM_THREADS="1"))
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-3000:]
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert set(report) == {"metric", "value", "unit", "replays", "workers", "trajectories",
+                           "failed_decodes", "empty_decodes", "frames", "wall_s", "rss", "decoder"}
+    assert report["decoder"] == "sc2" and report["replays"] == 2
+    assert (report["trajectories"], report["failed_decodes"]) == (4, 0)
+    assert report["frames"] > 0 and report["value"] > 0

@@ -377,7 +377,12 @@ def test_rl_train_roles_as_processes(tmp_path):
     ``/timeseries`` holds the learner's iterations up to its last; on
     SIGTERM the actor and the coordinator write a flight bundle under their
     ``flight/`` directory, and the league, which runs no fleet health, does
-    not."""
+    not. ``/healthz`` is read while the learner runs and after it exits,
+    and each read fires only what the learner's shipped state allows:
+    ``learner_step_stall`` only once its iteration counter has read the
+    same value in two ships in a row (a learner waiting for its first
+    batch ships 0 each second, and the rule fires on a flat counter in
+    both packages until two evaluations after it moves)."""
     import json
     import signal
     import time
@@ -414,8 +419,6 @@ def test_rl_train_roles_as_processes(tmp_path):
               "--save-path", str(tmp_path / "learner"), *ship, *sizes)
         start("actor", "--coordinator-addr", co, "--league-addr", lg, "--save-path", str(tmp_path / "actor"),
               *ship, *sizes)
-        assert procs["learner"].wait(timeout=240) == 0, (tmp_path / "learner.log").read_text()[-3000:]
-        assert "learner done: 2 iters" in (tmp_path / "learner.log").read_text()
 
         def get(path):
             try:
@@ -424,10 +427,25 @@ def test_rl_train_roles_as_processes(tmp_path):
             except urllib.error.HTTPError as e:
                 # 503 while a rule fires: the learner's distar_perf_mfu reads 0
                 # (no flop count here), under learner_mfu_collapse's 2%, as the
-                # JAX learner's does
+                # JAX learner's does; the stall only after a flat counter
                 body = json.loads(e.read())
-                assert e.code == 503 and set(body["firing"]) <= {"learner_mfu_collapse"}, body
+                allowed = {"learner_mfu_collapse"}
+                series = get("/timeseries?name=distar_learner_iterations_total")["points"]
+                values = [v for _t, v in series.get("learner:MP0:0", [])]
+                if any(a == b for a, b in zip(values, values[1:])):
+                    allowed.add("learner_step_stall")
+                assert e.code == 503 and set(body["firing"]) <= allowed, (body, series)
                 return body
+
+        reads = 0
+        deadline = time.time() + 240
+        while procs["learner"].poll() is None and time.time() < deadline:
+            get("/healthz")  # reads taken while the learner trains
+            reads += 1
+            time.sleep(0.5)
+        assert procs["learner"].wait(timeout=10) == 0, (tmp_path / "learner.log").read_text()[-3000:]
+        assert "learner done: 2 iters" in (tmp_path / "learner.log").read_text()
+        assert reads >= 1
 
         deadline = time.time() + 30
         while time.time() < deadline:

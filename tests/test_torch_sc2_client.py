@@ -1,8 +1,8 @@
 """The port's SC2 client stack (``distar_tpu_torch/envs/sc2/``) against the
 JAX package's, on the CPU.
 
-* Counterparts of tests/test_sc2_client.py (all but the headless observer,
-  ``bin/observe.py``, not ported) run on the port's modules: the websocket
+* Counterparts of tests/test_sc2_client.py (the headless observer,
+  ``bin/observe.py``, too) run on the port's modules: the websocket
   protocol and ``RemoteController``'s status machine against the port's
   fake server, the launcher's create/join plumbing, the process launch over
   a fake install, version routing, the map registry, replays, the
@@ -444,6 +444,34 @@ def test_proto_gen_is_byte_identical_to_the_jax_copy():
 
 
 # ------------------------------------------- parity across the two stacks
+def test_headless_observer_renders_live_game(tmp_path, server):
+    """``bin/observe``: a SECOND connection attaches to a live game on the
+    port's fake server and renders ASCII and PPM frames."""
+    import distar_tpu_torch.bin.observe as OB
+
+    c = connect(server)
+    create = sc_pb.RequestCreateGame()
+    create.local_map.map_path = "FakeMap.SC2Map"
+    create.player_setup.add(type=sc_pb.Participant)
+    create.player_setup.add(type=sc_pb.Computer, race=2, difficulty=7)
+    c.create_game(create)
+    c.join_game(sc_pb.RequestJoinGame(options=sc_pb.InterfaceOptions(raw=True, score=True), race=2))
+
+    d = tmp_path / "frames"
+    OB.main(["--endpoint", f"127.0.0.1:{server.port}", "--count", "2",
+             "--interval", "0.01", "--frames", str(d)])
+    frames = sorted(os.listdir(d))
+    assert len(frames) == 2
+    head = (d / frames[0]).read_bytes()[:20]
+    assert head.startswith(b"P6 ")
+
+    obs = c.observe()
+    gi = c.game_info()
+    size = (gi.start_raw.map_size.x, gi.start_raw.map_size.y)
+    art = OB.render_ascii(OB.obs_to_grid(obs.observation.raw_data, size, 1))
+    assert "o" in art and "x" in art  # both sides visible
+
+
 def _session(server, controller_cls):
     """One scripted session; every request the server decodes and every
     response the controller reads, as bytes."""
