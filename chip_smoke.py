@@ -396,7 +396,36 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              0 --iters 2 --kill-after 1`` (the executor killed with 137
              after its sharded save at iteration 1, resumed from that
              generation to 2: ``finished unassisted``, the verdict's keys,
-             the newest generation sharded and verified).
+             the newest generation sharded and verified). g. two gloo
+             ranks on the one card (``spawn_ranks(..., device="cuda")``:
+             NCCL refuses two ranks a device), started beside phases 12-13
+             (``mesh_rank_processes``): the flagship RL learner (kernel
+             overlay, f32, 4 x 16, six value towers) unmeshed on each
+             rank (the single-process reference in the ranks' own
+             processes, and its repeat), then under dp=2 (the rows split,
+             no parameter: the yardstick), fsdp=2 and tp=2, two steps each
+             on the rl phase's batch, with deterministic algorithms in
+             both ranks (``torch.use_deterministic_algorithms``: the
+             repeat then reads 0; the ops without a deterministic version
+             are listed). Held at fixed bounds against the reference:
+             dp=2, fsdp=2 and tp=2 each, and fsdp=2 against dp=2 (the same
+             rows on the gathered parameters): the first step's forward
+             scalars at the tolerances of tests/test_torch_parallel_ranks.py
+             (1e-5 of max(1, |v|)), what reads a gradient (the first
+             step's gradient scalars and parameters, the second step, the
+             moments) within GRAD_TOL relative (Queue 3 items 1 and 72);
+             fsdp=2 against dp=2's first step at the tests' tolerances
+             throughout. Each rank's 3 attention and 1 scatter launches a
+             step, read from zero, the heads the attention saw (1 of 2
+             under tp=2), the attention kernel against its plain version
+             on the first call's inputs of each run (under tp=2 [68, 1,
+             512, 128]) within ATTN_TOL of the output's scale (max(1, max
+             |plain|), as SCATTER_TOL on real sums), the six gloo
+             collectives on CUDA tensors each checked once, its blocks'
+             elements, its ``memory_allocated`` between steps and its peak
+             during one beside the world of one's, and its step ms (over
+             gloo, which stages CUDA collectives through the host: no
+             speed figure); every reading is printed before one is checked.
              ``python3 chip_smoke.py --only parallel`` runs this phase
              alone.
 
@@ -6369,6 +6398,252 @@ def executor_processes(tmp, device):
     return {"verdict": verdict, "newest_generation_step": gen["step"], "seconds": time.perf_counter() - t0}
 
 
+# g.: two gloo ranks on the one card; dp=2 splits the rows as fsdp=2 does
+# and no parameter: the yardstick of a step whose ops run at other shapes
+MESH_G = ({"dp": 2}, {"dp": 1, "fsdp": 2}, {"dp": 1, "tp": 2})
+# g.: the tolerances of tests/test_torch_parallel_ranks.py (scalars relative to
+# max(1, |v|), each step's parameters to that step's norm, the moments to theirs)
+G_SCALAR_RTOL, G_UPDATE_RTOL, G_MOMENT_RTOL = 1e-5, 2e-4, 1e-4
+# g.: the parts of a run held against another: the first step's forward scalars
+# (its losses) and gradient scalars, each step's parameters, the second step's
+# scalars, the moments after it; in shares of the tolerances above
+G_PARTS = ("forward1", "grads1", "step1", "scalars2", "step2", "moments")
+# g.: the fixed bounds against the single-process step: the forward at the tests'
+# tolerance; what reads a gradient within GRAD_TOL relative, the card's gradient
+# gap at other shapes of the same ops (ROADMAP Queue 3 items 1 and 72)
+G_BOUND = {"forward1": 1.0, "grads1": GRAD_TOL / G_SCALAR_RTOL, "step1": GRAD_TOL / G_UPDATE_RTOL,
+           "scalars2": GRAD_TOL / G_SCALAR_RTOL, "step2": GRAD_TOL / G_UPDATE_RTOL,
+           "moments": GRAD_TOL / G_MOMENT_RTOL}
+# g.: fsdp=2 against dp=2 (the same rows, the parameters gathered): the first step
+# at the tests' tolerances throughout, the rest as above
+G_BOUND_DP = {**G_BOUND, "grads1": 1.0, "step1": 1.0}
+# g.: the info keys that read a gradient (the rest of the first step's are its forward)
+G_GRAD_KEYS = ("grad_norm", "dyn/grad_norm/", "dyn/update_ratio/", "dyn/clip_", "dyn/nonfinite_grads/")
+
+
+def step_off(a, b, prev):
+    """||a - b|| over the step ||b - prev|| (lists of arrays, in float64)."""
+    import numpy as np
+
+    num = sum(float(((x.astype(np.float64) - y) ** 2).sum()) for x, y in zip(a, b))
+    den = sum(float(((y.astype(np.float64) - z) ** 2).sum()) for y, z in zip(b, prev))
+    return (num / den) ** 0.5
+
+
+def g_distance(got, want):
+    """g.: how far a run's two steps lie from ``want``'s, in shares of the
+    tests' tolerances: the worst scalar (G_SCALAR_RTOL of max(1, |v|)) and
+    its key of the first step's forward, of its gradient scalars and of
+    the second step, each step's parameters (G_UPDATE_RTOL of that step's
+    norm, from ``want["start"]``), the moments after the second
+    (G_MOMENT_RTOL of their norm)."""
+    out, prev = {}, want["start"]
+    for step in range(2):
+        mine, theirs = got["logs"][step], want["logs"][step]
+        if set(mine) != set(theirs):
+            raise ValueError(f"step {step}: info keys differ")
+        shares = {k: abs(mine[k] - v) / (G_SCALAR_RTOL * max(1.0, abs(v))) for k, v in theirs.items()}
+        groups = {"scalars2": shares} if step else {
+            "forward1": {k: v for k, v in shares.items() if not k.startswith(G_GRAD_KEYS)},
+            "grads1": {k: v for k, v in shares.items() if k.startswith(G_GRAD_KEYS)}}
+        for part, group in groups.items():
+            key = max(group, key=group.get)
+            out[part], out[f"{part}_key"] = group[key], key
+        out[f"step{step + 1}"] = step_off(got["params"][step], want["params"][step], prev) / G_UPDATE_RTOL
+        prev = want["params"][step]
+    moments = rel_dist([x for m in got["moments"] for x in m], [x for m in want["moments"] for x in m])
+    return {**out, "moments": moments / G_MOMENT_RTOL}
+
+
+def gloo_cuda_collectives(rank, world):
+    """g.: each collective the meshed learner runs, once on CUDA tensors in
+    the ranks' gloo group, against its known result: ``{name: "ok" |
+    "wrong result" | "refused: <error>"}``."""
+    import torch
+    import torch.distributed as dist
+
+    x = torch.arange(4, dtype=torch.float32, device="cuda") + 10 * rank
+    rows = [torch.arange(4, dtype=torch.float32) + 10 * r for r in range(world)]
+    total, gathered = sum(rows), torch.cat(rows)
+
+    def gather_list():
+        parts = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(parts, x)
+        return torch.cat(parts)
+
+    def gather_tensor():
+        out = torch.empty(4 * world, device="cuda")
+        dist.all_gather_into_tensor(out, x)
+        return out
+
+    def reduce(y):
+        dist.all_reduce(y)
+        return y
+
+    def scatter_list():
+        out = torch.empty(4 // world, device="cuda")
+        dist.reduce_scatter(out, list(x.clone().chunk(world)))
+        return out
+
+    def scatter_tensor():
+        out = torch.empty(4 // world, device="cuda")
+        dist.reduce_scatter_tensor(out, x.clone())
+        return out
+
+    def broadcast(y):
+        dist.broadcast(y, 0)
+        return y
+
+    mine = total.chunk(world)[rank]
+    result = {}
+    for name, fn, want in (("all_gather", gather_list, gathered), ("all_gather_into_tensor", gather_tensor, gathered),
+                           ("all_reduce", lambda: reduce(x.clone()), total),
+                           ("reduce_scatter", scatter_list, mine), ("reduce_scatter_tensor", scatter_tensor, mine),
+                           ("broadcast", lambda: broadcast(x.clone()), rows[0])):
+        try:
+            got = fn()
+            torch.cuda.synchronize()
+            result[name] = "ok" if got.device.type == "cuda" and torch.equal(got.cpu(), want) else "wrong result"
+        except (RuntimeError, ValueError, NotImplementedError) as e:
+            result[name] = f"refused: {type(e).__name__}: {str(e).splitlines()[0][:160]}"
+        dist.barrier()
+    return result
+
+
+def mesh_rank(rank, tmp, batch_path):
+    """g. one of two gloo ranks on the card (``spawn_ranks(...,
+    device="cuda")``), with deterministic algorithms (cuBLAS's fixed
+    workspace, cuDNN's deterministic convolutions; each op that has no
+    deterministic version is recorded by its warning). First the gloo
+    collectives on CUDA tensors (``gloo_cuda_collectives``); then each
+    rank's own unmeshed flagship RL learner (kernel overlay, f32, 4 x 16,
+    six value towers), two steps on the rl phase's batch: the
+    single-process reference, in the ranks' own processes, and its repeat
+    on the other rank. Then for each mesh of MESH_G the same learner, two
+    steps, each read from zero counts. Of each run: its bytes between the
+    steps (``memory_allocated`` from before the learner was built) and at
+    a step's peak, the heads ``masked_attention`` saw, the kernel against
+    its plain version on the run's first attention inputs (kept on the
+    host, so they add no card bytes), the step ms, its blocks' elements;
+    rank 0 gathers the parameters whole after each step and the moments
+    after the second (collectives: both ranks) and holds them against the
+    reference (``g_distance``), fsdp=2 against dp=2 too. Each rank writes
+    one JSON file."""
+    import gc
+    import pickle
+    import warnings
+
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"  # read at the first cuBLAS call
+    import torch
+    import torch.distributed as dist
+
+    from distar_tpu_torch.learner import RLLearner
+    from distar_tpu_torch.ops import kernels as K
+    from distar_tpu_torch.parallel import MeshSpec, make_mesh, set_context_mesh
+    from distar_tpu_torch.parallel.spmd import param_shards
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    with open(batch_path, "rb") as f:
+        batch = pickle.load(f)
+    heads, first, real = [], [], K.masked_attention
+
+    def attention(q, k, v, mask):
+        heads.append(int(q.shape[1]))
+        if not first:  # this run's first inputs, on the host
+            first.append([t.detach().to("cpu", copy=True) for t in (q, k, v, mask)])
+        return real(q, k, v, mask)
+
+    K.masked_attention = attention
+    info = {"gloo_cuda": gloo_cuda_collectives(rank, dist.get_world_size())}
+    cfg = {"learner": {"batch_size": RL_B, "unroll_len": RL_T}, "model": overlay(*STRINGS["pallas"])}
+    runs, alerts = {}, set()
+    for spec in (None,) + MESH_G:
+        name = "single" if spec is None else ",".join(f"{k}={v}" for k, v in spec.items())
+        mesh = None if spec is None else make_mesh(MeshSpec(**spec))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        lrn = RLLearner(cfg, device="cuda", mesh=mesh)
+        shards = param_shards(lrn.model)
+        run = {"logs": [], "params": [],
+               "start": [t.float().to("cpu", copy=True).numpy() for t in shards.whole(lrn.optimizer.params)]}
+        rec = {"launches": [], "ms": [], "between_mb": [], "peak_mb": []}
+        first.clear()
+        for _ in range(2):
+            heads.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            with warnings.catch_warnings(record=True) as said:
+                warnings.simplefilter("always")
+                run["logs"].append(lrn._train(batch))
+                torch.cuda.synchronize()
+            rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["launches"].append(dict(K.launch_counts))
+            rec["peak_mb"].append((torch.cuda.max_memory_allocated() - base) / 1e6)
+            rec["between_mb"].append((torch.cuda.memory_allocated() - base) / 1e6)
+            rec["heads"] = sorted(set(heads))
+            alerts.update(str(w.message).splitlines()[0][:200] for w in said if "determinis" in str(w.message))
+            run["params"].append([t.float().to("cpu", copy=True).numpy() for t in shards.whole(lrn.optimizer.params)])
+        q, k, v, mask = (t.to("cuda") for t in first[0])
+        with torch.no_grad():
+            want = K.masked_attention_plain(q, k, v, mask)
+            err = float((real(q, k, v, mask) - want).abs().max())
+        rec["attention_check"] = {"shape": list(q.shape), "max_abs_err": err, "max_abs_plain": float(want.abs().max())}
+        del want
+        del q, k, v, mask
+        opt = lrn.optimizer
+        rec["block_numel"] = {k: sum(t.numel() for t in v) for k, v in
+                              (("params", opt.params), ("mu", opt.mu), ("nu", opt.nu))}
+        rec["whole_numel"] = sum(t.numel() for t in shards.whole(opt.params))
+        run["moments"] = [[t.float().to("cpu", copy=True).numpy() for t in shards.whole(m)] for m in (opt.mu, opt.nu)]
+        info[name] = rec
+        if rank == 0 or spec is None:
+            runs[name] = run
+        del lrn, shards, opt, run
+        set_context_mesh(None)
+        gc.collect()
+        torch.cuda.empty_cache()
+    info["nondeterministic_ops"] = sorted(alerts)
+    # the repeat: rank 1's reference beside rank 0's
+    repeat = os.path.join(tmp, "mesh_g_repeat.pkl")
+    if rank == 1:
+        with open(repeat, "wb") as f:
+            pickle.dump(runs["single"], f)
+    dist.barrier()
+    if rank == 0:
+        ref = runs["single"]
+        with open(repeat, "rb") as f:
+            off = {"repeat": g_distance(pickle.load(f), ref)}
+        off.update({name: g_distance(run, ref) for name, run in runs.items() if name != "single"})
+        off["dp=1,fsdp=2 against dp=2"] = g_distance(runs["dp=1,fsdp=2"], runs["dp=2"])
+        info["off"] = off
+    with open(os.path.join(tmp, f"mesh_g_{rank}.json"), "w") as f:
+        json.dump(info, f)
+
+
+def mesh_rank_processes(tmp, batch):
+    """g. the two gloo ranks on the card (``mesh_rank``), on a thread
+    beside other phases (they launch nothing in this process); returns
+    each rank's record and the seconds from spawn to exit."""
+    import pickle
+
+    from distar_tpu_torch.parallel.dist import spawn_ranks
+
+    t0 = time.perf_counter()
+    path = os.path.join(tmp, "mesh_g_batch.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(batch, f)
+    codes = spawn_ranks(mesh_rank, 2, tmp, path, timeout_s=600.0, device="cuda")
+    check(codes == [0, 0], f"parallel g: the two gloo ranks on the card exited {codes}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(tmp, f"mesh_g_{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks, time.perf_counter() - t0
+
+
 def same_state(a, b):
     """Every array leaf of two learner states bit-equal (their flax trees)."""
     import numpy as np
@@ -6384,10 +6659,10 @@ def dir_bytes(path):
     return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
 
 
-def phase_parallel(device, smi, tmp, batch, executor_job=None):
+def phase_parallel(device, smi, tmp, batch, executor_job=None, mesh_job=None):
     """``parallel/`` on the card (module docstring, phase 14): a world of
-    one. Returns the launch counts of its meshed paths and the
-    measurements."""
+    one, and two gloo ranks on the card (``mesh_job``: g.). Returns the
+    launch counts of its meshed paths and the measurements."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -6557,6 +6832,57 @@ def phase_parallel(device, smi, tmp, batch, executor_job=None):
           f"(tolerance {ATTN_TOL['float32']:g})")
     del q, k, v, got, grads
     laps("e ring")
+
+    # g. two gloo ranks on the card: dp=2, fsdp=2 and tp=2 against their single-process steps
+    if mesh_job is not None:
+        ranks, g_s = mesh_job.result()
+        laps("g ranks wait")
+        off = ranks[0]["off"]
+        out["mesh_ranks"] = {"seconds": g_s, "off": off}
+        names = ("single",) + tuple(",".join(f"{k}={v}" for k, v in spec.items()) for spec in MESH_G)
+        for name in names:  # every reading printed before any is checked
+            per_rank = [rk[name] for rk in ranks]
+            out["mesh_ranks"][name] = per_rank
+            print(f"parallel g ({smi}): {name} on two gloo ranks on the card, the flagship RL learner at "
+                  f"{RL_B} x {RL_T}, two steps, per rank: elements a family "
+                  f"{[r['block_numel']['params'] for r in per_rank]} of {per_rank[0]['whole_numel']}, MB between "
+                  f"steps {[r['between_mb'] for r in per_rank]}, peak MB {[r['peak_mb'] for r in per_rank]}, "
+                  f"launches {per_rank[0]['launches'][0]} a step, attention heads {per_rank[0]['heads']}, the "
+                  f"attention kernel off its plain version on the run's first inputs {per_rank[0]['attention_check']['shape']} "
+                  f"by {[r['attention_check']['max_abs_err'] for r in per_rank]} (max |plain| "
+                  f"{[r['attention_check']['max_abs_plain'] for r in per_rank]}), step ms {[r['ms'] for r in per_rank]} "
+                  f"(over gloo, which stages CUDA collectives through the host: no speed figure)")
+        print(f"parallel g: gloo collectives on CUDA tensors, each rank: {[rk['gloo_cuda'] for rk in ranks]}; "
+              f"ops without a deterministic version: {ranks[0]['nondeterministic_ops']}")
+        print(f"parallel g: off the single-process steps (rank 0's unmeshed learner; 'repeat' is rank 1's) "
+              f"in shares of the tests' tolerances (scalars {G_SCALAR_RTOL:g} of max(1, |v|), each step's "
+              f"parameters {G_UPDATE_RTOL:g} of its norm, the moments {G_MOMENT_RTOL:g}): {json.dumps(off)}; "
+              f"bounds {json.dumps(G_BOUND)}, fsdp=2 against dp=2 {json.dumps(G_BOUND_DP)}")
+        for r, rk in enumerate(ranks):
+            check(set(rk["gloo_cuda"].values()) == {"ok"}, f"parallel g rank {r}: gloo on CUDA tensors {rk['gloo_cuda']}")
+        for name in names:
+            split = 2 if "tp" in name else 1
+            for r, rec in enumerate(out["mesh_ranks"][name]):
+                for step, counts in enumerate(rec["launches"]):
+                    launches[f"g {name} rank {r} step {step}"] = counts
+                    check(counts == want, f"parallel g {name} rank {r} step {step}: launches {counts}")
+                check(rec["heads"] == [2 // split], f"parallel g {name} rank {r}: attention heads {rec['heads']}")
+                # ATTN_TOL on the output's scale, as SCATTER_TOL on real sums
+                att = rec["attention_check"]
+                check(att["shape"][1] == 2 // split
+                      and att["max_abs_err"] <= ATTN_TOL["float32"] * max(1.0, att["max_abs_plain"]),
+                      f"parallel g {name} rank {r}: the attention kernel at {att['shape']} off its plain version "
+                      f"by {att['max_abs_err']} (max |plain| {att['max_abs_plain']})")
+                n = rec["block_numel"]
+                whole = name in ("single", "dp=2")
+                check(n["params"] == n["mu"] == n["nu"] and (n["params"] == rec["whole_numel"] if whole else
+                                                             n["params"] * 2 <= rec["whole_numel"] + 10 ** 6),
+                      f"parallel g {name} rank {r}: blocks {n} of {rec['whole_numel']}")
+        # every meshed run against the single-process step, and fsdp=2 against dp=2, at fixed bounds
+        for name, bound in (("dp=2", G_BOUND), ("dp=1,fsdp=2", G_BOUND), ("dp=1,tp=2", G_BOUND),
+                            ("dp=1,fsdp=2 against dp=2", G_BOUND_DP)):
+            check(all(off[name][k] <= bound[k] for k in G_PARTS), f"parallel g: {name} off by {off[name]}")
+        laps("g ranks")
 
     if executor_job is not None:
         out["executor"] = executor_job.result()
@@ -7138,8 +7464,9 @@ def main(argv=None) -> int:
             from distar_tpu_torch.learner import random_rl_batch
 
             job = Background(lambda: executor_processes(tmp, device)).start()
-            par_launches, par = phase_parallel(device, smi, tmp, random_rl_batch(RL_B, RL_T,
-                                                                                np.random.default_rng(0)), job)
+            batch = random_rl_batch(RL_B, RL_T, np.random.default_rng(0))
+            mesh_job = Background(lambda: mesh_rank_processes(tmp, batch)).start()
+            par_launches, par = phase_parallel(device, smi, tmp, batch, job, mesh_job)
             mark("parallel")
             print(f"phase seconds: {json.dumps(phase_s)}")
             print(f"launches: parallel {par_launches}")
@@ -7264,6 +7591,8 @@ def main(argv=None) -> int:
         # untimed part
         sc2_install(tmp)
         sc2_job = Background(lambda: sc2_processes(tmp, device)).start()
+        # and the parallel phase's two gloo ranks on the card (g.)
+        mesh_job = Background(lambda: mesh_rank_processes(tmp, rl["batch"])).start()
 
         # 12. the Anakin loop: the micro-battle world and the flagship on the card
         anakin_launches, anakin = phase_anakin(device, smi, tmp, rl_loop, jaxenv_run)
@@ -7276,7 +7605,7 @@ def main(argv=None) -> int:
 
         # 14. parallel/: a world of one on the rl phase's batch; its executor
         # processes ran beside the rl loop
-        parallel_launches, parallel = phase_parallel(device, smi, tmp, rl.pop("batch"), executor_job)
+        parallel_launches, parallel = phase_parallel(device, smi, tmp, rl.pop("batch"), executor_job, mesh_job)
         mark("parallel")
 
         # 15. the SC2 side: the flagship actor on a fake game, the decoder

@@ -742,7 +742,7 @@ def run_learner(args):
         learner.set_dataloader(_replay_loader(args, args.replay_addr, args.player_id, rows), local=local)
     else:
         learner.set_dataloader(RLDataLoader(adapter, args.player_id, rows), local=local)
-    if not args.distill and lead:
+    if not args.distill:
         learner.attach_comm(adapter, args.player_id, league=league)
     _run_learner_supervised(args, learner, args.iters)
     _close_health(health, metrics)

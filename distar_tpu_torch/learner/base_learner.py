@@ -22,9 +22,11 @@ iteration boundaries.
 
 On a mesh (``mesh=``, ``parallel.make_mesh``) the learner is one rank of
 the ``torch.distributed`` group: ``rank`` is the process rank, the batch
-is cut to this rank's rows, gradients are summed over the batch extent and
-the optimizer state is split by ``parallel.spmd.ShardPlan``; the step
-equals the single-process step on the whole batch. With
+is cut to this rank's rows, gradients are summed over the batch extent,
+and where the mesh splits parameters the model is placed by
+``parallel.spmd.shard_model`` (each rank holds and computes on its blocks
+of the parameters, gradients and moments); the step equals the
+single-process step on the whole batch. With
 ``learner.sharded_ckpt`` checkpoints are ``parallel.ckpt`` directories:
 the snapshot is taken in the foreground (each rank its own shards), the
 blobs are written on the async writer, rank 0 writes the manifest after a
@@ -54,7 +56,7 @@ from ..obs import (
 from ..obs.perf import to_meta
 from ..parallel import GradClipConfig, build_optimizer
 from ..parallel.mesh import ONE_DEVICE
-from ..parallel.spmd import make_plan
+from ..parallel.spmd import param_shards, shard_model
 from ..utils import Config, EasyTimer, build_logger, deep_merge_dicts
 from ..utils.checkpoint import (
     AsyncCheckpointer,
@@ -188,9 +190,8 @@ class BaseLearner:
         self._feed = None  # spmd.ReplicaFeed of a per-rank loader under tp x sp
         self._setup_dataloader()
         self._setup_state()
-        if self.mesh is not None:
-            # the analytic per-step collective estimate from the live mesh
-            self._perf.set_collectives(self.mesh, list(self.model.parameters()))
+        # the analytic per-step collective estimate of the placement (none on one process)
+        self._perf.publish_collectives(param_shards(self.model).collective_bytes())
 
     @property
     def name(self) -> str:
@@ -226,13 +227,15 @@ class BaseLearner:
 
     def _build_optimizer(self, params: Iterable[torch.Tensor]):
         """learning_rate, betas, eps, weight_decay and the ``grad_clip``
-        block of the learner config, through ``parallel.build_optimizer``;
-        on a mesh that splits parameters, with its ``ShardPlan``."""
+        block of the learner config, through ``parallel.build_optimizer``.
+        The model is placed on the mesh first (``spmd.shard_model``), so on
+        a mesh that splits parameters the optimizer holds blocks, and its
+        clip reads the whole leaves' norms from them."""
         lc = self.cfg.learner
-        params = list(params)
+        shards = shard_model(self.model, self.mesh)
         return build_optimizer(
-            params,
-            plan=make_plan(self.model, params, self.mesh),
+            list(params),
+            norms=shards.leaf_norms,
             learning_rate=lc.learning_rate,
             betas=tuple(lc.get("betas", (0.0, 0.99))),
             eps=lc.get("eps", 1e-5),
@@ -292,23 +295,23 @@ class BaseLearner:
 
     def _sharded_state(self) -> dict:
         """``state`` for a sharded checkpoint, taken without a collective:
-        the parameters whole, the moments as this rank's blocks
-        (``parallel.ckpt.LocalShard`` in flax layout) where the optimizer is
-        split, whole otherwise."""
-        from ..model.convert import flax_layout, params_to_flax
+        the parameters, mu and nu as this rank's blocks
+        (``parallel.ckpt.LocalShard`` in flax layout; whole where the
+        placement splits nothing)."""
+        from ..model.convert import flax_layout
         from ..parallel.ckpt import LocalShard
 
-        opt = self.optimizer
-        if opt.plan is None:
-            return self.state
+        opt, shards = self.optimizer, param_shards(self.model)
         names = {id(p): n for n, p in self.model.named_parameters()}
-        trees = [params_to_flax(self.model)]
-        for blocks in (opt.mu, opt.nu):
+        trees = []
+        for blocks in (opt.params, opt.mu, opt.nu):
             tree: dict = {}
             for p, block in zip(opt.params, blocks):
-                path, perm = flax_layout(self.model, names[id(p)])
+                name = names[id(p)]
+                path, perm = flax_layout(self.model, name)
+                whole = shards.shapes[shards.index[name]]
                 data = block.detach() if perm is None else block.detach().permute(perm)
-                shape = p.shape if perm is None else tuple(p.shape[d] for d in perm)
+                shape = whole if perm is None else tuple(whole[d] for d in perm)
                 node = tree.setdefault("params", {})
                 for k in path[:-1]:
                     node = node.setdefault(k, {})

@@ -99,7 +99,7 @@ def make_distill_train_step(model: Model, loss_cfg: DistillLossConfig, optimizer
             info.update(tree.before_update(params, grads, batch))
         update, lr = optimizer.step(grads)
         if tree is not None:
-            info.update(tree.after_update(optimizer.whole(update), lr))
+            info.update(tree.after_update(update, lr))
         return info
 
     return train_step

@@ -27,14 +27,15 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..actor.inference import to_device
 from ..losses import ReinforcementLossConfig, compute_rl_loss
 from ..model import Model, default_model_config, init_params
 from ..model.convert import flax_names, params_to_flax
 from ..obs.dynamics import DynamicsTree
-from ..parallel.grad_clip import global_norm, leaf_norms
-from ..parallel.spmd import all_reduce_sum, gather_rows, reduce_info, take_rows
+from ..parallel.grad_clip import leaf_norms
+from ..parallel.spmd import gather_rows, param_shards, reduce_grads, reduce_info, take_rows
 from ..utils import deep_merge_dicts
 from .base_learner import DEFAULT_LEARNER_CONFIG, BaseLearner, host_scalars
 from .hooks import LambdaHook
@@ -130,26 +131,27 @@ def make_rl_train_step(model: Model, loss_cfg: ReinforcementLossConfig, optimize
     ``optimizer.params`` in place. The info values are detached 0-d tensors."""
     params = optimizer.params
     names = list(flax_names(model).values()) if save_grad else None
+    shards = param_shards(model)
     tree = DynamicsTree(model, params, dynamics) if dynamics is not None else None
-    batch_group = mesh.group("batch") if mesh is not None else None
+    norms = optimizer.clip.norms
 
     def train_step(batch, only_update_value: bool = False):
         total, info = rl_loss(model, loss_cfg, batch, batch_size, unroll_len, mesh=mesh)
         loss = info["td/total"] if only_update_value else total
         grads = list(torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True))
         # each rank's rows' share, summed: the whole batch's gradient
-        all_reduce_sum(grads, batch_group)
+        reduce_grads(grads, mesh, shards)
         info = {k: torch.as_tensor(v).detach() for k, v in info.items()}
-        info["grad_norm"] = global_norm(grads)
+        info["grad_norm"] = optimizer.clip.global_norm(grads)
         if save_grad:
-            info.update(leaf_norms(dict(zip(names, grads)), "grad_norm"))
-            info.update(leaf_norms(dict(zip(names, params)), "param_norm"))
+            info.update(leaf_norms(dict(zip(names, grads)), "grad_norm", norms))
+            info.update(leaf_norms(dict(zip(names, params)), "param_norm", norms))
         if tree is not None:
             info.update(tree.before_update(params, grads, batch))
             reduce_info(info, "dyn/nonfinite_batch/", mesh)
         update, lr = optimizer.step(grads)
         if tree is not None:
-            info.update(tree.after_update(optimizer.whole(update), lr))
+            info.update(tree.after_update(update, lr))
         return info
 
     return train_step
@@ -242,32 +244,46 @@ class RLLearner(BaseLearner):
         in one transfer), and send the league train-info every
         ``send_train_info_freq`` iterations: a reply naming an existing
         reset checkpoint restores it, and the next publication carries
-        ``reset_flag`` so the actors restart their episodes."""
+        ``reset_flag`` so the actors restart their episodes. On a mesh
+        every rank attaches: only rank 0 pushes the weights and talks to
+        the league, whose reset it hands the other ranks; where the
+        placement splits a leaf, every rank joins the gather of the
+        weights."""
         lc = self.cfg.learner
         frames_per_iter = lc.batch_size * lc.unroll_len
         self._pending_reset_flag = False
+        lead = self.rank == 0
 
         def send_model(learner):
-            adapter.push(
-                f"{player_id}model",
-                {
-                    "params": params_to_flax(learner.model),
-                    "iter": learner.last_iter.val,
-                    # actors restart episodes when a league reset swapped the
-                    # checkpoint (reference actor_comm.py:191-196)
-                    "reset_flag": learner._pending_reset_flag,
-                },
-                accept_count=model_accept_count,
-                timeout_ms=120_000,
-            )
+            if lead or param_shards(learner.model).splits:
+                params = params_to_flax(learner.model)
+            if lead:
+                adapter.push(
+                    f"{player_id}model",
+                    {
+                        "params": params,
+                        "iter": learner.last_iter.val,
+                        # actors restart episodes when a league reset swapped the
+                        # checkpoint (reference actor_comm.py:191-196)
+                        "reset_flag": learner._pending_reset_flag,
+                    },
+                    accept_count=model_accept_count,
+                    timeout_ms=120_000,
+                )
             learner._pending_reset_flag = False
 
         def send_train_info(learner):
             if league is None:
                 return
-            reply = league.learner_send_train_info(
-                player_id, train_steps=frames_per_iter * send_train_info_freq)
-            reset_path = (reply or {}).get("reset_checkpoint_path")
+            reset_path = None
+            if lead:
+                reply = league.learner_send_train_info(
+                    player_id, train_steps=frames_per_iter * send_train_info_freq)
+                reset_path = (reply or {}).get("reset_checkpoint_path")
+            if learner.mesh is not None and dist.get_world_size() > 1:
+                box = [reset_path]
+                dist.broadcast_object_list(box, src=0)
+                reset_path = box[0]
             if reset_path:
                 if os.path.exists(reset_path):
                     learner.restore(reset_path)

@@ -29,8 +29,8 @@ from ..losses import SupervisedLossConfig, compute_sl_loss
 from ..model import Model, default_model_config, init_params
 from ..model.convert import flax_names
 from ..obs.dynamics import DynamicsTree
-from ..parallel.grad_clip import global_norm, leaf_norms
-from ..parallel.spmd import all_reduce_sum, gather_rows, reduce_info, take_rows
+from ..parallel.grad_clip import leaf_norms
+from ..parallel.spmd import gather_rows, param_shards, reduce_grads, reduce_info, take_rows
 from ..utils import deep_merge_dicts
 from .base_learner import DEFAULT_LEARNER_CONFIG, BaseLearner, host_scalars
 from .data import FakeSLDataloader, cap_entities
@@ -90,23 +90,24 @@ def make_sl_train_step(model: Model, loss_cfg: SupervisedLossConfig, optimizer,
     the batch extent, as in the RL step."""
     params = optimizer.params
     names = list(flax_names(model).values()) if save_grad else None
+    shards = param_shards(model)
     tree = DynamicsTree(model, params, dynamics) if dynamics is not None else None
-    batch_group = mesh.group("batch") if mesh is not None else None
+    norms = optimizer.clip.norms
 
     def train_step(batch, hidden_state):
         total, info, out_state = sl_loss(model, loss_cfg, batch, hidden_state, batch_size, mesh=mesh)
         grads = list(torch.autograd.grad(total, params, allow_unused=True, materialize_grads=True))
-        all_reduce_sum(grads, batch_group)
-        info["grad_norm"] = global_norm(grads)
+        reduce_grads(grads, mesh, shards)
+        info["grad_norm"] = optimizer.clip.global_norm(grads)
         if save_grad:
-            info.update(leaf_norms(dict(zip(names, grads)), "grad_norm"))
-            info.update(leaf_norms(dict(zip(names, params)), "param_norm"))
+            info.update(leaf_norms(dict(zip(names, grads)), "grad_norm", norms))
+            info.update(leaf_norms(dict(zip(names, params)), "param_norm", norms))
         if tree is not None:
             info.update(tree.before_update(params, grads, batch))
             reduce_info(info, "dyn/nonfinite_batch/", mesh)
         update, lr = optimizer.step(grads)
         if tree is not None:
-            info.update(tree.after_update(optimizer.whole(update), lr))
+            info.update(tree.after_update(update, lr))
         return tuple((h.detach(), c.detach()) for h, c in out_state), info
 
     return train_step

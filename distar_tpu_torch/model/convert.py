@@ -17,6 +17,12 @@ No fc rows are permuted: the port flattens (spatial fc) and reshapes
 (location projection) maps in the JAX package's NHWC order. The way back
 reads each parameter's owner module to know which flax leaf it was.
 
+A model holds its blocks of the parameters as its placement
+(``parallel.spmd.param_shards``) gives them, whole on one process:
+``params_to_flax`` and ``learner_state_to_flax`` gather the whole tensors
+(where the placement splits a leaf, a collective every rank calls), and
+the loads keep each rank's blocks of the whole arrays they are given.
+
 A learner's whole state crosses too (``learner_state_to_flax``,
 ``load_learner_state``): every JAX learner checkpoints ``{"params",
 "opt_state"}``, the optax chain state of ``parallel.build_optimizer``:
@@ -79,6 +85,8 @@ def params_from_flax(params: Mapping, model: torch.nn.Module = None) -> Dict[str
         state[key] = torch.from_numpy(np.array(value, dtype=np.float32))
     if model is not None:
         want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+        shards = _shards(model)
+        want.update(zip(shards.names, shards.shapes))
         missing = sorted(set(want) - set(state))
         unused = sorted(set(state) - set(want))
         wrong = sorted(k for k in set(want) & set(state) if tuple(state[k].shape) != want[k])
@@ -87,6 +95,24 @@ def params_from_flax(params: Mapping, model: torch.nn.Module = None) -> Dict[str
                 f"flax params do not fit the port: missing {missing[:8]}, unused {unused[:8]}, "
                 f"shape mismatch {[(k, tuple(state[k].shape), want[k]) for k in wrong[:8]]}")
     return state
+
+
+def _shards(model):
+    from ..parallel.spmd import param_shards
+
+    return param_shards(model)
+
+
+@torch.no_grad()
+def load_params(model: torch.nn.Module, state: Mapping[str, torch.Tensor]) -> None:
+    """Every parameter of ``model`` from the whole tensors in ``state``
+    (keyed by parameter name): each keeps its block of them."""
+    shards = _shards(model)
+    missing = sorted(set(shards.names) - set(state))
+    if missing:
+        raise ValueError(f"state lacks {missing[:8]}")
+    for i, (name, p) in enumerate(zip(shards.names, shards.params)):
+        p.copy_(shards.local(i, state[name].to(p.device)))
 
 
 def flax_layout(model: torch.nn.Module, name: str):
@@ -129,8 +155,12 @@ def params_to_flax(model: torch.nn.Module, tensors: Mapping[str, torch.Tensor] =
     numpy arrays}`` in flax layouts, from ``model``'s parameters or from
     ``tensors`` keyed like them (gradients, optimizer moments). Every leaf
     is put in its flax layout where it lies, and the lot comes to the host
-    in one transfer (``to_host``: numpy views of one packed copy)."""
-    tensors = dict(model.named_parameters()) if tensors is None else tensors
+    in one transfer (``to_host``: numpy views of one packed copy). The
+    model's parameters are gathered whole (where its placement splits a
+    leaf, every rank calls); ``tensors`` are whole already."""
+    if tensors is None:
+        shards = _shards(model)
+        tensors = dict(zip(shards.names, shards.whole(shards.params)))
     tree: dict = {}
     with torch.no_grad():
         for name, t in tensors.items():
@@ -206,17 +236,17 @@ def learner_state_to_flax(model: torch.nn.Module, optimizer, trees=None) -> dict
     ``parallel.Optimizer``) as the JAX learner of the same optimizer config
     holds it, in numpy copies: what a checkpoint of either package stores.
     ``trees`` gives the (params, mu, nu) flax trees to place in it instead
-    (the sharded snapshot's blocks); by default the moments are whole (an
-    optimizer sharded over a mesh gathers them: every rank must call)."""
+    (the sharded snapshot's blocks); by default every tree is whole (a
+    model placed on a mesh gathers them: every rank must call)."""
     names = _param_names(model, optimizer)
     count = np.array(optimizer.count, np.int32)
+    shards = _shards(model)
 
     def moments(tensors):
-        return params_to_flax(model, dict(zip(names, tensors)))
+        return params_to_flax(model, dict(zip(names, shards.whole(tensors))))
 
     if trees is None:
-        mu, nu = optimizer.moments()
-        trees = (params_to_flax(model), moments(mu), moments(nu))
+        trees = (params_to_flax(model), moments(optimizer.mu), moments(optimizer.nu))
     params, mu_tree, nu_tree = trees
     inner = [(count, mu_tree, nu_tree)]
     if optimizer.weight_decay > 0.0:
@@ -245,10 +275,11 @@ def load_learner_state(state: Mapping, model: torch.nn.Module, optimizer) -> Non
     tree by ``utils.checkpoint.load_checkpoint(..., target=)``) into
     ``model`` and ``optimizer``, in place."""
     names = _param_names(model, optimizer)
-    model.load_state_dict(params_from_flax(state["params"], model))
+    load_params(model, params_from_flax(state["params"], model))
     clip_state, inner = _seq(state["opt_state"])
     count, mu, nu = _seq(_seq(inner)[0])
-    optimizer.load_moments(*([loaded[name] for name in names]
+    shards = _shards(model)
+    optimizer.load_moments(*([shards.block(name, loaded[name]) for name in names]
                              for loaded in (params_from_flax(mu, model), params_from_flax(nu, model))))
     optimizer.count = int(np.asarray(count))
     kind, clip = _ema_kind(optimizer), optimizer.clip

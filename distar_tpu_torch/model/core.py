@@ -129,8 +129,9 @@ class Policy(nn.Module):
             lstm_output, scalar_context, action_type=action_info["action_type"].long())
         logit["delay"], _, emb = self.delay_head(emb, choice=action_info["delay"].long())
         logit["queued"], _, emb = self.queued_head(emb, choice=action_info["queued"].long())
-        logit["selected_units"], _, emb, _, _ = self.selected_units_head.teacher_forward(
-            emb, entity_embeddings, entity_num, action_info["selected_units"], selected_units_num)
+        logit["selected_units"], _, emb, _, _ = self.selected_units_head(
+            emb, entity_embeddings, entity_num, selected_units=action_info["selected_units"],
+            selected_units_num=selected_units_num)
         logit["target_unit"], _ = self.target_unit_head(
             emb, entity_embeddings, entity_num, target_unit=action_info["target_unit"].long())
         logit["target_location"], _ = self.location_head(
@@ -329,35 +330,41 @@ def init_params(model: nn.Module, seed: int = 0, only: Optional[Callable[[str], 
     the end-token embedding uniform in [0, 2/sqrt(32)), and the value
     towers' last Dense from a truncated normal of variance 0.01 / fan_in.
     With ``only``, just the parameters whose names it accepts are drawn
-    (the RL learner's value reset)."""
+    (the RL learner's value reset). Each parameter keeps its block of
+    its draw (``parallel.spmd.param_shards``: the draw itself on one
+    process)."""
+    from ..parallel.spmd import param_shards
+
+    shards = param_shards(model)
     g = torch.Generator().manual_seed(seed)
     tower_out = {id(m.Dense_0) for m in model.modules() if isinstance(m, ValueBaseline)}
     with torch.no_grad():
         for name, p in model.named_parameters():
             if only is not None and not only(name):
                 continue
+            shape = shards.shapes[shards.index[name]]
             leaf = name.rsplit(".", 1)[-1]
             owner = model.get_submodule(name.rsplit(".", 1)[0]) if "." in name else model
             if id(owner) in tower_out and leaf == "weight":
                 # flax's truncated_normal: within 2 std, rescaled to unit variance
-                std = (OUT_VARIANCE / p.shape[1]) ** 0.5 / 0.87962566103423978
-                val = torch.nn.init.trunc_normal_(torch.empty(p.shape), 0.0, std, -2 * std, 2 * std,
+                std = (OUT_VARIANCE / shape[1]) ** 0.5 / 0.87962566103423978
+                val = torch.nn.init.trunc_normal_(torch.empty(shape), 0.0, std, -2 * std, 2 * std,
                                                   generator=g)
             elif leaf == "update_sp":
-                val = torch.full(p.shape, 0.1)
+                val = torch.full(shape, 0.1)
             elif leaf == "end_embedding":
-                val = torch.rand(p.shape, generator=g) * (2.0 / 32 ** 0.5)
+                val = torch.rand(shape, generator=g) * (2.0 / 32 ** 0.5)
             elif isinstance(owner, nn.LayerNorm):
-                val = torch.ones(p.shape) if leaf == "weight" else torch.zeros(p.shape)
+                val = torch.ones(shape) if leaf == "weight" else torch.zeros(shape)
             elif isinstance(owner, nn.Embedding):
-                val = torch.randn(p.shape, generator=g) / p.shape[0] ** 0.5
-            elif leaf == "weight" and p.dim() >= 2:
-                fan_in = p[0].numel()
+                val = torch.randn(shape, generator=g) / shape[0] ** 0.5
+            elif leaf == "weight" and len(shape) >= 2:
+                fan_in = torch.Size(shape[1:]).numel()
                 lim = (3.0 / fan_in) ** 0.5
-                val = (torch.rand(p.shape, generator=g) * 2 - 1) * lim
+                val = (torch.rand(shape, generator=g) * 2 - 1) * lim
             elif leaf == "queries":
-                lim = (6.0 / (p.shape[-1] + p.shape[-2])) ** 0.5
-                val = (torch.rand(p.shape, generator=g) * 2 - 1) * lim
+                lim = (6.0 / (shape[-1] + shape[-2])) ** 0.5
+                val = (torch.rand(shape, generator=g) * 2 - 1) * lim
             else:
-                val = torch.zeros(p.shape)
-            p.copy_(val)
+                val = torch.zeros(shape)
+            p.copy_(shards.block(name, val))

@@ -197,10 +197,15 @@ class SelectedUnitsHead(nn.Module):
         logits_seq = torch.stack(logits_seq, dim=1)  # B, S, N+1
         return logits_seq, torch.stack(results, dim=1), ae, num, _extra_units(logits_seq, entity_num, end_flag)
 
-    def forward(self, embedding, entity_embedding, entity_num, su_mask, noise):
+    def forward(self, embedding, entity_embedding, entity_num, su_mask=None, noise=None,
+                selected_units=None, selected_units_num=None):
         """noise: [B, 64, N+1] Gumbel draws, one row per decode step.
         Returns (logits [B, 64, N+1], units [B, 64], ae, selected count,
-        extra_units [B, N+1])."""
+        extra_units [B, N+1]). With ``selected_units``, ``teacher_forward``
+        of them (through the module's call, as its hooks expect)."""
+        if selected_units is not None:
+            return self.teacher_forward(embedding, entity_embedding, entity_num, selected_units,
+                                        selected_units_num)
         key, slots, is_end, valid = self._keys(entity_embedding, entity_num)
         return self._decode(embedding, key, slots, is_end, valid, entity_num, su_mask,
                             lambda i, logits: gumbel_sample(logits, noise[:, i]), self.temperature)

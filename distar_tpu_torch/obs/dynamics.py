@@ -131,25 +131,49 @@ class DynamicsTree:
     norm accumulated in float64, a non-finite count in int64. Build once per
     learner; call ``before_update`` ahead of the optimizer (it reads
     pre-step params and raw grads) and ``after_update`` with the
-    optimizer's update."""
+    optimizer's update.
+
+    The parameters, and so the grads and the update, are this rank's
+    blocks as the model's placement gives them
+    (``parallel.spmd.param_shards``): a rank reads only the leaves it
+    counts (each block once over the mesh's shard group), and where the
+    placement splits a leaf the sums of squares and counts are summed over
+    that group, one all-reduce before the update and one after."""
 
     def __init__(self, model, params, spec: Optional[DynamicsSpec] = None):
         import torch
 
         from ..model.convert import flax_names
+        from ..parallel.spmd import param_shards
 
         names = flax_names(model)
         by_id = {id(p): n for n, p in model.named_parameters()}
-        mods = [names[by_id[id(p)]].split("/")[1] for p in params]
+        shards = param_shards(model)
+        leaves = [shards.index[by_id[id(p)]] for p in params]
+        mods = [names[shards.names[i]].split("/")[1] for i in leaves]
         self.modules = sorted(set(mods))
         index = {m: i for i, m in enumerate(self.modules)}
         leaf_module = [index[m] for m in mods]
-        self.order = sorted(range(len(params)), key=lambda i: leaf_module[i])
+        self.order = sorted((k for k, i in enumerate(leaves) if shards.counted[i]), key=lambda k: leaf_module[k])
         self.sizes = [0] * len(self.modules)
-        for p, m in zip(params, leaf_module):
-            self.sizes[m] += p.numel()
+        for k in self.order:
+            self.sizes[leaf_module[k]] += params[k].numel()
+        self.group = shards.mesh.group("shard")
+        self.numel = sum(torch.Size(shards.shapes[i]).numel() for i in leaves)
         self.spec = spec
         self._float32 = all(p.dtype == torch.float32 for p in params)
+
+    def _summed(self, *parts):
+        """``parts`` (1-d tensors) summed over the shard group, in one
+        all-reduce; as they are without one."""
+        if self.group is None:
+            return parts
+        import torch
+        import torch.distributed as dist
+
+        flat = torch.cat([p.double() for p in parts])
+        dist.all_reduce(flat, group=self.group)
+        return tuple(seg.to(p.dtype) for seg, p in zip(flat.split([p.numel() for p in parts]), parts))
 
     def _flat(self, tensors):
         """The leaves in module order, flattened and concatenated in one
@@ -175,12 +199,15 @@ class DynamicsTree:
             return self._before_update(params, grads, batch)
 
     def _before_update(self, params, grads, batch) -> Dict[str, Any]:
-        from ..parallel.grad_clip import clip_activation
+        from ..parallel.grad_clip import clip_activation, clipped_count
 
         out: Dict[str, Any] = {}
         pflat, gflat = self._flat(params), self._flat(grads)
-        p2, g2 = self._module_sq(pflat), self._module_sq(gflat)
-        pbad, gbad = _split_counts(pflat, self.sizes), _split_counts(gflat, self.sizes)
+        value_clip = self.spec is not None and self.spec.clip_type == "value"
+        clipped = clipped_count([gflat], self.spec.clip_threshold) if value_clip else gflat.new_zeros(0)
+        p2, g2, pbad, gbad, clipped = self._summed(
+            self._module_sq(pflat), self._module_sq(gflat), _split_counts(pflat, self.sizes),
+            _split_counts(gflat, self.sizes), clipped)
         pn, gn = p2.sqrt().float(), g2.sqrt().float()
         for i, mod in enumerate(self.modules):
             out[f"dyn/param_norm/{mod}"] = pn[i]
@@ -195,8 +222,8 @@ class DynamicsTree:
         if isinstance(batch, dict):
             out.update(batch_census(batch, pn.new_zeros(())))
         if self.spec is not None:
-            frac, active = clip_activation([gflat], grad_norm_total, self.spec.clip_type,
-                                           self.spec.clip_threshold)
+            frac, active = clip_activation(grad_norm_total, self.spec.clip_type, self.spec.clip_threshold,
+                                           clipped, self.numel)
             out["dyn/clip_fraction"] = frac
             out["dyn/clip_active"] = active
         self._p2 = p2
@@ -212,7 +239,7 @@ class DynamicsTree:
 
     def _after_update(self, update, lr: float) -> Dict[str, Any]:
         p2, self._p2 = self._p2, None
-        u2 = self._module_sq(self._flat(update)) * (float(lr) ** 2)
+        u2 = self._summed(self._module_sq(self._flat(update)))[0] * (float(lr) ** 2)
         ratio = (u2.sqrt() / (p2.sqrt() + 1e-12)).float()
         out = {f"dyn/update_ratio/{mod}": ratio[i] for i, mod in enumerate(self.modules)}
         out["dyn/update_ratio/total"] = (u2.sum().sqrt() / (p2.sum().sqrt() + 1e-12)).float()

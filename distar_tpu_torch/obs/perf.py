@@ -299,6 +299,11 @@ class PerfMonitor:
         except Exception:
             self._c_fail.inc()
             return
+        self.publish_collectives(est)
+
+    def publish_collectives(self, est: Dict[str, float]) -> None:
+        """Publish a per-step collective estimate, bytes by kind (the port
+        learner's: ``parallel.spmd.ParamShards.collective_bytes``)."""
         for kind, v in est.items():
             if kind in ("total", "param_bytes"):
                 continue

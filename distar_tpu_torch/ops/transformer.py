@@ -44,20 +44,23 @@ class Attention(nn.Module):
         def heads(t):
             return t.reshape(B, N, self.head_num, self.head_dim).transpose(1, 2).contiguous()
 
-        q, k, v = heads(q), heads(k), heads(v)
+        out = self.attend(heads(q), heads(k), heads(v), mask)
+        out = out.transpose(1, 2).reshape(B, N, self.head_num * self.head_dim)
+        return self.Dense_1(out)
+
+    def attend(self, q, k, v, mask: Optional[torch.Tensor] = None):
+        """Attention of [B, H, N, Dh] heads by ``impl`` (a mask of all
+        valid keys where none is given)."""
         if mask is None:
-            mask = torch.ones(B, N, dtype=torch.bool, device=x.device)
+            mask = torch.ones(q.shape[0], q.shape[2], dtype=torch.bool, device=q.device)
         if self.impl == "pallas":
-            out = kernels.masked_attention(q, k, v, mask)
-        elif self.impl == "ring":
+            return kernels.masked_attention(q, k, v, mask)
+        if self.impl == "ring":
             from ..parallel.mesh import get_context_mesh
             from ..parallel.ring_attention import ring_self_attention
 
-            out = ring_self_attention(q, k, v, mask, get_context_mesh())
-        else:
-            out = kernels.masked_attention_plain(q, k, v, mask, upcast=False)
-        out = out.transpose(1, 2).reshape(B, N, self.head_num * self.head_dim)
-        return self.Dense_1(out)
+            return ring_self_attention(q, k, v, mask, get_context_mesh())
+        return kernels.masked_attention_plain(q, k, v, mask, upcast=False)
 
 
 class TransformerLayer(nn.Module):

@@ -16,9 +16,10 @@ JAX's ``auto`` catches a failed ``jax.distributed.initialize`` and carries
 on as a world of one; here ``auto`` decides from the environment, and a
 group that fails to form raises.
 
-``spawn_ranks`` runs a function in N processes that form one gloo group on
-the CPU (``--host-devices N``, the tests): each rank is joined with its own
-timeout, and every rank is killed when one fails.
+``spawn_ranks`` runs a function in N processes that form one gloo group
+(``--host-devices N``, the tests; ``device="cuda"`` puts every rank on the
+one card, where NCCL refuses two ranks a device): each rank is joined with
+its own timeout, and every rank is killed when one fails.
 """
 from __future__ import annotations
 
@@ -94,7 +95,7 @@ def dist_close() -> None:
         dist.destroy_process_group()
 
 
-def _rank_main(fn, rank: int, world: int, addr: str, args, kwargs):
+def _rank_main(fn, rank: int, world: int, addr: str, device: str, args, kwargs):
     import torch
 
     # one thread a rank: the ranks share the host's cores, and the small
@@ -102,15 +103,19 @@ def _rank_main(fn, rank: int, world: int, addr: str, args, kwargs):
     torch.set_num_threads(1)
     dist_init(method="explicit", coordinator_address=addr, num_processes=world, process_id=rank,
               device="cpu")
+    if device != "cpu":
+        torch.cuda.set_device(torch.device(device).index or 0)
     try:
         fn(rank, *args, **kwargs)
     finally:
         dist_close()
 
 
-def spawn_ranks(fn, world: int, *args, timeout_s: float = 300.0, **kwargs) -> list:
+def spawn_ranks(fn, world: int, *args, timeout_s: float = 300.0, device: str = "cpu", **kwargs) -> list:
     """Run ``fn(rank, *args, **kwargs)`` in ``world`` spawned processes that
-    form one gloo group on a free local port; returns their exit codes. A
+    form one gloo group on a free local port, each with ``device`` (a CUDA
+    device: the current one of every rank) as its own; returns their exit
+    codes. A
     rank that exits non-zero, or is still running at its timeout, gets every
     other rank killed, and the exit codes say so (-9 for a killed rank)."""
     import multiprocessing as mp
@@ -118,7 +123,7 @@ def spawn_ranks(fn, world: int, *args, timeout_s: float = 300.0, **kwargs) -> li
 
     ctx = mp.get_context("spawn")
     addr = f"127.0.0.1:{free_port()}"
-    procs = [ctx.Process(target=_rank_main, args=(fn, r, world, addr, args, kwargs)) for r in range(world)]
+    procs = [ctx.Process(target=_rank_main, args=(fn, r, world, addr, str(device), args, kwargs)) for r in range(world)]
     for p in procs:
         p.start()
     deadline = time.monotonic() + timeout_s

@@ -85,8 +85,9 @@ def run_sharded_training(
         "resumed_from": None,
         "start_iter": 0,
     }
-    plan = learner.optimizer.plan
-    specs = plan.specs if plan is not None else []
+    from .spmd import param_shards
+
+    specs = param_shards(learner.model).specs
     if assert_fsdp and not any("fsdp" in s for s in specs):
         raise AssertionError("no param leaf sharded over fsdp")
     if assert_tp:

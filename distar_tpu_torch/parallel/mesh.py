@@ -107,8 +107,9 @@ class MeshSpec:
 class Mesh:
     """The grid of ``ranks`` (global ranks, row-major over ``AXES``) with
     this process's coordinates and a process group per axis (None for an
-    axis of size 1), one over the batch extent (dp x fsdp) and one over
-    the replicas of a batch block (tp x sp: "replica"). Every rank
+    axis of size 1), one over the batch extent (dp x fsdp), one over
+    the replicas of a batch block (tp x sp: "replica") and one over the
+    ranks that split the parameters (fsdp x tp: "shard"). Every rank
     of the default group builds every mesh, in the same order (group
     creation is collective); a rank outside ``ranks`` has no coordinates
     and must not train on it."""
@@ -124,7 +125,7 @@ class Mesh:
         self.coords: Optional[Dict[str, int]] = (
             dict(zip(AXES, (int(c) for c in where[0]))) if len(where) else None)
         self.groups: Dict[str, object] = {}
-        for axis in AXES + ("batch", "replica"):
+        for axis in AXES + ("batch", "replica", "shard"):
             self.groups[axis] = self._new_group(axis)
         # checkpoint barriers ride their own gloo group: the writer thread
         # must not interleave with the step's collectives on the same group
@@ -140,6 +141,10 @@ class Mesh:
         if axis == "replica":  # the tp x sp ranks of one batch block, tp=sp=0 first
             s = grid.shape
             return [list(map(int, row)) for row in grid.reshape(s[0] * s[1], s[2] * s[3])]
+        if axis == "shard":  # the fsdp x tp ranks of one (dp, sp) coordinate
+            moved = np.moveaxis(grid, (0, 3), (0, 1))  # [dp, sp, fsdp, tp]
+            return [list(map(int, moved[i, j].reshape(-1)))
+                    for i in range(moved.shape[0]) for j in range(moved.shape[1])]
         if axis == "batch":
             moved = np.moveaxis(grid, (2, 3), (0, 1))  # [tp, sp, dp, fsdp]
             return [list(map(int, moved[i, j].reshape(-1)))
@@ -178,6 +183,8 @@ class Mesh:
     def size(self, axis: str) -> int:
         if axis == "replica":
             return self.shape["tp"] * self.shape["sp"]
+        if axis == "shard":
+            return self.shape["fsdp"] * self.shape["tp"]
         return self.shape["dp"] * self.shape["fsdp"] if axis == "batch" else self.shape[axis]
 
     def replica_lead(self) -> int:
@@ -206,6 +213,9 @@ class _One:
 
     shape = dict.fromkeys(AXES, 1)
     coords = dict.fromkeys(AXES, 0)
+
+    def group(self, axis: str):
+        return None
 
 
 ONE_DEVICE = _One()

@@ -15,11 +15,11 @@ boundary on) and, with ``warmup_steps``, a linear warm-up from 0 joined in
 front of it (the decay then counts from the end of the warm-up), so the
 first update of a warm-up moves nothing.
 
-With a ``plan`` (``spmd.ShardPlan``: a mesh that splits parameters over
-fsdp or tp) the clip still reads the whole gradients (its global norm is
-the single-process one), but mu, nu and the update hold only this rank's
-block; the parameters are gathered whole after the update, the update
-only where a caller asks (``whole``).
+On a mesh that splits parameters (``spmd.shard_model``) the parameters,
+and so the gradients, mu, nu and the update, are this rank's blocks: the
+update is elementwise, and the clip reads its norms from the blocks
+(``norms``: ``ParamShards.leaf_norms``), so the global norm is the
+single-process one.
 """
 from __future__ import annotations
 
@@ -41,36 +41,22 @@ class Optimizer:
                  betas: Tuple[float, float] = (0.0, 0.99), eps: float = 1e-5,
                  weight_decay: float = 0.0, clip: Optional[GradClipConfig] = None,
                  warmup_steps: int = 0, decay_boundaries: Sequence[int] = (),
-                 decay_rate: float = 1.0, plan=None):
+                 decay_rate: float = 1.0, norms=None):
         self.params = list(params)
-        self.plan = plan
         self.learning_rate, self.b1, self.b2 = float(learning_rate), float(betas[0]), float(betas[1])
         self.eps, self.weight_decay = float(eps), float(weight_decay)
         self.warmup_steps = int(warmup_steps)
         self.decay_boundaries = sorted({int(b) for b in decay_boundaries})
         self.decay_rate = float(decay_rate)
-        self.clip = GradClip(clip or GradClipConfig())
-        self.mu = [torch.zeros_like(p) for p in self._local(self.params)]
-        self.nu = [torch.zeros_like(p) for p in self._local(self.params)]
+        self.clip = GradClip(clip or GradClipConfig(), norms=norms)
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0
-
-    def _local(self, tensors):
-        """This rank's blocks of whole per-parameter tensors (views)."""
-        if self.plan is None:
-            return list(tensors)
-        return [self.plan.local(i, t) for i, t in enumerate(tensors)]
-
-    def moments(self):
-        """(mu, nu) as whole tensors (gathered over the mesh: a collective
-        when the plan splits them)."""
-        if self.plan is None:
-            return self.mu, self.nu
-        return self.plan.full(self.mu, self.params), self.plan.full(self.nu, self.params)
 
     @torch.no_grad()
     def load_moments(self, mu, nu) -> None:
-        """Set mu and nu from whole tensors (this rank keeps its blocks)."""
-        for dst, src in ((self.mu, self._local(mu)), (self.nu, self._local(nu))):
+        """Set mu and nu, each shaped as the parameters."""
+        for dst, src in ((self.mu, mu), (self.nu, nu)):
             for t, v in zip(dst, src):
                 t.copy_(v)
 
@@ -81,20 +67,13 @@ class Optimizer:
         c = count - self.warmup_steps if self.warmup_steps > 0 else count
         return self.learning_rate * self.decay_rate ** sum(c >= b for b in self.decay_boundaries)
 
-    def whole(self, update: Sequence[torch.Tensor]):
-        """``step``'s update as whole tensors (gathered over the mesh: a
-        collective when the plan splits it)."""
-        return update if self.plan is None else self.plan.full(update, self.params)
-
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]):
         """One update; returns ``(update, lr)``: the parameters moved by
         ``-lr * update`` (what optax's updates are, over ``-lr``), for the
-        training-dynamics tree's update norms. Under a plan the update is
-        this rank's blocks (``whole`` gathers them)."""
-        grads = list(grads)
+        training-dynamics tree's update norms."""
+        grads, params = list(grads), self.params
         self.clip.clip(grads)
-        grads, params = self._local(grads), self._local(self.params)
         b1, b2 = self.b1, self.b2
         torch._foreach_mul_(self.mu, b1)
         torch._foreach_add_(self.mu, grads, alpha=1 - b1)
@@ -111,8 +90,6 @@ class Optimizer:
         lr = self.lr(self.count)
         torch._foreach_add_(params, update, alpha=-lr)
         self.count = n
-        if self.plan is not None:
-            self.plan.gather_(self.params)
         return update, lr
 
 

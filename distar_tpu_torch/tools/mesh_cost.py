@@ -8,10 +8,15 @@ of ``--meshes`` (``;``-separated ``--mesh`` specs, default dp, fsdp and tp
 over all ranks), builds the smoke-model RL learner on it, with the
 training-dynamics tree on and then off, and times ``--steps`` steps on one
 fixed batch after a warm-up step: the whole step (``_train``), the
-optimizer's step inside it, and the ``ShardPlan``'s gathers (the
-parameters after the update, inside the optimizer's step, and the update
-where the tree reads it). Each time is the slowest rank's, a median over
-the steps. Prints one ``MESH-COST {json}`` line per mesh and tree setting.
+optimizer's step inside it, and each unit's parameter collectives
+(``parallel.spmd``: the all-gathers before the unit runs, over fsdp and
+over tp, and the reduce-scatter of its gradients in the backward). Each
+time is the slowest rank's, a median over the steps. Each rank's bytes:
+``persistent_bytes``, what it holds between steps (its blocks of the
+parameters, mu and nu), and ``peak_bytes``, that plus the most bytes of
+gradients and of gathered whole parameters alive at once during a step
+(activations are not counted). Prints one ``MESH-COST {json}`` line per
+mesh and tree setting.
 """
 from __future__ import annotations
 
@@ -20,13 +25,48 @@ import json
 import os
 import statistics
 import time
-from typing import List, Optional
+import weakref
+from typing import Dict, List, Optional
 
 
-def _timed(obj, name: str, into: List[float]) -> None:
+class _Meter:
+    """The unit collectives' seconds by (unit, kind), and the bytes of
+    gathered parameters and gradients alive, with their peak."""
+
+    def __init__(self):
+        self.seconds: Dict[str, float] = {}
+        self.alive = self.peak = 0
+
+    def hold(self, tensors) -> None:
+        for t in tensors:
+            n = t.numel() * t.element_size()
+            self.alive += n
+            weakref.finalize(t, self._drop, n)
+        self.peak = max(self.peak, self.alive)
+
+    def _drop(self, n: int) -> None:
+        self.alive -= n
+
+    def timed(self, fn, kind: str):
+        def wrapper(tensors, axis):
+            t0 = time.perf_counter()
+            try:
+                out = fn(tensors, axis)
+            finally:
+                key = f"{axis.name or '-'}/{kind}_{axis.axis}"
+                self.seconds[key] = self.seconds.get(key, 0.0) + time.perf_counter() - t0
+            if kind == "gather":
+                self.hold(out)
+            return out
+        return wrapper
+
+
+def _timed(obj, name: str, into: List[float], meter: Optional[_Meter] = None) -> None:
     fn = getattr(obj, name)
 
     def wrapper(*args, **kwargs):
+        if meter is not None:  # the optimizer's step: the gradients it is handed
+            meter.hold(args[0])
         t0 = time.perf_counter()
         try:
             return fn(*args, **kwargs)
@@ -43,7 +83,11 @@ def _rank(rank: int, meshes: List[str], batch_size: int, unroll_len: int, steps:
     from ..bin.sl_train import SMOKE_MODEL
     from ..learner import RLLearner
     from ..parallel import MeshSpec, make_mesh, set_context_mesh
+    from ..parallel import spmd
 
+    meter = _Meter()
+    spmd.gather_blocks = meter.timed(spmd.gather_blocks, "gather")
+    spmd.reduce_scatter_blocks = meter.timed(spmd.reduce_scatter_blocks, "reduce_scatter")
     for spec in meshes:
         for tree in (True, False):
             mesh = make_mesh(MeshSpec.parse(spec))
@@ -53,32 +97,45 @@ def _rank(rank: int, meshes: List[str], batch_size: int, unroll_len: int, steps:
                                          # no flop count on a thread beside the timed steps
                                          "perf": {"aot": False}},
                              "model": SMOKE_MODEL}, device="cpu", mesh=mesh)
-            opt, plan = lrn.optimizer, lrn.optimizer.plan
+            opt, shards = lrn.optimizer, spmd.param_shards(lrn.model)
             opt_s: List[float] = []
-            gather_s: List[float] = []
-            _timed(opt, "step", opt_s)
-            if plan is not None:
-                _timed(plan, "gather_", gather_s)
+            _timed(opt, "step", opt_s, meter)
+            persistent = sum(t.numel() * t.element_size() for t in opt.params + opt.mu + opt.nu)
             batch = next(lrn._dataloader)
-            rows = []
+            rows, units, peaks = [], [], []
             for i in range(steps + 1):
-                n_opt, n_gather = len(opt_s), len(gather_s)
+                n_opt = len(opt_s)
+                meter.seconds, meter.peak = {}, meter.alive
                 dist.barrier()
                 t0 = time.perf_counter()
                 lrn._train(batch)
                 step = time.perf_counter() - t0
                 if i:  # the first is the warm-up
-                    rows.append([step, sum(opt_s[n_opt:]), sum(gather_s[n_gather:])])
-            worst = torch.tensor(rows, dtype=torch.float64)
+                    rows.append([step, sum(opt_s[n_opt:])])
+                    units.append(dict(meter.seconds))
+                    peaks.append(meter.peak)
+            keys = sorted({k for u in units for k in u})
+            per_unit = torch.tensor([[u.get(k, 0.0) for k in keys] for u in units], dtype=torch.float64)
+            worst = torch.cat([torch.tensor(rows, dtype=torch.float64), per_unit], 1)
             dist.all_reduce(worst, op=dist.ReduceOp.MAX)  # the slowest rank's
+            held = torch.tensor([[persistent, persistent + max(peaks)]], dtype=torch.float64)
+            every = [torch.zeros_like(held) for _ in range(dist.get_world_size())]
+            dist.all_gather(every, held)
             if rank == 0:
                 med = [statistics.median(col) * 1e3 for col in worst.t().tolist()]
-                n_params = sum(p.numel() for p in lrn.model.parameters())
+                unit_ms: Dict[str, Dict[str, float]] = {}
+                for k, ms in zip(keys, med[2:]):
+                    unit, kind = k.split("/")
+                    unit_ms.setdefault(unit, {})[kind + "_ms"] = ms
                 print("MESH-COST " + json.dumps({
                     "mesh": dict(mesh.shape), "ranks": dist.get_world_size(), "tree": tree,
                     "batch_size": batch_size, "unroll_len": unroll_len, "steps": steps,
-                    "params": n_params, "split_leaves": sum(bool(d) for d in plan.dims) if plan else 0,
-                    "step_ms": med[0], "optimizer_ms": med[1], "gather_ms": med[2]}), flush=True)
+                    "params": sum(torch.Size(s).numel() for s in shards.shapes),
+                    "split_leaves": sum(bool(d) for d in shards.dims),
+                    "step_ms": med[0], "optimizer_ms": med[1],
+                    "collective_ms": sum(med[2:]), "unit_ms": unit_ms,
+                    "persistent_bytes": [int(r[0][0]) for r in every],
+                    "peak_bytes": [int(r[0][1]) for r in every]}), flush=True)
             set_context_mesh(None)
 
 

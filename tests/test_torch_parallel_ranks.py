@@ -18,6 +18,11 @@ Ring attention over 2 and 4 ranks against JAX's
 autograd through the plain version. The fsdp=2 directory passes JAX's
 ``verify_sharded``, restores bit-equal in JAX's ``restore_sharded``, and
 its manifest equals the one JAX writes for the same state and mesh.
+Under fsdp=2, tp=2, (dp=2, fsdp=2) and (fsdp=2, tp=2) each rank holds
+between steps only its blocks of the parameters, gradients, mu and nu,
+shaped as the JAX learner's addressable shards on the same mesh; at tp=2
+each tp-split Linear and Conv2d does half its flops and the attention runs
+half the heads.
 
 Each world is one spawn (``parallel.dist.spawn_ranks``: a free port, each
 rank joined with its own timeout, every rank killed when one fails) that
@@ -56,6 +61,8 @@ MOMENT_RTOL = 1e-4
 RING_TOL = dict(rtol=2e-4, atol=2e-4)  # JAX's own ring test's
 WORLD2 = ("rl_dp2", "rl_tp2", "rl_tp2_local", "rl_sp2_ring", "rl_fsdp2", "sl_dp2", "sl_dp2_per_rank_mean")
 WORLD4 = ("rl_dp4", "rl_dp2_fsdp2", "rl_fsdp2_tp2", "rl_restore_fsdp2_tp2")
+# the meshes that split parameters: each rank's holdings read between its steps
+CENSUS = ("rl_fsdp2", "rl_tp2", "rl_dp2_fsdp2", "rl_fsdp2_tp2")
 MESHES = {"rl_dp2": {"dp": 2}, "rl_tp2": {"dp": 1, "tp": 2}, "rl_tp2_local": {"dp": 1, "tp": 2},
           "rl_sp2_ring": {"dp": 1, "sp": 2}, "rl_fsdp2": {"dp": 1, "fsdp": 2}, "sl_dp2": {"dp": 2},
           "sl_dp2_per_rank_mean": {"dp": 2}, "rl_dp4": {"dp": 4}, "rl_dp2_fsdp2": {"dp": 2, "fsdp": 2},
@@ -114,17 +121,113 @@ def _step(lrn, batch):
 
 
 def _params(lrn):
-    return {n: p.detach().clone() for n, p in lrn.model.named_parameters()}
+    """The parameters whole (gathered from the blocks where the placement
+    splits a leaf: every rank calls)."""
+    from distar_tpu_torch.parallel.spmd import param_shards
+
+    shards = param_shards(lrn.model)
+    return {n: p.detach().clone() for n, p in zip(shards.names, shards.whole(shards.params))}
 
 
-def _steps(lrn, batches, logs=None, params=None):
+def _steps(lrn, batches, logs=None, params=None, between=None):
     """Step ``lrn`` on each of ``batches``; the logs and the parameters
-    after each step, appended to ``logs`` and ``params``."""
+    after each step, appended to ``logs`` and ``params``. ``between`` is
+    called after the first step, before anything gathers the parameters."""
     logs, params = ([] if logs is None else logs), ([] if params is None else params)
-    for batch in batches:
+    for i, batch in enumerate(batches):
         logs.append(_step(lrn, batch))
+        if i == 0 and between is not None:
+            between()
         params.append(_params(lrn))
     return logs, params
+
+
+def _count_grads(lrn):
+    """The elements of the gradients each optimizer step receives, listed."""
+    seen, real = [], lrn.optimizer.step
+
+    def step(grads):
+        seen.append(sum(g.numel() for g in grads))
+        return real(grads)
+
+    lrn.optimizer.step = step
+    return seen
+
+
+def _live_shapes():
+    """How many live tensors have each shape."""
+    import gc
+    from collections import Counter
+
+    gc.collect()
+    return Counter(tuple(o.shape) for o in gc.get_objects() if isinstance(o, torch.Tensor))
+
+
+def _census(lrn, grads_seen, before):
+    """What this rank holds between steps: the elements of its parameters,
+    of the last step's gradients, of mu and nu, each leaf's block shape in
+    flax layout, and the split leaves some live tensor still holds whole:
+    a tensor of the leaf's whole shape beyond the blocks of that shape and
+    those alive before the learner was built (``before``, of the cases
+    this rank ran earlier)."""
+    from collections import Counter
+
+    from distar_tpu_torch.model.convert import flax_layout
+    from distar_tpu_torch.parallel.spmd import param_shards
+
+    model, opt = lrn.model, lrn.optimizer
+    blocks = {}
+    for name, p in model.named_parameters():
+        path, perm = flax_layout(model, name)
+        blocks["/".join(path)] = [int(p.shape[d]) for d in (perm or range(p.dim()))]
+    live = _live_shapes() - before
+    own = Counter(tuple(t.shape) for t in opt.params + opt.mu + opt.nu)
+    shards = param_shards(model)
+    whole = [n for n, shape, p in zip(shards.names, shards.shapes, shards.params)
+             if shape != tuple(p.shape) and live[shape] > own[shape]]
+    return {"params": sum(p.numel() for p in opt.params), "grads": grads_seen[-1],
+            "mu": sum(t.numel() for t in opt.mu), "nu": sum(t.numel() for t in opt.nu),
+            "blocks": blocks, "whole_alive": whole}
+
+
+def _flops(lrn, batch):
+    """The RL loss's forward on ``batch`` under ``FlopCounterMode``: the
+    flops of each module (by the counter's names), the modules whose
+    weight tp splits, and the head count of every attention call."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from distar_tpu_torch.learner.rl_learner import rl_loss
+    from distar_tpu_torch.ops import kernels
+    from distar_tpu_torch.parallel.spmd import TPConv2d, TPLinear
+
+    heads, real = [], kernels.masked_attention_plain
+
+    def plain(q, *args, **kwargs):
+        heads.append(int(q.shape[1]))
+        return real(q, *args, **kwargs)
+
+    class Loss(torch.nn.Module):
+        """The loss as a module: the counter names every module under it by
+        its path from here."""
+
+        def __init__(self):
+            super().__init__()
+            self.model = lrn.model
+
+        def forward(self, data):
+            return rl_loss(self.model, lrn.loss_cfg, data, lrn.local_batch_size, lrn.cfg.learner.unroll_len,
+                           mesh=lrn.mesh)
+
+    data = lrn.shard_batch(lrn._cap({k: v for k, v in batch.items() if k != "model_last_iter"}))
+    kernels.masked_attention_plain = plain
+    try:
+        with torch.no_grad(), FlopCounterMode(display=False) as counter:
+            Loss()(data)
+    finally:
+        kernels.masked_attention_plain = real
+    return {"flops": {k: int(sum(v.values())) for k, v in counter.get_flop_counts().items()},
+            "split": [f"Loss.model.{n}" for n, m in lrn.model.named_modules() if isinstance(m, (TPLinear, TPConv2d))],
+            "heads": heads}
 
 
 def _outcome(lrn, logs, params):
@@ -158,9 +261,18 @@ def _world(rank, cases, small, out, rings):
 
     for case in cases:
         mesh = make_mesh(MeshSpec(**MESHES[case]))
+        before = _live_shapes() if case in CENSUS else None
         undo = _plant_per_rank_mean(mesh) if case.endswith("per_rank_mean") else None
         lrn = _learner(case, small, mesh=mesh, sharded_ckpt=case == "rl_fsdp2")
         batches = _batches(lrn)
+        between = None
+        if case in CENSUS:
+            seen = _count_grads(lrn)
+
+            def between():
+                torch.save(_census(lrn, seen, before), os.path.join(out, f"census_{case}_{rank}.pt"))
+        if case == "rl_tp2":
+            torch.save(_flops(lrn, batches[0]), os.path.join(out, f"flops_{case}_{rank}.pt"))
         if case == "rl_tp2_local":
             # a per-rank loader (local=True): rank 0 pulls, rank 1 must not
             lrn.set_dataloader(iter(batches) if rank == 0 else _NotRead(), local=True)
@@ -172,7 +284,7 @@ def _world(rank, cases, small, out, rings):
         else:
             logs, params = [], []
             for i, batch in enumerate(batches):
-                _steps(lrn, [batch], logs, params)
+                _steps(lrn, [batch], logs, params, between if i == 0 else None)
                 if case == "rl_fsdp2":
                     lrn.save(os.path.join(out, ("fsdp2_step1.ckpt", "fsdp2.ckpt")[i]), sync=True)
         outcome = _outcome(lrn, logs, params)  # the state gathers the split moments: every rank calls it
@@ -300,16 +412,88 @@ def test_a_per_rank_mean_fails_the_sl_comparison(runs, single):
 
 def test_split_state_gathers_whole(runs, single):
     """fsdp=2, (dp=2, fsdp=2) and (fsdp=2, tp=2) keep only their blocks of
-    mu and nu; the state they report (``learner_state_to_flax``) is the
-    single-process learner's, leaf for leaf in its layout."""
+    the parameters, mu and nu; the state they report
+    (``learner_state_to_flax``) is the single-process learner's, leaf for
+    leaf in its layout: the parameters within MOMENT_RTOL of their norm
+    too (two steps move them by about 1e-3 of it, and the meshed steps lie
+    within UPDATE_RTOL of that)."""
     results, _, _ = runs
-    want = single["rl"]["state"]["opt_state"][1][0]
+    want = single["rl"]["state"]
     for case in ("rl_fsdp2", "rl_dp2_fsdp2", "rl_fsdp2_tp2"):
-        got = results[case]["state"]["opt_state"][1][0]
-        for a, b in zip(got[1:], want[1:]):
+        got = results[case]["state"]
+        pairs = list(zip(got["opt_state"][1][0][1:], want["opt_state"][1][0][1:]))
+        for a, b in pairs + [(got["params"], want["params"])]:
             mine, theirs = _array_leaves(a), _array_leaves(b)
             assert [np.shape(x) for x in mine] == [np.shape(x) for x in theirs]
             assert _rel(mine, theirs) <= MOMENT_RTOL, case
+
+
+def _world_size(case):
+    return int(np.prod(list(MESHES[case].values())))
+
+
+def _jax_blocks(case, single, rank):
+    """The shape of each leaf's block on ``rank``'s device, by flax path,
+    of the single-process learner's parameters placed by JAX's
+    ``param_sharding`` on a JAX mesh of the case's shape (host devices)."""
+    import jax
+
+    from distar_tpu.parallel.mesh import MeshSpec, make_mesh, param_sharding
+
+    mesh = make_mesh(MeshSpec(**MESHES[case]), jax.devices()[:_world_size(case)])
+    params = single["rl"]["state"]["params"]["params"]
+    placed = jax.tree.map(jax.device_put, params, param_sharding(mesh, params))
+    device = mesh.devices.reshape(-1)[rank]
+    out = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(placed)[0]:
+        shard = next(s for s in leaf.addressable_shards if s.device == device)
+        out["/".join(k.key for k in path)] = list(shard.data.shape)
+    return out
+
+
+def _load_census(out, case):
+    return [torch.load(os.path.join(out, f"census_{case}_{r}.pt"), weights_only=False)
+            for r in range(_world_size(case))]
+
+
+@pytest.mark.parametrize("case", CENSUS)
+def test_each_rank_holds_only_its_blocks_between_steps(runs, single, case):
+    """Between steps each rank's parameters, the gradients of its step, mu
+    and nu hold as many elements as its blocks under JAX's placement (less
+    than the whole model), and no live tensor holds a split leaf whole."""
+    _, _, out = runs
+    whole = sum(np.size(x) for x in _array_leaves(single["rl"]["state"]["params"]))
+    for rank, census in enumerate(_load_census(out, case)):
+        want = sum(int(np.prod(s)) for s in _jax_blocks(case, single, rank).values())
+        assert want < whole
+        for family in ("params", "grads", "mu", "nu"):
+            assert census[family] == want, f"{case} rank {rank}: {family} {census[family]}, blocks {want}"
+        assert census["whole_alive"] == [], f"{case} rank {rank}: whole {census['whole_alive'][:5]}"
+
+
+@pytest.mark.parametrize("case", CENSUS)
+def test_block_shapes_equal_the_jax_learners_addressable_shards(runs, single, case):
+    _, _, out = runs
+    for rank, census in enumerate(_load_census(out, case)):
+        assert census["blocks"] == _jax_blocks(case, single, rank), f"{case} rank {rank}"
+
+
+def test_tp_halves_each_split_modules_flops_and_the_attention_heads(runs, small):
+    """At tp=2 every Linear and Conv2d whose weight tp splits does half the
+    flops of the same module at tp=1 on the same rows (the RL loss's
+    forward, ``FlopCounterMode`` per module), and every attention call
+    sees H/2 heads."""
+    _, _, out = runs
+    lrn = _learner("rl", small)
+    plain = _flops(lrn, _batches(lrn)[0])
+    heads = {m.head_num for m in lrn.model.modules() if type(m).__name__ == "Attention"}
+    assert len(plain["heads"]) > 0 and not plain["split"]
+    for rank in range(2):
+        got = torch.load(os.path.join(out, f"flops_rl_tp2_{rank}.pt"), weights_only=False)
+        assert len(got["split"]) > 50
+        for name in got["split"]:
+            assert plain["flops"][name] > 0 and 2 * got["flops"][name] == plain["flops"][name], name
+        assert got["heads"] == [h // 2 for h in plain["heads"]] and set(plain["heads"]) == heads
 
 
 def _array_leaves(tree):
