@@ -3,7 +3,19 @@
 
     python3 chip_smoke.py
 
-Phases, each failing the run (non-zero exit, no result line) on any error:
+Phases, each failing the run (non-zero exit, no result line) on any error.
+They run in this order, but for two groups that run beside others in a
+process of their own (``Spawned``), so that only work that times nothing
+or quotes no figure the card's tables hold runs beside another phase:
+phases 5 and 6 beside phase 8 and phase 9's first parts (the gaps and
+the strings, which time nothing; ``serve_phases``), and phases 12-14
+beside phases 10, 11 and 15, whose loops wait on their actors
+(``phases_beside``). Phases 3, 4, 7 and the timed parts of 9 run with
+nothing of the script beside them.
+Each phase reads its launch counts from zero in the process that runs it.
+The script is the child subreaper of every process it starts: at its end,
+and at the end of each ``Spawned`` job, whatever still runs below it is
+killed, reaped and named on stderr.
 
 1. device  — print the card's name and power limit; TF32 off for matmuls
              and cuDNN convolutions, so the parity phases compare f32.
@@ -41,8 +53,10 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              from the script, ``/metrics`` counting the requests; a TCP hot
              swap to v2 and a swap under traffic; the wire's timings, with
              the serialization of one 32-lane request and answer; then
-             ``python -m distar_tpu_torch.bin.serve`` as a process, one act,
-             SIGTERM, exit 0. The wire is TCP only here.
+             ``python -m distar_tpu_torch.bin.serve`` as a process (started
+             with the phase, it boots beside the in-process stack; a thread
+             times its first answer), one act, SIGTERM, exit 0. The wire is
+             TCP only here.
 6. serve_fleet — the serving fleet on the same model and checkpoints,
              observations from a generator of its own: a ``CoordinatorServer``
              in process; gateway A, the stack ``bin/serve.py`` builds, in
@@ -92,7 +106,9 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              with the bytes a step, the write time, one batch's collation and
              its host-to-device copy (pinned, pageable); ``python -m
              distar_tpu_torch.bin.sl_train --data --eval-data`` as a process
-             under 'pallas_onehot' for 8 steps (a checkpoint every 4, EVAL
+             (the flagship's widths at depth 1, ``shallow``: it checks
+             plumbing; on a thread, joined once phase 9's first parts are
+             done) under 'pallas_onehot' for 8 steps (a checkpoint every 4, EVAL
              every 4): exit 0, finite log lines, the pointer's generations
              newest first and verified, its launches read from its output;
              the same command again, SIGTERM after its next periodic
@@ -114,7 +130,11 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              of torch.profiler's busy time) during a run; ``evaluate`` on
              the held-out set.
 9. rl      — the RL learner (``RL_LEARNER_DEFAULTS``, 4 x 16: 68 observed
-             frames) and the distillation student at flagship width, f32:
+             frames) and the distillation student at flagship width, f32.
+             Its first parts, the gaps and the strings, time nothing: beside
+             them phases 5 and 6 and phase 8's processes run on and phase
+             10's e. and phase 11's smoke-model runs run, all joined before
+             the rest. Then
              each kernel's Function at the RL shapes [68, 2, 512, 128] /
              [68, 512, 32] and the student's [68, 2, 512, 64] / [68, 512,
              16], held as in phase 7 and timed beside the library calls; the
@@ -189,8 +209,10 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              the strings (``hold_strings``; where the unpinned gradient reads
              above GRAD_TOL, the batch is saved under ``chiprun_out/`` and
              held by the probe instead: ``hold_loop_batch``, ``rl_gap`` with
-             every kink pinned, GAP_TOL). e. on a thread while d. runs,
-             ``bin/rl_train.py`` as four processes: coordinator, league,
+             every kink pinned, GAP_TOL; one flagship learner switched
+             between the strings, ``OneLearner``). e. on a thread beside
+             phase 9's first parts, ``bin/rl_train.py`` as four processes
+             (the flagship's widths at depth 1): coordinator, league,
              a learner of 4 steps (exit 0, ``learner done``) and an actor
              (SIGTERM: exit 0; no traceback in the actor's log, while the
              coordinator and league may report its hang-up, as the JAX
@@ -276,14 +298,16 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              inputs captured from each side against their plain versions;
              the spill's live blobs the unsampled items, recovered by a new
              store; one step on a store-sampled batch across the strings
-             (``steps_agree``). Then, on the smoke model: on a thread
-             started during phase 10's untimed part d, the
+             (``steps_agree``, one learner switched between the strings and
+             put back between them). Then, on the smoke model, beside phase
+             9's first parts: on a thread, the
              roles as processes (``--type replay`` on a spill directory, an
              actor on ``--replay-addr``, the store SIGKILLed with four
              acknowledged, unsampled inserts and restarted on its port and
              directory, recovering the four; a learner of 2 steps; SIGTERM
-             exit 0 each); ``--replay-shards 2`` and ``--replay-fast-path``
-             runs; ``bin/sl_train.py --remote`` fed by an in-script
+             exit 0 each); in a process of its own (``Spawned``),
+             ``--replay-shards 2`` and ``--replay-fast-path`` runs,
+             ``bin/sl_train.py --remote`` fed by an in-script
              ``ReplayActor`` with a stub decoder, 4 steps; ``bin/play.py
              --game_type mock``, 2 games. Printed: inserts, samples, reuse
              against spi, the learner's data wait a batch beside rl_loop's,
@@ -310,9 +334,10 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              results, its batches of the single-policy layout;
              ``head_to_head`` of the flagship ``ModelPolicy`` against
              ``attack_nearest_policy`` and of that against ``idle_policy``
-             over 16 episodes, each the full dict. On a thread during phase
-             10's untimed part, ``--type all --env jaxenv`` on the smoke
-             model (the host env on the card) for 2 iterations. Printed:
+             over 16 episodes, each the full dict. In a process of its own
+             from the start of phases 12-14, ``--type all --env jaxenv`` on
+             the smoke model (the host env on the card) for 2 iterations.
+             Printed:
              window s and env steps/s, ms a step in the window and a
              16-lane forward alone beside rl_loop's flush, learner step ms,
              the idle share of a window and of a step, peak memory,
@@ -347,10 +372,10 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              artifact written, the last batch resent (all duplicates); the
              primary SIGKILLed, the standby promoted within its takeover
              grace (the seconds printed), serving the same ratings, and the
-             resent batch deduplicated there too. a. and b. run on a thread during
-             phase 10's untimed part (``league_processes``), joined before
-             phase 11: their seconds and the used memory are read beside
-             rl_loop's processes and checks, not on an idle card. c. in
+             resent batch deduplicated there too. a. and b. run on a thread
+             from the start of phases 12-14 (``league_processes``): their
+             seconds and the used memory are read beside the Anakin loop and
+             phases 10 and 11, not on an idle card. c. in
              this process, against a control
              plane of the phase whose one historical player is MP0's newest
              generation of a.: one league learner (``build_league_learner``,
@@ -390,15 +415,15 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              counts. e. ``Attention(impl='ring')`` at sp=1 at [68, 2, 512,
              128] against 'pallas' and 'xla', and its backward against
              autograd through the plain version, within ATTN_TOL. f. the
-             executor's kill and resume at the smoke model, beside rl_loop's
-             untimed part, as ``python -m distar_tpu_torch.tools.chaos
+             executor's kill and resume at the smoke model, beside phases
+             13 and 14, as ``python -m distar_tpu_torch.tools.chaos
              multichip-drill --mesh dp=1 --resume-mesh dp=1 --host-devices
              0 --iters 2 --kill-after 1`` (the executor killed with 137
              after its sharded save at iteration 1, resumed from that
              generation to 2: ``finished unassisted``, the verdict's keys,
              the newest generation sharded and verified). g. two gloo
              ranks on the one card (``spawn_ranks(..., device="cuda")``:
-             NCCL refuses two ranks a device), started beside phases 12-13
+             NCCL refuses two ranks a device), started with phase 13
              (``mesh_rank_processes``): the flagship RL learner (kernel
              overlay, f32, 4 x 16, six value towers) unmeshed on each
              rank (the single-process reference in the ranks' own
@@ -425,7 +450,11 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              elements, its ``memory_allocated`` between steps and its peak
              during one beside the world of one's, and its step ms (over
              gloo, which stages CUDA collectives through the host: no
-             speed figure); every reading is printed before one is checked.
+             speed figure); the perf monitor's flops_per_step, implied
+             TFLOP/s and MFU of the unmeshed and the tp=2 rank's own step
+             (the learner's meta copy placed on its mesh), the tp=2 rank's
+             flops below the unmeshed step's; every reading is printed
+             before one is checked.
              ``python3 chip_smoke.py --only parallel`` runs this phase
              alone.
 
@@ -448,7 +477,8 @@ Phases, each failing the run (non-zero exit, no result line) on any error:
              then two steps of a flagship ``SLLearner`` on batches of a
              ``RemoteSLDataloader`` (3 attention and 1 scatter launches a
              step). Each kernel's first call captured on both paths against
-             its plain version. d. on a thread beside phases 12-14, the
+             its plain version. d. on a thread from the start of phase
+             10, the
              entry points as processes on the smoke model:
              ``rl_train --type all --env sc2`` for one iteration (both
              agents on a fake server process through ``DISTAR_SC2_PORT``),
@@ -520,12 +550,21 @@ TIMING = ("device time per call: the summed durations of the call's device activ
 
 def device_activities(prof):
     """{name: (ms, count)} of the device activities (kernels, fills, copies)
-    of a finished torch.profiler run."""
-    by_name = {}
-    for e in prof.events():
-        if str(e.device_type).endswith("CUDA"):
-            ms, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    of a finished torch.profiler run, read off its raw events, with the
+    names and durations ``prof.events()`` gives them: building that list
+    costs seconds of host time for a train step's thousands of activities."""
+    import torch
+
+    names, by_name = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        if not str(e.device_type()).endswith("CUDA"):
+            continue
+        raw = e.name()
+        name = names.get(raw)
+        if name is None:
+            name = names[raw] = torch._C._demangle(raw) if len(raw) > 1 else raw
+        ms, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + (e.end_ns() - e.start_ns()) / 1e6, n + 1)
     return by_name
 
 
@@ -1224,6 +1263,24 @@ def serve_script(act_many, set_teacher, act, obs, teacher, sids=None):
     return outs
 
 
+def serve_boot_s(proc, port, t0, log_path):
+    """The seconds from ``t0`` until the ``bin/serve.py`` process ``proc``
+    answers a ping on ``port``."""
+    from distar_tpu_torch.serve import ServeClient
+
+    while True:
+        check(proc.poll() is None and time.perf_counter() - t0 < 300,
+              f"bin/serve.py did not answer: {open(log_path).read()[-2000:]}")
+        try:
+            c = ServeClient("127.0.0.1", port, timeout_s=60.0)
+            c.ping()
+        except OSError:
+            time.sleep(0.5)
+            continue
+        c.close()
+        return time.perf_counter() - t0
+
+
 def phase_serve_process(device, rng, smi, tmp):
     """The serving process on the card (module docstring, phase 5). The
     checkpoints v1 and v2 stay in ``tmp`` for the fleet phase. Returns the
@@ -1253,6 +1310,20 @@ def phase_serve_process(device, rng, smi, tmp):
         v1, v2, ckpt = checkpoint_files(tmp, model, model_v2)
         del model, model_v2
         obs = [[F.random_step_data(rng) for _ in range(SERVE_STEPS + 1)] for _ in range(SERVE_SESSIONS)]
+
+        # the process, bin/serve.py on free ports: it boots beside the
+        # in-process stack below (a thread times its first answer); one act
+        # and SIGTERM at the end
+        http_port, tcp_port = free_port(), free_port()
+        log_path = os.path.join(tmp, "serve.log")
+        t0 = time.perf_counter()
+        with open(log_path, "w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "distar_tpu_torch.bin.serve", "--checkpoint", v1, "--slots", "8",
+                 "--host", "127.0.0.1", "--http-port", str(http_port), "--tcp-port", str(tcp_port),
+                 "--drain-timeout-s", "20", "--device", device.type, "--config", json.dumps({"model": cfg})],
+                cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+        booted = Background(lambda: serve_boot_s(proc, tcp_port, t0, log_path)).start()
 
         # the stack as bin/serve.py builds it, on a registry of its own
         set_registry(MetricsRegistry())
@@ -1430,27 +1501,9 @@ def phase_serve_process(device, rng, smi, tmp):
         client.close()
         stop_all(stack)
 
-        # the process: bin/serve.py on free ports, one act, SIGTERM
-        http_port, tcp_port = free_port(), free_port()
-        log_path = os.path.join(tmp, "serve.log")
-        t0 = time.perf_counter()
-        with open(log_path, "w") as log:
-            proc = subprocess.Popen(
-                [sys.executable, "-m", "distar_tpu_torch.bin.serve", "--checkpoint", v1, "--slots", "8",
-                 "--host", "127.0.0.1", "--http-port", str(http_port), "--tcp-port", str(tcp_port),
-                 "--drain-timeout-s", "20", "--device", device.type, "--config", json.dumps({"model": cfg})],
-                cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
-        c = None
-        while c is None:
-            check(proc.poll() is None and time.perf_counter() - t0 < 300,
-                  f"bin/serve.py did not answer: {open(log_path).read()[-2000:]}")
-            try:
-                c = ServeClient("127.0.0.1", tcp_port, timeout_s=60.0)
-                c.ping()
-            except OSError:
-                c = None
-                time.sleep(0.5)
-        startup_s = time.perf_counter() - t0
+        # the process: one act, SIGTERM
+        startup_s = booted.result()
+        c = ServeClient("127.0.0.1", tcp_port, timeout_s=60.0)
         boot = c.status()["registry"]["versions"]["v1"]
         out = c.act("p0", obs[0][0])
         check(out["session_step"] == 1 and out["model_version"] == "v1", f"process act: {out.keys()}")
@@ -1925,6 +1978,25 @@ def phase_serve_fleet(device, rng, smi, v1, v2):
         set_registry(None)
 
 
+def serve_phases(device, smi, tmp):
+    """Phases 5 and 6 (the serving process, then the serving fleet on its
+    checkpoints) in a process of their own (``Spawned``) beside the rl
+    phase's first parts, which time nothing; each on a generator of its
+    own, as in the script's order. Returns each phase's launch counts and
+    readings and the seconds of each."""
+    import numpy as np
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    process = phase_serve_process(device, np.random.default_rng(5), smi, tmp)
+    t1 = time.perf_counter()
+    fleet = phase_serve_fleet(device, np.random.default_rng(6), smi, *process[1]["checkpoints"])
+    return {"serve_process": process, "serve_fleet": fleet,
+            "phase_s": {"serve_process": round(t1 - t0, 1), "serve_fleet": round(time.perf_counter() - t1, 1)}}
+
+
 # ------------------------------------------------------------------- train
 TRAIN_B, TRAIN_T = 2, 32  # SL_LEARNER_DEFAULTS: 64 frames a step
 TRAIN_ITERS = 8
@@ -1976,6 +2048,24 @@ STRINGS = {"pallas": ("pallas", "pallas"), "pallas_onehot": ("pallas_onehot", "p
 def overlay(scatter_impl, attn_impl, dtype="float32"):
     return {"encoder": {"entity": {"attention_impl": attn_impl}, "scatter": {"impl": scatter_impl}},
             "dtype": dtype}
+
+
+# fewer layers at the flagship's widths, for processes that check plumbing
+# (roles as processes, SIGTERM exits, restarts) and quote no flagship figure
+SHALLOW_LAYERS = 1  # entity transformer layers: one attention launch a forward
+
+
+def shallow(scatter_impl, attn_impl):
+    """``overlay`` on the flagship cut to one layer of every stack: the
+    entity transformer, the spatial encoder's and heads' residual blocks,
+    the core LSTM and the value towers."""
+    cfg = overlay(scatter_impl, attn_impl)
+    cfg["encoder"]["entity"]["layer_num"] = SHALLOW_LAYERS
+    cfg["encoder"]["spatial"] = {"resblock_num": 1}
+    cfg["encoder"]["core_lstm"] = {"num_layers": 1}
+    cfg["policy"] = {"action_type_head": {"res_num": 1}, "location_head": {"res_num": 1}}
+    cfg["value"] = {"res_num": 1}
+    return cfg
 
 
 def rel_err(got, want):
@@ -2297,8 +2387,9 @@ def write_dataset(root, n, rng):
 
 
 def sl_train_process(tmp, name, device, save, data, iters, config, extra=()):
-    """``python -m distar_tpu_torch.bin.sl_train`` at the flagship on
-    ``data``, its output (standard error too) in ``<tmp>/<name>.log``."""
+    """``python -m distar_tpu_torch.bin.sl_train --full-model`` on ``data``
+    (the model block of ``config`` over the flagship), its output
+    (standard error too) in ``<tmp>/<name>.log``."""
     log_path = os.path.join(tmp, f"{name}.log")
     with open(log_path, "w") as log:
         proc = subprocess.Popen(
@@ -2377,7 +2468,7 @@ def runtime_processes(tmp, device, smi, root, train_ds, eval_ds, layers):
     out = {}
     # 2. the bin as a process: 8 steps, a checkpoint every 4, EVAL every 4
     save = os.path.join(root, "run")
-    cfg = {"model": overlay("pallas_onehot", "pallas"),
+    cfg = {"model": shallow("pallas_onehot", "pallas"),
            "learner": {"save_freq": RT_SAVE_FREQ, "log_freq": 1}}
     eval_flags = ("--eval-data", eval_ds.root, "--eval-freq", str(RT_EVAL_FREQ), "--eval-batches", "1")
     t0 = time.perf_counter()
@@ -2399,7 +2490,8 @@ def runtime_processes(tmp, device, smi, root, train_ds, eval_ds, layers):
     check(p_launches == want, f"bin/sl_train.py launches {p_launches}, want {want}")
     out["process"] = {"seconds": run_s, "losses": [lg["total_loss"] for lg in logs], "evals": evals,
                       "generations": steps, "launches": p_launches}
-    print(f"sl_runtime process ({smi}): {RT_ITERS} steps in {run_s:.1f} s, exit 0, total_loss "
+    print(f"sl_runtime process ({smi}, the flagship's widths at depth {layers}): {RT_ITERS} steps in "
+          f"{run_s:.1f} s, exit 0, total_loss "
           + " ".join(f"{lg['total_loss']:.2f}" for lg in logs) + f"; EVAL at {[e['iter'] for e in evals]} "
           f"total_loss {[round(e['total_loss'], 3) for e in evals]}; pointer {steps}; launches {p_launches}")
 
@@ -2448,7 +2540,8 @@ def runtime_processes(tmp, device, smi, root, train_ds, eval_ds, layers):
 
 def phase_sl_runtime(device, rng, smi, tmp):
     """The SL learner runtime on the card (module docstring, phase 8).
-    Returns the launch counts of its paths and the measurements."""
+    Returns a function that joins the phase's processes and returns the
+    launch counts of its paths and the measurements."""
     import itertools
     import threading
 
@@ -2507,7 +2600,7 @@ def phase_sl_runtime(device, rng, smi, tmp):
 
     def processes():
         try:
-            chain.update(runtime_processes(tmp, device, smi, root, train_ds, eval_ds, layers))
+            chain.update(runtime_processes(tmp, device, smi, root, train_ds, eval_ds, SHALLOW_LAYERS))
         except BaseException as e:  # noqa: BLE001 - raised on this thread after the join
             chain["error"] = e
 
@@ -2689,12 +2782,6 @@ def phase_sl_runtime(device, rng, smi, tmp):
           f"{report['total_device_us'] / 1e3:.2f} device ms")
 
     laps("saves and admin")
-    worker.join()
-    laps("processes wait")
-    if "error" in chain:
-        raise chain["error"]
-    p_launches = chain.pop("launches")
-    out.update(chain)
     # 7. the held-out evaluation
     before = dict(K.launch_counts)
     torch.cuda.synchronize()
@@ -2710,20 +2797,34 @@ def phase_sl_runtime(device, rng, smi, tmp):
     out["evaluate"] = {"ms_per_batch": eval_ms, "total_loss": metrics["total_loss"], "launches": eval_launches}
     print(f"sl_runtime evaluate ({smi}): {eval_ms:.1f} ms a batch, total_loss {metrics['total_loss']:.3f}, "
           f"launches {eval_launches}")
-
-    shutil.rmtree(root, ignore_errors=True)
     in_process = dict(K.launch_counts)
-    launches = {k: resume_launches[k] + in_process[k] + p_launches[k] for k in in_process}
-    for name, n in launches.items():
-        check(n > 0, f"{name} never launched on the SL runtime path")
-    out["launches"] = launches
     laps("evaluate")
-    out["seconds"], out["laps"] = time.perf_counter() - t_phase, laps
-    print(f"sl_runtime seconds by part: {json.dumps(laps)}")
-    print(f"sl_runtime: {out['seconds']:.1f} s, launches (the process {p_launches}, resume "
-          f"{resume_launches}, prefetch, admin and evaluate {in_process})")
-    print(json.dumps({"sl_runtime": out}))
-    return launches, out
+    out["seconds"] = time.perf_counter() - t_phase
+
+    def finish():
+        """2-3's processes joined: they run on beside the work after this
+        phase that times nothing (the rl phase's gaps). Returns the phase's
+        launch counts and measurements."""
+        t0 = time.perf_counter()
+        worker.join()
+        out["processes_wait_s"] = time.perf_counter() - t0
+        if "error" in chain:
+            raise chain["error"]
+        p_launches = chain.pop("launches")
+        out.update(chain)
+        shutil.rmtree(root, ignore_errors=True)
+        launches = {k: resume_launches[k] + in_process[k] + p_launches[k] for k in in_process}
+        for name, n in launches.items():
+            check(n > 0, f"{name} never launched on the SL runtime path")
+        out["launches"], out["laps"] = launches, laps
+        print(f"sl_runtime seconds by part: {json.dumps(laps)}; the processes waited on "
+              f"{out['processes_wait_s']:.1f} s after the phase")
+        print(f"sl_runtime: {out['seconds']:.1f} s, launches (the process {p_launches}, resume "
+              f"{resume_launches}, prefetch, admin and evaluate {in_process})")
+        print(json.dumps({"sl_runtime": out}))
+        return launches, out
+
+    return finish
 
 
 def array_leaves(tree):
@@ -2961,6 +3062,32 @@ def set_string(model, scatter, attn):
     for m in model.encoder.entity_encoder.modules():
         if isinstance(m, Attention):
             m.impl = attn
+
+
+class OneLearner(dict):
+    """One built learner as a learner per config string: looked up under a
+    string (or read by ``items()``), it is switched to that string first
+    (``set_string``), and with ``fresh`` its parameters and Adam state put
+    back as they were built (``learner_restore``). For checks that run the
+    strings one after another on the same weights (``hold_strings``, and
+    with ``fresh`` ``steps_agree``): one flagship build in place of three."""
+
+    def __init__(self, lrn, fresh=False):
+        super().__init__({impl: lrn for impl in STRINGS})
+        self._built = learner_snapshot(lrn) if fresh else None
+
+    def __getitem__(self, impl):
+        lrn = super().__getitem__(impl)
+        if self._built is not None:
+            learner_restore(lrn, self._built)
+        set_string(lrn.model, *STRINGS[impl])
+        return lrn
+
+    def items(self):
+        return ((impl, self[impl]) for impl in self)
+
+    def values(self):
+        return (self[impl] for impl in self)
 
 
 def tapped_loss(loss_fn, lrn, batch):
@@ -3748,9 +3875,12 @@ def phase_diagnostics(device, smi, learners, batch, ref, first_logs):
     return out
 
 
-def phase_rl(device, smi, rng):
+def phase_rl(device, smi, rng, beside=None):
     """The RL and distillation learners on the card (module docstring,
-    phase 9). Returns the launch counts of their paths and the measurements."""
+    phase 9). ``beside``: called once the gaps and the strings (its first
+    parts, which time nothing) are done, to join work that ran beside them,
+    before anything is timed. Returns the launch counts of their paths and
+    the measurements."""
     import numpy as np
     import torch
 
@@ -3762,15 +3892,6 @@ def phase_rl(device, smi, rng):
     # one fixed batch of random in-range observations, 68 observed frames
     laps = Laps()
     batch = random_rl_batch(RL_B, RL_T, rng)
-    entity_num = batch["entity_num"].reshape(-1)
-    inputs, rl_err = train_kernel_grads(K, rng, device, entity_num)
-    rl_kernel_ms = train_kernel_times(K, inputs, "rl")
-    del inputs
-    inputs, student_err = train_kernel_grads(K, rng, device, entity_num, Dh=64, D=16)
-    student_kernel_ms = train_kernel_times(K, inputs, "student")
-    del inputs
-    laps("kernels")
-
     rl_fn = lambda lrn, tb: rl_loss(lrn.model, lrn.loss_cfg, tb, RL_B, RL_T)  # noqa: E731
     zero_obs = next(FakeRLDataloader(RL_B, RL_T))
     # the gap on this phase's batch and on a second seeded apart, both held
@@ -3796,6 +3917,18 @@ def phase_rl(device, smi, rng):
     gated = gated_step(device, batch)
     launches = dict(K.launch_counts)  # the strings' steps and the gated step
     laps("strings")
+    if beside is not None:
+        beside()
+        laps("earlier work's wait")
+
+    entity_num = batch["entity_num"].reshape(-1)
+    inputs, rl_err = train_kernel_grads(K, rng, device, entity_num)
+    rl_kernel_ms = train_kernel_times(K, inputs, "rl")
+    del inputs
+    inputs, student_err = train_kernel_grads(K, rng, device, entity_num, Dh=64, D=16)
+    student_kernel_ms = train_kernel_times(K, inputs, "student")
+    del inputs
+    laps("kernels")
 
     lrn = rl_learner(device, log_freq=1)
     losses, rl_launches = entry_point(K, lrn, RL_ITERS, "rl entry point (RLLearner.run, flagship)")
@@ -3930,6 +4063,171 @@ class Background:
         if "error" in self._out:
             raise self._out["error"]
         return self._out["value"]
+
+
+SPAWNED = []  # every Spawned job started, killed if the script fails
+
+
+def adopt_orphans():
+    """Makes this process the child subreaper of everything it starts
+    (Linux ``prctl(PR_SET_CHILD_SUBREAPER)``): a process whose parent ends
+    before it, such as a ``Spawned`` job's own children, becomes a child
+    of this one, where ``stop_descendants`` finds it. Returns whether the
+    kernel took the setting."""
+    import ctypes
+
+    try:
+        return ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0) == 0
+    except (OSError, AttributeError):
+        return False
+
+
+def descendants(root):
+    """{pid: (ppid, state, command line)} of every process below ``root``,
+    read from /proc."""
+    table = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except OSError:  # ended while the table was read
+            continue
+        state, ppid = stat[stat.rindex(")") + 2:].split()[:2]  # the name may hold ") "
+        table[int(entry)] = (int(ppid), state, cmd)
+    below, parents = {}, {root}
+    while parents:
+        parents = {pid for pid, (ppid, _, _) in table.items() if ppid in parents and pid not in below}
+        below.update({pid: table[pid] for pid in parents})
+    return below
+
+
+def stop_descendants(keep=(), timeout_s=60.0):
+    """SIGKILLs every process still running below this one but ``keep``,
+    and reaps those that are its children (all of them, once
+    ``adopt_orphans`` took). Returns {pid: command line} of the processes
+    it found running; the ended ones it only reaps."""
+    import signal
+
+    found, deadline = {}, time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        below = {pid: v for pid, v in descendants(os.getpid()).items() if pid not in keep}
+        if not below:
+            break
+        live = {pid: cmd for pid, (_, state, cmd) in below.items() if state not in "ZX"}
+        found.update(live)
+        for pid in live:
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, signal.SIGKILL)
+        children = [pid for pid, (ppid, _, _) in below.items() if ppid == os.getpid()]
+        for pid in children:
+            with contextlib.suppress(ChildProcessError):
+                os.waitpid(pid, 0)
+        if not children:  # killed grandchildren are adopted once their parents end
+            time.sleep(0.05)
+    return found
+
+
+def stop_resource_tracker():
+    """Ends multiprocessing's resource tracker, which the spawned jobs and
+    the shared-memory rings share, and waits for it: it unlinks what the
+    jobs left registered and exits once no process holds its pipe."""
+    from multiprocessing import resource_tracker
+
+    stop = getattr(resource_tracker._resource_tracker, "_stop", None)
+    if stop is not None:
+        stop()
+
+
+def _spawned_main(fn, args, path, log=None):
+    """A ``Spawned`` job's process: ``fn(*args)``'s value, or the text of
+    what it raised, pickled to ``path``; then the process ends at once,
+    without waiting on threads the entry points left behind (their
+    metric writers' queues close under them at an ordinary exit). With
+    ``log``, its output (and its own processes') goes to that file."""
+    import pickle
+    import traceback
+
+    if log is not None:
+        fd = os.open(log, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+        os.dup2(fd, 1)
+        os.dup2(fd, 2)
+        os.close(fd)
+    try:
+        out = {"value": fn(*args)}
+    except BaseException as e:  # noqa: BLE001 - handed to the parent
+        out = {"error": f"{type(e).__name__}: {e}", "traceback": traceback.format_exc()}
+    left = stop_descendants()  # the exit below would leave them running
+    if left:
+        print(f"{fn.__name__}: processes left running, stopped: {json.dumps(left)}", file=sys.stderr)
+    with open(path, "wb") as f:
+        pickle.dump(out, f)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+class Spawned:
+    """``fn(*args)`` (a function of this module, arguments that pickle) in a
+    spawned process of its own, for in-process entry points that run beside
+    the phases: on a thread they would hold this process's interpreter lock
+    against the phase's own host-bound steps. ``start()``; ``result()``
+    waits and returns what ``fn`` returned, or raises what it raised (its
+    traceback printed). With ``log``, the process writes its output to a
+    file of its own, which ``result()`` prints whole: its lines do not
+    interleave with this process's."""
+
+    def __init__(self, fn, *args, tmp, timeout_s=900.0, log=False):
+        self._fn, self._args, self._timeout_s = fn, args, timeout_s
+        self._path = os.path.join(tmp, f"spawned_{fn.__name__}_{id(self)}.pkl")
+        self._log = os.path.join(tmp, f"spawned_{fn.__name__}_{id(self)}.log") if log else None
+        self._proc = None
+
+    @property
+    def started(self):
+        return self._proc is not None
+
+    def start(self):
+        import multiprocessing
+
+        self._proc = multiprocessing.get_context("spawn").Process(
+            target=_spawned_main, args=(self._fn, self._args, self._path, self._log), name=self._fn.__name__)
+        self._proc.start()
+        SPAWNED.append(self)
+        return self
+
+    def kill(self):
+        """Ends the process if it still runs (the script's failure path),
+        and prints the end of its output file."""
+        if self._proc is not None and self._proc.is_alive():
+            self._proc.kill()
+            self._proc.join()
+            if self._log is not None and os.path.exists(self._log):
+                with open(self._log) as f:
+                    print(f"{self._fn.__name__}, killed; its output ended:\n{f.read()[-20000:]}", file=sys.stderr)
+
+    def result(self):
+        import pickle
+
+        self._proc.join(self._timeout_s)
+        if self._proc.is_alive():
+            self.kill()
+            raise SmokeFailure(f"{self._fn.__name__}: still running after {self._timeout_s:.0f} s")
+        if self._log is not None and os.path.exists(self._log):
+            with open(self._log) as f:
+                sys.stdout.write(f.read())
+            sys.stdout.flush()
+        if not os.path.exists(self._path):
+            raise SmokeFailure(f"{self._fn.__name__}: its process exited {self._proc.exitcode} with no result")
+        with open(self._path, "rb") as f:
+            out = pickle.load(f)
+        if "error" in out:
+            print(out["traceback"], file=sys.stderr)
+            raise SmokeFailure(f"{self._fn.__name__} (its own process): {out['error']}")
+        return out["value"]
 
 
 class ThreadCounts(dict):
@@ -4103,7 +4401,7 @@ def loop_processes(tmp, smi, device):
     and a registry snapshot) under their save paths' ``flight/``."""
     import signal
 
-    cfg = json.dumps({"model": overlay("pallas", "pallas"), "league": LOOP_LEAGUE})
+    cfg = json.dumps({"model": shallow("pallas", "pallas"), "league": LOOP_LEAGUE})
     procs, out = {}, {}
     dev = ("--device", device.type)
 
@@ -4170,20 +4468,18 @@ def loop_processes(tmp, smi, device):
                 proc.wait()
     out["seconds"] = time.perf_counter() - t0
     print(f"rl loop processes ({smi}): coordinator, league, learner ({LOOP_PROCESS_ITERS} steps of "
-          f"{RL_B} x {LOOP_PROCESS_T}, exit 0) and actor (SIGTERM, exit 0, no traceback in its log), fleet health "
+          f"{RL_B} x {LOOP_PROCESS_T}, the flagship's widths at depth {SHALLOW_LAYERS}, exit 0) and actor (SIGTERM, exit 0, no traceback in its log), fleet health "
           f"on (the coordinator's /healthz ok with both sources fresh, the learner's iterations rising, nothing "
           f"firing, a trajectory's waterfall from the actor's push to the learner's collate; bundles from the "
           f"coordinator and the actor): {json.dumps(out)}")
     return out
 
 
-def phase_rl_loop(device, smi, tmp, untimed=(), processes=()):
+def phase_rl_loop(device, smi, tmp, roles):
     """The league-RL loop at the flagship (module docstring, phase 10).
-    ``untimed`` and ``processes``: ``Background`` jobs of later phases
-    started when the loop's timed part has ended; ``processes`` launch no
-    kernel in this process and start first, ``untimed`` once the drill's
-    counts are read. Returns the launch counts of its path (the actor's and
-    the learner's) and the measurements."""
+    ``roles``: what ``loop_processes`` returned (e., run beside the rl
+    phase). Returns the launch counts of its path (the actor's and the
+    learner's) and the measurements."""
     import threading
 
     import numpy as np
@@ -4403,34 +4699,18 @@ def phase_rl_loop(device, smi, tmp, untimed=(), processes=()):
                   "flush_ms": {"alone_median": statistics.median(flushes["alone"][2:] or flushes["alone"])}})
     del learner, loop, snapshots
 
-    # e. the roles as processes, on a thread while d. (which times nothing)
-    # runs; so do ``processes`` and ``untimed``, work of later phases that
-    # times nothing
-    runner = Background(lambda: loop_processes(tmp, smi, device)).start()
-    for job in processes:
-        job.start()
-    # the drill's actor ends its last job beside the processes' start; its
-    # counts are read before ``untimed``, whose threads launch kernels here
     health_launches, health = finish_health()
     del finish_health
     laps("drill")
-    for job in untimed:
-        job.start()
-    try:
-        # d. the loop's flush and step held against the 'xla' strings
-        check("flush" in captured, "rl loop: no flush captured")
-        flush_err = flush_against_xla(device, captured.pop("flush"))
-        learners = {impl: rl_learner(device, impl) for impl in STRINGS}
-        strings = hold_strings("rl loop: the RL loss on an actor-made batch", learners, held, rl_fn,
-                               hold_gradient=False)
-        del learners
-        strings["probe"] = hold_loop_batch(device, held, rl_fn, strings["strings"])
-        laps("hold against xla")
-    finally:
-        processes = runner.result()
-        laps("processes wait")
-    print(f"rl loop seconds by part (the processes {processes.get('seconds', 0):.1f} s on a thread): "
-          f"{json.dumps(laps)}")
+    # d. the loop's flush and step held against the 'xla' strings
+    check("flush" in captured, "rl loop: no flush captured")
+    flush_err = flush_against_xla(device, captured.pop("flush"))
+    strings = hold_strings("rl loop: the RL loss on an actor-made batch", OneLearner(rl_learner(device)), held,
+                           rl_fn, hold_gradient=False)
+    strings["probe"] = hold_loop_batch(device, held, rl_fn, strings["strings"])
+    laps("hold against xla")
+    print(f"rl loop seconds by part (e., the roles as processes, {roles.get('seconds', 0):.1f} s beside the "
+          f"rl phase): {json.dumps(laps)}")
 
     flush_alone = flushes["alone"][2:] or flushes["alone"]
     result = {
@@ -4456,7 +4736,7 @@ def phase_rl_loop(device, smi, tmp, untimed=(), processes=()):
         "league": {"games": mp0.total_game_count, "elo": elo, "train_steps": mp0.total_agent_step},
         "launches": launches, "actor_job_alone_launches": actor_alone,
         "flush_vs_xla_worst_logp": flush_err, "strings": strings["strings"],
-        "strings_probe": strings["probe"], "processes": processes,
+        "strings_probe": strings["probe"], "processes": roles,
         "health": health, "health_launches": health_launches, "laps": laps,
     }
     print(f"rl loop ({smi}): " + json.dumps({k: v for k, v in result.items()
@@ -5160,8 +5440,9 @@ def replay_small_runs(device, tmp):
     """``bin/rl_train.py --type all --replay`` on the smoke model in the two
     other layouts: ``--replay-shards 2`` (each shard takes inserts, their
     sum the actor's acknowledged pushes) and ``--replay-fast-path`` (no
-    server; the same count). Runs on a thread beside other work, so it
-    reads what the runs return, not what they print."""
+    server; the same count). Runs beside other work, in a process of its
+    own in the whole script, so it reads what the runs return, not what
+    they print."""
     from distar_tpu_torch.bin import rl_train
 
     out = {}
@@ -5200,8 +5481,8 @@ def remote_sl_and_play(device, tmp):
     """``bin/sl_train.py --remote`` on a coordinator that an in-script
     ``ReplayActor`` feeds through a stub decoder (SL steps of
     ``fake_sl_batch``, 16 a trajectory), REMOTE_SL_ITERS steps of 2 x 8;
-    then ``bin/play.py --game_type mock`` for PLAY_GAMES games. Runs on a
-    thread beside other work, so it reads what the entry points return."""
+    then ``bin/play.py --game_type mock`` for PLAY_GAMES games. Runs beside
+    other work, so it reads what the entry points return."""
     import numpy as np
 
     from distar_tpu_torch.bin import play, sl_train
@@ -5307,9 +5588,9 @@ def replay_smoke_runs(device, tmp):
 def phase_replay(device, smi, tmp, rl_loop, background=None):
     """The replay store between actors and learner (module docstring,
     phase 11). ``background``: its ``replay_processes`` and
-    ``replay_smoke_runs`` as ``Background`` jobs, started during phase 10's
-    untimed part (``main``), else started here; either way they end before
-    this phase's loop, which they would disturb. Returns the launch counts
+    ``replay_smoke_runs`` as ``Background`` and ``Spawned`` jobs, started
+    beside phase 9's first parts (``main``), else started here; either way
+    they end before this phase's loop, which they would disturb. Returns the launch counts
     of its flagship loop (actor and learner) and the measurements."""
     import shutil
     import threading
@@ -5327,7 +5608,7 @@ def phase_replay(device, smi, tmp, rl_loop, background=None):
 
     t_phase = time.perf_counter()
     jobs = background or [Background(lambda: replay_processes(tmp, smi, device)),
-                          Background(lambda: replay_smoke_runs(device, tmp))]
+                          Spawned(replay_smoke_runs, device, tmp, tmp=tmp)]
     for job in jobs:
         if not job.started:
             job.start()
@@ -5499,9 +5780,8 @@ def phase_replay(device, smi, tmp, rl_loop, background=None):
     errs = path_kernels_against_plain(K, captured)
     del captured
     recovered, recover_s = replay_recovery(args, store, spill_dir, mp)
-    learners = {impl: rl_learner(device, impl) for impl in STRINGS}
-    logs = steps_agree("replay: one RL step on a store-sampled batch", learners, held)
-    del learners
+    logs = steps_agree("replay: one RL step on a store-sampled batch", OneLearner(rl_learner(device), fresh=True),
+                       held)
 
     wait = above["it"].wait_ms
     result = {
@@ -5549,8 +5829,9 @@ JAXENV_ITERS = 2  # --type all --env jaxenv on the smoke model
 def jaxenv_smoke_run(device, tmp):
     """``bin/rl_train.py --type all --env jaxenv`` on the smoke model: the
     actor on the micro-battle world's host env (on the card), the learner
-    on its trajectories, JAXENV_ITERS iterations. Runs on a thread beside
-    other work, so it reads what the run returns, not what it prints."""
+    on its trajectories, JAXENV_ITERS iterations. Runs beside other work,
+    in a process of its own in the whole script, so it reads what the run
+    returns, not what it prints."""
     from distar_tpu_torch.bin import rl_train
 
     t0 = time.perf_counter()
@@ -5579,11 +5860,10 @@ def flat_shapes(tree, prefix=""):
     return {k: v for key, sub in items for k, v in flat_shapes(sub, f"{prefix}/{key}").items()}
 
 
-def phase_anakin(device, smi, tmp, rl_loop, jaxenv_run):
+def phase_anakin(device, smi, tmp):
     """The Anakin loop at the flagship (module docstring, phase 12).
-    ``jaxenv_run``: what ``jaxenv_smoke_run`` returned (started during phase
-    10's untimed part). Returns the launch counts of its path (the windows'
-    and the learner steps') and the measurements."""
+    Returns the launch counts of its path (the windows' and the learner
+    steps') and the measurements."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -5779,15 +6059,14 @@ def phase_anakin(device, smi, tmp, rl_loop, jaxenv_run):
         "first_window_purity": first, "window_s": window_s,
         "env_steps_per_s": [ANAKIN_B * ANAKIN_T / s for s in window_s],
         "step_ms_in_window": [s * 1e3 / ANAKIN_T for s in window_s],
-        "forward_ms_alone": {"median": statistics.median(fwd_ms), "all": fwd_ms, "lanes": ANAKIN_B,
-                             "rl_loop_flush_alone_median": rl_loop["flush_ms"]["alone_median"]},
+        "forward_ms_alone": {"median": statistics.median(fwd_ms), "all": fwd_ms, "lanes": ANAKIN_B},
         "learner_step_ms": {"loop": step_ms, "median": statistics.median(step_ms)},
         "steady_window": window_profile, "step_profile_idle_share": step_profile.get("idle_share"),
         "peak_memory_gb": peak_gb, "losses": [lg["total_loss"] for _, lg, _ in steps],
         "launches": {"run": launches, "per_window": want_window, "per_learner_step": want_step},
         "kernel_max_abs_err": errs, "away_seat": {"seconds": opp_s, "results": len(results), "winners": tally},
         "parts_s": t_sub,
-        "head_to_head": h2h, "jaxenv_all": jaxenv_run,
+        "head_to_head": h2h,
     }
     print(f"anakin ({smi}): " + json.dumps({k: v for k, v in result.items() if k != "steady_window"}))
     print(f"anakin: a steady-state window under sync debug mode 'error' and the profiler ({smi}): "
@@ -6115,7 +6394,7 @@ def arena_processes(tmp, save, device, coordinator):
 def league_processes(tmp, device):
     """a. and b. of the league phase: the economy and the arena as
     processes (b.'s coordinator starting while a. runs). In the whole
-    script they run on a thread during rl_loop's untimed part. Returns (a.'s
+    script they run on a thread from the start of phases 12-14. Returns (a.'s
     numbers, b.'s, a.'s save path)."""
     import torch
 
@@ -6538,6 +6817,7 @@ def mesh_rank(rank, tmp, batch_path):
     import torch.distributed as dist
 
     from distar_tpu_torch.learner import RLLearner
+    from distar_tpu_torch.obs.perf import to_meta
     from distar_tpu_torch.ops import kernels as K
     from distar_tpu_torch.parallel import MeshSpec, make_mesh, set_context_mesh
     from distar_tpu_torch.parallel.spmd import param_shards
@@ -6568,6 +6848,8 @@ def mesh_rank(rank, tmp, batch_path):
         run = {"logs": [], "params": [],
                "start": [t.float().to("cpu", copy=True).numpy() for t in shards.whole(lrn.optimizer.params)]}
         rec = {"launches": [], "ms": [], "between_mb": [], "peak_mb": []}
+        seen = []  # the batch each step hands the perf monitor's flop count, as meta tensors (no card bytes)
+        lrn._perf_note_step = lambda b: seen.append(to_meta(b))
         first.clear()
         for _ in range(2):
             heads.clear()
@@ -6592,6 +6874,15 @@ def mesh_rank(rank, tmp, batch_path):
             err = float((real(q, k, v, mask) - want).abs().max())
         rec["attention_check"] = {"shape": list(q.shape), "max_abs_err": err, "max_abs_plain": float(want.abs().max())}
         del want
+        if name in ("single", "dp=1,tp=2"):
+            # the perf monitor's count of this rank's step (after the timed
+            # steps: its thread would share their host), and its gauges read
+            # at the second step's time
+            lrn._perf.note_step(lrn._flop_counter(seen[0]))
+            lrn._perf.analysis.join()
+            lrn._perf.on_step(rec["ms"][1] / 1e3, RL_B * RL_T)
+            rec["perf"] = {k: lrn._perf.last.get(k) for k in ("implied_tflops", "mfu")}
+            rec["perf"]["flops_per_step"] = lrn._perf.flops_per_step
         del q, k, v, mask
         opt = lrn.optimizer
         rec["block_numel"] = {k: sum(t.numel() for t in v) for k, v in
@@ -6854,6 +7145,9 @@ def phase_parallel(device, smi, tmp, batch, executor_job=None, mesh_job=None):
                   f"(over gloo, which stages CUDA collectives through the host: no speed figure)")
         print(f"parallel g: gloo collectives on CUDA tensors, each rank: {[rk['gloo_cuda'] for rk in ranks]}; "
               f"ops without a deterministic version: {ranks[0]['nondeterministic_ops']}")
+        print(f"parallel g ({smi}): the perf monitor's flops_per_step, implied TFLOP/s and MFU of each rank's own "
+              f"step, at its second step's time (gloo-staged: no speed figure), per rank: "
+              + "; ".join(f"{name} {[rk[name]['perf'] for rk in ranks]}" for name in ("single", "dp=1,tp=2")))
         print(f"parallel g: off the single-process steps (rank 0's unmeshed learner; 'repeat' is rank 1's) "
               f"in shares of the tests' tolerances (scalars {G_SCALAR_RTOL:g} of max(1, |v|), each step's "
               f"parameters {G_UPDATE_RTOL:g} of its norm, the moments {G_MOMENT_RTOL:g}): {json.dumps(off)}; "
@@ -6878,6 +7172,12 @@ def phase_parallel(device, smi, tmp, batch, executor_job=None, mesh_job=None):
                 check(n["params"] == n["mu"] == n["nu"] and (n["params"] == rec["whole_numel"] if whole else
                                                              n["params"] * 2 <= rec["whole_numel"] + 10 ** 6),
                       f"parallel g {name} rank {r}: blocks {n} of {rec['whole_numel']}")
+        # a tp rank counts its own step: its split products and half the heads, under the whole step's
+        single_flops = ranks[0]["single"]["perf"]["flops_per_step"]
+        for r, rk in enumerate(ranks):
+            tp_flops = rk["dp=1,tp=2"]["perf"]["flops_per_step"]
+            check(0 < tp_flops < single_flops and rk["single"]["perf"]["flops_per_step"] == single_flops,
+                  f"parallel g tp=2 rank {r}: flops_per_step {tp_flops}, the single-process step's {single_flops}")
         # every meshed run against the single-process step, and fsdp=2 against dp=2, at fixed bounds
         for name, bound in (("dp=2", G_BOUND), ("dp=1,fsdp=2", G_BOUND), ("dp=1,tp=2", G_BOUND),
                             ("dp=1,fsdp=2 against dp=2", G_BOUND_DP)):
@@ -7371,6 +7671,72 @@ def phase_sc2(device, smi, tmp, processes=None):
     return total, out
 
 
+# ----------------------------------------- phases 12-14, beside 10, 11 and 15
+def release_card_cache():
+    """What the finished phases left on the card freed: unreachable learners
+    (their reference cycles) and the caching allocator's unused blocks,
+    which another process on the card could not use otherwise."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phases_beside(device, smi, tmp, batch):
+    """Phases 12-14 (the Anakin loop, the league economy, ``parallel/`` on
+    the rl phase's ``batch``) and the processes they read, in a process of
+    their own (``Spawned``) beside phases 10, 11 and 15, whose loops wait
+    on their actors and leave the card idle most of the time: ``--type all
+    --env jaxenv`` and the league's processes from its start, the parallel
+    phase's executor processes and gloo ranks once the league's are done.
+    Each phase reads its launch counts from zero in this process, as it
+    would in the script's own. Returns ``{phase: (launches,
+    measurements)}`` and the seconds of each."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the learners' default experiment directories apart from phases 10-11's
+    os.environ["DISTAR_EXPERIMENTS_ROOT"] = os.path.join(tmp, "experiments_beside")
+    out, phase_s, last = {}, {}, [time.perf_counter()]
+
+    def mark(name):
+        now = time.perf_counter()
+        phase_s[name] = round(now - last[0], 1)
+        last[0] = now
+
+    jaxenv_job = Spawned(jaxenv_smoke_run, device, tmp, tmp=tmp).start()
+    league_job = Background(lambda: league_processes(tmp, device)).start()
+
+    # 12. the Anakin loop: the micro-battle world and the flagship on the card
+    out["anakin"] = phase_anakin(device, smi, tmp)
+    release_card_cache()
+    mark("anakin")
+    out["anakin"][1]["jaxenv_all"] = jaxenv_job.result()
+    mark("jaxenv wait")
+
+    # 13. the league economy: league-run and the arena as processes, a
+    # league learner and an arena batch in process. The parallel phase's
+    # processes start after the league's: the arena's failover is timed
+    # against a bound, and their start-up would load the host beside it
+    procs = league_job.result()
+    mark("league processes wait")
+    executor_job = Background(lambda: executor_processes(tmp, device)).start()
+    mesh_job = Background(lambda: mesh_rank_processes(tmp, batch)).start()
+    out["league"] = phase_league(device, smi, tmp, out["anakin"][1], procs)
+    release_card_cache()
+    mark("league")
+
+    # 14. parallel/: a world of one on the rl phase's batch, its executor
+    # processes and two gloo ranks on the card beside it
+    out["parallel"] = phase_parallel(device, smi, tmp, batch, executor_job, mesh_job)
+    mark("parallel")
+    out["phase_s"] = phase_s
+    return out
+
+
 def smi_line():
     try:
         return subprocess.run(
@@ -7405,6 +7771,8 @@ def main(argv=None) -> int:
         print(f"chip_smoke: FAIL: the port package is not beside this script ({e})", file=sys.stderr)
         return 2
 
+    # whatever a phase's processes leave behind is this process's to stop
+    adopted = adopt_orphans()
     t_start = time.perf_counter()
     phase_s, last = {}, [t_start]
 
@@ -7527,48 +7895,59 @@ def main(argv=None) -> int:
 
         mark("serve")
 
-        # 5. the serving process
-        # a generator of its own, so the phases after it draw what they drew
-        # before it was added
-        process_launches, process = phase_serve_process(device, np.random.default_rng(5), smi, tmp)
-
-        mark("serve_process")
-
-        # 6. the serving fleet, on the checkpoints phase 5 wrote
-        fleet_launches, fleet = phase_serve_fleet(device, np.random.default_rng(6), smi,
-                                                  *process["checkpoints"])
-
-        mark("serve_fleet")
-
         # 7. train
         train_launches, train = phase_train(device, rng)
         mark("train")
 
+        # 5-6. the serving process and fleet, in a process of their own
+        # (``serve_phases``) beside phase 8 and phase 9's first parts
+        release_card_cache()  # the card is shared from here on
+        serving = Spawned(serve_phases, device, smi, tmp, tmp=tmp, log=True).start()
+
         # 8. the SL learner runtime, on a generator of its own
-        runtime_launches, runtime = phase_sl_runtime(device, np.random.default_rng(8), smi, tmp)
+        finish_runtime = phase_sl_runtime(device, np.random.default_rng(8), smi, tmp)
+        release_card_cache()
         mark("sl_runtime")
 
-        # 9. RL and distillation
-        rl_launches, rl = phase_rl(device, smi, rng)
+        # 9. RL and distillation. Beside its first parts, which time nothing
+        # (the gaps and the strings), phases 5 and 6 and the SL runtime's
+        # processes run on, and the rl loop's roles as processes and the
+        # replay phase's runs on the smoke model (its roles as processes;
+        # the other layouts, sl_train --remote and play.py in a process of
+        # their own) run; all of them are joined before it times anything
+        loop_roles = Background(lambda: loop_processes(tmp, smi, device)).start()
+        replay_jobs = [Background(lambda: replay_processes(tmp, smi, device)).start(),
+                       Spawned(replay_smoke_runs, device, tmp, tmp=tmp).start()]
+        beside = {}
+
+        def join_beside():
+            t0 = time.perf_counter()
+            print("phases 5 and 6, in a process of their own beside the rl phase's first parts:")
+            beside["serving"] = serving.result()
+            beside["runtime"] = finish_runtime()
+            beside["roles"] = loop_roles.result()
+            for job in replay_jobs:  # read again by the replay phase
+                job.result()
+            phase_s["processes wait (in rl)"] = round(time.perf_counter() - t0, 1)
+
+        rl_launches, rl = phase_rl(device, smi, rng, beside=join_beside)
+        runtime_launches, runtime = beside["runtime"]
+        process_launches, process = beside["serving"]["serve_process"]
+        fleet_launches, fleet = beside["serving"]["serve_fleet"]
         mark("rl")
+        phase_s.update({f"{name} (beside rl)": sec for name, sec in beside["serving"]["phase_s"].items()})
         for name, sec in rl["diagnostics"]["seconds"].items():
             phase_s[f"{name} (in rl)"] = round(sec, 1)
 
-        # 10. the league-RL loop; the replay phase's runs on the smoke model
-        # (its roles as processes, the other layouts, sl_train --remote and
-        # play.py) run during its untimed part
-        replay_jobs = [Background(lambda: replay_processes(tmp, smi, device)),
-                       Background(lambda: replay_smoke_runs(device, tmp))]
-        # and the anakin phase's --type all --env jaxenv run on the smoke
-        # model, and the league phase's processes (league-run, the arena)
-        jaxenv_job = Background(lambda: jaxenv_smoke_run(device, tmp))
-        league_job = Background(lambda: league_processes(tmp, device))
-        # and the parallel phase's executor processes
-        executor_job = Background(lambda: executor_processes(tmp, device))
-        loop_launches, rl_loop = phase_rl_loop(device, smi, tmp, untimed=[replay_jobs[1], jaxenv_job],
-                                               processes=[replay_jobs[0], league_job, executor_job])
-        # ended before the replay loop, whose launch counts it would disturb
-        jaxenv_run = jaxenv_job.result()
+        # 12-14 in a process of their own beside 10, 11 and 15
+        # (``phases_beside``); 15's processes over the fake SC2 install
+        release_card_cache()
+        later = Spawned(phases_beside, device, smi, tmp, rl.pop("batch"), tmp=tmp, log=True).start()
+        sc2_install(tmp)
+        sc2_job = Background(lambda: sc2_processes(tmp, device)).start()
+
+        # 10. the league-RL loop
+        loop_launches, rl_loop = phase_rl_loop(device, smi, tmp, beside["roles"])
         mark("rl_loop")
         phase_s["health (in rl_loop)"] = round(rl_loop["health"]["seconds"], 1)
         # f. the drill's bundle replayed by the port's stepreplay, as a
@@ -7576,42 +7955,29 @@ def main(argv=None) -> int:
         stepreplay_job = Background(lambda: stepreplay_process(tmp, rl_loop["health"]["blackbox"]["path"])).start()
 
         # 11. the replay store between actors and learner
+        release_card_cache()
         replay_launches, replay = phase_replay(device, smi, tmp, rl_loop, replay_jobs)
         mark("replay")
-
-        # the league's processes (they launch nothing in this process) ran
-        # on beside the replay phase; ended before the Anakin loop's windows
-        league_procs = league_job.result()
         rl_loop["health"]["stepreplay"] = stepreplay_job.result()
-        mark("league processes and stepreplay wait")
+        mark("stepreplay wait")
         phase_s["f: stepreplay (beside replay)"] = round(rl_loop["health"]["stepreplay"]["seconds"], 1)
 
-        # the SC2 entry points as processes over the fake install, beside
-        # the phases from here on, whose host is idler than rl_loop's
-        # untimed part
-        sc2_install(tmp)
-        sc2_job = Background(lambda: sc2_processes(tmp, device)).start()
-        # and the parallel phase's two gloo ranks on the card (g.)
-        mesh_job = Background(lambda: mesh_rank_processes(tmp, rl["batch"])).start()
-
-        # 12. the Anakin loop: the micro-battle world and the flagship on the card
-        anakin_launches, anakin = phase_anakin(device, smi, tmp, rl_loop, jaxenv_run)
-        mark("anakin")
-
-        # 13. the league economy: league-run and the arena as processes, a
-        # league learner and an arena batch in process
-        league_launches, league = phase_league(device, smi, tmp, anakin, league_procs)
-        mark("league")
-
-        # 14. parallel/: a world of one on the rl phase's batch; its executor
-        # processes ran beside the rl loop
-        parallel_launches, parallel = phase_parallel(device, smi, tmp, rl.pop("batch"), executor_job, mesh_job)
-        mark("parallel")
-
         # 15. the SC2 side: the flagship actor on a fake game, the decoder
-        # into the SL learner; its processes ran beside phases 12-14
+        # into the SL learner; its processes ran beside phases 10 and 11
+        release_card_cache()
         sc2_launches, sc2 = phase_sc2(device, smi, tmp, sc2_job)
         mark("sc2")
+
+        print("phases 12-14, in a process of their own beside phases 10, 11 and 15:")
+        later = later.result()
+        mark("phases 12-14 wait")
+        phase_s.update({f"{name} (beside 10, 11 and 15)": sec for name, sec in later["phase_s"].items()})
+        anakin_launches, anakin = later["anakin"]
+        league_launches, league = later["league"]
+        parallel_launches, parallel = later["parallel"]
+        anakin["forward_ms_alone"]["rl_loop_flush_alone_median"] = rl_loop["flush_ms"]["alone_median"]
+        print(f"anakin: a {ANAKIN_B}-lane forward alone {anakin['forward_ms_alone']['median']:.1f} ms beside "
+              f"rl_loop's {LOOP_ENV_NUM}-lane flush alone {rl_loop['flush_ms']['alone_median']:.1f} ms")
         print(f"phase seconds: {json.dumps(phase_s)}")
         print(f"launches: serve {launches}, serve process {process_launches}, serve fleet (gateway A) "
               f"{fleet_launches}, train {train_launches}, sl runtime {runtime_launches}, rl and distill "
@@ -7690,6 +8056,15 @@ def main(argv=None) -> int:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     finally:
+        for job in SPAWNED:  # none left running but on a failure
+            job.kill()
+        from multiprocessing import resource_tracker
+
+        left = stop_descendants(keep={resource_tracker._resource_tracker._pid})
+        if left:
+            print(f"chip_smoke: processes left running, stopped ({'' if adopted else 'not '}their "
+                  f"subreaper): {json.dumps(left)}", file=sys.stderr)
+        stop_resource_tracker()
         kernels.reset_launch_counts()
         shutil.rmtree(tmp, ignore_errors=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

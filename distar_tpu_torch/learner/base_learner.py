@@ -257,11 +257,15 @@ class BaseLearner:
 
     def _flop_counter(self, meta_batch):
         """A function that runs the step's forward and backward on a meta
-        copy of the model (same config, same kernel strings) and
-        ``meta_batch``: what ``obs.perf.count_flops`` counts."""
+        copy of the model (same config, same kernel strings), placed on the
+        learner's mesh as the live model is (``shard_model``: under tp its
+        split products and attention heads are this rank's; collectives
+        move nothing on meta), and ``meta_batch``: what
+        ``obs.perf.count_flops`` counts, this rank's own step."""
         def run():
             with torch.device("meta"):
                 model = type(self.model)(self.model_cfg)
+                shard_model(model, self.mesh)
                 params = [p for p in model.parameters() if p.requires_grad]
                 loss = self._flop_loss(model, meta_batch)
                 torch.autograd.grad(loss, params, allow_unused=True)

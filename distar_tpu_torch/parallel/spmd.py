@@ -75,6 +75,8 @@ def _tree_map(fn, tree):
 
 
 def _all_gather(x: torch.Tensor, group, n: int) -> List[torch.Tensor]:
+    if x.is_meta:  # the flop count's placed copy (shapes only): no collective
+        return [x] * n
     src = x.contiguous()
     if src.dtype == torch.bool:  # gloo and NCCL move bytes, not bools
         parts = _all_gather(src.to(torch.uint8), group, n)
@@ -298,7 +300,8 @@ def reduce_scatter_blocks(wholes: Sequence[torch.Tensor], axis: _Axis) -> List[t
         chunks = [torch.cat([wholes[i].narrow(axis.dims[i], j * s, s).reshape(-1) for i, s in zip(idx, steps)])
                   for j in range(axis.n)]
         mine = torch.empty_like(chunks[0])
-        dist.reduce_scatter(mine, chunks, group=axis.group)
+        if not mine.is_meta:
+            dist.reduce_scatter(mine, chunks, group=axis.group)
         offset = 0
         for i, s in zip(idx, steps):
             shape = list(wholes[i].shape)
@@ -333,6 +336,14 @@ class _GatherBlocks(torch.autograd.Function):
         return (None, *(_block(g, d, a.n, a.index) for g, d in zip(grads, a.dims)))
 
 
+def _tp_all_reduce(x: torch.Tensor, tp: _Axis) -> torch.Tensor:
+    """A copy of ``x`` summed over tp (a meta tensor: copied only)."""
+    x = x.contiguous().clone()
+    if not x.is_meta:
+        dist.all_reduce(x, group=tp.group)
+    return x
+
+
 class _TPCopy(torch.autograd.Function):
     """The input of a tp-split product: the same on every tp rank; its
     gradient, each rank's share, is summed over tp."""
@@ -344,9 +355,7 @@ class _TPCopy(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        grad = grad.contiguous().clone()
-        dist.all_reduce(grad, group=ctx.tp.group)
-        return grad, None
+        return _tp_all_reduce(grad, ctx.tp), None
 
 
 class _TPReduce(torch.autograd.Function):
@@ -355,9 +364,7 @@ class _TPReduce(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, tp):
-        x = x.contiguous().clone()
-        dist.all_reduce(x, group=tp.group)
-        return x
+        return _tp_all_reduce(x, tp)
 
     @staticmethod
     def backward(ctx, grad):

@@ -1188,10 +1188,18 @@ def cmd_arena_drill(args) -> int:
         total = max(kill_after + 1, int(args.batches))
         proc = spawn(total)
         assert proc.stdout is not None
+        started, batch_s = None, []  # the reported batches' seconds
         for line in proc.stdout:
             if line.startswith(f"BATCH_START {kill_after}"):
                 break
-        time.sleep(args.kill_delay_s)  # land inside the running scenario
+            if line.startswith("BATCH_START"):
+                started = time.perf_counter()
+            elif line.startswith("BATCH_DONE") and started is not None:
+                batch_s.append(time.perf_counter() - started)
+        # land inside the running scenario: on a fast host a whole batch
+        # takes less than the fixed delay, so wait a quarter of the
+        # quickest reported one at most
+        time.sleep(min([args.kill_delay_s] + [s / 4 for s in batch_s]))
         inj.kill_role(proc.pid, sig=signal.SIGKILL, name="arena-evaluator")
         proc.wait(timeout=60)
         matches_at_kill = store.matches_total
@@ -2151,7 +2159,8 @@ def main(argv=None) -> int:
                    help="SIGKILL the evaluator when this batch STARTS "
                         "(this many batches already reported)")
     a.add_argument("--kill-delay-s", type=float, default=0.2,
-                   help="wait this long after BATCH_START before the kill")
+                   help="wait this long after BATCH_START before the kill, "
+                        "at most a quarter of the quickest reported batch")
     a.add_argument("--seed", type=int, default=0)
     a.add_argument("--timeout-s", type=float, default=900.0,
                    help="restarted evaluator wall budget")

@@ -258,6 +258,17 @@ def test_clients_talk_to_the_other_packages_server():
             stop(gw, http, tcp)
 
 
+def wait_counted_off(srv, timeout_s=5.0):
+    """Until a stopped server's handler threads have counted their
+    connections off. ``stop()`` closes the live sockets without joining
+    the handlers (as the JAX server's does), and a stopped server's counts
+    stay summed into its gateway's status."""
+    deadline = time.monotonic() + timeout_s
+    while srv.transport_counts() != {"tcp": 0, "shm": 0}:
+        assert time.monotonic() < deadline, f"connections still counted after stop(): {srv.transport_counts()}"
+        time.sleep(0.01)
+
+
 def test_transports_auto_and_shm_negotiate_rings():
     """``auto`` (the default) and ``shm`` get a ring pair from the same
     host, ``tcp`` does not; the status counts connections by transport,
@@ -271,6 +282,7 @@ def test_transports_auto_and_shm_negotiate_rings():
             assert gw.status()["transports"] == {"tcp": 0, "shm": 1}
             c.close()
             srv.stop()
+            wait_counted_off(srv)
         c = pserve.ServeClient("127.0.0.1", tcp.port)  # the stack's server refuses rings
         assert c.transport_active == "tcp" and c.ping()
         c.close()

@@ -63,6 +63,10 @@ WORLD2 = ("rl_dp2", "rl_tp2", "rl_tp2_local", "rl_sp2_ring", "rl_fsdp2", "sl_dp2
 WORLD4 = ("rl_dp4", "rl_dp2_fsdp2", "rl_fsdp2_tp2", "rl_restore_fsdp2_tp2")
 # the meshes that split parameters: each rank's holdings read between its steps
 CENSUS = ("rl_fsdp2", "rl_tp2", "rl_dp2_fsdp2", "rl_fsdp2_tp2")
+# the meshes whose learners count their step's flops (the perf monitor's
+# ``flops_per_step``), held against the live step's count
+FLOP_CASES = ("rl_dp2", "rl_tp2", "rl_fsdp2")
+FLOP_RTOL = 1e-6
 MESHES = {"rl_dp2": {"dp": 2}, "rl_tp2": {"dp": 1, "tp": 2}, "rl_tp2_local": {"dp": 1, "tp": 2},
           "rl_sp2_ring": {"dp": 1, "sp": 2}, "rl_fsdp2": {"dp": 1, "fsdp": 2}, "sl_dp2": {"dp": 2},
           "sl_dp2_per_rank_mean": {"dp": 2}, "rl_dp4": {"dp": 4}, "rl_dp2_fsdp2": {"dp": 2, "fsdp": 2},
@@ -230,6 +234,45 @@ def _flops(lrn, batch):
             "heads": heads}
 
 
+def _count_first_batch(lrn):
+    """Turn on ``lrn``'s flop count (``learner.perf.aot``, off in the test
+    harness) and keep the batch its first step hands the count."""
+    seen, real = [], lrn._perf_note_step
+
+    def note(batch):
+        if not seen:
+            seen.append(dict(batch))
+        real(batch)
+
+    lrn._perf_aot, lrn._perf_note_step = True, note
+    return seen
+
+
+def _flop_counts(lrn, batch):
+    """This rank's step three ways: the perf monitor's ``flops_per_step``
+    (the learner's meta copy of its model, placed on its mesh), the same
+    step's loss forward and backward on the live model and ``batch``
+    under ``count_flops``, and a meta copy left unplaced (the whole model
+    on this rank's rows: the count before the copy was placed)."""
+    from distar_tpu_torch.learner.rl_learner import rl_loss
+    from distar_tpu_torch.obs.perf import count_flops, to_meta
+
+    lrn._perf.analysis.join()
+    cfg = lrn.cfg.learner
+
+    def live():
+        loss = rl_loss(lrn.model, lrn.loss_cfg, batch, lrn.local_batch_size, cfg.unroll_len, mesh=lrn.mesh)[0]
+        torch.autograd.grad(loss, lrn.optimizer.params, allow_unused=True)
+
+    def unplaced():
+        with torch.device("meta"):
+            model = type(lrn.model)(lrn.model_cfg)
+            loss = lrn._flop_loss(model, to_meta(batch))
+            torch.autograd.grad(loss, [p for p in model.parameters() if p.requires_grad], allow_unused=True)
+
+    return {"learner": lrn._perf.flops_per_step, "live": count_flops(live), "unplaced": count_flops(unplaced)}
+
+
 def _outcome(lrn, logs, params):
     return {"logs": logs, "params": params, "state": lrn.state}
 
@@ -266,10 +309,13 @@ def _world(rank, cases, small, out, rings):
         lrn = _learner(case, small, mesh=mesh, sharded_ckpt=case == "rl_fsdp2")
         batches = _batches(lrn)
         between = None
+        counted = _count_first_batch(lrn) if case in FLOP_CASES else None
         if case in CENSUS:
             seen = _count_grads(lrn)
 
             def between():
+                if counted is not None:  # the count's meta copy gone before the census
+                    lrn._perf.analysis.join()
                 torch.save(_census(lrn, seen, before), os.path.join(out, f"census_{case}_{rank}.pt"))
         if case == "rl_tp2":
             torch.save(_flops(lrn, batches[0]), os.path.join(out, f"flops_{case}_{rank}.pt"))
@@ -288,6 +334,8 @@ def _world(rank, cases, small, out, rings):
                 if case == "rl_fsdp2":
                     lrn.save(os.path.join(out, ("fsdp2_step1.ckpt", "fsdp2.ckpt")[i]), sync=True)
         outcome = _outcome(lrn, logs, params)  # the state gathers the split moments: every rank calls it
+        if counted is not None:  # the live count runs the step's collectives: every rank calls it
+            torch.save(_flop_counts(lrn, counted[0]), os.path.join(out, f"count_{case}_{rank}.pt"))
         if undo is not None:
             undo()
         if rank == 0:
@@ -494,6 +542,39 @@ def test_tp_halves_each_split_modules_flops_and_the_attention_heads(runs, small)
         for name in got["split"]:
             assert plain["flops"][name] > 0 and 2 * got["flops"][name] == plain["flops"][name], name
         assert got["heads"] == [h // 2 for h in plain["heads"]] and set(plain["heads"]) == heads
+
+
+def test_tp_ranks_count_their_own_steps_flops(runs):
+    """At tp=2 each rank's ``flops_per_step`` (the perf monitor's count,
+    so its implied TFLOP/s and MFU) is what the rank's live step runs,
+    forward and backward, and lies below the whole model's count on the
+    same rows (the single-process step's: tp ranks take every row)."""
+    _, _, out = runs
+    for rank in range(2):
+        got = torch.load(os.path.join(out, f"count_rl_tp2_{rank}.pt"), weights_only=False)
+        assert got["live"] > 0 and abs(got["learner"] - got["live"]) <= FLOP_RTOL * got["live"], (rank, got)
+        assert got["learner"] < got["unplaced"], (rank, got)
+
+
+@pytest.mark.parametrize("case", ["rl_dp2", "rl_fsdp2"])
+def test_dp_and_fsdp_ranks_count_as_before(runs, case):
+    """Under dp=2 and fsdp=2 the placed meta copy counts what the whole
+    model does on the rank's rows: the count is unchanged."""
+    _, _, out = runs
+    for rank in range(2):
+        got = torch.load(os.path.join(out, f"count_{case}_{rank}.pt"), weights_only=False)
+        assert got["learner"] > 0 and got["learner"] == got["unplaced"], (case, rank, got)
+
+
+def test_one_process_counts_as_before(small):
+    """On one process the learner's count is the unplaced copy's, and the
+    live step's."""
+    lrn = _learner("rl", small)
+    counted = _count_first_batch(lrn)
+    _step(lrn, _batches(lrn)[0])
+    got = _flop_counts(lrn, counted[0])
+    assert got["learner"] > 0 and got["learner"] == got["unplaced"], got
+    assert abs(got["learner"] - got["live"]) <= FLOP_RTOL * got["live"], got
 
 
 def _array_leaves(tree):
